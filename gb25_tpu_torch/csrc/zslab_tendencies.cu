@@ -1,0 +1,305 @@
+// Tendency stage of the hydrostatic step, with the quasi-AB2 update, the
+// south-wall row and the four barotropic depth integrals fused in.
+//
+// Replaces: gb25_tpu/ops/pallas_zslab.py::zslab_tendencies (the z-slab
+// Pallas kernel, pallas_call at :769) on the flagship path (ab2,
+// wall_v=True, integrals=True).
+//
+// What bounds it on an H100: device memory. Per step it reads five extended
+// fields (u, v, T, S, b) and four previous tendencies and writes eight
+// interior fields (~5 GB at 1536x768x64 f32, ~1.6 ms at 3.35 TB/s) against
+// ~600 flop per cell (~6e10 flop, ~1 ms at the float32 rate). The stencil
+// re-reads its neighbours many times over; those re-reads have to hit L1/L2
+// or the kernel turns into a cache-bandwidth bound far above that floor.
+//
+// Design: one thread per interior (x, y) column, threads along x, so every
+// load of a (Z, Y, X) field is coalesced across a warp and neighbouring
+// columns share cache lines. Each thread marches z from the bottom up and
+// carries, in registers, the continuity sum (w) and the running sum of b dz
+// (hydrostatic pressure) for its own column and for the columns to its west
+// and south, which the momentum stencil reads (w and p at i-1 and j-1).
+// The vertical fluxes at the bottom face of each level are carried from
+// the level below, so each face is reconstructed once. The AB2 update, the
+// wall row and the depth integrals of u, v, u*, v* accumulate in registers
+// of the owning column. Outputs are fresh buffers: nothing is updated in
+// place (the caller may still hold the previous state). Simple first: no
+// shared-memory tiling, no TMA; those come when the kernel is tuned.
+//
+// Semantics follow the array path of the JAX package (ops/operators.py,
+// models/hydrostatic.py): w = 0 below the bottom and the surface value
+// above it; the fields' z ghosts (zero gradient) come with the extended
+// inputs; the WENO-5 upwind test is strict (vel > 0).
+
+#include <cuda_runtime.h>
+#include <cstddef>
+
+namespace {
+
+struct Field {
+  const float* p;
+  int Xe;
+  size_t plane;  // (Ny + 2hy) * (Nx + 2hx)
+  __device__ __forceinline__ float operator()(int z, int y, int x) const {
+    return __ldg(p + (size_t)z * plane + (size_t)y * Xe + x);
+  }
+};
+
+struct Args {
+  Field u, v, T, S, b;
+  const float* btot;  // (Ny+2hy, Nx+2hx): column total of b dz
+  const float *dxc, *dxf, *dyc, *dyf, *azc, *azf, *fff;  // (Ny+2hy) y profiles
+  const float *dzc, *dzf;                                // (Nz+2hz) z profiles
+  const float *Gu_p, *Gv_p, *GT_p, *GS_p;                // (Nz, Ny, Nx) previous G
+  float *Gu, *Gv, *GT, *GS;                              // (Nz, Ny, Nx) new G
+  float *un, *vn, *Tn, *Sn;                              // (Nz, Ny, Nx) updated fields
+  float *U0, *V0, *Us, *Vs;                              // (Ny, Nx) depth integrals
+  int Nx, Ny, Nz, hx, hy, hz;
+  float a, b_prev, eps;  // dt*c1, dt*c2, WENO epsilon
+};
+
+// WENO-5 from five upwind-ordered samples, factored division-free form
+// (ops/weno.py::_weno5_from_shifts).
+__device__ __forceinline__ float weno5(float m2, float m1, float s0, float p1, float p2,
+                                       float eps) {
+  const float sixth = 1.0f / 6.0f;
+  const float c13 = 13.0f / 12.0f;
+  float d1 = m1 - m2, d2 = s0 - m1, d3 = p1 - s0, d4 = p2 - p1;
+  float q0 = s0 + (5.0f * d2 - 2.0f * d1) * sixth;
+  float q1 = s0 + (d2 + 2.0f * d3) * sixth;
+  float q2 = s0 + (4.0f * d3 - d4) * sixth;
+  float x0 = d2 - d1, x1 = d3 - d2, x2 = d4 - d3, y1 = d2 + d3;
+  float e0 = x0 + 2.0f * d2, e2 = x2 - 2.0f * d3;
+  float b0 = c13 * x0 * x0 + 0.25f * (e0 * e0);
+  float b1 = c13 * x1 * x1 + 0.25f * y1 * y1;
+  float b2 = c13 * x2 * x2 + 0.25f * (e2 * e2);
+  float t0 = (b0 + eps) * (b0 + eps);
+  float t1 = (b1 + eps) * (b1 + eps);
+  float t2 = (b2 + eps) * (b2 + eps);
+  float w0 = 0.1f * (t1 * t2), w1 = 0.6f * (t0 * t2), w2 = 0.3f * (t0 * t1);
+  return (w0 * q0 + w1 * q1 + w2 * q2) / (w0 + w1 + w2);
+}
+
+// Upwind selection over six samples s[0..5] ordered along the axis, with
+// the reconstruction point between s[2] and s[3]: from below when vel > 0.
+__device__ __forceinline__ float weno_upwind(const float s[6], float vel, float eps) {
+  return vel > 0.0f ? weno5(s[0], s[1], s[2], s[3], s[4], eps)
+                    : weno5(s[5], s[4], s[3], s[2], s[1], eps);
+}
+
+// q = f + zeta at the corner (y, x) of level z.
+__device__ __forceinline__ float pv(const Args& A, int z, int y, int x) {
+  float zeta = ((A.v(z, y, x) * A.dyf[y] - A.v(z, y, x - 1) * A.dyf[y]) -
+                (A.u(z, y, x) * A.dxc[y] - A.u(z, y - 1, x) * A.dxc[y - 1])) *
+               (1.0f / A.azf[y]);
+  return A.fff[y] + zeta;
+}
+
+// Hollingsworth-corrected kinetic energy at the center (y, x).
+__device__ __forceinline__ float kinetic(const Args& A, int z, int y, int x) {
+  float u0 = A.u(z, y, x), u1 = A.u(z, y, x + 1);
+  float v0 = A.v(z, y, x), v1 = A.v(z, y + 1, x);
+  float Ks = 0.5f * (0.5f * (u1 * u1 + u0 * u0) + 0.5f * (v1 * v1 + v0 * v0));
+  float ub0 = 0.5f * (A.u(z, y + 1, x) + A.u(z, y - 1, x));
+  float ub1 = 0.5f * (A.u(z, y + 1, x + 1) + A.u(z, y - 1, x + 1));
+  float vb0 = 0.5f * (A.v(z, y, x + 1) + A.v(z, y, x - 1));
+  float vb1 = 0.5f * (A.v(z, y + 1, x + 1) + A.v(z, y + 1, x - 1));
+  float Kb = 0.5f * (0.5f * (ub1 * ub1 + ub0 * ub0) + 0.5f * (vb1 * vb1 + vb0 * vb0));
+  const float third = 1.0f / 3.0f;
+  return (2.0f * third) * Ks + third * Kb;
+}
+
+// Horizontal divergence of (u, v) at the center (y, x).
+__device__ __forceinline__ float divergence(const Args& A, int z, int y, int x) {
+  return ((A.u(z, y, x + 1) * A.dyc[y] - A.u(z, y, x) * A.dyc[y]) +
+          (A.v(z, y + 1, x) * A.dxf[y + 1] - A.v(z, y, x) * A.dxf[y])) *
+         (1.0f / A.azc[y]);
+}
+
+// Flux-form tracer tendency at (z, y, x) except the vertical part, which
+// needs the carried bottom-face flux. Returns -(dx_c Fx + dy_c Fy) / Az.
+__device__ __forceinline__ float tracer_horizontal(const Args& A, const Field& c, int z, int y,
+                                                   int x) {
+  float s[6];
+  float F[2], G[2];
+  for (int f = 0; f < 2; ++f) {  // x faces x and x+1
+    int xf = x + f;
+    for (int r = 0; r < 6; ++r) s[r] = c(z, y, xf - 3 + r);
+    float vel = A.u(z, y, xf);
+    F[f] = (vel * A.dyc[y]) * weno_upwind(s, vel, A.eps);
+  }
+  for (int f = 0; f < 2; ++f) {  // y faces y and y+1
+    int yf = y + f;
+    for (int r = 0; r < 6; ++r) s[r] = c(z, yf - 3 + r, x);
+    float vel = A.v(z, yf, x);
+    G[f] = (vel * A.dxf[yf]) * weno_upwind(s, vel, A.eps);
+  }
+  return -((F[1] - F[0]) + (G[1] - G[0])) * (1.0f / A.azc[y]);
+}
+
+// Vertical tracer flux w * c at the bottom face of extended level z.
+__device__ __forceinline__ float tracer_zflux(const Args& A, const Field& c, int z, int y, int x,
+                                              float w) {
+  float s[6];
+  for (int r = 0; r < 6; ++r) s[r] = c(z - 3 + r, y, x);
+  return w * weno_upwind(s, w, A.eps);
+}
+
+__global__ void __launch_bounds__(128) zslab_tendencies_kernel(const Args A) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = blockIdx.y;
+  if (i >= A.Nx || j >= A.Ny) return;
+  const int X = i + A.hx, Y = j + A.hy;
+  const size_t ij = (size_t)j * A.Nx + i;
+  const size_t plane_i = (size_t)A.Ny * A.Nx;
+
+  // carries: continuity sums (w = -sum) and inclusive b dz sums, for the
+  // own (c), west (w) and south (s) columns
+  float sw_c = 0.f, sw_w = 0.f, sw_s = 0.f;
+  float cs_c = 0.f, cs_w = 0.f, cs_s = 0.f;
+  const size_t Xe = A.Nx + 2 * A.hx;
+  const float tot_c = A.btot[(size_t)Y * Xe + X];
+  const float tot_w = A.btot[(size_t)Y * Xe + X - 1];
+  const float tot_s = A.btot[(size_t)(Y - 1) * Xe + X];
+  float w_c = 0.f, w_w = 0.f, w_s = 0.f;  // w at the bottom face of the level
+
+  // bottom-face carries of the vertical terms (w = 0 on the sea floor)
+  int Z = A.hz;
+  float xu = 0.5f * (w_c + w_w) * ((A.u(Z, Y, X) - A.u(Z - 1, Y, X)) * (1.0f / A.dzf[Z]));
+  float xv = 0.5f * (w_c + w_s) * ((A.v(Z, Y, X) - A.v(Z - 1, Y, X)) * (1.0f / A.dzf[Z]));
+  float fzT = tracer_zflux(A, A.T, Z, Y, X, w_c);
+  float fzS = tracer_zflux(A, A.S, Z, Y, X, w_c);
+
+  const float wall = (j != 0) ? 1.0f : 0.0f;  // v and Gv vanish on the south wall
+  float U0 = 0.f, V0 = 0.f, Us = 0.f, Vs = 0.f;
+
+  for (int k = 0; k < A.Nz; ++k) {
+    Z = k + A.hz;
+    const float dzc = A.dzc[Z];
+
+    // continuity -> w at the top face of this level. The column sums are
+    // rounded term by term (no fused multiply-add), as a cumsum of the
+    // products rounds them: p ~ 500 m^2/s^2 against horizontal differences
+    // far smaller, so one ulp of p shows in the pressure gradient.
+    sw_c = __fadd_rn(sw_c, __fmul_rn(divergence(A, Z, Y, X), dzc));
+    sw_w = __fadd_rn(sw_w, __fmul_rn(divergence(A, Z, Y, X - 1), dzc));
+    sw_s = __fadd_rn(sw_s, __fmul_rn(divergence(A, Z, Y - 1, X), dzc));
+    const float w_c1 = -sw_c, w_w1 = -sw_w, w_s1 = -sw_s;
+
+    // hydrostatic pressure p = csum - total - b dz / 2
+    const float bdz_c = __fmul_rn(A.b(Z, Y, X), dzc);
+    const float bdz_w = __fmul_rn(A.b(Z, Y, X - 1), dzc);
+    const float bdz_s = __fmul_rn(A.b(Z, Y - 1, X), dzc);
+    cs_c = __fadd_rn(cs_c, bdz_c);
+    cs_w = __fadd_rn(cs_w, bdz_w);
+    cs_s = __fadd_rn(cs_s, bdz_s);
+    const float p_c = __fsub_rn(__fsub_rn(cs_c, tot_c), __fmul_rn(0.5f, bdz_c));
+    const float p_w = __fsub_rn(__fsub_rn(cs_w, tot_w), __fmul_rn(0.5f, bdz_w));
+    const float p_s = __fsub_rn(__fsub_rn(cs_s, tot_s), __fmul_rn(0.5f, bdz_s));
+
+    // vector-invariant momentum: upwinded vorticity flux
+    float s[6];
+    for (int r = 0; r < 6; ++r) s[r] = pv(A, Z, Y - 2 + r, X);
+    const float vbar = 0.5f * (0.5f * (A.v(Z, Y + 1, X) + A.v(Z, Y + 1, X - 1)) +
+                               0.5f * (A.v(Z, Y, X) + A.v(Z, Y, X - 1)));
+    float Gu = weno_upwind(s, vbar, A.eps) * vbar;
+    for (int r = 0; r < 6; ++r) s[r] = pv(A, Z, Y, X - 2 + r);
+    const float ubar = 0.5f * (0.5f * (A.u(Z, Y, X + 1) + A.u(Z, Y - 1, X + 1)) +
+                               0.5f * (A.u(Z, Y, X) + A.u(Z, Y - 1, X)));
+    float Gv = -weno_upwind(s, ubar, A.eps) * ubar;
+
+    // Bernoulli gradient
+    const float K = kinetic(A, Z, Y, X);
+    const float r_dxc = 1.0f / A.dxc[Y], r_dyf = 1.0f / A.dyf[Y];
+    Gu = Gu - (K - kinetic(A, Z, Y, X - 1)) * r_dxc;
+    Gv = Gv - (K - kinetic(A, Z, Y - 1, X)) * r_dyf;
+
+    // vertical advection -w du/dz, centered between the two faces
+    const float r_dzf1 = 1.0f / A.dzf[Z + 1];
+    const float xu1 = 0.5f * (w_c1 + w_w1) * ((A.u(Z + 1, Y, X) - A.u(Z, Y, X)) * r_dzf1);
+    const float xv1 = 0.5f * (w_c1 + w_s1) * ((A.v(Z + 1, Y, X) - A.v(Z, Y, X)) * r_dzf1);
+    Gu = Gu - 0.5f * (xu1 + xu);
+    Gv = Gv - 0.5f * (xv1 + xv);
+    xu = xu1;
+    xv = xv1;
+
+    // hydrostatic pressure gradient
+    Gu = Gu - (p_c - p_w) * r_dxc;
+    Gv = Gv - (p_c - p_s) * r_dyf;
+    Gv = Gv * wall;
+
+    // tracers: flux-form WENO-5
+    const float r_dzc = 1.0f / dzc;
+    const float fzT1 = tracer_zflux(A, A.T, Z + 1, Y, X, w_c1);
+    const float fzS1 = tracer_zflux(A, A.S, Z + 1, Y, X, w_c1);
+    const float GT = tracer_horizontal(A, A.T, Z, Y, X) - (fzT1 - fzT) * r_dzc;
+    const float GS = tracer_horizontal(A, A.S, Z, Y, X) - (fzS1 - fzS) * r_dzc;
+    fzT = fzT1;
+    fzS = fzS1;
+
+    // quasi-AB2 update: x* = x + dt c1 G + dt c2 G_prev
+    const size_t o = (size_t)k * plane_i + ij;
+    const float u0 = A.u(Z, Y, X), v0 = A.v(Z, Y, X);
+    const float un = (u0 + A.a * Gu) + A.b_prev * A.Gu_p[o];
+    const float vn = ((v0 + A.a * Gv) + A.b_prev * A.Gv_p[o]) * wall;
+    const float Tn = (A.T(Z, Y, X) + A.a * GT) + A.b_prev * A.GT_p[o];
+    const float Sn = (A.S(Z, Y, X) + A.a * GS) + A.b_prev * A.GS_p[o];
+    A.Gu[o] = Gu;
+    A.Gv[o] = Gv;
+    A.GT[o] = GT;
+    A.GS[o] = GS;
+    A.un[o] = un;
+    A.vn[o] = vn;
+    A.Tn[o] = Tn;
+    A.Sn[o] = Sn;
+
+    U0 = U0 + u0 * dzc;
+    V0 = V0 + v0 * dzc;
+    Us = Us + un * dzc;
+    Vs = Vs + vn * dzc;
+
+    w_c = w_c1;
+    w_w = w_w1;
+    w_s = w_s1;
+  }
+  A.U0[ij] = U0;
+  A.V0[ij] = V0;
+  A.Us[ij] = Us;
+  A.Vs[ij] = Vs;
+}
+
+}  // namespace
+
+extern "C" const char* gb25_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" int zslab_tendencies_f32(
+    const float* u, const float* v, const float* T, const float* S, const float* b,
+    const float* btot, const float* dxc, const float* dxf, const float* dyc, const float* dyf,
+    const float* azc, const float* azf, const float* fff, const float* dzc, const float* dzf,
+    const float* Gu_p, const float* Gv_p, const float* GT_p, const float* GS_p, float* Gu,
+    float* Gv, float* GT, float* GS, float* un, float* vn, float* Tn, float* Sn, float* U0,
+    float* V0, float* Us, float* Vs, int Nx, int Ny, int Nz, int hx, int hy, int hz, float a,
+    float b_prev, float eps, void* stream) {
+  const int Xe = Nx + 2 * hx;
+  const size_t plane = (size_t)(Ny + 2 * hy) * Xe;
+  Args A;
+  A.u = Field{u, Xe, plane};
+  A.v = Field{v, Xe, plane};
+  A.T = Field{T, Xe, plane};
+  A.S = Field{S, Xe, plane};
+  A.b = Field{b, Xe, plane};
+  A.btot = btot;
+  A.dxc = dxc; A.dxf = dxf; A.dyc = dyc; A.dyf = dyf; A.azc = azc; A.azf = azf; A.fff = fff;
+  A.dzc = dzc; A.dzf = dzf;
+  A.Gu_p = Gu_p; A.Gv_p = Gv_p; A.GT_p = GT_p; A.GS_p = GS_p;
+  A.Gu = Gu; A.Gv = Gv; A.GT = GT; A.GS = GS;
+  A.un = un; A.vn = vn; A.Tn = Tn; A.Sn = Sn;
+  A.U0 = U0; A.V0 = V0; A.Us = Us; A.Vs = Vs;
+  A.Nx = Nx; A.Ny = Ny; A.Nz = Nz; A.hx = hx; A.hy = hy; A.hz = hz;
+  A.a = a; A.b_prev = b_prev; A.eps = eps;
+  dim3 block(128, 1, 1);
+  dim3 grid((Nx + 127) / 128, Ny, 1);
+  zslab_tendencies_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(A);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,6 @@
+from gb25_tpu_torch.grids.latlon import (  # noqa: F401
+    LatitudeLongitudeGrid,
+    latitude_longitude_grid,
+    simple_latitude_longitude_grid,
+)
+from gb25_tpu_torch.grids.vertical import exponential_z_faces, uniform_z_faces  # noqa: F401

@@ -1,0 +1,63 @@
+"""Flagship setup: the baroclinic-instability ocean (port of
+``gb25_tpu.models.baroclinic``).
+
+Split-explicit free surface with 30 substeps, TEOS-10 buoyancy, spherical
+Coriolis, WENO vector-invariant momentum and WENO-5 tracer advection on the
+simple lat-lon grid; T = (30 + 1e-3 z) smooth_step(phi), S = -5e-3 z, and
+~1e-3 m/s random velocities from a ``torch.Generator`` (the numbers differ
+from ``jax.random``'s; tests carry the JAX state across instead).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gb25_tpu_torch.grids import simple_latitude_longitude_grid
+from gb25_tpu_torch.models.config import HydrostaticConfig, SplitExplicitFreeSurface
+from gb25_tpu_torch.models.state import HydrostaticState, initial_state
+from gb25_tpu_torch.ops.eos import TEOS10EquationOfState
+
+
+def smooth_step(phi):
+    """(1 - tanh((|phi| - 40) / 5)) / 2."""
+    return (1.0 - torch.tanh((torch.abs(phi) - 40.0) / 5.0)) / 2.0
+
+
+def baroclinic_instability_config(kernels="auto") -> HydrostaticConfig:
+    return HydrostaticConfig(
+        eos=TEOS10EquationOfState(),
+        free_surface=SplitExplicitFreeSurface(substeps=30),
+        kernels=kernels,
+    )
+
+
+def baroclinic_instability_state(grid, noise_velocity=1e-3, seed=42) -> HydrostaticState:
+    """Initial state on ``grid``'s device and in its dtype: analytic T/S
+    plus velocity noise drawn from a ``torch.Generator`` seeded with
+    ``seed``."""
+    dtype = grid.dtype
+    state = initial_state(grid)
+    phi = grid.phi_c_i.reshape(1, -1, 1).to(dtype)
+    z = grid.z_c_i.reshape(-1, 1, 1).to(dtype)
+    shape = grid.shape
+
+    T = ((30.0 + 1e-3 * z) * smooth_step(phi)).expand(shape).contiguous()
+    S = (-5e-3 * z + 0.0 * phi).expand(shape).contiguous()
+
+    u = torch.zeros(shape, dtype=dtype, device=grid.device)
+    v = torch.zeros(shape, dtype=dtype, device=grid.device)
+    if noise_velocity:
+        gen = torch.Generator(device=grid.device).manual_seed(seed)
+        u = noise_velocity * torch.randn(shape, generator=gen, dtype=dtype, device=grid.device)
+        v = noise_velocity * torch.randn(shape, generator=gen, dtype=dtype, device=grid.device)
+        v[:, 0, :] = 0.0  # southern wall face
+    return state.replace(u=u, v=v, tracers={"T": T, "S": S})
+
+
+def baroclinic_instability_model(Nx, Ny, Nz, *, device, halo=(4, 4, 4), dtype=torch.float32,
+                                 **config_kw):
+    """Grid, config and initial state of the flagship benchmark on ``device``."""
+    grid = simple_latitude_longitude_grid(Nx, Ny, Nz, device=device, halo=halo, dtype=dtype)
+    cfg = baroclinic_instability_config(**config_kw)
+    state = baroclinic_instability_state(grid)
+    return cfg, grid, state

@@ -1,0 +1,52 @@
+"""Model configuration (port of ``gb25_tpu.models.config``, the subset the
+closure-free flagship step uses)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from gb25_tpu_torch.ops.eos import TEOS10EquationOfState
+
+EARTH_ROTATION_RATE = 7.292115e-5  # rad/s
+
+KERNEL_MODES = ("auto", "torch")
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitExplicitFreeSurface:
+    """Barotropic substepping with time filtering: ``substeps``
+    forward-backward substeps over the window [t, t + 2 dt], replaced by
+    their ``averaging``-weighted mean ("parabolic" or "flat")."""
+
+    substeps: int = 30
+    gravitational_acceleration: float = 9.80665
+    averaging: str = "parabolic"
+
+
+@dataclasses.dataclass(frozen=True)
+class HydrostaticConfig:
+    """Static configuration of the hydrostatic free-surface model.
+
+    ``kernels``: "auto" launches the Hopper kernels for CUDA tensors and
+    their plain PyTorch versions for CPU tensors; "torch" runs the plain
+    versions on any device (the counterpart of the JAX package's "jnp").
+
+    The port carries the flagship schemes only (tracers T and S, WENO
+    vector-invariant momentum, WENO-5 tracers, Hollingsworth kinetic
+    energy, no closure); the JAX package's other choices come with later
+    slices."""
+
+    eos: TEOS10EquationOfState = TEOS10EquationOfState()
+    coriolis: float = EARTH_ROTATION_RATE  # Omega; 0 disables rotation
+    free_surface: SplitExplicitFreeSurface = SplitExplicitFreeSurface()
+    chi: float = 0.1  # quasi-AB2 parameter (Euler first step)
+    weno_eps: float = 1e-6
+    kernels: str = "auto"
+
+    def __post_init__(self):
+        if self.kernels not in KERNEL_MODES:
+            raise ValueError(f"kernels must be one of {KERNEL_MODES}, got {self.kernels!r}")
+
+    @property
+    def g(self):
+        return self.free_surface.gravitational_acceleration

@@ -1,0 +1,67 @@
+"""Finite-volume operators on the staggered C grid (port of
+``gb25_tpu.ops.operators``): horizontal divergence, vertical vorticity,
+kinetic energy, continuity w, hydrostatic pressure and the Coriolis
+parameter. Inputs and outputs are halo-extended ``(Z, Y, X)`` tensors;
+each difference or interpolation consumes one cell of halo validity.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from gb25_tpu_torch.ops.stencils import dx_c, dx_f, dy_c, dy_f, ix_c, iy_c, sm, sp
+
+
+def horizontal_divergence(grid, u, v):
+    """del_h . (u, v) at cell centers: (dx_c(u dy) + dy_c(v dx)) / Az."""
+    return (dx_c(u * grid.dyc) + dy_c(v * grid.dxf)) * (1.0 / grid.azc)
+
+
+def vertical_vorticity(grid, u, v):
+    """zeta at corners (f, f): (dx_f(v dyf) - dy_f(u dxc)) / azf."""
+    return (dx_f(v * grid.dyf) - dy_f(u * grid.dxc)) * (1.0 / grid.azf)
+
+
+def kinetic_energy(u, v):
+    """K at cell centers, Hollingsworth-corrected (the JAX package's
+    default): 2/3 of the plain C-grid K plus 1/3 of the K of the transverse
+    two-point averages."""
+    Ks = 0.5 * (ix_c(u * u) + iy_c(v * v))
+    ubar = 0.5 * (sp(u, "y") + sm(u, "y"))
+    vbar = 0.5 * (sp(v, "x") + sm(v, "x"))
+    Kb = 0.5 * (ix_c(ubar * ubar) + iy_c(vbar * vbar))
+    third = 1.0 / 3.0
+    return (2.0 * third) * Ks + third * Kb
+
+
+def diagnose_w(grid, u, v):
+    """Vertical velocity at z faces from continuity, integrated up from
+    w = 0 at the sea floor. z ghosts: zero below the bottom, the surface
+    value repeated above it."""
+    hz, Nz = grid.hz, grid.Nz
+    div = horizontal_divergence(grid, u, v)
+    div_int = div[hz : hz + Nz] * grid.dz_c[hz : hz + Nz]
+    wcum = torch.cumsum(div_int, dim=0)
+    zero = torch.zeros_like(wcum[:1])
+    w_top = -wcum[-1:]
+    return torch.cat([zero] * (hz + 1) + [-wcum[:-1]] + [w_top] * hz, dim=0)
+
+
+def hydrostatic_pressure(grid, b):
+    """Hydrostatic pressure anomaly p/rho0 at cell centers, dp/dz = b
+    integrated down from p(surface) = 0:
+    p[k] = csum[k] - total - b[k] dz[k] / 2. z ghosts copy the end rows."""
+    hz, Nz = grid.hz, grid.Nz
+    bdz = b[hz : hz + Nz] * grid.dz_c[hz : hz + Nz]
+    total = bdz.sum(dim=0, keepdim=True)
+    p_int = torch.cumsum(bdz, dim=0) - total - 0.5 * bdz
+    return torch.cat([p_int[:1]] * hz + [p_int] + [p_int[-1:]] * hz, dim=0)
+
+
+def coriolis_ff(grid, omega):
+    """Planetary vorticity f = 2 Omega sin(phi) at corners (f, f),
+    shaped (1, Ny+2hy, 1)."""
+    f = 2.0 * omega * torch.sin(grid.phi_f * (math.pi / 180.0))
+    return f.reshape(1, -1, 1).to(grid.dtype)

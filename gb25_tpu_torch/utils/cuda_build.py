@@ -1,0 +1,126 @@
+"""Build and bind the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file exposes a plain C interface. At first use it is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``gb25_tpu_torch/_build/`` (git-ignored), named by a hash of the source and
+the flags, and loaded with ``ctypes``. Nothing here runs at import time,
+and nothing falls back: a missing ``nvcc`` or a failed build raises.
+
+Every exported launcher returns ``cudaGetLastError()`` as an int;
+``CudaKernel.launch`` raises when it is not 0 and otherwise adds one to the
+kernel's launch count, which a run reads to prove that its main path went
+through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
+
+
+def build_library(source: str) -> tuple[Path, str]:
+    """Compile ``csrc/<source>`` unless a library for this exact source and
+    flag set exists. Returns the library path and the compiler's report
+    (ptxas register and spill counts; empty when the build was cached)."""
+    src = CSRC_DIR / source
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{src.stem}-{key}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib, proc.stdout + proc.stderr
+
+
+class CudaKernel:
+    """One ``.cu`` file: its library (built at first use), its launchers'
+    ctypes signatures and a plain integer launch count."""
+
+    def __init__(self, source: str, functions: dict):
+        self.source = source
+        self.functions = functions  # name -> argtypes (restype is c_int)
+        self.launches = 0
+        self.build_log = ""
+        self._lib = None
+
+    def load(self):
+        if self._lib is None:
+            path, self.build_log = build_library(self.source)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in self.functions.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.gb25_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.gb25_cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, name: str, *args):
+        lib = self.load()
+        err = getattr(lib, name)(*args)
+        if err != 0:
+            msg = lib.gb25_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.source}:{name} launch failed: CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+def check_tensor(t, name, shape, dtype, device):
+    """Validate a tensor handed to a kernel (pointer arithmetic in C trusts
+    these)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def uses_kernel(cfg, t) -> bool:
+    """The dispatch rule of both kernels: "auto" launches the CUDA kernel
+    for a CUDA tensor and runs the plain version for a CPU tensor; "torch"
+    always runs the plain version."""
+    if cfg.kernels == "torch":
+        return False
+    if cfg.kernels != "auto":
+        raise ValueError(f"unknown kernels mode {cfg.kernels!r}")
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"kernels='auto' has no kernel for device {t.device}")
+    return False
