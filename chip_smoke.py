@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``gb25_tpu_torch/csrc`` (one nvcc per
-source, all started together) and drives its two main paths through the
+source, all started together) and drives its four main paths through the
 public entry points, each at 1536x768x64 f32 (halo 4, dt = 60 s, 30
 barotropic substeps):
 
@@ -35,7 +35,26 @@ barotropic substeps):
      step exactly 1 K1, 30 K2, 3 K3 and 1 K4 launch; then the fields must
      be finite with 0 < max|u| < 10 m/s, e >= 0, u and v 0 on the faces of
      land columns and eta 0 on land columns;
-  11. a few coupled steps of the plain path, timed.
+  11. a few coupled steps of the plain path, timed;
+  the coupled climate model on the tripolar grid (the reference benchmark's
+  grid: the islands on its two north poles, the north fold):
+  12. K1 in its tripolar instance (the metrics and f as 2-D planes), rtol
+     2e-4, and K2's fold instance (masks, the fold's ghost flux above the
+     seam row, 2-D planes), rtol 1e-5;
+  13. the main path as [10]: 8 coupled steps, one step kernels vs plain,
+     8 warm-up steps and two 128-step loops, launch counts per step exactly
+     1 K1, 30 K2, 3 K3, 1 K4; finite fields, land at rest;
+  14. 3 coupled steps of the plain path, timed;
+  the flagship with the k-epsilon closure (tracers T, S, e, eps, from
+  e = 1e-5, eps = 1e-8):
+  15. K4's k-epsilon function against its plain version, bit for bit;
+  16. K1 in its four-tracer instance, rtol 2e-4;
+  17. K3's four solves of a k-epsilon step (u, v; T, S; e; eps, neither
+     damped), rtol 1e-5;
+  18. the main path: one step kernels vs plain (tolerances of [5]), 8
+     warm-up steps and two 128-step loops, launch counts per step exactly
+     1 K1, 30 K2, 4 K3, 1 k-epsilon K4 and no CATKE K4; then finite
+     fields, e >= 0 and eps >= 0; 3 steps of the plain path, timed.
 
 Every phase raises on failure, and the script then exits non-zero. Three
 lines end the output: a JSON object with each kernel instance's launches
@@ -46,7 +65,7 @@ of these functions); then the card's name and power limit; then
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
 prints no result. Times are CUDA-event means: ``ms`` of K1 and K3 is the
 kernel launch alone on operands prepared once (K3 summed over a step's
-three solves), of K4 its wrapper (the launch and two 1-D profile
+solves), of K4 its wrapper (the launch and one or two 1-D profile
 reshapes), of K2 the whole 30-substep loop wrapper, its plane building
 included; ``plain_ms`` is the plain version on the same operands.
 """
@@ -66,6 +85,7 @@ RESOLUTION = 384 / NX  # the climate model's 1/4 degree: 1536 x 768
 DT = 60.0
 WARMUP, STEPS, PLAIN_STEPS = 8, 256, 3
 CLIMATE_STEPS, CLIMATE_PLAIN_STEPS = 128, 2
+TRIPOLAR_PLAIN_STEPS, KEPS_STEPS, KEPS_PLAIN_STEPS = 3, 128, 3
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -130,24 +150,26 @@ def sizes(grid):
 
 def k1_bound(grid, ntr, immersed):
     """K1 reads u, v, b and the tracers extended, the column total of b,
-    the previous G of every field and (immersed) two face-bottom planes;
-    it writes the new G and the updated field of each, and four integral
-    planes. Operations: ~600 per cell for the momentum and two tracers and
-    ~170 per further tracer (a hand count of the source)."""
+    the previous G of every field, (immersed) two face-bottom planes and
+    (tripolar) the six metrics and f as extended planes; it writes the new
+    G and the updated field of each, and four integral planes. Operations:
+    ~600 per cell for the momentum and two tracers and ~170 per further
+    tracer (a hand count of the source)."""
     n, ext, plane, ext_plane = sizes(grid)
     nprog = 2 + ntr
     nbytes = (3 + ntr) * ext + ext_plane + nprog * n + 2 * nprog * n + 4 * plane
-    nbytes += (2 * plane if immersed else 0)
+    nbytes += (2 * plane if immersed else 0) + (7 * ext_plane if grid.north_fold else 0)
     cells = grid.Nx * grid.Ny * grid.Nz
     return bound(nbytes, (600 + 170 * (ntr - 2)) * cells)
 
 
 def k2_bound(grid, substeps, masked):
-    """The loop reads eta, U, V and four forcing planes (two mask planes)
-    and writes three filtered planes; 14 (16 masked) operations per cell
-    and substep, the Pallas kernel's own count."""
+    """The loop reads eta, U, V and four forcing planes (two mask planes,
+    on the tripolar grid the 1 / area plane) and writes three filtered
+    planes; 14 (16 masked) operations per cell and substep, the Pallas
+    kernel's own count."""
     _, _, plane, _ = sizes(grid)
-    nbytes = (7 + (2 if masked else 0) + 3) * plane
+    nbytes = (7 + (2 if masked else 0) + int(grid.north_fold) + 3) * plane
     return bound(nbytes, (16 if masked else 14) * substeps * grid.Nx * grid.Ny)
 
 
@@ -166,6 +188,14 @@ def k4_bound(grid):
     counted as one each (a hand count of the source)."""
     n, ext, _, ext_plane = sizes(grid)
     return bound(4 * ext + ext_plane + 5 * n, 110 * grid.Nx * grid.Ny * grid.Nz)
+
+
+def k4_keps_bound(grid):
+    """K4's k-epsilon function reads u, v, b, e and eps extended and writes
+    six interior fields; ~50 operations per cell (a hand count of the
+    source)."""
+    n, ext, _, _ = sizes(grid)
+    return bound(5 * ext + 6 * n, 50 * grid.Nx * grid.Ny * grid.Nz)
 
 
 def build_kernels(kernels):
@@ -430,21 +460,14 @@ def phase_k4(cfg, grid, ue, ve, be, ee):
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}, got
 
 
-def phase_k3(cfg, grid, ue, ve, tr_e, diffs):
-    """The three solves of a climate step on the interior fields."""
+def phase_k3(cfg, grid, solves):
+    """K3 against its plain version on each of ``solves`` (name -> (fields,
+    kappa, damping)): the solves of one step, timed launch by launch."""
     from gb25_tpu_torch.ops import pallas_tridiag
 
-    ku, kc, ke, _, lam = diffs
     dzc = grid.dz_c[grid.hz : grid.hz + grid.Nz]
     dzf = grid.dz_f[grid.hz : grid.hz + grid.Nz]
     a_lam, a_mu = pallas_tridiag.vertical_coefficients(DT, dzc, dzf)
-
-    def inner(t):
-        return grid.interior(t).contiguous()
-
-    solves = {"u,v": ((inner(ue), inner(ve)), ku, None),
-              "T,S": ((inner(tr_e["T"]), inner(tr_e["S"])), kc, None),
-              "e": ((inner(tr_e["e"]),), ke, lam)}
     out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "per_solve_ms": {},
            "bound_ms": 0.0}
     for name, (fields, kappa, damp) in solves.items():
@@ -468,11 +491,13 @@ def phase_k3(cfg, grid, ue, ve, tr_e, diffs):
     return out
 
 
-def phase_k1_climate(cfg, grid, ue, ve, tr_e, be, b_total, prev):
+def phase_k1_instance(cfg, grid, ue, ve, tr_e, be, b_total, prev, label):
+    """K1 against its plain version on the operands of one instance (the
+    immersed integrals where the grid is immersed)."""
     from gb25_tpu_torch.grids.immersed import face_bottom_planes
     from gb25_tpu_torch.ops import pallas_zslab
 
-    fb = face_bottom_planes(grid)
+    fb = face_bottom_planes(grid) if grid.immersed else None
     ab = (float(torch.tensor(DT * 1.6, dtype=torch.float32)),
           float(torch.tensor(DT * -0.6, dtype=torch.float32)))
     got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab,
@@ -485,7 +510,7 @@ def phase_k1_climate(cfg, grid, ue, ve, tr_e, be, b_total, prev):
                                                         prev, ab, fb), reps=10)
     plain_ms = cuda_time_ms(lambda: pallas_zslab.zslab_tendencies_plain(
         cfg, grid, ue, ve, tr_e, prev, ab, be, fb), reps=3)
-    print(f"  K1 climate instance alone {ms:.3f} ms; plain {plain_ms:.3f} ms")
+    print(f"  K1 {label} instance alone {ms:.3f} ms; plain {plain_ms:.3f} ms")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
 
 
@@ -497,7 +522,7 @@ def phase_k2_masked(cfg, grid, ue, ve, gen):
     V0 = (grid.interior(ve) * dz).sum(0)
     Hu, Hv = face_depths(grid)
     mu, mv = grid.geometry.mu, grid.geometry.mv
-    eta0 =1e-2 * torch.randn((NY, NX), generator=gen, device=DEVICE)
+    eta0 = 1e-2 * torch.randn((NY, NX), generator=gen, device=DEVICE)
     GU = 1e-4 * torch.randn((NY, NX), generator=gen, device=DEVICE) * mu
     GV = 1e-4 * torch.randn((NY, NX), generator=gen, device=DEVICE) * mv
     GV[0] = 0.0
@@ -530,29 +555,77 @@ def check_climate_state(state, grid):
     return umax
 
 
-def climate(card):
+def run_main_path(step_n, state, kernels, per_step, steps):
+    """Set every launch count to 0, run ``steps`` timed (after warm-up and
+    one untimed loop), read the counts and hold them to ``per_step``
+    (name -> launches per step) exactly. Returns (state, elapsed, launches,
+    peak GB)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    s, elapsed = timed_loop(step_n, state, WARMUP, steps)
+    launches = {name: k.launches for name, k in kernels.items()}
+    n_steps = WARMUP + 2 * steps
+    want = {name: n * n_steps for name, n in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} over {n_steps} steps, expected {want}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launches over {n_steps} steps: {launches}; iteration {s.iteration}; "
+          f"peak device memory {peak_gb:.2f} GB")
+    return s, elapsed, launches, peak_gb
+
+
+def entry(name, source, replaces, path, launches, res, b):
+    """One kernel instance's record for the kernels line."""
+    return {"name": name, "route": "cuda", "source": "gb25_tpu_torch/csrc/" + source,
+            "replaces": replaces, "path": path, "launches": launches,
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+
+def climate(card, grid_type, first):
+    """The coupled climate path on ``grid_type``: the lat-lon islands grid
+    (phases ``first`` .. ``first`` + 4: K4, K3, K1 and K2, the main path,
+    the plain path) or the tripolar grid (``first`` .. ``first`` + 2: K1
+    and K2, the main path, the plain path)."""
     from gb25_tpu_torch import coupled_loop, coupled_time_step, data_free_ocean_climate_model
     from gb25_tpu_torch.ops import pallas_barotropic, pallas_catke, pallas_tridiag, pallas_zslab
 
     ccfg, grid, atmos, state = data_free_ocean_climate_model(resolution=RESOLUTION, Nz=NZ,
-                                                             device=DEVICE)
-    assert grid.shape == (NZ, NY, NX) and grid.immersed
+                                                             device=DEVICE, grid_type=grid_type)
+    tripolar = grid.north_fold
+    assert grid.shape == (NZ, NY, NX) and grid.immersed and tripolar == (
+        grid_type == "gaussian_islands_tripolar")
     cfg = ccfg.ocean
     gen = torch.Generator(device=DEVICE).manual_seed(4321)
     ue, ve, tr_e, be, b_total, prev = climate_operands(cfg, grid, state, gen)
-    print(f"[7] K4 vs plain at {NX}x{NY}x{NZ} (Gaussian islands, CATKE)")
-    k4, diffs = phase_k4(cfg, grid, ue, ve, be, tr_e["e"])
-    print("[8] K3 vs plain: the (u, v), (T, S) and damped e solves")
-    k3 = phase_k3(cfg, grid, ue, ve, tr_e, diffs)
-    del diffs
-    print("[9] K1 climate instance vs plain; K2 with solid-face masks vs plain")
-    k1c = phase_k1_climate(cfg, grid, ue, ve, tr_e, be, b_total, prev)
+    phase = first
+    entries = []
+    if not tripolar:
+        print(f"[{phase}] K4 vs plain at {NX}x{NY}x{NZ} (Gaussian islands, CATKE)")
+        k4, diffs = phase_k4(cfg, grid, ue, ve, be, tr_e["e"])
+        ku, kc, ke, _, lam = diffs
+
+        def inner(t):
+            return grid.interior(t).contiguous()
+
+        print(f"[{phase + 1}] K3 vs plain: the (u, v), (T, S) and damped e solves")
+        k3 = phase_k3(cfg, grid, {"u,v": ((inner(ue), inner(ve)), ku, None),
+                                  "T,S": ((inner(tr_e["T"]), inner(tr_e["S"])), kc, None),
+                                  "e": ((inner(tr_e["e"]),), ke, lam)})
+        del diffs, ku, kc, ke, lam
+        phase += 2
+    label = "tripolar climate" if tripolar else "climate"
+    print(f"[{phase}] K1 {label} instance vs plain; K2 {'fold' if tripolar else 'masked'} "
+          "instance vs plain")
+    k1c = phase_k1_instance(cfg, grid, ue, ve, tr_e, be, b_total, prev, label)
     k2m = phase_k2_masked(cfg, grid, ue, ve, gen)
     del ue, ve, tr_e, be, b_total, prev
     torch.cuda.empty_cache()
 
-    print(f"[10] climate main path: {WARMUP} coupled steps, then one step kernels='auto' vs "
-          "'torch'")
+    print(f"[{phase + 1}] {label} main path: {WARMUP} coupled steps, then one step "
+          "kernels='auto' vs 'torch'")
     plain = dataclasses.replace(ccfg, ocean=dataclasses.replace(cfg, kernels="torch"))
     moved = coupled_loop(ccfg, grid, atmos, state, DT, WARMUP)
     print(f"  after {WARMUP} steps: max|u| {float(moved.u.abs().max()):.4e} m/s, "
@@ -560,62 +633,160 @@ def climate(card):
     phase_step_compare(lambda s: coupled_time_step(ccfg, grid, atmos, s, DT),
                        lambda s: coupled_time_step(plain, grid, atmos, s, DT), moved)
     del moved
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
                "K3": pallas_tridiag.KERNEL, "K4": pallas_catke.KERNEL}
-    for k in kernels.values():
-        k.launches = 0
-    s, elapsed = timed_loop(lambda st, n: coupled_loop(ccfg, grid, atmos, st, DT, n), state,
-                            WARMUP, CLIMATE_STEPS)
-    launches = {name: k.launches for name, k in kernels.items()}
-    n_steps = WARMUP + 2 * CLIMATE_STEPS
     per_step = {"K1": 1, "K2": cfg.free_surface.substeps, "K3": 3, "K4": 1}
-    want = {name: n * n_steps for name, n in per_step.items()}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} over {n_steps} steps, expected {want}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"  launches over {n_steps} steps: {launches}; iteration {s.iteration}; "
-          f"peak device memory {peak_gb:.2f} GB")
+    s, elapsed, launches, _ = run_main_path(
+        lambda st, n: coupled_loop(ccfg, grid, atmos, st, DT, n), state, kernels, per_step,
+        CLIMATE_STEPS)
     check_climate_state(s, grid)
     del s
     ms_step = 1e3 * elapsed / CLIMATE_STEPS
     rate = NX * NY * NZ * CLIMATE_STEPS / elapsed
 
-    print(f"[11] climate plain path, {CLIMATE_PLAIN_STEPS} steps")
+    plain_steps = TRIPOLAR_PLAIN_STEPS if tripolar else CLIMATE_PLAIN_STEPS
+    print(f"[{phase + 2}] {label} plain path, {plain_steps} steps")
     sp, plain_elapsed = timed_loop(lambda st, n: coupled_loop(plain, grid, atmos, st, DT, n),
-                                   state, 0, CLIMATE_PLAIN_STEPS)
+                                   state, 0, plain_steps)
     check_state(sp, (NZ, NY, NX))
-    plain_ms_step = 1e3 * plain_elapsed / CLIMATE_PLAIN_STEPS
-    print(f"  climate {NX}x{NY}x{NZ} f32 on {card}: {ms_step:.3f} ms/step, {rate:.4e} "
+    plain_ms_step = 1e3 * plain_elapsed / plain_steps
+    print(f"  {label} {NX}x{NY}x{NZ} f32 on {card}: {ms_step:.3f} ms/step, {rate:.4e} "
           f"cell-steps/s, timed second {CLIMATE_STEPS}-step loop; plain torch "
           f"{plain_ms_step:.3f} ms/step")
 
-    k1_b, k1_by = k1_bound(grid, 3, True)
-    k2_b, k2_by = k2_bound(grid, cfg.free_surface.substeps, True)
-    k4_b, k4_by = k4_bound(grid)
+    substeps = cfg.free_surface.substeps
+    path = "climate_tripolar" if tripolar else "climate"
+    suffix = "_tripolar" if tripolar else "_climate"
+    entries += [
+        entry("zslab_tendencies" + suffix, "zslab_tendencies.cu",
+              "gb25_tpu/ops/pallas_zslab.py:275", path, launches["K1"], k1c,
+              k1_bound(grid, 3, True)),
+        entry("barotropic_loop_fold" if tripolar else "barotropic_loop_masked",
+              "barotropic_loop.cu", "gb25_tpu/ops/pallas_barotropic.py:94", path,
+              launches["K2"], k2m, k2_bound(grid, substeps, True)),
+    ]
+    if not tripolar:
+        k3_entry = entry("implicit_diffusion", "implicit_diffusion.cu",
+                         "gb25_tpu/ops/pallas_tridiag.py:87", path, launches["K3"], k3,
+                         (k3["bound_ms"], "bytes"))
+        k3_entry["per_solve_ms"] = k3["per_solve_ms"]
+        entries += [k3_entry,
+                    entry("catke_diffusivities", "catke_diffusivities.cu",
+                          "gb25_tpu/ops/pallas_catke.py:64", path, launches["K4"], k4,
+                          k4_bound(grid))]
+    return entries, {"ms_step": ms_step, "rate": rate, "plain_ms_step": plain_ms_step}
+
+
+# --------------------------------------------------------------------------
+# the flagship with the k-epsilon closure
+# --------------------------------------------------------------------------
+
+def phase_k4_keps(cfg, grid, ue, ve, be, ee, epse):
+    """K4's k-epsilon function against its plain version: bit for bit (the
+    same formulas in the same order, -fmad=false)."""
+    from gb25_tpu_torch.ops import pallas_catke
+
+    got = pallas_catke.keps_diffusivities_kernel(cfg, grid, ue, ve, be, ee, epse)
+    want = pallas_catke.keps_diffusivities_plain(cfg.closure, grid, ue, ve, be, ee, epse)
+    torch.cuda.synchronize()
+    names = ("kappa_u", "kappa_c", "kappa_e", "kappa_eps", "G_e", "G_eps")
+    errs = [compare(n, g, w, 0.0, 0.0) for n, g, w in zip(names, got, want)]
+    ms = cuda_time_ms(lambda: pallas_catke.keps_diffusivities_kernel(cfg, grid, ue, ve, be, ee,
+                                                                     epse), reps=10)
+    plain_ms = cuda_time_ms(lambda: pallas_catke.keps_diffusivities_plain(
+        cfg.closure, grid, ue, ve, be, ee, epse), reps=3)
+    print(f"  K4 k-epsilon {ms:.3f} ms; plain {plain_ms:.3f} ms")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}, got
+
+
+def keps(card):
+    """The flagship with the k-epsilon closure: phases [15] to [18]."""
+    from gb25_tpu_torch import baroclinic_instability_model, loop, time_step
+    from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+    from gb25_tpu_torch.ops import (
+        pallas_barotropic,
+        pallas_catke,
+        pallas_tridiag,
+        pallas_zslab,
+    )
+    from gb25_tpu_torch.ops.halos import extend_field
+
+    cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE,
+                                                    closure=TKEDissipationVerticalDiffusivity())
+    assert tuple(state.tracers) == ("T", "S", "e", "eps")
+    gen = torch.Generator(device=DEVICE).manual_seed(2468)
+
+    def noise(s):
+        return s * torch.randn(grid.shape, generator=gen, device=DEVICE)
+
+    # currents of ~0.05 m/s, a T perturbation (both signs of N^2), e and
+    # eps around the start state
+    ue = extend_field(grid, noise(0.05), "u")
+    ve = extend_field(grid, noise(0.05), "v")
+    tr = {"T": state.tracers["T"] + noise(0.1), "S": state.tracers["S"],
+          "e": 1e-5 * (1.0 + torch.rand(grid.shape, generator=gen, device=DEVICE)),
+          "eps": 1e-8 * (1.0 + torch.rand(grid.shape, generator=gen, device=DEVICE))}
+    tr_e = {k: extend_field(grid, c, "c") for k, c in tr.items()}
+    be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
+    print(f"[15] K4 k-epsilon vs plain at {NX}x{NY}x{NZ}, bit for bit")
+    k4, diffs = phase_k4_keps(cfg, grid, ue, ve, be, tr_e["e"], tr_e["eps"])
+    print("[16] K1 four-tracer instance vs plain")
+    Gv_p = noise(1e-7)
+    Gv_p[:, 0, :] = 0.0
+    prev = (noise(1e-7), Gv_p, {k: noise(1e-7) for k in tr})
+    k1 = phase_k1_instance(cfg, grid, ue, ve, tr_e, be, b_total, prev, "four-tracer")
+    del prev, be, b_total
+    print("[17] K3 vs plain: the (u, v), (T, S), e and eps solves of a k-epsilon step")
+    ku, kc, ke, keps_, _, _ = diffs
+
+    def inner(t):
+        return grid.interior(t).contiguous()
+
+    k3 = phase_k3(cfg, grid, {"u,v": ((inner(ue), inner(ve)), ku, None),
+                              "T,S": ((inner(tr_e["T"]), inner(tr_e["S"])), kc, None),
+                              "e": ((inner(tr_e["e"]),), ke, None),
+                              "eps": ((inner(tr_e["eps"]),), keps_, None)})
+    del diffs, ku, kc, ke, keps_, ue, ve, tr_e
+
+    print("[18] k-epsilon main path: one step kernels='auto' vs 'torch'")
+    cfg_plain = dataclasses.replace(cfg, kernels="torch")
+    phase_step_compare(lambda s: time_step(cfg, grid, s, DT),
+                       lambda s: time_step(cfg_plain, grid, s, DT), state)
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
+               "K3": pallas_tridiag.KERNEL, "K4_keps": pallas_catke.KEPS_KERNEL,
+               "K4_catke": pallas_catke.KERNEL}
+    substeps = cfg.free_surface.substeps
+    per_step = {"K1": 1, "K2": substeps, "K3": 4, "K4_keps": 1, "K4_catke": 0}
+    s, elapsed, launches, _ = run_main_path(lambda st, n: loop(cfg, grid, st, DT, n), state,
+                                            kernels, per_step, KEPS_STEPS)
+    umax = check_state(s, (NZ, NY, NX))
+    e_min, eps_min = float(s.tracers["e"].min()), float(s.tracers["eps"].min())
+    if e_min < 0.0 or eps_min < 0.0:
+        raise AssertionError(f"e or eps < 0 after the run: {e_min}, {eps_min}")
+    print(f"  max|u| {umax:.4f} m/s; e in [{e_min:.3e}, {float(s.tracers['e'].max()):.3e}], "
+          f"eps in [{eps_min:.3e}, {float(s.tracers['eps'].max()):.3e}]")
+    del s
+    ms_step = 1e3 * elapsed / KEPS_STEPS
+    rate = NX * NY * NZ * KEPS_STEPS / elapsed
+    sp, plain_elapsed = timed_loop(lambda st, n: loop(cfg_plain, grid, st, DT, n), state, 0,
+                                   KEPS_PLAIN_STEPS)
+    check_state(sp, (NZ, NY, NX))
+    plain_ms_step = 1e3 * plain_elapsed / KEPS_PLAIN_STEPS
+    print(f"  k-epsilon flagship {NX}x{NY}x{NZ} f32 on {card}: {ms_step:.3f} ms/step, "
+          f"{rate:.4e} cell-steps/s, timed second {KEPS_STEPS}-step loop; plain torch "
+          f"{plain_ms_step:.3f} ms/step")
+
+    path = "keps"
+    k3_entry = entry("implicit_diffusion_keps", "implicit_diffusion.cu",
+                     "gb25_tpu/ops/pallas_tridiag.py:87", path, launches["K3"], k3,
+                     (k3["bound_ms"], "bytes"))
+    k3_entry["per_solve_ms"] = k3["per_solve_ms"]
     return [
-        {"name": "zslab_tendencies_climate", "route": "cuda",
-         "source": "gb25_tpu_torch/csrc/zslab_tendencies.cu",
-         "replaces": "gb25_tpu/ops/pallas_zslab.py:275", "path": "climate",
-         "launches": launches["K1"], "max_abs_err": k1c["max_abs_err"], "ms": k1c["ms"],
-         "plain_ms": k1c["plain_ms"], "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None},
-        {"name": "barotropic_loop_masked", "route": "cuda",
-         "source": "gb25_tpu_torch/csrc/barotropic_loop.cu",
-         "replaces": "gb25_tpu/ops/pallas_barotropic.py:94", "path": "climate",
-         "launches": launches["K2"], "max_abs_err": k2m["max_abs_err"], "ms": k2m["ms"],
-         "plain_ms": k2m["plain_ms"], "bound_ms": k2_b, "bound_by": k2_by, "library_ms": None},
-        {"name": "implicit_diffusion", "route": "cuda",
-         "source": "gb25_tpu_torch/csrc/implicit_diffusion.cu",
-         "replaces": "gb25_tpu/ops/pallas_tridiag.py:87", "path": "climate",
-         "launches": launches["K3"], "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
-         "per_solve_ms": k3["per_solve_ms"], "plain_ms": k3["plain_ms"],
-         "bound_ms": k3["bound_ms"], "bound_by": "bytes", "library_ms": None},
-        {"name": "catke_diffusivities", "route": "cuda",
-         "source": "gb25_tpu_torch/csrc/catke_diffusivities.cu",
-         "replaces": "gb25_tpu/ops/pallas_catke.py:64", "path": "climate",
-         "launches": launches["K4"], "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
-         "plain_ms": k4["plain_ms"], "bound_ms": k4_b, "bound_by": k4_by, "library_ms": None},
+        entry("zslab_tendencies_keps", "zslab_tendencies.cu", "gb25_tpu/ops/pallas_zslab.py:275",
+              path, launches["K1"], k1, k1_bound(grid, 4, False)),
+        k3_entry,
+        entry("keps_diffusivities", "keps_diffusivities.cu", "gb25_tpu/ops/pallas_catke.py:228",
+              path, launches["K4_keps"], k4, k4_keps_bound(grid)),
     ], {"ms_step": ms_step, "rate": rate, "plain_ms_step": plain_ms_step}
 
 
@@ -631,18 +802,23 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    built = build_kernels([pallas_zslab.KERNEL, pallas_barotropic.KERNEL,
-                           pallas_tridiag.KERNEL, pallas_catke.KERNEL])
+    built = build_kernels([pallas_zslab.KERNEL, pallas_barotropic.KERNEL, pallas_tridiag.KERNEL,
+                           pallas_catke.KERNEL, pallas_catke.KEPS_KERNEL])
     print(f"[2] kernels built in {built:.1f} s")
 
     flag_kernels, flag = flagship(card)
     torch.cuda.empty_cache()
-    clim_kernels, clim = climate(card)
-    print(f"[12] on {card}: flagship {flag['ms_step']:.3f} ms/step ({flag['rate']:.4e} "
-          f"cell-steps/s), plain {flag['plain_ms_step']:.3f}; climate {clim['ms_step']:.3f} "
-          f"ms/step ({clim['rate']:.4e} cell-steps/s), plain {clim['plain_ms_step']:.3f}")
+    clim_kernels, clim = climate(card, "gaussian_islands", 7)
+    torch.cuda.empty_cache()
+    trip_kernels, trip = climate(card, "gaussian_islands_tripolar", 12)
+    torch.cuda.empty_cache()
+    keps_kernels, kep = keps(card)
+    summary = {"flagship": flag, "climate": clim, "climate_tripolar": trip, "keps": kep}
+    print(f"[19] on {card}: " + "; ".join(
+        f"{name} {r['ms_step']:.3f} ms/step ({r['rate']:.4e} cell-steps/s), plain "
+        f"{r['plain_ms_step']:.3f}" for name, r in summary.items()))
 
-    print(json.dumps({"kernels": flag_kernels + clim_kernels}))
+    print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,11 @@
 //
 // Replaces: gb25_tpu/ops/pallas_zslab.py::zslab_tendencies (the z-slab
 // Pallas kernel, pallas_call at :769) with ab2, wall_v=True and
-// integrals=True: the flagship instance (tracers T, S) and the climate
-// instance (tracers T, S, e, with the immersed-masked u*/v* integrals).
+// integrals=True: the flagship instance (tracers T, S), the climate
+// instance (tracers T, S, e, with the immersed-masked u*/v* integrals), the
+// tripolar climate instance (the same, with the metrics and f as 2-D
+// planes: the JAX kernel's metric_spec 2-D branch, :555-564) and the
+// k-epsilon instance (tracers T, S, e, eps).
 //
 // What bounds it on an H100: device memory. Per step the flagship instance
 // reads five extended fields (u, v, T, S, b) and four previous tendencies
@@ -24,9 +27,11 @@
 // The vertical fluxes at the bottom face of each level are carried from
 // the level below, so each face is reconstructed once. The AB2 update, the
 // wall row and the depth integrals of u, v, u*, v* accumulate in registers
-// of the owning column. The tracer count (2 or 3) and the immersed
-// integrals are template parameters, so the flagship instance computes
-// exactly what it did before either existed. On immersed grids only the
+// of the owning column. The tracer count (2 to 4), the immersed integrals
+// and the 2-D metrics are template parameters, so the flagship instance
+// computes exactly what it did before any of them existed. A 2-D metric
+// is read at the (y, x) of the face or center it weights, as the plain
+// version's broadcast product reads it. On immersed grids only the
 // accumulation of Us and Vs is masked, with the fluid test z_c > face
 // bottom of grids/immersed.py; the stored u*, v* stay unmasked and the
 // caller re-masks them. Outputs are fresh buffers: nothing is updated in
@@ -52,13 +57,14 @@ struct Field {
   }
 };
 
-constexpr int kMaxTracers = 3;
+constexpr int kMaxTracers = 4;
 
 struct Args {
   Field u, v, b;
   Field tr[kMaxTracers];
   const float* btot;  // (Ny+2hy, Nx+2hx): column total of b dz
-  const float *dxc, *dxf, *dyc, *dyf, *azc, *azf, *fff;  // (Ny+2hy) y profiles
+  // (Ny+2hy) y profiles, or (Ny+2hy, Nx+2hx) planes on the tripolar grid
+  const float *dxc, *dxf, *dyc, *dyf, *azc, *azf, *fff;
   const float *dzc, *dzf, *zc;                           // (Nz+2hz) z profiles
   const float *bu, *bv;                                  // (Ny, Nx) face bottoms (immersed)
   const float *Gu_p, *Gv_p;                              // (Nz, Ny, Nx) previous G
@@ -71,6 +77,12 @@ struct Args {
   int Nx, Ny, Nz, hx, hy, hz;
   float a, b_prev, eps;  // dt*c1, dt*c2, WENO epsilon
 };
+
+// A metric at row y of a profile, or at (y, x) of a plane.
+template <bool M2>
+__device__ __forceinline__ float met(const Args& A, const float* m, int y, int x) {
+  return M2 ? m[(size_t)y * A.u.Xe + x] : m[y];
+}
 
 // WENO-5 from five upwind-ordered samples, factored division-free form
 // (ops/weno.py::_weno5_from_shifts).
@@ -102,11 +114,14 @@ __device__ __forceinline__ float weno_upwind(const float s[6], float vel, float 
 }
 
 // q = f + zeta at the corner (y, x) of level z.
+template <bool M2>
 __device__ __forceinline__ float pv(const Args& A, int z, int y, int x) {
-  float zeta = ((A.v(z, y, x) * A.dyf[y] - A.v(z, y, x - 1) * A.dyf[y]) -
-                (A.u(z, y, x) * A.dxc[y] - A.u(z, y - 1, x) * A.dxc[y - 1])) *
-               (1.0f / A.azf[y]);
-  return A.fff[y] + zeta;
+  float zeta = ((A.v(z, y, x) * met<M2>(A, A.dyf, y, x) -
+                 A.v(z, y, x - 1) * met<M2>(A, A.dyf, y, x - 1)) -
+                (A.u(z, y, x) * met<M2>(A, A.dxc, y, x) -
+                 A.u(z, y - 1, x) * met<M2>(A, A.dxc, y - 1, x))) *
+               (1.0f / met<M2>(A, A.azf, y, x));
+  return met<M2>(A, A.fff, y, x) + zeta;
 }
 
 // Hollingsworth-corrected kinetic energy at the center (y, x).
@@ -124,14 +139,18 @@ __device__ __forceinline__ float kinetic(const Args& A, int z, int y, int x) {
 }
 
 // Horizontal divergence of (u, v) at the center (y, x).
+template <bool M2>
 __device__ __forceinline__ float divergence(const Args& A, int z, int y, int x) {
-  return ((A.u(z, y, x + 1) * A.dyc[y] - A.u(z, y, x) * A.dyc[y]) +
-          (A.v(z, y + 1, x) * A.dxf[y + 1] - A.v(z, y, x) * A.dxf[y])) *
-         (1.0f / A.azc[y]);
+  return ((A.u(z, y, x + 1) * met<M2>(A, A.dyc, y, x + 1) -
+           A.u(z, y, x) * met<M2>(A, A.dyc, y, x)) +
+          (A.v(z, y + 1, x) * met<M2>(A, A.dxf, y + 1, x) -
+           A.v(z, y, x) * met<M2>(A, A.dxf, y, x))) *
+         (1.0f / met<M2>(A, A.azc, y, x));
 }
 
 // Flux-form tracer tendency at (z, y, x) except the vertical part, which
 // needs the carried bottom-face flux. Returns -(dx_c Fx + dy_c Fy) / Az.
+template <bool M2>
 __device__ __forceinline__ float tracer_horizontal(const Args& A, const Field& c, int z, int y,
                                                    int x) {
   float s[6];
@@ -140,15 +159,15 @@ __device__ __forceinline__ float tracer_horizontal(const Args& A, const Field& c
     int xf = x + f;
     for (int r = 0; r < 6; ++r) s[r] = c(z, y, xf - 3 + r);
     float vel = A.u(z, y, xf);
-    F[f] = (vel * A.dyc[y]) * weno_upwind(s, vel, A.eps);
+    F[f] = (vel * met<M2>(A, A.dyc, y, xf)) * weno_upwind(s, vel, A.eps);
   }
   for (int f = 0; f < 2; ++f) {  // y faces y and y+1
     int yf = y + f;
     for (int r = 0; r < 6; ++r) s[r] = c(z, yf - 3 + r, x);
     float vel = A.v(z, yf, x);
-    G[f] = (vel * A.dxf[yf]) * weno_upwind(s, vel, A.eps);
+    G[f] = (vel * met<M2>(A, A.dxf, yf, x)) * weno_upwind(s, vel, A.eps);
   }
-  return -((F[1] - F[0]) + (G[1] - G[0])) * (1.0f / A.azc[y]);
+  return -((F[1] - F[0]) + (G[1] - G[0])) * (1.0f / met<M2>(A, A.azc, y, x));
 }
 
 // Vertical tracer flux w * c at the bottom face of extended level z.
@@ -159,7 +178,7 @@ __device__ __forceinline__ float tracer_zflux(const Args& A, const Field& c, int
   return w * weno_upwind(s, w, A.eps);
 }
 
-template <int NTR, bool IMM>
+template <int NTR, bool IMM, bool M2>
 __global__ void __launch_bounds__(128) zslab_tendencies_kernel(const Args A) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y;
@@ -202,9 +221,9 @@ __global__ void __launch_bounds__(128) zslab_tendencies_kernel(const Args A) {
     // rounded term by term (no fused multiply-add), as a cumsum of the
     // products rounds them: p ~ 500 m^2/s^2 against horizontal differences
     // far smaller, so one ulp of p shows in the pressure gradient.
-    sw_c = __fadd_rn(sw_c, __fmul_rn(divergence(A, Z, Y, X), dzc));
-    sw_w = __fadd_rn(sw_w, __fmul_rn(divergence(A, Z, Y, X - 1), dzc));
-    sw_s = __fadd_rn(sw_s, __fmul_rn(divergence(A, Z, Y - 1, X), dzc));
+    sw_c = __fadd_rn(sw_c, __fmul_rn(divergence<M2>(A, Z, Y, X), dzc));
+    sw_w = __fadd_rn(sw_w, __fmul_rn(divergence<M2>(A, Z, Y, X - 1), dzc));
+    sw_s = __fadd_rn(sw_s, __fmul_rn(divergence<M2>(A, Z, Y - 1, X), dzc));
     const float w_c1 = -sw_c, w_w1 = -sw_w, w_s1 = -sw_s;
 
     // hydrostatic pressure p = csum - total - b dz / 2
@@ -220,18 +239,18 @@ __global__ void __launch_bounds__(128) zslab_tendencies_kernel(const Args A) {
 
     // vector-invariant momentum: upwinded vorticity flux
     float s[6];
-    for (int r = 0; r < 6; ++r) s[r] = pv(A, Z, Y - 2 + r, X);
+    for (int r = 0; r < 6; ++r) s[r] = pv<M2>(A, Z, Y - 2 + r, X);
     const float vbar = 0.5f * (0.5f * (A.v(Z, Y + 1, X) + A.v(Z, Y + 1, X - 1)) +
                                0.5f * (A.v(Z, Y, X) + A.v(Z, Y, X - 1)));
     float Gu = weno_upwind(s, vbar, A.eps) * vbar;
-    for (int r = 0; r < 6; ++r) s[r] = pv(A, Z, Y, X - 2 + r);
+    for (int r = 0; r < 6; ++r) s[r] = pv<M2>(A, Z, Y, X - 2 + r);
     const float ubar = 0.5f * (0.5f * (A.u(Z, Y, X + 1) + A.u(Z, Y - 1, X + 1)) +
                                0.5f * (A.u(Z, Y, X) + A.u(Z, Y - 1, X)));
     float Gv = -weno_upwind(s, ubar, A.eps) * ubar;
 
     // Bernoulli gradient
     const float K = kinetic(A, Z, Y, X);
-    const float r_dxc = 1.0f / A.dxc[Y], r_dyf = 1.0f / A.dyf[Y];
+    const float r_dxc = 1.0f / met<M2>(A, A.dxc, Y, X), r_dyf = 1.0f / met<M2>(A, A.dyf, Y, X);
     Gu = Gu - (K - kinetic(A, Z, Y, X - 1)) * r_dxc;
     Gv = Gv - (K - kinetic(A, Z, Y - 1, X)) * r_dyf;
 
@@ -256,7 +275,7 @@ __global__ void __launch_bounds__(128) zslab_tendencies_kernel(const Args A) {
     for (int t = 0; t < NTR; ++t) fz1[t] = tracer_zflux(A, A.tr[t], Z + 1, Y, X, w_c1);
 #pragma unroll
     for (int t = 0; t < NTR; ++t) {
-      Gc[t] = tracer_horizontal(A, A.tr[t], Z, Y, X) - (fz1[t] - fz[t]) * r_dzc;
+      Gc[t] = tracer_horizontal<M2>(A, A.tr[t], Z, Y, X) - (fz1[t] - fz[t]) * r_dzc;
       fz[t] = fz1[t];
     }
 
@@ -302,15 +321,22 @@ __global__ void __launch_bounds__(128) zslab_tendencies_kernel(const Args A) {
   A.Vs[ij] = Vs;
 }
 
+template <int NTR, bool IMM, bool M2>
+void launch(const Args& A, dim3 grid, dim3 block, cudaStream_t s) {
+  zslab_tendencies_kernel<NTR, IMM, M2><<<grid, block, 0, s>>>(A);
+}
+
 }  // namespace
 
 extern "C" const char* gb25_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// ntr tracers (2 or 3) in tr[0..ntr); the pointer arrays hold kMaxTracers
+// ntr tracers (2 to 4) in tr[0..ntr); the pointer arrays hold kMaxTracers
 // entries, the unused ones null. bu and bv are null unless the grid is
-// immersed; then zc (the extended z_c profile) is read too.
+// immersed; then zc (the extended z_c profile) is read too. metric2d: the
+// six metrics and fff are (Ny+2hy, Nx+2hx) planes (the tripolar grid,
+// which is always immersed).
 extern "C" int zslab_tendencies_f32(
     const float* u, const float* v, const float* b, const float* const* tr, const float* btot,
     const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
@@ -318,10 +344,12 @@ extern "C" int zslab_tendencies_f32(
     const float* bu, const float* bv, const float* Gu_p, const float* Gv_p,
     const float* const* Gtr_p, float* Gu, float* Gv, float* const* Gtr, float* un, float* vn,
     float* const* trn, float* U0, float* V0, float* Us, float* Vs, int ntr, int Nx, int Ny,
-    int Nz, int hx, int hy, int hz, float a, float b_prev, float eps, void* stream) {
+    int Nz, int hx, int hy, int hz, int metric2d, float a, float b_prev, float eps,
+    void* stream) {
   if (ntr < 2 || ntr > kMaxTracers) return static_cast<int>(cudaErrorInvalidValue);
   const bool imm = bu != nullptr;
   if (imm && (bv == nullptr || zc == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (metric2d && !imm) return static_cast<int>(cudaErrorInvalidValue);
   const int Xe = Nx + 2 * hx;
   const size_t plane = (size_t)(Ny + 2 * hy) * Xe;
   Args A;
@@ -348,13 +376,13 @@ extern "C" int zslab_tendencies_f32(
   dim3 block(128, 1, 1);
   dim3 grid((Nx + 127) / 128, Ny, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ntr == 2 && !imm)
-    zslab_tendencies_kernel<2, false><<<grid, block, 0, s>>>(A);
-  else if (ntr == 2)
-    zslab_tendencies_kernel<2, true><<<grid, block, 0, s>>>(A);
-  else if (!imm)
-    zslab_tendencies_kernel<3, false><<<grid, block, 0, s>>>(A);
-  else
-    zslab_tendencies_kernel<3, true><<<grid, block, 0, s>>>(A);
+  // [ntr - 2][flat, immersed, tripolar]
+  using Launch = void (*)(const Args&, dim3, dim3, cudaStream_t);
+  static const Launch launchers[3][3] = {
+      {launch<2, false, false>, launch<2, true, false>, launch<2, true, true>},
+      {launch<3, false, false>, launch<3, true, false>, launch<3, true, true>},
+      {launch<4, false, false>, launch<4, true, false>, launch<4, true, true>},
+  };
+  launchers[ntr - 2][imm ? (metric2d ? 2 : 1) : 0](A, grid, block, s);
   return static_cast<int>(cudaGetLastError());
 }

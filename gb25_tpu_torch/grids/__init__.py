@@ -4,4 +4,5 @@ from gb25_tpu_torch.grids.latlon import (  # noqa: F401
     resolution_to_points,
     simple_latitude_longitude_grid,
 )
+from gb25_tpu_torch.grids.tripolar import TripolarGrid, tripolar_grid  # noqa: F401
 from gb25_tpu_torch.grids.vertical import exponential_z_faces, uniform_z_faces  # noqa: F401

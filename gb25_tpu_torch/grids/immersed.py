@@ -48,6 +48,7 @@ def with_bathymetry(grid, bottom_height):
 
 
 def _geometry(grid):
+    # the grid's halos: the fold rows on the tripolar grid
     be = extend_field_xy(grid, grid.bottom_height, "c")[None]
     bu_e = torch.maximum(be, sm(be, "x"))
     bv_e = torch.maximum(be, sm(be, "y"))
@@ -70,10 +71,16 @@ def _geometry(grid):
 def gaussian_islands_bottom(grid):
     """The two Gaussian islands: bottom = zb + h (mtn1 + mtn2), zb the
     deepest z face, h = -zb + 100 m. Evaluated in numpy on the grid's
-    coordinates in the grid's dtype, operation for operation as the JAX
-    package does, so the bathymetry equals its bit for bit."""
-    lam = grid.lam_c_i.cpu().numpy()[None, :]
-    phi = grid.phi_c_i.cpu().numpy()[:, None]
+    coordinates (the 2-D centres of a tripolar grid) in the grid's dtype,
+    operation for operation as the JAX package does, so the bathymetry
+    equals its bit for bit; land already there (the tripolar pole caps)
+    stays land."""
+    if grid.north_fold:
+        lam = grid.lam2_c.cpu().numpy()
+        phi = grid.phi2_c.cpu().numpy()
+    else:
+        lam = grid.lam_c_i.cpu().numpy()[None, :]
+        phi = grid.phi_c_i.cpu().numpy()[:, None]
     zb = float(grid.z_f_i[0])
     h = -zb + 100.0
 

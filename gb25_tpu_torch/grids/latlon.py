@@ -6,7 +6,8 @@ then cast, so they equal JAX's bit for bit in float64.
 
 Layout: fields are stored ``(Z, Y, X)`` with x contiguous (threads along x
 coalesce on the GPU). So the metric tensors are shaped to broadcast against
-extended ``(Z, Y, X)`` fields: ``dx*/dy*/az*`` are ``(1, Ny+2hy, 1)`` and
+extended ``(Z, Y, X)`` fields: ``dx*/dy*/az*`` are ``(1, Ny+2hy, 1)`` (full
+``(1, Ny+2hy, Nx+2hx)`` planes on the tripolar grid, ``grids.tripolar``) and
 ``dz*``/``z*`` are ``(Nz+2hz, 1, 1)``. 2-D fields (free surface, bathymetry)
 are ``(Y, X)``.
 
@@ -49,6 +50,38 @@ def _extend_mirror_faces(a: np.ndarray, h: int, lo_pivot: float, hi_pivot: float
     return np.concatenate([below, a, above])
 
 
+def z_face_positions(Nz, z_faces=None, depth=4000.0, surface_dz=30.0) -> np.ndarray:
+    """The ``Nz+1`` z faces (float64): ``z_faces`` as given, else uniform
+    over ``depth`` (``surface_dz=None``) or stretched to ``surface_dz`` at
+    the surface."""
+    if z_faces is None:
+        if surface_dz is None:
+            z_faces = uniform_z_faces(Nz, depth)
+        else:
+            z_faces = exponential_z_faces(Nz, depth=depth, h=surface_dz)
+    z_faces = np.asarray(z_faces, dtype=np.float64)
+    if z_faces.shape != (Nz + 1,):
+        raise ValueError(f"z_faces must have shape ({Nz + 1},), got {z_faces.shape}")
+    return z_faces
+
+
+def extended_z_profiles(zf: np.ndarray, hz: int):
+    """(z_c, z_f, dz_c, dz_f) over ``Nz+2hz`` levels: the extension
+    continues the edge spacing outward."""
+    Nz = len(zf) - 1
+    dz_bot = zf[1] - zf[0]
+    dz_top = zf[-1] - zf[-2]
+    z_f_full = np.concatenate(
+        [zf[0] + dz_bot * np.arange(-hz, 0), zf, zf[-1] + dz_top * np.arange(1, hz + 1)]
+    )
+    z_c_full = 0.5 * (z_f_full[:-1] + z_f_full[1:])
+    dz_c = z_f_full[1:] - z_f_full[:-1]
+    dz_f = np.empty(Nz + 2 * hz)
+    dz_f[1:] = z_c_full[1:] - z_c_full[:-1]
+    dz_f[0] = dz_f[1]
+    return z_c_full, z_f_full[: Nz + 2 * hz], dz_c, dz_f
+
+
 @dataclasses.dataclass(frozen=True)
 class LatitudeLongitudeGrid:
     """Spherical-shell staggered grid; every metric tensor is halo-extended."""
@@ -77,6 +110,8 @@ class LatitudeLongitudeGrid:
     # grids.immersed.ImmersedGeometry when bottom_height carries real
     # bathymetry (set by grids.immersed.with_bathymetry), else None
     geometry: object = None
+
+    north_fold = False  # the tripolar grid (grids.tripolar) folds its north edge
 
     @property
     def immersed(self) -> bool:
@@ -157,14 +192,7 @@ def latitude_longitude_grid(
     phi_f = lat0 + dphi * np.arange(Ny, dtype=np.float64)
     phi_c = phi_f + 0.5 * dphi
 
-    if z_faces is None:
-        if surface_dz is None:
-            z_faces = uniform_z_faces(Nz, depth)
-        else:
-            z_faces = exponential_z_faces(Nz, depth=depth, h=surface_dz)
-    z_faces = np.asarray(z_faces, dtype=np.float64)
-    if z_faces.shape != (Nz + 1,):
-        raise ValueError(f"z_faces must have shape ({Nz + 1},), got {z_faces.shape}")
+    z_faces = z_face_positions(Nz, z_faces, depth, surface_dz)
 
     if x_periodic:
         lam_c_e = _extend_wrap_coord(lam_c, hx, 360.0)
@@ -184,19 +212,7 @@ def latitude_longitude_grid(
     phi_f_full = np.append(phi_f, north_wall)  # Ny+1 faces
     phi_f_e = _extend_mirror_faces(phi_f_full, hy, south_wall, north_wall)[: Ny + 2 * hy]
 
-    # z extension continues the edge spacing outward
-    zf = z_faces
-    dz_bot = zf[1] - zf[0]
-    dz_top = zf[-1] - zf[-2]
-    z_f_full = np.concatenate(
-        [zf[0] + dz_bot * np.arange(-hz, 0), zf, zf[-1] + dz_top * np.arange(1, hz + 1)]
-    )
-    z_c_full = 0.5 * (z_f_full[:-1] + z_f_full[1:])
-    z_f_e = z_f_full[: Nz + 2 * hz]
-    dz_c = z_f_full[1:] - z_f_full[:-1]
-    dz_f = np.empty(Nz + 2 * hz)
-    dz_f[1:] = z_c_full[1:] - z_c_full[:-1]
-    dz_f[0] = dz_f[1]
+    z_c_full, z_f_e, dz_c, dz_f = extended_z_profiles(z_faces, hz)
 
     # metric values on the interior (+walls), value-mirrored in bounded y
     R = EARTH_RADIUS

@@ -115,11 +115,16 @@ def data_free_atmosphere(ocean_grid, Na=360, Ma=180, ntimes=24, dtype=None):
         "pa": zeros + 101325.0,
     }
 
-    # target points in the JAX package's (Nx, Ny) order
-    lam_o = ocean_grid.lam_c_i.cpu().numpy().astype(np_dtype)
-    phi_o = ocean_grid.phi_c_i.cpu().numpy().astype(np_dtype)
-    dst_lam = lam_o[:, None] + 0 * phi_o[None, :]
-    dst_phi = 0 * dst_lam + phi_o[None, :]
+    # target points in the JAX package's (Nx, Ny) order: the 2-D centres of
+    # a tripolar grid, else the lat-lon product
+    if ocean_grid.north_fold:
+        dst_lam = np.transpose(ocean_grid.lam2_c.cpu().numpy() % 360.0)
+        dst_phi = np.transpose(ocean_grid.phi2_c.cpu().numpy())
+    else:
+        lam_o = ocean_grid.lam_c_i.cpu().numpy().astype(np_dtype)
+        phi_o = ocean_grid.phi_c_i.cpu().numpy().astype(np_dtype)
+        dst_lam = lam_o[:, None] + 0 * phi_o[None, :]
+        dst_phi = 0 * dst_lam + phi_o[None, :]
     ix0, ix1, wx, iy0, iy1, wy = _bilinear_weights(lam_a, phi_a, dst_lam, dst_phi)
     wx = wx.astype(np_dtype).astype(np.float64)[:, :, None]
     wy = wy.astype(np_dtype).astype(np.float64)[:, :, None]

@@ -14,6 +14,7 @@ import torch
 
 from gb25_tpu_torch.grids import simple_latitude_longitude_grid
 from gb25_tpu_torch.models.config import HydrostaticConfig, SplitExplicitFreeSurface
+from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.models.state import HydrostaticState, initial_state
 from gb25_tpu_torch.ops.eos import TEOS10EquationOfState
 
@@ -24,9 +25,10 @@ def smooth_step(phi):
 
 
 def baroclinic_instability_config(kernels="auto", closure=None) -> HydrostaticConfig:
-    """The flagship configuration; with ``closure`` (CATKE) the tracer set
-    gains "e", as in the JAX package."""
-    tracers = ("T", "S") if closure is None else ("T", "S", "e")
+    """The flagship configuration; with ``closure`` the tracer set gains
+    the closure's ("e" with CATKE, "e" and "eps" with k-epsilon), as in the
+    JAX package."""
+    tracers = ("T", "S") + (() if closure is None else closure.tracer_names)
     return HydrostaticConfig(
         tracers=tracers,
         eos=TEOS10EquationOfState(),
@@ -36,13 +38,15 @@ def baroclinic_instability_config(kernels="auto", closure=None) -> HydrostaticCo
     )
 
 
-def baroclinic_instability_state(grid, noise_velocity=1e-3, seed=42) -> HydrostaticState:
+def baroclinic_instability_state(grid, noise_velocity=1e-3, seed=42,
+                                 tracers=("T", "S")) -> HydrostaticState:
     """Initial state on ``grid``'s device and in its dtype: analytic T/S
-    plus velocity noise drawn from a ``torch.Generator`` seeded with
-    ``seed``."""
+    (over the true 2-D latitude of a tripolar grid), a closure's e at 1e-6
+    and eps at 1e-9 as in the JAX package, plus velocity noise drawn from a
+    ``torch.Generator`` seeded with ``seed``."""
     dtype = grid.dtype
-    state = initial_state(grid)
-    phi = grid.phi_c_i.reshape(1, -1, 1).to(dtype)
+    state = initial_state(grid, tracers)
+    phi = (grid.phi2_c[None] if grid.north_fold else grid.phi_c_i.reshape(1, -1, 1)).to(dtype)
     z = grid.z_c_i.reshape(-1, 1, 1).to(dtype)
     shape = grid.shape
 
@@ -56,13 +60,22 @@ def baroclinic_instability_state(grid, noise_velocity=1e-3, seed=42) -> Hydrosta
         u = noise_velocity * torch.randn(shape, generator=gen, dtype=dtype, device=grid.device)
         v = noise_velocity * torch.randn(shape, generator=gen, dtype=dtype, device=grid.device)
         v[:, 0, :] = 0.0  # southern wall face
-    return state.replace(u=u, v=v, tracers={"T": T, "S": S})
+    floors = {"e": 1e-6, "eps": 1e-9}
+    closure = {k: torch.full(shape, floors[k], dtype=dtype, device=grid.device)
+               for k in tracers if k in floors}
+    return state.replace(u=u, v=v, tracers={"T": T, "S": S, **closure})
 
 
 def baroclinic_instability_model(Nx, Ny, Nz, *, device="cuda", halo=(4, 4, 4), dtype=torch.float32,
                                  **config_kw):
-    """Grid, config and initial state of the flagship benchmark on ``device``."""
+    """Grid, config and initial state of the flagship benchmark on ``device``.
+    With the k-epsilon closure the state starts from e = 1e-5, eps = 1e-8
+    (the JAX package's k-epsilon kernel tests' state)."""
     grid = simple_latitude_longitude_grid(Nx, Ny, Nz, device=device, halo=halo, dtype=dtype)
     cfg = baroclinic_instability_config(**config_kw)
-    state = baroclinic_instability_state(grid)
+    state = baroclinic_instability_state(grid, tracers=cfg.tracers)
+    if isinstance(cfg.closure, TKEDissipationVerticalDiffusivity):
+        tr = {**state.tracers, "e": torch.full_like(state.tracers["e"], 1e-5),
+              "eps": torch.full_like(state.tracers["eps"], 1e-8)}
+        state = state.replace(tracers=tr)
     return cfg, grid, state

@@ -6,6 +6,7 @@ from __future__ import annotations
 import dataclasses
 
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
+from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.ops.eos import TEOS10EquationOfState
 
 EARTH_ROTATION_RATE = 7.292115e-5  # rad/s
@@ -32,11 +33,12 @@ class HydrostaticConfig:
     their plain PyTorch versions for CPU tensors; "torch" runs the plain
     versions on any device (the counterpart of the JAX package's "jnp").
 
-    ``closure``: None or ``CATKEVerticalDiffusivity``; ``tracers`` is
-    ("T", "S"), or ("T", "S", "e") with CATKE. The port carries the
-    flagship schemes only (WENO vector-invariant momentum, WENO-5 tracers,
-    Hollingsworth kinetic energy); the JAX package's other choices come
-    with later slices."""
+    ``closure``: None, ``CATKEVerticalDiffusivity`` or
+    ``TKEDissipationVerticalDiffusivity`` (k-epsilon); ``tracers`` is
+    ("T", "S"), plus "e" with CATKE, plus "e", "eps" with k-epsilon. The
+    port carries the flagship schemes only (WENO vector-invariant momentum,
+    WENO-5 tracers, Hollingsworth kinetic energy); the JAX package's other
+    choices come with later slices."""
 
     tracers: tuple = ("T", "S")
     eos: TEOS10EquationOfState = TEOS10EquationOfState()
@@ -52,8 +54,9 @@ class HydrostaticConfig:
             raise ValueError(f"kernels must be one of {KERNEL_MODES}, got {self.kernels!r}")
         if self.closure is None:
             allowed = ("T", "S")
-        elif isinstance(self.closure, CATKEVerticalDiffusivity):
-            allowed = ("T", "S", "e")
+        elif isinstance(self.closure, (CATKEVerticalDiffusivity,
+                                       TKEDissipationVerticalDiffusivity)):
+            allowed = ("T", "S", *self.closure.tracer_names)
         else:
             raise ValueError(f"unsupported closure {self.closure!r}")
         if tuple(self.tracers) != allowed:

@@ -9,8 +9,10 @@ limiter. The ocean runs CATKE, as the JAX package's data-free model does by
 default.
 
 The ocean runs on the lat-lon band with the two Gaussian islands
-(``grid_type="gaussian_islands"``, the JAX package's default) or without
-bathymetry (``"latlon"``); the tripolar grid is not ported yet.
+(``grid_type="gaussian_islands"``, the JAX package's default), without
+bathymetry (``"latlon"``), or on the tripolar grid with the islands on its
+two north poles (``"gaussian_islands_tripolar"``, the reference's
+benchmark configuration).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from torch.profiler import record_function
 
 from gb25_tpu_torch.grids import resolution_to_points, simple_latitude_longitude_grid
 from gb25_tpu_torch.grids.immersed import gaussian_islands_bottom
+from gb25_tpu_torch.grids.tripolar import tripolar_grid
 from gb25_tpu_torch.models.atmosphere import data_free_atmosphere
 from gb25_tpu_torch.models.baroclinic import baroclinic_instability_config, smooth_step
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity, surface_tke_flux
@@ -60,7 +63,7 @@ def compute_interface_fluxes(ccfg: CoupledConfig, grid, atmos, state):
 
     # the wind is taken relative to the surface currents at centers: the x
     # average of u (periodic), the y average of v (no flux through the
-    # north wall)
+    # north wall, or the fold's ghost face on the tripolar grid)
     ue = extend2(grid, state.u[-1], "u", h=1)
     ve = extend2(grid, state.v[-1], "v", h=1)
     uo = 0.5 * (ue[1:-1, 2:] + ue[1:-1, 1:-1])
@@ -118,23 +121,25 @@ def data_free_ocean_climate_model(resolution=2.0, Nz=20, *, device="cuda", dtype
     freezing limiter; T = (30 + 1e-3 z) smooth_step(phi), S = -5e-3 z,
     e = 1e-6, at rest.
 
-    ``grid_type``: "gaussian_islands" or "latlon" (no bathymetry)."""
-    if grid_type == "gaussian_islands_tripolar":
-        raise NotImplementedError(
-            "the tripolar grid is not ported yet (ROADMAP: the tripolar slice); "
-            "use grid_type='gaussian_islands'")
-    if grid_type not in ("gaussian_islands", "latlon"):
-        raise ValueError(f"unknown grid_type {grid_type!r}")
+    ``grid_type``: "gaussian_islands", "latlon" (no bathymetry) or
+    "gaussian_islands_tripolar" (the islands on the tripolar grid, whose
+    initial T follows the true 2-D latitude)."""
     Nx, Ny = resolution_to_points(resolution)
-    grid = simple_latitude_longitude_grid(Nx, Ny, Nz, device=device, dtype=dtype)
-    if grid_type == "gaussian_islands":
-        grid = gaussian_islands_bottom(grid)
+    if grid_type == "gaussian_islands_tripolar":
+        grid = gaussian_islands_bottom(tripolar_grid(Nx, Ny, Nz, device=device, dtype=dtype))
+    elif grid_type in ("gaussian_islands", "latlon"):
+        grid = simple_latitude_longitude_grid(Nx, Ny, Nz, device=device, dtype=dtype)
+        if grid_type == "gaussian_islands":
+            grid = gaussian_islands_bottom(grid)
+    else:
+        raise ValueError(f"unknown grid_type {grid_type!r}: 'gaussian_islands', 'latlon' or "
+                         "'gaussian_islands_tripolar'")
 
     ocean_cfg = baroclinic_instability_config(kernels=kernels, closure=CATKEVerticalDiffusivity())
     ccfg = CoupledConfig(ocean=ocean_cfg)
 
     state = initial_state(grid, ocean_cfg.tracers)
-    phi = grid.phi_c_i.reshape(1, -1, 1)
+    phi = grid.phi2_c[None] if grid.north_fold else grid.phi_c_i.reshape(1, -1, 1)
     z = grid.z_c_i.reshape(-1, 1, 1)
     tr = dict(state.tracers)
     tr["T"] = ((30.0 + 1e-3 * z) * smooth_step(phi)).expand(grid.shape).contiguous()

@@ -1,24 +1,28 @@
 """The hydrostatic free-surface time step (port of
-``gb25_tpu.models.hydrostatic``: the serial path, with or without the
-CATKE closure, immersed bathymetry and surface fluxes).
+``gb25_tpu.models.hydrostatic``: the serial path, with or without a
+closure (CATKE or k-epsilon), immersed bathymetry, surface fluxes and the
+tripolar north fold).
 
 One step, in the fused form the JAX package runs on its kernels:
-  1. halo fill of u, v and the tracers; on immersed grids the extended
-     velocities are masked on solid faces;
+  1. halo fill of u, v and the tracers (the fold rows on the tripolar
+     grid); on immersed grids the extended velocities are masked on solid
+     faces;
   2. TEOS-10 buoyancy and its column total (torch ops), once per step;
-  3. with CATKE, kernel K4: the diffusivities, the TKE source and the
-     dissipation rate from the same extended fields;
+  3. with a closure, kernel K4: CATKE's diffusivities, TKE source and
+     dissipation rate, or k-epsilon's diffusivities and the sources of e
+     and eps, from the same extended fields;
   4. kernel K1: continuity w, hydrostatic pressure, WENO vector-invariant
      momentum and WENO-5 tracer tendencies, the quasi-AB2 update, the
      south-wall row and the depth integrals;
   5. the increments after the kernel, each also folded into the fused
-     update as dt c1 inc: the TKE source, the surface fluxes into the top
-     cell, the immersed re-mask, the wall row;
+     update as dt c1 inc: the closure's sources, the surface fluxes into
+     the top cell, the immersed re-mask, the wall row;
   6. kernel K2: the 30-substep split-explicit free surface, then the
-     barotropic correction and the immersed re-mask;
-  7. with CATKE, kernel K3 three times: the implicit vertical diffusion of
-     (u, v) with kappa_u, (T, S) with kappa_c and e with kappa_e and the
-     dissipation rate; then e >= 0;
+     barotropic correction, on the tripolar grid the seam-row projection,
+     and the immersed re-mask;
+  7. with a closure, kernel K3 once per diffusivity: (u, v) with kappa_u,
+     (T, S) with kappa_c, e with kappa_e (and CATKE's dissipation rate),
+     eps with kappa_eps; then e, eps >= 0;
   8. the clock.
 """
 
@@ -29,6 +33,8 @@ import torch
 from torch.profiler import record_function
 
 from gb25_tpu_torch.grids.immersed import face_bottom_planes, face_masks, interior_masks
+from gb25_tpu_torch.grids.tripolar import north_fold_projection
+from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
 from gb25_tpu_torch.models.free_surface import barotropic_substep
 from gb25_tpu_torch.models.state import HydrostaticState, advance_clock
 from gb25_tpu_torch.ops.halos import extend_field
@@ -38,7 +44,7 @@ from gb25_tpu_torch.ops.operators import (
     kinetic_energy,
     vertical_vorticity,
 )
-from gb25_tpu_torch.ops.pallas_catke import catke_diffusivities_kernel
+from gb25_tpu_torch.ops.pallas_catke import catke_diffusivities_kernel, keps_diffusivities_kernel
 from gb25_tpu_torch.ops.pallas_tridiag import implicit_diffusion
 from gb25_tpu_torch.ops.pallas_zslab import column_buoyancy, zslab_tendencies
 from gb25_tpu_torch.ops.stencils import dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f, iz_c
@@ -151,11 +157,17 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None):
         be, b_total = column_buoyancy(cfg, grid, tr_e)
 
     diffusivities = None
-    if cfg.closure is not None:
+    if isinstance(cfg.closure, CATKEVerticalDiffusivity):
         with record_function("step/K4_catke"):
             ku, kc, ke, G_e, lam_e = catke_diffusivities_kernel(cfg, grid, ue, ve, be, tr_e["e"])
         diffusivities = {"kappa_u": ku, "kappa_c": kc, "kappa_e": ke, "lam_e": lam_e,
                          "G_e": G_e}
+    elif cfg.closure is not None:  # k-epsilon
+        with record_function("step/K4_keps"):
+            ku, kc, ke, keps, G_e, G_eps = keps_diffusivities_kernel(
+                cfg, grid, ue, ve, be, tr_e["e"], tr_e["eps"])
+        diffusivities = {"kappa_u": ku, "kappa_c": kc, "kappa_e": ke, "kappa_eps": keps,
+                         "G_e": G_e, "G_eps": G_eps}
 
     with record_function("step/K1_tendencies"):
         Gu, Gv, Gtr, u_new, v_new, tr_new, ints = zslab_tendencies(
@@ -168,15 +180,17 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None):
 
 
 def _increments(grid, outs, ints, dtc1, diffusivities, surface_fluxes):
-    """The increments after K1, in the JAX package's order: the TKE source,
-    the surface-flux deposits, the immersed re-mask, the wall row. Each
-    G -> G + inc also moves the fused update, x* -> x* + dt c1 inc (the
-    previous step's increments sit in G_prev, which K1 consumed)."""
+    """The increments after K1, in the JAX package's order: the closure's
+    sources (of e, then of eps), the surface-flux deposits, the immersed
+    re-mask, the wall row. Each G -> G + inc also moves the fused update,
+    x* -> x* + dt c1 inc (the previous step's increments sit in G_prev,
+    which K1 consumed)."""
     Gu, Gv, Gtr, u_new, v_new, tr_new = outs
-    if diffusivities is not None:
-        G_e = diffusivities["G_e"]
-        Gtr["e"] += G_e
-        tr_new["e"] += dtc1 * G_e
+    for name in ("e", "eps"):
+        if diffusivities is not None and "G_" + name in diffusivities:
+            G = diffusivities["G_" + name]
+            Gtr[name] += G
+            tr_new[name] += dtc1 * G
 
     if surface_fluxes is not None:
         U0, V0, Us, Vs = ints
@@ -245,6 +259,11 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
         eta, u_new, v_new = barotropic_substep(cfg, grid, state, u_star, v_star, float(dt_t),
                                                ints)
         v_new = mask_v_wall(v_new)
+        if grid.north_fold:
+            with record_function("step/north_fold"):
+                # the seam row its own mirror image (in place: every field
+                # here is this step's own)
+                north_fold_projection(grid, u_new, eta, tracers)
         if grid.immersed:
             # the barotropic correction touched full columns
             u_mask, v_mask = interior_masks(grid)
@@ -266,15 +285,19 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
 
 def _implicit_solves(cfg, grid, u, v, tracers, d, dt):
     """Backward-Euler vertical diffusion with the closure's diffusivities:
-    (u, v) with kappa_u, (T, S) with kappa_c, e with kappa_e and its
-    dissipation rate; then e >= 0."""
+    (u, v) with kappa_u, (T, S) with kappa_c, e with kappa_e (and CATKE's
+    dissipation rate lam_e), eps with kappa_eps; then e, eps >= 0."""
     dzc = grid.dz_c[grid.hz : grid.hz + grid.Nz]
     dzf = grid.dz_f[grid.hz : grid.hz + grid.Nz]
     u, v = implicit_diffusion(cfg, (u, v), d["kappa_u"], dt, dzc, dzf)
     T, S = implicit_diffusion(cfg, (tracers["T"], tracers["S"]), d["kappa_c"], dt, dzc, dzf)
-    (e,) = implicit_diffusion(cfg, (tracers["e"],), d["kappa_e"], dt, dzc, dzf,
-                              damping=d["lam_e"])
-    return u, v, {**tracers, "T": T, "S": S, "e": torch.clamp(e, min=0.0)}
+    out = {**tracers, "T": T, "S": S}
+    for name in ("e", "eps"):
+        if name in tracers:
+            (x,) = implicit_diffusion(cfg, (tracers[name],), d["kappa_" + name], dt, dzc, dzf,
+                                      damping=d.get("lam_" + name))
+            out[name] = torch.clamp(x, min=0.0)
+    return u, v, out
 
 
 def loop(cfg, grid, state, dt, n):

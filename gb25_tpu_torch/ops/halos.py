@@ -11,8 +11,10 @@ cells per side from their boundary conditions:
   - ``zerograd``        replicate the edge value
   - ``zero``            zeros
 
-Only these modes are ported; the tripolar fold and the distributed
-exchange come with their slices.
+On the tripolar grid (``grid.north_fold``) the north ghosts are the fold
+rows of ``grids.tripolar`` instead, filled before the south boundary and
+the x wrap, as in the JAX package. The distributed exchange comes with its
+slice.
 """
 
 from __future__ import annotations
@@ -83,12 +85,19 @@ def extend_field(grid, a, kind: str):
     ``(Nz+2hz, Ny+2hy, Nx+2hx)``: one allocation, the interior copied in,
     then the ghost slabs written axis by axis (x, then y, then z), each
     from the slabs already filled. Every mode acts within its own axis, so
-    the corners agree with the JAX package's fill."""
+    the corners agree with the JAX package's fill. On the tripolar grid the
+    x and y ghosts are the fold's (fold, south, x wrap), then z."""
     hx, hy, hz = grid.halo
     Nz, Ny, Nx = a.shape
     e = a.new_empty((Nz + 2 * hz, Ny + 2 * hy, Nx + 2 * hx))
     e[hz : hz + Nz, hy : hy + Ny, hx : hx + Nx] = a
-    for axis, h, n in (("x", hx, Nx), ("y", hy, Ny), ("z", hz, Nz)):
+    axes = (("x", hx, Nx), ("y", hy, Ny), ("z", hz, Nz))
+    if grid.north_fold:
+        from gb25_tpu_torch.grids.tripolar import fill_fold_halos
+
+        fill_fold_halos(grid, e[hz : hz + Nz], kind, hx, hy)
+        axes = axes[2:]
+    for axis, h, n in axes:
         if h == 0:
             continue
         dim = _DIM3[axis]
@@ -101,13 +110,19 @@ def extend_field(grid, a, kind: str):
 
 def extend2(grid, a, kind: str, h: int = 1):
     """Extend a ``(Ny, Nx)`` plane by ``h`` ghosts in x and y."""
-    (xlo, xhi), (ylo, yhi), _ = FIELD_BCS[kind]
-    a = extend_axis(a, h, _DIM2["x"], xlo, xhi)
-    return extend_axis(a, h, _DIM2["y"], ylo, yhi)
+    return _extend_plane(grid, a, kind, h, h)
 
 
 def extend_field_xy(grid, a, kind: str):
     """Extend a ``(Ny, Nx)`` plane by the grid's halo (hx in x, hy in y)."""
+    return _extend_plane(grid, a, kind, grid.hx, grid.hy)
+
+
+def _extend_plane(grid, a, kind, hx, hy):
+    if grid.north_fold:
+        from gb25_tpu_torch.grids.tripolar import extend_field_tripolar
+
+        return extend_field_tripolar(grid, a, kind, hx, hy)
     (xlo, xhi), (ylo, yhi), _ = FIELD_BCS[kind]
-    a = extend_axis(a, grid.hx, _DIM2["x"], xlo, xhi)
-    return extend_axis(a, grid.hy, _DIM2["y"], ylo, yhi)
+    a = extend_axis(a, hx, _DIM2["x"], xlo, xhi)
+    return extend_axis(a, hy, _DIM2["y"], ylo, yhi)

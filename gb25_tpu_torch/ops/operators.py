@@ -61,7 +61,10 @@ def hydrostatic_pressure(grid, b):
 
 
 def coriolis_ff(grid, omega):
-    """Planetary vorticity f = 2 Omega sin(phi) at corners (f, f),
-    shaped (1, Ny+2hy, 1)."""
+    """Planetary vorticity f = 2 Omega sin(phi) at corners (f, f), shaped
+    (1, Ny+2hy, 1), or (1, Ny+2hy, Nx+2hx) from the tripolar grid's
+    extended corner latitude."""
+    if grid.north_fold:
+        return (2.0 * omega * torch.sin(grid.phi2_ff * (math.pi / 180.0))).to(grid.dtype)
     f = 2.0 * omega * torch.sin(grid.phi_f * (math.pi / 180.0))
     return f.reshape(1, -1, 1).to(grid.dtype)

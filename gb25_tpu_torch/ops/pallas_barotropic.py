@@ -1,12 +1,14 @@
 """The split-explicit barotropic substep loop: kernel K2 (port of
-``gb25_tpu.ops.pallas_barotropic.pallas_barotropic_loop`` on the lat-lon
-grid, with the optional solid-face masks of immersed grids).
+``gb25_tpu.ops.pallas_barotropic.pallas_barotropic_loop``, with the
+optional solid-face masks of immersed grids and the tripolar fold row).
 
 The loop advances (eta, Ud = U dyc, Vd = V dxf) through ``substeps``
-forward-backward substeps: x periodic, eta mirrored at the y walls
-(detay = 0 on row 0), no flux through the north wall face; on immersed
-grids the masks ``mu``, ``mv`` multiply Ud and Vd after every substep. The
-pressure-gradient and forcing planes carry dtau folded in; the filtered
+forward-backward substeps: x periodic, eta mirrored at the south wall
+(detay = 0 on row 0), no flux through the north wall face, or on the
+tripolar grid the fold's ghost flux -Vd[Ny-1, (2p - x) mod Nx] above the
+seam row; on immersed grids the masks ``mu``, ``mv`` multiply Ud and Vd
+after every substep. The pressure-gradient and forcing planes carry dtau
+folded in (from the 2-D metric planes on the tripolar grid); the filtered
 accumulators are un-weighted afterwards. Plane building and un-weighting
 are torch ops, as in the JAX package.
 
@@ -21,13 +23,14 @@ import ctypes
 
 import torch
 
+from gb25_tpu_torch.grids.tripolar import fold_x
 from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, uses_kernel
 
 _P = ctypes.c_void_p
 
 KERNEL = CudaKernel(
     "barotropic_loop.cu",
-    {"barotropic_substep_f32": [_P] * 16 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [_P]},
+    {"barotropic_substep_f32": [_P] * 16 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [_P]},
 )
 
 
@@ -42,41 +45,50 @@ def barotropic_loop(cfg, grid, eta0, U0, V0, GU, GV, Hu, Hv, dt, mu=None, mv=Non
     M = fs.substeps
     weights = averaging_weights(M, fs.averaging)
     dtype = eta0.dtype
-    hy, Ny = grid.hy, grid.Ny
+    hx, hy, Nx, Ny = grid.hx, grid.hy, grid.Nx, grid.Ny
 
-    def prof(m):  # (1, Ny+2hy, 1) metric -> interior (Ny, 1) column
-        return m[0, hy : hy + Ny, :].to(dtype)
+    def plane(m):  # extended metric -> interior (Ny, 1) column or (Ny, Nx) plane
+        m = m[0, hy : hy + Ny]
+        return (m[:, hx : hx + Nx] if grid.north_fold else m).to(dtype)
 
-    dyc, dxf = prof(grid.dyc), prof(grid.dxf)
+    dyc, dxf = plane(grid.dyc), plane(grid.dxf)
     # dtau in the working precision, as the JAX package traces it
     dtau = torch.tensor(2.0 * dt / M, dtype=dtype).item()
-    r_azc = (1.0 / prof(grid.azc)).reshape(-1).contiguous()
+    r_azc = 1.0 / plane(grid.azc)
+    r_azc = (r_azc if grid.north_fold else r_azc.reshape(-1)).contiguous()
     Ud0 = (U0 * dyc).contiguous()
     Vd0 = (V0 * dxf).contiguous()
-    gHuW = (Hu * (dyc / prof(grid.dxc)) * (dtau * fs.gravitational_acceleration)).contiguous()
-    gHvW = (Hv * (dxf / prof(grid.dyf)) * (dtau * fs.gravitational_acceleration)).contiguous()
+    gHuW = (Hu * (dyc / plane(grid.dxc)) * (dtau * fs.gravitational_acceleration)).contiguous()
+    gHvW = (Hv * (dxf / plane(grid.dyf)) * (dtau * fs.gravitational_acceleration)).contiguous()
     GUd = (GU * dyc * dtau).contiguous()
     GVd = (GV * dxf * dtau).contiguous()
     masks = None if mu is None else (mu.to(dtype).contiguous(), mv.to(dtype).contiguous())
     planes = (eta0.contiguous(), Ud0, Vd0, gHuW, gHvW, GUd, GVd, r_azc)
+    fold_p = grid.pole_index if grid.north_fold else None
     if uses_kernel(cfg, eta0):
-        etab, Ub, Vb = _barotropic_loop_cuda(*planes, weights, dtau, masks)
+        etab, Ub, Vb = _barotropic_loop_cuda(*planes, weights, dtau, masks, fold_p)
     else:
-        etab, Ub, Vb = barotropic_loop_plain(*planes, weights, dtau, masks)
+        etab, Ub, Vb = barotropic_loop_plain(*planes, weights, dtau, masks, fold_p)
     return etab, Ub / dyc, Vb / dxf
 
 
-def barotropic_loop_plain(eta, Ud, Vd, gHuW, gHvW, GUd, GVd, r_azc, weights, dtau, masks=None):
+def barotropic_loop_plain(eta, Ud, Vd, gHuW, gHvW, GUd, GVd, r_azc, weights, dtau, masks=None,
+                          fold_p=None):
     """The plain PyTorch version of K2: the flux-form substeps of the JAX
-    kernel with ``torch.roll`` / ``torch.cat`` (any dtype, any device)."""
-    raz = r_azc.reshape(-1, 1)
+    kernel with ``torch.roll`` / ``torch.cat`` (any dtype, any device).
+    ``r_azc``: (Ny,) profile, or (Ny, Nx) plane with ``fold_p``, the pole
+    column of the tripolar fold."""
+    raz = r_azc if fold_p is not None else r_azc.reshape(-1, 1)
     etab = torch.zeros_like(eta)
     Ub = torch.zeros_like(Ud)
     Vb = torch.zeros_like(Vd)
     top = torch.zeros_like(Vd[:1])
     for wm in weights:
         wm = float(torch.tensor(wm, dtype=eta.dtype))
-        # continuity: x flux difference (periodic), y flux with Vd[Ny] = 0
+        # continuity: x flux difference (periodic), y flux with Vd[Ny] = 0,
+        # or the fold's ghost flux read from this substep's input
+        if fold_p is not None:
+            top = -fold_x(Vd[-1:], fold_p, face=False)
         Vd_up = torch.cat([Vd[1:], top], dim=0)
         div = (torch.roll(Ud, -1, dims=1) - Ud + Vd_up - Vd) * raz
         eta = eta - dtau * div
@@ -94,7 +106,8 @@ def barotropic_loop_plain(eta, Ud, Vd, gHuW, gHvW, GUd, GVd, r_azc, weights, dta
     return etab, Ub, Vb
 
 
-def _barotropic_loop_cuda(eta, Ud, Vd, gHuW, gHvW, GUd, GVd, r_azc, weights, dtau, masks=None):
+def _barotropic_loop_cuda(eta, Ud, Vd, gHuW, gHvW, GUd, GVd, r_azc, weights, dtau, masks=None,
+                          fold_p=None):
     dev = eta.device
     Ny, Nx = eta.shape
     mu, mv = masks if masks is not None else (None, None)
@@ -103,7 +116,9 @@ def _barotropic_loop_cuda(eta, Ud, Vd, gHuW, gHvW, GUd, GVd, r_azc, weights, dta
         if t is not None:
             check_tensor(t, name, (Ny, Nx), torch.float32, dev)
     mask_ptrs = (None, None) if masks is None else (mu.data_ptr(), mv.data_ptr())
-    check_tensor(r_azc, "r_azc", (Ny,), torch.float32, dev)
+    check_tensor(r_azc, "r_azc", (Ny,) if fold_p is None else (Ny, Nx), torch.float32, dev)
+    if fold_p is not None and not 0 <= fold_p < Nx:
+        raise ValueError(f"fold pole column {fold_p} outside [0, {Nx})")
 
     etab = torch.zeros_like(eta)
     Ub = torch.zeros_like(Ud)
@@ -121,7 +136,7 @@ def _barotropic_loop_cuda(eta, Ud, Vd, gHuW, gHvW, GUd, GVd, r_azc, weights, dta
                 "barotropic_substep_f32",
                 *[t.data_ptr() for t in (*cur, *nxt, gHuW, gHvW, GUd, GVd, r_azc)],
                 *mask_ptrs, *[t.data_ptr() for t in (etab, Ub, Vb)],
-                dtau, wm, Nx, Ny, stream,
+                dtau, wm, Nx, Ny, -1 if fold_p is None else fold_p, stream,
             )
             cur = nxt
     return etab, Ub, Vb

@@ -2,12 +2,13 @@
 (port of ``gb25_tpu.ops.pallas_zslab.zslab_tendencies`` with ``ab2``,
 ``wall_v=True`` and ``integrals=True``).
 
-From the halo-extended ``(Z, Y, X)`` u, v and two or three tracers (T, S
-and, with CATKE, e) it computes the momentum and tracer tendencies, the
+From the halo-extended ``(Z, Y, X)`` u, v and two to four tracers (T, S
+and, with CATKE, e; with k-epsilon, e and eps) it computes the momentum and
+tracer tendencies, the
 updated fields x* = x + dt c1 G + dt c2 G_prev with the south-wall row of
 Gv and v* zeroed, and the depth integrals of u, v, u*, v*. On immersed
-grids the u*, v* integrals count fluid faces only (``face_bottoms``). The
-TEOS-10 buoyancy and its column total are torch ops outside the kernel, as
+grids the u*, v* integrals count fluid faces only (``face_bottoms``). On
+the tripolar grid the metrics and f are 2-D planes. The TEOS-10 buoyancy and its column total are torch ops outside the kernel, as
 in the JAX package; a caller that needs b elsewhere too (the CATKE
 closure) computes it once and passes it in.
 
@@ -29,14 +30,14 @@ from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, uses_kerne
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_MAX_TRACERS = 3
+_MAX_TRACERS = 4
 _PTRS = ctypes.c_void_p * _MAX_TRACERS  # one pointer per tracer slot, unused slots null
 _PP = ctypes.POINTER(ctypes.c_void_p)
 
 KERNEL = CudaKernel(
     "zslab_tendencies.cu",
     {"zslab_tendencies_f32": [_P] * 3 + [_PP] + [_P] * 15 + [_PP] + [_P] * 2 + [_PP]
-     + [_P] * 2 + [_PP] + [_P] * 4 + [_I] * 7 + [_F] * 3 + [_P]},
+     + [_P] * 2 + [_PP] + [_P] * 4 + [_I] * 8 + [_F] * 3 + [_P]},
 )
 
 
@@ -53,7 +54,7 @@ def zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab, buoyancy=None, face_bott
     """Tendencies, AB2-updated fields and depth integrals of one step.
 
     ue, ve, tr_e: extended (Nz+2hz, Ny+2hy, Nx+2hx) u, v and tracers
-    ({"T", "S"} or {"T", "S", "e"}).
+    ({"T", "S"}, plus "e" with CATKE, plus "e", "eps" with k-epsilon).
     prev: (Gu, Gv, {tracer: G}) previous tendencies, interior (Nz, Ny, Nx).
     ab: (dt c1, dt c2) as Python floats.
     buoyancy: optional (be, b_total) from ``column_buoyancy``.
@@ -114,7 +115,9 @@ def zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms=No
         raise ValueError(f"K1 needs halos >= 3 (WENO-5 radius), got {grid.halo}")
     names = list(tr_e)
     if not 2 <= len(names) <= _MAX_TRACERS:
-        raise ValueError(f"K1 advects 2 or 3 tracers, got {names}")
+        raise ValueError(f"K1 advects 2 to {_MAX_TRACERS} tracers, got {names}")
+    if grid.north_fold and face_bottoms is None:
+        raise ValueError("K1 on the tripolar grid needs its face bottoms (it is immersed)")
     ext = (Nz + 2 * hz, Ny + 2 * hy, Nx + 2 * hx)
     shape = (Nz, Ny, Nx)
     Gu_p, Gv_p, Gtr_p = prev
@@ -125,12 +128,14 @@ def zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms=No
                     *((f"G{k}_prev", Gtr_p[k]) for k in names)):
         check_tensor(t, name, shape, f32, dev)
 
+    # y profiles, or (Y, X) planes flattened on the tripolar grid
     prof = [m.reshape(-1).contiguous() for m in
             (grid.dxc, grid.dxf, grid.dyc, grid.dyf, grid.azc, grid.azf,
              coriolis_ff(grid, cfg.coriolis))]
     zprof = [m.reshape(-1).contiguous() for m in (grid.dz_c, grid.dz_f, grid.z_c)]
+    metric_len = ext[1] * ext[2] if grid.north_fold else ext[1]
     for name, t in zip(("dxc", "dxf", "dyc", "dyf", "azc", "azf", "f_ff"), prof):
-        check_tensor(t, name, (ext[1],), f32, dev)
+        check_tensor(t, name, (metric_len,), f32, dev)
     for name, t in zip(("dz_c", "dz_f", "z_c"), zprof):
         check_tensor(t, name, (ext[0],), f32, dev)
     if face_bottoms is not None:
@@ -161,7 +166,7 @@ def zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms=No
             Gu.data_ptr(), Gv.data_ptr(), ptrs(Gtr.values()),
             u_new.data_ptr(), v_new.data_ptr(), ptrs(tr_new.values()),
             *[t.data_ptr() for t in ints],
-            len(names), Nx, Ny, Nz, hx, hy, hz, float(ab[0]), float(ab[1]),
+            len(names), Nx, Ny, Nz, hx, hy, hz, int(grid.north_fold), float(ab[0]), float(ab[1]),
             float(cfg.weno_eps), stream,
         )
     return Gu, Gv, Gtr, u_new, v_new, tr_new, tuple(ints)

@@ -1,12 +1,14 @@
 """Where a step's device time goes (the port's counterpart of
 ``gb25_tpu.utils.profiling``, built on ``torch.profiler``).
 
-    python -m gb25_tpu_torch.utils.profiling [--model flagship|climate]
-        [--steps 4 --warmup 3 --kernels auto]
+    python -m gb25_tpu_torch.utils.profiling
+        [--model flagship|climate|tripolar|keps] [--steps 4 --warmup 3 --kernels auto]
 
 Profiles a few steps at 1536x768x64 on the GPU after a warm-up: the
-flagship baroclinic-instability ocean or the coupled climate model at
-1/4 degree. Prints the device time per kernel name, grouped into the
+flagship baroclinic-instability ocean, the coupled climate model at 1/4
+degree on the lat-lon islands grid or on the tripolar grid, or the
+flagship with the k-epsilon closure (started from e = 1e-5, eps = 1e-8).
+Prints the device time per kernel name, grouped into the
 hand-written kernels and the torch ops around them, the device busy share
 of the profiled window (summed kernel time over wall time; overlap between
 kernels is ignored, which a single stream does not have) and the peak
@@ -73,12 +75,15 @@ def group(name: str) -> str:
         return "K3 implicit_diffusion (CUDA)"
     if "catke_diffusivities_kernel" in name:
         return "K4 catke_diffusivities (CUDA)"
+    if "keps_diffusivities_kernel" in name:
+        return "K4 keps_diffusivities (CUDA)"
     return "torch ops (halo fill, TEOS-10, masks, fluxes, planes, correction)"
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", default="flagship", choices=["flagship", "climate"])
+    p.add_argument("--model", default="flagship",
+                   choices=["flagship", "climate", "tripolar", "keps"])
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--kernels", default="auto", choices=["auto", "torch"])
@@ -92,15 +97,19 @@ def main():
         data_free_ocean_climate_model,
         loop,
     )
+    from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 
-    if args.model == "flagship":
-        cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, kernels=args.kernels)
+    if args.model in ("flagship", "keps"):
+        closure = TKEDissipationVerticalDiffusivity() if args.model == "keps" else None
+        cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, kernels=args.kernels,
+                                                        closure=closure)
 
         def run(s, n):
             return loop(cfg, grid, s, 60.0, n)
     else:
+        grid_type = "gaussian_islands_tripolar" if args.model == "tripolar" else "gaussian_islands"
         ccfg, grid, atmos, state = data_free_ocean_climate_model(
-            resolution=384 / NX, Nz=NZ, kernels=args.kernels)
+            resolution=384 / NX, Nz=NZ, kernels=args.kernels, grid_type=grid_type)
 
         def run(s, n):
             return coupled_loop(ccfg, grid, atmos, s, 60.0, n)

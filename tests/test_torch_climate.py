@@ -217,6 +217,9 @@ def test_config_rejects_other_tracer_sets_and_tripolar():
         HydrostaticConfig(tracers=("T", "S", "e"))
     with pytest.raises(ValueError, match="tracers"):
         HydrostaticConfig(tracers=("T", "S"), closure=CATKEVerticalDiffusivity())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        data_free_ocean_climate_model(resolution=8.0, Nz=4, device="cpu",
-                                      grid_type="gaussian_islands_tripolar")
+    # the tripolar grid is taken by its name only (tests/test_torch_tripolar.py)
+    with pytest.raises(ValueError, match="gaussian_islands_tripolar"):
+        data_free_ocean_climate_model(resolution=8.0, Nz=4, device="cpu", grid_type="tripolar")
+    _, grid, _, _ = data_free_ocean_climate_model(resolution=8.0, Nz=4, device="cpu",
+                                                  grid_type="gaussian_islands_tripolar")
+    assert grid.north_fold and grid.immersed

@@ -8,9 +8,10 @@ configuration:
 Tolerances: K1 rtol 2e-4 (the JAX package's kernel-vs-array bound, with
 tests/test_zslab.py's atol), K2 rtol 1e-5 (tests/test_barotropic_kernel.py),
 K4 rtol 1e-6 (tests/test_pallas_catke.py: the same pointwise formulas,
-rounded alike with -fmad=false), K3 rtol 1e-5 (the Pallas kernel's
-recurrence term by term), one step rtol 1e-3 / atol 5e-6
-(tests/test_zslab.py).
+rounded alike with -fmad=false; K4's k-epsilon function bit for bit), K3
+rtol 1e-5 (the Pallas kernel's recurrence term by term), one step rtol
+1e-3 / atol 5e-6 (tests/test_zslab.py). The tripolar instances of K1 and K2
+and the four-tracer instance of K1 run on the same checks.
 """
 
 import dataclasses
@@ -25,7 +26,9 @@ from gb25_tpu_torch import (
     time_step,
 )
 from gb25_tpu_torch.grids.immersed import face_bottom_planes, face_masks
+from gb25_tpu_torch.models import loop
 from gb25_tpu_torch.models.free_surface import face_depths
+from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.ops import pallas_barotropic, pallas_catke, pallas_tridiag, pallas_zslab
 from gb25_tpu_torch.ops.halos import extend_field
 
@@ -109,11 +112,12 @@ def test_auto_on_cuda_raises_for_unsupported_dtype(cuda):
         time_step(cfg, grid, state, 60.0)
 
 
-def _climate_operands(cuda, shape, seed):
+def _climate_operands(cuda, shape, seed, grid_type="gaussian_islands"):
     """Extended, masked u, v, tracers and the buoyancy of a perturbed
-    climate state on the Gaussian-islands grid."""
+    climate state on the Gaussian-islands grid (lat-lon or tripolar)."""
     Nx, Ny, Nz = shape
-    ccfg, grid, _, state = data_free_ocean_climate_model(resolution=384 / Nx, Nz=Nz, device=cuda)
+    ccfg, grid, _, state = data_free_ocean_climate_model(resolution=384 / Nx, Nz=Nz, device=cuda,
+                                                         grid_type=grid_type)
     assert grid.shape == (Nz, Ny, Nx)
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
@@ -172,8 +176,10 @@ def test_k3_rejects_deep_columns(cuda):
         pallas_tridiag.implicit_diffusion(cfg, (f,), f, 60.0, grid.dz_c[4:-4], grid.dz_f[4:-4])
 
 
-def test_k1_climate_matches_plain(cuda):
-    cfg, grid, ue, ve, tr_e, be, b_total, noise = _climate_operands(cuda, (128, 64, 8), 7)
+@pytest.mark.parametrize("grid_type", ["gaussian_islands", "gaussian_islands_tripolar"])
+def test_k1_climate_matches_plain(cuda, grid_type):
+    cfg, grid, ue, ve, tr_e, be, b_total, noise = _climate_operands(cuda, (128, 64, 8), 7,
+                                                                    grid_type)
     prev = (noise(1e-7), noise(1e-7), {k: noise(1e-7) for k in tr_e})
     prev[1][:, 0, :] = 0.0
     ab = (96.0, -36.0)
@@ -195,9 +201,11 @@ def test_k1_climate_matches_plain(cuda):
         _close(g, w, 2e-4, 2e-4 * float(w.abs().max()) + 1e-6)
 
 
-def test_k2_masked_matches_plain(cuda):
+@pytest.mark.parametrize("grid_type", ["gaussian_islands", "gaussian_islands_tripolar"])
+def test_k2_masked_matches_plain(cuda, grid_type):
     Nx, Ny = 128, 64
-    ccfg, grid, _, _ = data_free_ocean_climate_model(resolution=3.0, Nz=8, device=cuda)
+    ccfg, grid, _, _ = data_free_ocean_climate_model(resolution=3.0, Nz=8, device=cuda,
+                                                     grid_type=grid_type)
     gen = torch.Generator(device=cuda).manual_seed(8)
     eta0, U0, V0, GU, GV = (s * torch.randn((Ny, Nx), generator=gen, device=cuda)
                             for s in (1e-2, 1.0, 1.0, 1e-4, 1e-4))
@@ -206,20 +214,25 @@ def test_k2_masked_matches_plain(cuda):
     V0[0] = 0.0
     GV[0] = 0.0
     cfg = ccfg.ocean
+    # the tripolar grid's metric-floored cells next to the pole caps are
+    # gravity-wave unstable at dt = 60 s (the JAX fold test runs 10 s)
+    dt = 10.0 if grid.north_fold else 60.0
     before = pallas_barotropic.KERNEL.launches
     got = pallas_barotropic.barotropic_loop(cfg, grid, eta0, U0, V0, GU * mu, GV * mv, Hu, Hv,
-                                            60.0, mu=mu, mv=mv)
+                                            dt, mu=mu, mv=mv)
     torch.cuda.synchronize()
     assert pallas_barotropic.KERNEL.launches == before + cfg.free_surface.substeps
     plain = dataclasses.replace(cfg, kernels="torch")
     want = pallas_barotropic.barotropic_loop(plain, grid, eta0, U0, V0, GU * mu, GV * mv, Hu,
-                                             Hv, 60.0, mu=mu, mv=mv)
+                                             Hv, dt, mu=mu, mv=mv)
     for g, w in zip(got, want):
         _close(g, w, 1e-5, 1e-6 * float(w.abs().max()))
 
 
-def test_coupled_step_matches_plain_step(cuda):
-    ccfg, grid, atmos, state = data_free_ocean_climate_model(resolution=3.0, Nz=8, device=cuda)
+@pytest.mark.parametrize("grid_type", ["gaussian_islands", "gaussian_islands_tripolar"])
+def test_coupled_step_matches_plain_step(cuda, grid_type):
+    ccfg, grid, atmos, state = data_free_ocean_climate_model(resolution=3.0, Nz=8, device=cuda,
+                                                             grid_type=grid_type)
     plain = dataclasses.replace(ccfg, ocean=dataclasses.replace(ccfg.ocean, kernels="torch"))
     counts = [k.launches for k in (pallas_zslab.KERNEL, pallas_barotropic.KERNEL,
                                    pallas_tridiag.KERNEL, pallas_catke.KERNEL)]
@@ -232,3 +245,94 @@ def test_coupled_step_matches_plain_step(cuda):
     for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), *zip(a.tracers.values(),
                                                            b.tracers.values())):
         _close(x, y, 1e-3, 5e-6)
+
+
+def test_k2_fold_without_masks_matches_plain(cuda):
+    """K2's tripolar instance without mask planes: the fold row alone."""
+    ccfg, grid, _, _ = data_free_ocean_climate_model(resolution=3.0, Nz=8, device=cuda,
+                                                     grid_type="gaussian_islands_tripolar")
+    Nx, Ny = grid.Nx, grid.Ny
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    eta0, U0, V0, GU, GV = (s * torch.randn((Ny, Nx), generator=gen, device=cuda)
+                            for s in (1e-3, 1.0, 1.0, 1e-4, 1e-4))
+    V0[0] = 0.0
+    GV[0] = 0.0
+    H = torch.full((Ny, Nx), 4000.0, device=cuda)
+    cfg = ccfg.ocean
+    before = pallas_barotropic.KERNEL.launches
+    got = pallas_barotropic.barotropic_loop(cfg, grid, eta0, U0, V0, GU, GV, H, H, 10.0)
+    torch.cuda.synchronize()
+    assert pallas_barotropic.KERNEL.launches == before + cfg.free_surface.substeps
+    want = pallas_barotropic.barotropic_loop(dataclasses.replace(cfg, kernels="torch"), grid,
+                                             eta0, U0, V0, GU, GV, H, H, 10.0)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5, 1e-6 * float(w.abs().max()))
+
+
+def _keps_operands(cuda, shape, seed):
+    cfg, grid, state = baroclinic_instability_model(*shape, device=cuda,
+                                                    closure=TKEDissipationVerticalDiffusivity())
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def noise(s):
+        return s * torch.randn(grid.shape, generator=gen, device=cuda)
+
+    tr = {"T": state.tracers["T"] + noise(0.1), "S": state.tracers["S"],
+          "e": 1e-5 * (1.0 + torch.rand(grid.shape, generator=gen, device=cuda)),
+          "eps": 1e-8 * (1.0 + torch.rand(grid.shape, generator=gen, device=cuda))}
+    ue = extend_field(grid, noise(0.05), "u")
+    ve = extend_field(grid, noise(0.05), "v")
+    tr_e = {k: extend_field(grid, c, "c") for k, c in tr.items()}
+    be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
+    return cfg, grid, ue, ve, tr_e, be, b_total, noise
+
+
+@pytest.mark.parametrize("shape", [(128, 64, 8), (100, 20, 10)])
+def test_k4_keps_matches_plain_bitwise(cuda, shape):
+    cfg, grid, ue, ve, tr_e, be, _, _ = _keps_operands(cuda, shape, 10)
+    before = pallas_catke.KEPS_KERNEL.launches
+    got = pallas_catke.keps_diffusivities_kernel(cfg, grid, ue, ve, be, tr_e["e"], tr_e["eps"])
+    torch.cuda.synchronize()
+    assert pallas_catke.KEPS_KERNEL.launches == before + 1
+    want = pallas_catke.keps_diffusivities_plain(cfg.closure, grid, ue, ve, be, tr_e["e"],
+                                                 tr_e["eps"])
+    for g, w in zip(got, want):
+        _close(g, w, 0.0, 0.0)
+
+
+def test_k1_four_tracers_matches_plain(cuda):
+    cfg, grid, ue, ve, tr_e, be, b_total, noise = _keps_operands(cuda, (128, 32, 8), 11)
+    prev = (noise(1e-7), noise(1e-7), {k: noise(1e-7) for k in tr_e})
+    prev[1][:, 0, :] = 0.0
+    ab = (96.0, -36.0)
+    before = pallas_zslab.KERNEL.launches
+    got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab, buoyancy=(be, b_total))
+    torch.cuda.synchronize()
+    assert pallas_zslab.KERNEL.launches == before + 1
+    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be)
+    _close(got[0], want[0], 2e-4, 1e-9)
+    _close(got[1], want[1], 2e-4, 1e-9)
+    for k in ("T", "S", "e", "eps"):
+        _close(got[2][k], want[2][k], 2e-4, 1e-7)
+        _close(got[5][k], want[5][k], 2e-4, ab[0] * 2e-4 * float(want[2][k].abs().max()))
+    for g, w in zip(got[6], want[6]):
+        _close(g, w, 2e-4, 2e-4 * float(w.abs().max()) + 1e-6)
+
+
+def test_keps_steps_match_plain_steps(cuda):
+    """Two k-epsilon flagship steps (an Euler and an AB2 step) through the
+    kernels against the plain path: one K1, 30 K2, four K3 (u and v, T and
+    S, e, eps) and one k-epsilon K4 launch per step."""
+    cfg, grid, state = baroclinic_instability_model(128, 32, 8, device=cuda,
+                                                    closure=TKEDissipationVerticalDiffusivity())
+    kernels = (pallas_zslab.KERNEL, pallas_barotropic.KERNEL, pallas_tridiag.KERNEL,
+               pallas_catke.KEPS_KERNEL, pallas_catke.KERNEL)
+    counts = [k.launches for k in kernels]
+    a = loop(cfg, grid, state, 60.0, 2)
+    torch.cuda.synchronize()
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [2, 60, 8, 2, 0]
+    b = loop(dataclasses.replace(cfg, kernels="torch"), grid, state, 60.0, 2)
+    for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), *zip(a.tracers.values(),
+                                                           b.tracers.values())):
+        _close(x, y, 1e-3, 5e-6)
+    assert float(a.tracers["e"].min()) >= 0.0 and float(a.tracers["eps"].min()) >= 0.0
