@@ -54,20 +54,38 @@ barotropic substeps):
   18. the main path: one step kernels vs plain (tolerances of [5]), 8
      warm-up steps and two 128-step loops, launch counts per step exactly
      1 K1, 30 K2, 4 K3, 1 k-epsilon K4 and no CATKE K4; then finite
-     fields, e >= 0 and eps >= 0; 3 steps of the plain path, timed.
+     fields, e >= 0 and eps >= 0; 3 steps of the plain path, timed;
+  the decomposed path, forced onto a 1x1 mesh (the bench's decomposed 1x1
+  rows, exchange_width = 30: one block of 30 substeps a step):
+  19. K5 (barotropic_block) against its plain version on one block at the
+     decomposed climate shape, (768 + 60) x (1536 + 60) planes, with
+     tripolar metric planes and masks and with lat-lon metric columns,
+     rtol 1e-6 (and whether the two agree bit for bit);
+  20. the tripolar climate model: 8 steps, then one step kernels vs plain
+     (tolerances of [5]), one step "ring" against "local" bit for bit,
+     then in each mode 8 warm-up steps and two 64-step loops, the second
+     timed, launch counts per step exactly 1 K1, 30 K5, 0 K2, 3 K3, 1 K4;
+     finite fields, land at rest; ms/step beside [13]'s;
+  21. the flagship the same way: per step 1 K1, 30 K5, 0 K2; beside [5]'s.
+  "ring" runs on an NCCL process group of one rank (a ``HashStore``, no
+  network); its exchanges are copies of the tile's own strips, "local"
+  fills the ghosts from the boundary conditions.
 
-Every phase raises on failure, and the script then exits non-zero. Three
-lines end the output: a JSON object with each kernel instance's launches
+Every phase raises on failure, and the script then exits non-zero. [22]
+sums up the ms/step of every path. Three lines end the output: a JSON object with each kernel instance's launches
 on its main path, error against its plain version, times, its bound (the
 larger of its compulsory bytes over 3.35 TB/s and its operations over
 67 TFLOP/s) and its library time (null: no one PyTorch call computes any
-of these functions); then the card's name and power limit; then
+of these functions; K5's entry also carries its column instance and its
+launches in "ring" and on the flagship); then the card's name and power
+limit; then
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
 prints no result. Times are CUDA-event means: ``ms`` of K1 and K3 is the
 kernel launch alone on operands prepared once (K3 summed over a step's
 solves), of K4 its wrapper (the launch and one or two 1-D profile
 reshapes), of K2 the whole 30-substep loop wrapper, its plane building
-included; ``plain_ms`` is the plain version on the same operands.
+included, of K5 one block of 30 launches; ``plain_ms`` is the plain version
+on the same operands.
 """
 
 import concurrent.futures
@@ -78,6 +96,7 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 REFERENCE_CELL_STEPS_PER_SEC = 768 * 768 * 64 / 0.221  # GB-25 on one Alps GH200
 NX, NY, NZ = 1536, 768, 64
@@ -86,6 +105,7 @@ DT = 60.0
 WARMUP, STEPS, PLAIN_STEPS = 8, 256, 3
 CLIMATE_STEPS, CLIMATE_PLAIN_STEPS = 128, 2
 TRIPOLAR_PLAIN_STEPS, KEPS_STEPS, KEPS_PLAIN_STEPS = 3, 128, 3
+DECOMPOSED_W, DECOMPOSED_STEPS = 30, 64  # the bench's decomposed 1x1 rows
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -790,6 +810,170 @@ def keps(card):
     ], {"ms_step": ms_step, "rate": rate, "plain_ms_step": plain_ms_step}
 
 
+# --------------------------------------------------------------------------
+# the decomposed path on one card: kernel K5, the forced 1x1 modes
+# --------------------------------------------------------------------------
+
+def k5_bound(Ye, Xe, substeps, metric2d, masked):
+    """One block reads eta, U, V, the four forcing planes, dyc, dxf and
+    dtau / area (planes on the tripolar grid, columns otherwise) and the
+    two masks, and writes six planes; 14 (16 masked) operations per cell and
+    substep, the Pallas kernel's own count."""
+    plane = Ye * Xe * 4
+    nbytes = (7 + 6 + (3 if metric2d else 0) + (2 if masked else 0)) * plane
+    nbytes += 0 if metric2d else 3 * Ye * 4
+    return bound(nbytes, (16 if masked else 14) * substeps * Ye * Xe)
+
+
+def phase_k5(gen):
+    """K5 against its plain version at the decomposed climate shape: one
+    block of 30 substeps (W = 30) on (768 + 60) x (1536 + 60) planes, with
+    tripolar metric planes and masks, then with lat-lon metric columns."""
+    from gb25_tpu_torch.models.free_surface import averaging_weights
+    from gb25_tpu_torch.ops import pallas_barotropic
+
+    W = DECOMPOSED_W
+    Ye, Xe = NY + 2 * W, NX + 2 * W
+    weights = averaging_weights(W)
+
+    def r(shape, scale, offset=0.0):
+        return offset + scale * torch.rand(shape, generator=gen, device=DEVICE)
+
+    out = {}
+    for label, metric2d, masked in (("tripolar", True, True), ("columns", False, False)):
+        m = (Ye, Xe) if metric2d else (Ye, 1)
+        # a real block's magnitudes: dtau = 4 s, ~4000 m deep, ~27 km cells
+        ops = [r((Ye, Xe), 2e-2, -1e-2), r((Ye, Xe), 2.0, -1.0), r((Ye, Xe), 2.0, -1.0),
+               r((Ye, Xe), 1.0, 5.0), r((Ye, Xe), 1.0, 5.0), r((Ye, Xe), 2e-4, -1e-4),
+               r((Ye, Xe), 2e-4, -1e-4), r(m, 5e3, 2.5e4), r(m, 5e3, 2.5e4), r(m, 1e-9, 5e-9)]
+        masks = ([(r((Ye, Xe), 1.0) > 0.05).float() for _ in range(2)] if masked
+                 else [None, None])
+
+        def kernel():
+            return pallas_barotropic._barotropic_block_cuda(weights, *ops, *masks)
+
+        def plain():
+            return pallas_barotropic.barotropic_block_plain(weights, *ops, *masks)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        names = ("eta", "U", "V", "pe", "pU", "pV")
+        errs = [compare(f"{n} {label}", g, w, 1e-6, 1e-6 * float(w.abs().max()))
+                for n, g, w in zip(names, got, want)]
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        del got, want
+        ms = cuda_time_ms(kernel, reps=10)
+        plain_ms = cuda_time_ms(plain, reps=3)
+        b = k5_bound(Ye, Xe, W, metric2d, masked)
+        print(f"  K5 {label} ({Ye}x{Xe}, {W} substeps): {ms:.3f} ms (bound {b[0]:.4f} ms); "
+              f"plain {plain_ms:.3f} ms; bit for bit with the plain version: {bitwise}")
+        out[label] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound": b,
+                      "bitwise": bitwise}
+        del ops, masks
+    return out
+
+
+def decomposed(label, build, state, serial_ms, kernels, per_step, steps, phase):
+    """A model forced onto the decomposed path on a 1x1 mesh:
+    ``build(mode, n_inner, plain)`` gives the rank's step function. One step
+    of the kernel path against the plain path after ``WARMUP`` steps, "ring"
+    against "local" bit for bit over one step, then each mode's main path
+    (launch counts per step held to ``per_step``), timed."""
+    print(f"[{phase}] decomposed 1x1 {label} (W = {DECOMPOSED_W}): {WARMUP} steps, then one "
+          "step kernels='auto' vs 'torch', and 'ring' vs 'local'")
+    moved = build("local", WARMUP, False)(state, DT)
+    step, plain_step = build("local", None, False), build("local", None, True)
+    phase_step_compare(lambda s: step(s, DT), lambda s: plain_step(s, DT), moved)
+    a, b = build("local", None, False)(moved, DT), build("ring", None, False)(moved, DT)
+    fields = {"u": (a.u, b.u), "v": (a.v, b.v), "eta": (a.eta, b.eta),
+              **{k: (a.tracers[k], b.tracers[k]) for k in a.tracers}}
+    differ = [name for name, (x, y) in fields.items() if not torch.equal(x, y)]
+    if differ:
+        raise AssertionError(f"'ring' differs from 'local' in {differ}")
+    print(f"  'ring' equals 'local' bit for bit over one step ({', '.join(fields)})")
+    del moved, a, b, fields
+    fns = {}
+
+    def step_n(mode):
+        def run(s, n):
+            if (mode, n) not in fns:
+                fns[mode, n] = build(mode, n, False)
+            return fns[mode, n](s, DT)
+        return run
+
+    res = {}
+    for mode in ("local", "ring"):
+        print(f"  mode {mode!r}:")
+        s, elapsed, launches, _ = run_main_path(step_n(mode), state, kernels, per_step, steps)
+        res[mode] = {"ms_step": 1e3 * elapsed / steps, "launches": launches, "state": s}
+        fns.clear()
+    print(f"  decomposed 1x1 {label} {NX}x{NY}x{NZ} f32: local {res['local']['ms_step']:.3f}, "
+          f"ring {res['ring']['ms_step']:.3f} ms/step ({WARMUP} + {steps} + {steps} steps, the "
+          f"second {steps} timed); serial route {serial_ms:.3f} ms/step in this call")
+    return res
+
+
+def decomposed_climate(card, serial_ms, phase):
+    """The bench's climate_quarter_sharded1x1 row: the tripolar climate model
+    at 1/4 degree with exchange_width = 30 on the forced 1x1 mesh."""
+    from gb25_tpu_torch import data_free_ocean_climate_model
+    from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_catke, pallas_tridiag, pallas_zslab
+    from gb25_tpu_torch.parallel import make_mesh, sharded_coupled_step_fn
+
+    ccfg, grid, atmos, state = data_free_ocean_climate_model(
+        resolution=RESOLUTION, Nz=NZ, device=DEVICE, grid_type="gaussian_islands_tripolar")
+    fs = SplitExplicitFreeSurface(exchange_width=DECOMPOSED_W)
+    ccfg = dataclasses.replace(ccfg, ocean=dataclasses.replace(ccfg.ocean, free_surface=fs))
+    plain = dataclasses.replace(ccfg, ocean=dataclasses.replace(ccfg.ocean, kernels="torch"))
+    mesh = make_mesh()
+
+    def build(mode, n_inner, use_plain):
+        return sharded_coupled_step_fn(plain if use_plain else ccfg, grid, atmos, mesh,
+                                       n_inner=n_inner, force_comm=mode)
+
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
+               "K5": pallas_barotropic.BLOCK_KERNEL, "K3": pallas_tridiag.KERNEL,
+               "K4": pallas_catke.KERNEL}
+    per_step = {"K1": 1, "K2": 0, "K5": fs.substeps, "K3": 3, "K4": 1}
+    res = decomposed("tripolar climate", build, state, serial_ms, kernels, per_step,
+                     DECOMPOSED_STEPS, phase)
+    for mode in res:
+        print(f"  mode {mode!r}:")
+        check_climate_state(res[mode].pop("state"), grid)
+    print(f"  on {card}")
+    return res
+
+
+def decomposed_flagship(card, serial_ms, phase):
+    """The bench's sharded1x1 row: the flagship with exchange_width = 30 on
+    the forced 1x1 mesh."""
+    from gb25_tpu_torch import baroclinic_instability_model
+    from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_zslab
+    from gb25_tpu_torch.parallel import make_mesh, sharded_step_fn
+
+    cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE)
+    cfg = dataclasses.replace(cfg, free_surface=SplitExplicitFreeSurface(
+        exchange_width=DECOMPOSED_W))
+    plain = dataclasses.replace(cfg, kernels="torch")
+    mesh = make_mesh()
+
+    def build(mode, n_inner, use_plain):
+        return sharded_step_fn(plain if use_plain else cfg, grid, mesh, n_inner=n_inner,
+                               force_comm=mode)
+
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
+               "K5": pallas_barotropic.BLOCK_KERNEL}
+    per_step = {"K1": 1, "K2": 0, "K5": cfg.free_surface.substeps}
+    res = decomposed("flagship", build, state, serial_ms, kernels, per_step, DECOMPOSED_STEPS,
+                     phase)
+    for mode in res:
+        check_state(res[mode].pop("state"), (NZ, NY, NX))
+    print(f"  on {card}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -803,7 +987,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     built = build_kernels([pallas_zslab.KERNEL, pallas_barotropic.KERNEL, pallas_tridiag.KERNEL,
-                           pallas_catke.KERNEL, pallas_catke.KEPS_KERNEL])
+                           pallas_catke.KERNEL, pallas_catke.KEPS_KERNEL,
+                           pallas_barotropic.BLOCK_KERNEL])
     print(f"[2] kernels built in {built:.1f} s")
 
     flag_kernels, flag = flagship(card)
@@ -813,12 +998,40 @@ def main():
     trip_kernels, trip = climate(card, "gaussian_islands_tripolar", 12)
     torch.cuda.empty_cache()
     keps_kernels, kep = keps(card)
-    summary = {"flagship": flag, "climate": clim, "climate_tripolar": trip, "keps": kep}
-    print(f"[19] on {card}: " + "; ".join(
-        f"{name} {r['ms_step']:.3f} ms/step ({r['rate']:.4e} cell-steps/s), plain "
-        f"{r['plain_ms_step']:.3f}" for name, r in summary.items()))
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels}))
+    print(f"[19] K5 (barotropic_block) vs plain at the decomposed climate shape")
+    k5 = phase_k5(torch.Generator(device=DEVICE).manual_seed(8642))
+    torch.cuda.empty_cache()
+    # "ring" runs on a process group of one rank, as a tile of a real
+    # decomposition would on NCCL (its exchanges are copies of its own strips)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device(DEVICE, torch.cuda.current_device()))
+    try:
+        dclim = decomposed_climate(card, trip["ms_step"], 20)
+        torch.cuda.empty_cache()
+        dflag = decomposed_flagship(card, flag["ms_step"], 21)
+    finally:
+        dist.destroy_process_group()
+    summary = {"flagship": flag, "climate": clim, "climate_tripolar": trip, "keps": kep}
+    print(f"[22] on {card}: " + "; ".join(
+        f"{name} {r['ms_step']:.3f} ms/step ({r['rate']:.4e} cell-steps/s), plain "
+        f"{r['plain_ms_step']:.3f}" for name, r in summary.items()) + "; " + "; ".join(
+        f"decomposed 1x1 {name} local {r['local']['ms_step']:.3f}, ring "
+        f"{r['ring']['ms_step']:.3f} ms/step" for name, r in
+        (("climate_tripolar", dclim), ("flagship", dflag))))
+
+    k5_entry = entry("barotropic_block", "barotropic_block.cu",
+                     "gb25_tpu/ops/pallas_barotropic.py:349", "climate_tripolar_decomposed",
+                     dclim["local"]["launches"]["K5"], k5["tripolar"], k5["tripolar"]["bound"])
+    k5_entry.update(
+        launches_ring=dclim["ring"]["launches"]["K5"],
+        launches_flagship_decomposed=dflag["local"]["launches"]["K5"],
+        bitwise=k5["tripolar"]["bitwise"],
+        columns={k: k5["columns"][k] for k in ("max_abs_err", "ms", "plain_ms", "bitwise")}
+        | {"bound_ms": k5["columns"]["bound"][0]})
+    print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels
+                      + [k5_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

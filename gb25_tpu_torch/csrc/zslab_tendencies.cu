@@ -2,7 +2,7 @@
 // south-wall row and the four barotropic depth integrals fused in.
 //
 // Replaces: gb25_tpu/ops/pallas_zslab.py::zslab_tendencies (the z-slab
-// Pallas kernel, pallas_call at :769) with ab2, wall_v=True and
+// Pallas kernel, pallas_call at :769) with ab2, wall_v and
 // integrals=True: the flagship instance (tracers T, S), the climate
 // instance (tracers T, S, e, with the immersed-masked u*/v* integrals), the
 // tripolar climate instance (the same, with the metrics and f as 2-D
@@ -75,6 +75,7 @@ struct Args {
   float* trn[kMaxTracers];
   float *U0, *V0, *Us, *Vs;                              // (Ny, Nx) depth integrals
   int Nx, Ny, Nz, hx, hy, hz;
+  int wall_row;          // 0: row 0 is the south wall; -1: no wall row on this tile
   float a, b_prev, eps;  // dt*c1, dt*c2, WENO epsilon
 };
 
@@ -205,7 +206,7 @@ __global__ void __launch_bounds__(128) zslab_tendencies_kernel(const Args A) {
 #pragma unroll
   for (int t = 0; t < NTR; ++t) fz[t] = tracer_zflux(A, A.tr[t], Z, Y, X, w_c);
 
-  const float wall = (j != 0) ? 1.0f : 0.0f;  // v and Gv vanish on the south wall
+  const float wall = (j != A.wall_row) ? 1.0f : 0.0f;  // v and Gv vanish on the south wall
   float U0 = 0.f, V0 = 0.f, Us = 0.f, Vs = 0.f;
   float bu = 0.f, bv = 0.f;  // face bottoms of this column (immersed)
   if (IMM) {
@@ -336,7 +337,9 @@ extern "C" const char* gb25_cuda_error_string(int err) {
 // entries, the unused ones null. bu and bv are null unless the grid is
 // immersed; then zc (the extended z_c profile) is read too. metric2d: the
 // six metrics and fff are (Ny+2hy, Nx+2hx) planes (the tripolar grid,
-// which is always immersed).
+// which is always immersed). wall_v: local row 0 is the south wall (serially,
+// and on the south-most tiles of the decomposed path), so v* and Gv are 0
+// there; 0 on the other tiles, whose row 0 is an interior row.
 extern "C" int zslab_tendencies_f32(
     const float* u, const float* v, const float* b, const float* const* tr, const float* btot,
     const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
@@ -344,7 +347,7 @@ extern "C" int zslab_tendencies_f32(
     const float* bu, const float* bv, const float* Gu_p, const float* Gv_p,
     const float* const* Gtr_p, float* Gu, float* Gv, float* const* Gtr, float* un, float* vn,
     float* const* trn, float* U0, float* V0, float* Us, float* Vs, int ntr, int Nx, int Ny,
-    int Nz, int hx, int hy, int hz, int metric2d, float a, float b_prev, float eps,
+    int Nz, int hx, int hy, int hz, int metric2d, int wall_v, float a, float b_prev, float eps,
     void* stream) {
   if (ntr < 2 || ntr > kMaxTracers) return static_cast<int>(cudaErrorInvalidValue);
   const bool imm = bu != nullptr;
@@ -372,6 +375,7 @@ extern "C" int zslab_tendencies_f32(
   A.un = un; A.vn = vn;
   A.U0 = U0; A.V0 = V0; A.Us = Us; A.Vs = Vs;
   A.Nx = Nx; A.Ny = Ny; A.Nz = Nz; A.hx = hx; A.hy = hy; A.hz = hz;
+  A.wall_row = wall_v ? 0 : -1;
   A.a = a; A.b_prev = b_prev; A.eps = eps;
   dim3 block(128, 1, 1);
   dim3 grid((Nx + 127) / 128, Ny, 1);

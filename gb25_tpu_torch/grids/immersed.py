@@ -44,12 +44,15 @@ def with_bathymetry(grid, bottom_height):
     if grid.immersed:
         bh = torch.maximum(bh, grid.bottom_height)  # keep land already there
     grid = dataclasses.replace(grid, bottom_height=bh, geometry=None)
-    return dataclasses.replace(grid, geometry=_geometry(grid))
+    return dataclasses.replace(grid, geometry=build_geometry(grid))
 
 
-def _geometry(grid):
+def build_geometry(grid, comm=None):
+    """The ``ImmersedGeometry`` of ``grid``'s bottom. On a tile of the
+    decomposed path (``comm``) the extended bottom is the exchanged one:
+    the neighbours' columns, the fold's on the top rank row."""
     # the grid's halos: the fold rows on the tripolar grid
-    be = extend_field_xy(grid, grid.bottom_height, "c")[None]
+    be = extend_field_xy(grid, grid.bottom_height, "c", comm)[None]
     bu_e = torch.maximum(be, sm(be, "x"))
     bv_e = torch.maximum(be, sm(be, "y"))
     hx, hy, hz = grid.halo

@@ -18,11 +18,18 @@ KERNEL_MODES = ("auto", "torch")
 class SplitExplicitFreeSurface:
     """Barotropic substepping with time filtering: ``substeps``
     forward-backward substeps over the window [t, t + 2 dt], replaced by
-    their ``averaging``-weighted mean ("parabolic" or "flat")."""
+    their ``averaging``-weighted mean ("parabolic" or "flat").
+
+    ``exchange_width``: the halo width W of the decomposed path's blocked
+    solve (None: the grid halo). Each width-W exchange carries W substeps,
+    so W = substeps runs the solve as one block. Serial and decomposed runs
+    agree at the same W; the serial route re-imposes its boundary
+    conditions every substep and ignores it."""
 
     substeps: int = 30
     gravitational_acceleration: float = 9.80665
     averaging: str = "parabolic"
+    exchange_width: int | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
 """The coupled ocean-atmosphere climate model (port of
-``gb25_tpu.models.coupled``, serial, without prognostic sea ice).
+``gb25_tpu.models.coupled``, without prognostic sea ice), on the whole
+domain or on one tile of the decomposed path (``comm``).
 
 Each coupled step: (1) the prescribed atmosphere at the model time,
 (2) the similarity bulk fluxes against the ocean surface state, (3) the
@@ -52,10 +53,12 @@ class CoupledConfig:
     rho_freshwater: float = 1000.0
 
 
-def compute_interface_fluxes(ccfg: CoupledConfig, grid, atmos, state):
+def compute_interface_fluxes(ccfg: CoupledConfig, grid, atmos, state, comm=None):
     """Air-sea fluxes on the ocean's centers, returned as the dict of
     (Ny, Nx) kinematic surface fluxes the ocean step deposits ({"u", "v",
-    "T", "S"} and "e" with CATKE) and a dict of diagnostics."""
+    "T", "S"} and "e" with CATKE) and a dict of diagnostics. ``comm``: the
+    tile's halo exchange (the width-1 extensions come from the
+    neighbours)."""
     a = atmos.at_time(state.time)
     S_surf = state.tracers["S"][-1]
     # the bulk solve sees the freezing-limited surface temperature
@@ -64,8 +67,8 @@ def compute_interface_fluxes(ccfg: CoupledConfig, grid, atmos, state):
     # the wind is taken relative to the surface currents at centers: the x
     # average of u (periodic), the y average of v (no flux through the
     # north wall, or the fold's ghost face on the tripolar grid)
-    ue = extend2(grid, state.u[-1], "u", h=1)
-    ve = extend2(grid, state.v[-1], "v", h=1)
+    ue = extend2(grid, state.u[-1], "u", comm=comm)
+    ve = extend2(grid, state.v[-1], "v", comm=comm)
     uo = 0.5 * (ue[1:-1, 2:] + ue[1:-1, 1:-1])
     vo = 0.5 * (ve[2:, 1:-1] + ve[1:-1, 1:-1])
 
@@ -82,8 +85,8 @@ def compute_interface_fluxes(ccfg: CoupledConfig, grid, atmos, state):
     # stress at centers, then at the velocity points
     taux_c = turb["tau_x"] / rho0
     tauy_c = turb["tau_y"] / rho0
-    tx = extend2(grid, taux_c, "c", h=1)
-    ty = extend2(grid, tauy_c, "c", h=1)
+    tx = extend2(grid, taux_c, "c", comm=comm)
+    ty = extend2(grid, tauy_c, "c", comm=comm)
     taux_u = 0.5 * (tx[1:-1, 1:-1] + tx[1:-1, :-2])
     tauy_v = 0.5 * (ty[1:-1, 1:-1] + ty[:-2, 1:-1])
 
@@ -93,22 +96,23 @@ def compute_interface_fluxes(ccfg: CoupledConfig, grid, atmos, state):
     return fluxes, {"Q_net": Q_net, **turb}
 
 
-def coupled_time_step(ccfg: CoupledConfig, grid, atmos, state, dt, premasked=False):
+def coupled_time_step(ccfg: CoupledConfig, grid, atmos, state, dt, premasked=False, comm=None):
     """One coupled step: interface fluxes, the ocean's step, then the
-    freezing limiter."""
+    freezing limiter; with ``comm``, of the tile ``grid``."""
     with record_function("step/interface_fluxes"):
-        fluxes, _ = compute_interface_fluxes(ccfg, grid, atmos, state)
-    state = time_step(ccfg.ocean, grid, state, dt, surface_fluxes=fluxes, premasked=premasked)
+        fluxes, _ = compute_interface_fluxes(ccfg, grid, atmos, state, comm)
+    state = time_step(ccfg.ocean, grid, state, dt, surface_fluxes=fluxes, premasked=premasked,
+                      comm=comm)
     with record_function("step/freezing_limiter"):
         return limit_ocean_temperature(ccfg.sea_ice, state)
 
 
-def coupled_loop(ccfg: CoupledConfig, grid, atmos, state, dt, n):
+def coupled_loop(ccfg: CoupledConfig, grid, atmos, state, dt, n, comm=None):
     """``n`` coupled steps (the immersed mask applied once, before the
     first)."""
     state = premask_state(grid, state)
     for _ in range(n):
-        state = coupled_time_step(ccfg, grid, atmos, state, dt, premasked=True)
+        state = coupled_time_step(ccfg, grid, atmos, state, dt, premasked=True, comm=comm)
     return state
 
 

@@ -1,5 +1,4 @@
-"""Split-explicit free surface (port of ``gb25_tpu.models.free_surface``,
-serial).
+"""Split-explicit free surface (port of ``gb25_tpu.models.free_surface``).
 
 The barotropic system
     d eta / d tau = -div(U, V)
@@ -10,15 +9,25 @@ surface and the barotropic part of the updated velocities are replaced by
 the filtered averages (weights sum to 1, centroid at t + dt). On immersed
 grids the face depths are the discrete fluid depths and solid faces carry
 no transport.
+
+Serially the whole loop runs in kernel K2, which re-imposes the boundary
+conditions every substep. On a tile of the decomposed path (``comm``) the
+solve is blocked: eta, U and V are extended by W ghost rings from the
+neighbours (W = ``exchange_width``), and kernel K5 advances W substeps on
+the extended planes, each substep spoiling one outer ring, before the next
+exchange. The wall ghosts then evolve within a block instead of being
+re-mirrored, a round-off drift that each exchange resets; serial and
+decomposed blocked runs at the same W agree.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from gb25_tpu_torch.ops.halos import extend2
-from gb25_tpu_torch.ops.pallas_barotropic import barotropic_loop
+from gb25_tpu_torch.ops.pallas_barotropic import barotropic_block, barotropic_loop
 
 
 def averaging_weights(substeps: int, kind: str = "parabolic") -> np.ndarray:
@@ -47,15 +56,19 @@ def face_depths(grid):
     return 0.5 * (Hc + He[1:-1, :-2]), 0.5 * (Hc + He[:-2, 1:-1])
 
 
-def barotropic_substep(cfg, grid, state, u_star, v_star, dt, integrals):
+def barotropic_substep(cfg, grid, state, u_star, v_star, dt, integrals, comm=None):
     """The split-explicit solve of one step; returns (eta_new, u_new, v_new).
 
     integrals: (U0, V0, Us, Vs), the depth integrals of (u, v, u*, v*) that
     K1 accumulates. The forcing is derived, GU = (Us - U0) / dt: u* was
-    updated as u + dt G_ab, so no G_ab field exists."""
+    updated as u + dt G_ab, so no G_ab field exists. With ``comm`` (a tile
+    of the decomposed path) the solve is blocked (K5)."""
     U0, V0, Us, Vs = integrals
     GU = (Us - U0) / dt
     GV = (Vs - V0) / dt
+    if comm is not None:
+        eta_b, U_b, V_b, Hu, Hv = _blocked_solve(cfg, grid, state.eta, U0, V0, GU, GV, dt, comm)
+        return _finish(eta_b, u_star, v_star, U_b, V_b, Hu, Hv, Us, Vs)
     Hu, Hv = face_depths(grid)
     mu = mv = None
     if grid.immersed:
@@ -73,3 +86,100 @@ def _finish(eta_b, u_star, v_star, U_b, V_b, Hu, Hv, Us, Vs):
     du = (U_b - Us) / torch.clamp(Hu, min=1e-30)
     dv = (V_b - Vs) / torch.clamp(Hv, min=1e-30)
     return eta_b, u_star + du, v_star + dv
+
+
+def exchange_width(fs, grid) -> int:
+    """W of the blocked solve: ``fs.exchange_width`` or the grid halo,
+    within the tile (a width-W exchange needs W rows of the neighbour)."""
+    W = fs.exchange_width or min(grid.hx, grid.hy)
+    return max(min(W, grid.Nx - 1, grid.Ny - 1), 1)
+
+
+def blocked_statics(grid, comm, W):
+    """The constant operands of the blocked solve at width W, built once
+    per tile (kept by ``comm``): the metrics dxc, dxf, dyc, dyf, azc as
+    (Ye, 1) columns or (Ye, Xe) planes, the face depths Hu, Hv and, on
+    immersed grids, the solid-face masks mu, mv (else None), all extended
+    by W rings. Ghost rules as the JAX package's: a metric's ghosts past
+    the stored halo come from the exchange, zero-gradient at the y walls
+    for the lat-lon columns, the "c" kind (mirror south, fold north) for 2-D
+    planes; the face depths from the bottom extended by W + 1."""
+    key = (id(grid), W)
+    hit = comm.cache.get(key)
+    if hit is not None and hit[0] is grid:
+        return hit[1]
+    hx, hy, hz, Nx, Ny, Nz = *grid.halo, grid.Nx, grid.Ny, grid.Nz
+
+    def metric(m):  # (1, Ny+2hy, 1) profile or (1, Ny+2hy, Nx+2hx) plane
+        plane = m.shape[2] > 1
+        if W <= min(hx, hy):
+            xs = slice(hx - W, hx + Nx + W) if plane else slice(None)
+            return m[0, hy - W : hy + Ny + W, xs].contiguous()
+        if plane:
+            return extend2(grid, m[0, hy : hy + Ny, hx : hx + Nx], "c", W, comm)
+        return comm.extend_xy(m[0, hy : hy + Ny], 0, W, ("wrap", "wrap"),
+                              ("zerograd", "zerograd"))
+
+    metrics = tuple(metric(getattr(grid, n)) for n in ("dxc", "dxf", "dyc", "dyf", "azc"))
+    if grid.immersed:
+        bhe = extend2(grid, grid.bottom_height, "c", W + 1, comm)
+        zc, dzc = grid.z_c[hz : hz + Nz], grid.dz_c[hz : hz + Nz]
+        zero = torch.zeros((), dtype=dzc.dtype, device=dzc.device)
+        c = bhe[1:-1, 1:-1]
+        Hu = torch.where(zc > torch.maximum(c, bhe[1:-1, :-2]), dzc, zero).sum(dim=0)
+        Hv = torch.where(zc > torch.maximum(c, bhe[:-2, 1:-1]), dzc, zero).sum(dim=0)
+        mu, mv = (Hu > 0).to(grid.dtype), (Hv > 0).to(grid.dtype)
+    else:
+        He = extend2(grid, -grid.bottom_height, "c", W + 1, comm)
+        Hu = 0.5 * (He[1:-1, 1:-1] + He[1:-1, :-2])
+        Hv = 0.5 * (He[1:-1, 1:-1] + He[:-2, 1:-1])
+        mu = mv = None
+    statics = (*metrics, Hu, Hv, mu, mv)
+    comm.cache[key] = (grid, statics)
+    return statics
+
+
+def _blocked_solve(cfg, grid, eta, U0, V0, GU, GV, dt, comm):
+    """The blocked split-explicit solve on a tile: blocks of W substeps
+    (K5), each after a width-W exchange of eta, U and V. Returns the
+    filtered (eta_b, U_b, V_b) and the interior face depths."""
+    fs = cfg.free_surface
+    M = fs.substeps
+    weights = averaging_weights(M, fs.averaging)
+    W = exchange_width(fs, grid)
+    dxc, dxf, dyc, dyf, azc, Hu_e, Hv_e, mu, mv = blocked_statics(grid, comm, W)
+
+    GU_e = extend2(grid, GU, "u", W, comm)
+    GV_e = extend2(grid, GV, "v", W, comm)
+    if mu is not None:
+        GU_e = GU_e * mu
+        GV_e = GV_e * mv
+    # constant planes with dtau folded in, dtau in the working precision
+    dtau = torch.tensor(2.0 * dt / M, dtype=eta.dtype)
+    dtau_g = dtau * fs.gravitational_acceleration
+    pu = dtau_g * Hu_e / dxc
+    pv = dtau_g * Hv_e / dyf
+    fu = dtau * GU_e
+    fv = dtau * GV_e
+    rz = dtau / azc
+
+    def interior(a):
+        return a[W:-W, W:-W]
+
+    U, V = U0, V0
+    eta_b = torch.zeros_like(eta)
+    U_b = torch.zeros_like(U0)
+    V_b = torch.zeros_like(V0)
+    m = 0
+    while m < M:
+        block = min(W, M - m)
+        with record_function("step/K5_exchange"):
+            ext = [extend2(grid, a, k, W, comm) for a, k in ((eta, "c"), (U, "u"), (V, "v"))]
+        eta_e, U_e, V_e, pe, pU, pV = barotropic_block(
+            cfg, weights[m : m + block], *ext, pu, pv, fu, fv, dyc, dxf, rz, mu, mv)
+        eta_b = eta_b + interior(pe)
+        U_b = U_b + interior(pU)
+        V_b = V_b + interior(pV)
+        eta, U, V = interior(eta_e), interior(U_e), interior(V_e)
+        m += block
+    return eta_b, U_b, V_b, interior(Hu_e), interior(Hv_e)

@@ -1,12 +1,13 @@
 """The hydrostatic free-surface time step (port of
-``gb25_tpu.models.hydrostatic``: the serial path, with or without a
-closure (CATKE or k-epsilon), immersed bathymetry, surface fluxes and the
-tripolar north fold).
+``gb25_tpu.models.hydrostatic``, with or without a closure (CATKE or
+k-epsilon), immersed bathymetry, surface fluxes and the tripolar north
+fold), on the whole domain or, given a ``parallel.halo.MeshComm``
+(``comm``), on one tile of the decomposed path.
 
 One step, in the fused form the JAX package runs on its kernels:
   1. halo fill of u, v and the tracers (the fold rows on the tripolar
-     grid); on immersed grids the extended velocities are masked on solid
-     faces;
+     grid; on a tile, exchanged with the neighbours); on immersed grids the
+     extended velocities are masked on solid faces;
   2. TEOS-10 buoyancy and its column total (torch ops), once per step;
   3. with a closure, kernel K4: CATKE's diffusivities, TKE source and
      dissipation rate, or k-epsilon's diffusivities and the sources of e
@@ -17,9 +18,10 @@ One step, in the fused form the JAX package runs on its kernels:
   5. the increments after the kernel, each also folded into the fused
      update as dt c1 inc: the closure's sources, the surface fluxes into
      the top cell, the immersed re-mask, the wall row;
-  6. kernel K2: the 30-substep split-explicit free surface, then the
-     barotropic correction, on the tripolar grid the seam-row projection,
-     and the immersed re-mask;
+  6. kernel K2: the 30-substep split-explicit free surface (on a tile,
+     blocks of W substeps in kernel K5, each after a width-W exchange),
+     then the barotropic correction, on the tripolar grid the seam-row
+     projection, and the immersed re-mask;
   7. with a closure, kernel K3 once per diffusivity: (u, v) with kappa_u,
      (T, S) with kappa_c, e with kappa_e (and CATKE's dissipation rate),
      eps with kappa_eps; then e, eps >= 0;
@@ -34,6 +36,7 @@ from torch.profiler import record_function
 
 from gb25_tpu_torch.grids.immersed import face_bottom_planes, face_masks, interior_masks
 from gb25_tpu_torch.grids.tripolar import north_fold_projection
+from gb25_tpu_torch.parallel.fold import north_fold_projection_dist
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
 from gb25_tpu_torch.models.free_surface import barotropic_substep
 from gb25_tpu_torch.models.state import HydrostaticState, advance_clock
@@ -51,10 +54,19 @@ from gb25_tpu_torch.ops.stencils import dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c
 from gb25_tpu_torch.ops.weno import weno5_upwind
 
 
-def mask_v_wall(v):
+def owns_south_wall(comm) -> bool:
+    """Whether local row 0 is the southern wall face: serially, and on the
+    south-most tiles of the decomposed path; elsewhere it is an interior
+    row."""
+    return comm is None or comm.iy == 0
+
+
+def mask_v_wall(v, wall=True):
     """Zero v on the southern wall face (row 0; the north wall is the
-    virtual face Ny). Writes the row in place and returns ``v``."""
-    v[..., 0, :] = 0.0
+    virtual face Ny) where ``wall`` (see ``owns_south_wall``). Writes the
+    row in place and returns ``v``."""
+    if wall:
+        v[..., 0, :] = 0.0
     return v
 
 
@@ -131,7 +143,7 @@ def _ab2_coeffs(cfg, state, dtype):
     return ft(1.5 + cfg.chi), ft(-(0.5 + cfg.chi))
 
 
-def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None):
+def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
     """Halo fill, the closure (K4) and kernel K1, then the increments after
     the kernel. Returns (Gu, Gv, Gtr, updated, integrals, diffusivities)
     with updated = (u*, v*, tracers*) and diffusivities None without a
@@ -139,11 +151,12 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None):
 
     ``surface_fluxes``: optional dict of (Ny, Nx) kinematic fluxes
     {"u", "v", "T", "S", "e"} (field units times m/s, positive into the
-    ocean), deposited into the top cell."""
+    ocean), deposited into the top cell. ``comm``: this tile's halo
+    exchange on the decomposed path."""
     with record_function("step/halo_fill_and_mask"):
-        ue = extend_field(grid, state.u, "u")
-        ve = extend_field(grid, state.v, "v")
-        tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
+        ue = extend_field(grid, state.u, "u", comm)
+        ve = extend_field(grid, state.v, "v", comm)
+        tr_e = {k: extend_field(grid, c, "c", comm) for k, c in state.tracers.items()}
         face_bottoms = None
         if grid.immersed:
             # zero the face velocities on solid faces, so every flux through
@@ -172,19 +185,19 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None):
     with record_function("step/K1_tendencies"):
         Gu, Gv, Gtr, u_new, v_new, tr_new, ints = zslab_tendencies(
             cfg, grid, ue, ve, tr_e, (state.Gu, state.Gv, state.Gtracers), ab,
-            buoyancy=(be, b_total), face_bottoms=face_bottoms)
+            buoyancy=(be, b_total), face_bottoms=face_bottoms, wall_v=owns_south_wall(comm))
     with record_function("step/increments"):
         outs = _increments(grid, (Gu, Gv, Gtr, u_new, v_new, tr_new), ints, ab[0],
-                           diffusivities, surface_fluxes)
+                           diffusivities, surface_fluxes, owns_south_wall(comm))
     return (*outs, diffusivities)
 
 
-def _increments(grid, outs, ints, dtc1, diffusivities, surface_fluxes):
+def _increments(grid, outs, ints, dtc1, diffusivities, surface_fluxes, wall=True):
     """The increments after K1, in the JAX package's order: the closure's
     sources (of e, then of eps), the surface-flux deposits, the immersed
-    re-mask, the wall row. Each G -> G + inc also moves the fused update,
-    x* -> x* + dt c1 inc (the previous step's increments sit in G_prev,
-    which K1 consumed)."""
+    re-mask, the wall row (``wall``: this tile owns it). Each G -> G + inc
+    also moves the fused update, x* -> x* + dt c1 inc (the previous step's
+    increments sit in G_prev, which K1 consumed)."""
     Gu, Gv, Gtr, u_new, v_new, tr_new = outs
     for name in ("e", "eps"):
         if diffusivities is not None and "G_" + name in diffusivities:
@@ -213,7 +226,7 @@ def _increments(grid, outs, ints, dtc1, diffusivities, surface_fluxes):
                 Gv[-1] += fa
                 v_new[-1] += dtc1 * fa
                 # the wall row is excluded: v* is wall-masked after this
-                inc_v = mask_v_wall(fa * dz_top * vm_top)
+                inc_v = mask_v_wall(fa * dz_top * vm_top, wall)
                 Vs = Vs + dtc1 * inc_v
             else:
                 Gtr[name][-1] += fa
@@ -229,13 +242,15 @@ def _increments(grid, outs, ints, dtc1, diffusivities, surface_fluxes):
         u_new = u_new * um
         v_new = v_new * vm
     # a v deposit can re-add wall-row values
-    Gv = mask_v_wall(Gv)
+    Gv = mask_v_wall(Gv, wall)
     return Gu, Gv, Gtr, (u_new, v_new, tr_new), ints
 
 
 def premask_state(grid, state):
     """Zero u and v on solid faces once; a loop's steps keep it so (each
-    re-masks after the barotropic correction), and pass ``premasked``."""
+    re-masks after the barotropic correction), and pass ``premasked``. A
+    tile's masks come from its own geometry, which ``parallel.localize``
+    built from the exchanged bottom, so no exchange is needed here."""
     if not grid.immersed:
         return state
     u_mask, v_mask = interior_masks(grid)
@@ -243,9 +258,10 @@ def premask_state(grid, state):
 
 
 def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
-              premasked=False) -> HydrostaticState:
+              premasked=False, comm=None) -> HydrostaticState:
     """One quasi-AB2 hydrostatic step with the split-explicit free surface
-    and, with a closure, the vertically implicit solves."""
+    and, with a closure, the vertically implicit solves; with ``comm``, of
+    the tile ``grid`` (see ``parallel.sharded``)."""
     if not premasked:
         state = premask_state(grid, state)
     dtype = state.u.dtype
@@ -253,17 +269,21 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
     c1, c2 = _ab2_coeffs(cfg, state, dtype)
     ab = (float(dt_t * c1), float(dt_t * c2))
     Gu, Gv, Gtr, (u_star, v_star, tracers), ints, diffusivities = compute_tendencies(
-        cfg, grid, state, ab, surface_fluxes)
-    with record_function("step/K2_barotropic"):
-        v_star = mask_v_wall(v_star)
+        cfg, grid, state, ab, surface_fluxes, comm)
+    wall = owns_south_wall(comm)
+    with record_function("step/K2_barotropic" if comm is None else "step/K5_barotropic"):
+        v_star = mask_v_wall(v_star, wall)
         eta, u_new, v_new = barotropic_substep(cfg, grid, state, u_star, v_star, float(dt_t),
-                                               ints)
-        v_new = mask_v_wall(v_new)
+                                               ints, comm)
+        v_new = mask_v_wall(v_new, wall)
         if grid.north_fold:
             with record_function("step/north_fold"):
                 # the seam row its own mirror image (in place: every field
-                # here is this step's own)
-                north_fold_projection(grid, u_new, eta, tracers)
+                # here is this step's own); on a tile, the top rank row's
+                if comm is None:
+                    north_fold_projection(grid, u_new, eta, tracers)
+                else:
+                    north_fold_projection_dist(comm, grid, u_new, eta, tracers)
         if grid.immersed:
             # the barotropic correction touched full columns
             u_mask, v_mask = interior_masks(grid)
@@ -300,9 +320,9 @@ def _implicit_solves(cfg, grid, u, v, tracers, d, dt):
     return u, v, out
 
 
-def loop(cfg, grid, state, dt, n):
+def loop(cfg, grid, state, dt, n, comm=None):
     """``n`` time steps (the immersed mask applied once, before the first)."""
     state = premask_state(grid, state)
     for _ in range(n):
-        state = time_step(cfg, grid, state, dt, premasked=True)
+        state = time_step(cfg, grid, state, dt, premasked=True, comm=comm)
     return state

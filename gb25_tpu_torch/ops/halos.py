@@ -13,8 +13,9 @@ cells per side from their boundary conditions:
 
 On the tripolar grid (``grid.north_fold``) the north ghosts are the fold
 rows of ``grids.tripolar`` instead, filled before the south boundary and
-the x wrap, as in the JAX package. The distributed exchange comes with its
-slice.
+the x wrap, as in the JAX package. With a ``parallel.halo.MeshComm`` (the
+decomposed path) the x and y ghosts come from the neighbouring tiles and
+the boundary conditions only at the global edges.
 """
 
 from __future__ import annotations
@@ -80,19 +81,28 @@ def extend_axis(a, h: int, dim: int, lo_mode: str, hi_mode: str):
     return torch.cat([lo, a, hi], dim=dim)
 
 
-def extend_field(grid, a, kind: str):
+def extend_field(grid, a, kind: str, comm=None):
     """Extend an interior ``(Nz, Ny, Nx)`` field to
     ``(Nz+2hz, Ny+2hy, Nx+2hx)``: one allocation, the interior copied in,
     then the ghost slabs written axis by axis (x, then y, then z), each
     from the slabs already filled. Every mode acts within its own axis, so
     the corners agree with the JAX package's fill. On the tripolar grid the
-    x and y ghosts are the fold's (fold, south, x wrap), then z."""
+    x and y ghosts are the fold's (fold, south, x wrap), then z. With a
+    ``parallel.halo.MeshComm`` the x and y ghosts (the fold's included)
+    come from the neighbouring tiles."""
     hx, hy, hz = grid.halo
     Nz, Ny, Nx = a.shape
     e = a.new_empty((Nz + 2 * hz, Ny + 2 * hy, Nx + 2 * hx))
     e[hz : hz + Nz, hy : hy + Ny, hx : hx + Nx] = a
     axes = (("x", hx, Nx), ("y", hy, Ny), ("z", hz, Nz))
-    if grid.north_fold:
+    if comm is not None:
+        xmodes, ymodes, _ = FIELD_BCS[kind]
+        if grid.north_fold:
+            comm.fill_xy_fold(e[hz : hz + Nz], hx, hy, kind)
+        else:
+            comm.fill_xy(e[hz : hz + Nz], hx, hy, xmodes, ymodes)
+        axes = axes[2:]
+    elif grid.north_fold:
         from gb25_tpu_torch.grids.tripolar import fill_fold_halos
 
         fill_fold_halos(grid, e[hz : hz + Nz], kind, hx, hy)
@@ -108,17 +118,22 @@ def extend_field(grid, a, kind: str):
     return e
 
 
-def extend2(grid, a, kind: str, h: int = 1):
+def extend2(grid, a, kind: str, h: int = 1, comm=None):
     """Extend a ``(Ny, Nx)`` plane by ``h`` ghosts in x and y."""
-    return _extend_plane(grid, a, kind, h, h)
+    return _extend_plane(grid, a, kind, h, h, comm)
 
 
-def extend_field_xy(grid, a, kind: str):
+def extend_field_xy(grid, a, kind: str, comm=None):
     """Extend a ``(Ny, Nx)`` plane by the grid's halo (hx in x, hy in y)."""
-    return _extend_plane(grid, a, kind, grid.hx, grid.hy)
+    return _extend_plane(grid, a, kind, grid.hx, grid.hy, comm)
 
 
-def _extend_plane(grid, a, kind, hx, hy):
+def _extend_plane(grid, a, kind, hx, hy, comm):
+    if comm is not None:
+        if grid.north_fold:
+            return comm.extend_xy_fold(a, hx, hy, kind)
+        xmodes, ymodes, _ = FIELD_BCS[kind]
+        return comm.extend_xy(a, hx, hy, xmodes, ymodes)
     if grid.north_fold:
         from gb25_tpu_torch.grids.tripolar import extend_field_tripolar
 

@@ -15,6 +15,13 @@ are torch ops, as in the JAX package.
 ``barotropic_loop`` launches ``csrc/barotropic_loop.cu`` once per substep
 for CUDA tensors under ``kernels="auto"``, and runs
 ``barotropic_loop_plain`` for CPU tensors or ``kernels="torch"``.
+
+Kernel K5 (port of ``pallas_barotropic_block``), the decomposed path's
+form: one exchange block of substeps on width-W extended planes, with no
+boundary of its own (the exchanged ghosts carry walls, neighbours and the
+fold; see ``models.free_surface``). ``barotropic_block`` launches
+``csrc/barotropic_block.cu`` once per substep for CUDA tensors under
+``kernels="auto"`` and runs ``barotropic_block_plain`` otherwise.
 """
 
 from __future__ import annotations
@@ -31,6 +38,11 @@ _P = ctypes.c_void_p
 KERNEL = CudaKernel(
     "barotropic_loop.cu",
     {"barotropic_substep_f32": [_P] * 16 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [_P]},
+)
+BLOCK_KERNEL = CudaKernel(
+    "barotropic_block.cu",
+    {"barotropic_block_substep_f32": [_P] * 18 + [ctypes.c_float] + [ctypes.c_int] * 3 + [_P]},
+    extra_flags=("-fmad=false",),
 )
 
 
@@ -140,3 +152,75 @@ def _barotropic_loop_cuda(eta, Ud, Vd, gHuW, gHvW, GUd, GVd, r_azc, weights, dta
             )
             cur = nxt
     return etab, Ub, Vb
+
+
+def barotropic_block(cfg, weights, eta, U, V, pu, pv, fu, fv, au, av, rz, mu=None, mv=None):
+    """``len(weights)`` substeps on width-W extended (Ye, Xe) planes; returns
+    the updated (eta, U, V) and this block's partial accumulators (pe, pU,
+    pV) = sum of w (eta, U, V), all at the full extended shape (the outer
+    rings garbage: the caller crops them).
+
+    Constant operands, dtau folded in: pu = dtau g Hu / dxc, pv = dtau g Hv
+    / dyf, fu = dtau GU, fv = dtau GV; au = dyc, av = dxf and rz = dtau /
+    azc as (Ye, 1) columns or (Ye, Xe) planes; ``mu``, ``mv``: optional
+    solid-face masks."""
+    if uses_kernel(cfg, eta):
+        return _barotropic_block_cuda(weights, eta, U, V, pu, pv, fu, fv, au, av, rz, mu, mv)
+    return barotropic_block_plain(weights, eta, U, V, pu, pv, fu, fv, au, av, rz, mu, mv)
+
+
+def barotropic_block_plain(weights, eta, U, V, pu, pv, fu, fv, au, av, rz, mu=None, mv=None):
+    """The plain PyTorch version of K5: the JAX kernel's substeps with
+    wrapped shifts (``torch.roll``), in the CUDA kernel's operation order
+    (any dtype, any device)."""
+    pe = torch.zeros_like(eta)
+    pU = torch.zeros_like(U)
+    pV = torch.zeros_like(V)
+    for w in weights:
+        w = float(torch.tensor(w, dtype=eta.dtype))
+        Ud = U * au
+        Vd = V * av
+        div = (torch.roll(Ud, -1, dims=1) - Ud + torch.roll(Vd, -1, dims=0) - Vd) * rz
+        eta = eta - div
+        U = U - pu * (eta - torch.roll(eta, 1, dims=1)) + fu
+        V = V - pv * (eta - torch.roll(eta, 1, dims=0)) + fv
+        if mu is not None:
+            U = U * mu
+            V = V * mv
+        pe = pe + w * eta
+        pU = pU + w * U
+        pV = pV + w * V
+    return eta, U, V, pe, pU, pV
+
+
+def _barotropic_block_cuda(weights, eta, U, V, pu, pv, fu, fv, au, av, rz, mu=None, mv=None):
+    dev = eta.device
+    Ye, Xe = eta.shape
+    metric2d = au.shape[1] > 1
+    for name, t in (("eta", eta), ("U", U), ("V", V), ("pu", pu), ("pv", pv), ("fu", fu),
+                    ("fv", fv), ("mu", mu), ("mv", mv)):
+        if t is not None:
+            check_tensor(t, name, (Ye, Xe), torch.float32, dev)
+    for name, t in (("au", au), ("av", av), ("rz", rz)):
+        check_tensor(t, name, (Ye, Xe) if metric2d else (Ye, 1), torch.float32, dev)
+    if (mu is None) != (mv is None):
+        raise ValueError("K5 takes both solid-face masks or neither")
+    mask_ptrs = (None, None) if mu is None else (mu.data_ptr(), mv.data_ptr())
+
+    acc = [torch.zeros_like(eta) for _ in range(3)]
+    # ping-pong: substep m reads `cur` and writes `nxt`; the inputs are
+    # never written
+    bufs = [[torch.empty_like(eta) for _ in range(3)] for _ in range(2)]
+    cur = (eta, U, V)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        for m, w in enumerate(weights):
+            nxt = bufs[m % 2]
+            BLOCK_KERNEL.launch(
+                "barotropic_block_substep_f32",
+                *[t.data_ptr() for t in (*cur, *nxt, pu, pv, fu, fv, au, av, rz)],
+                *mask_ptrs, *[t.data_ptr() for t in acc],
+                float(torch.tensor(w, dtype=torch.float32)), Xe, Ye, int(metric2d), stream,
+            )
+            cur = nxt
+    return (*cur, *acc)

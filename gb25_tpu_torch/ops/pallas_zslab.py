@@ -1,12 +1,14 @@
 """The tendency stage with the quasi-AB2 update fused in: kernel K1
 (port of ``gb25_tpu.ops.pallas_zslab.zslab_tendencies`` with ``ab2``,
-``wall_v=True`` and ``integrals=True``).
+``wall_v`` and ``integrals=True``).
 
 From the halo-extended ``(Z, Y, X)`` u, v and two to four tracers (T, S
 and, with CATKE, e; with k-epsilon, e and eps) it computes the momentum and
 tracer tendencies, the
 updated fields x* = x + dt c1 G + dt c2 G_prev with the south-wall row of
-Gv and v* zeroed, and the depth integrals of u, v, u*, v*. On immersed
+Gv and v* zeroed (``wall_v``: serially, and on the south-most tiles of the
+decomposed path; elsewhere local row 0 is an interior row), and the depth
+integrals of u, v, u*, v*. On immersed
 grids the u*, v* integrals count fluid faces only (``face_bottoms``). On
 the tripolar grid the metrics and f are 2-D planes. The TEOS-10 buoyancy and its column total are torch ops outside the kernel, as
 in the JAX package; a caller that needs b elsewhere too (the CATKE
@@ -37,7 +39,7 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 KERNEL = CudaKernel(
     "zslab_tendencies.cu",
     {"zslab_tendencies_f32": [_P] * 3 + [_PP] + [_P] * 15 + [_PP] + [_P] * 2 + [_PP]
-     + [_P] * 2 + [_PP] + [_P] * 4 + [_I] * 8 + [_F] * 3 + [_P]},
+     + [_P] * 2 + [_PP] + [_P] * 4 + [_I] * 9 + [_F] * 3 + [_P]},
 )
 
 
@@ -50,7 +52,8 @@ def column_buoyancy(cfg, grid, tr_e):
     return be, b_total
 
 
-def zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab, buoyancy=None, face_bottoms=None):
+def zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab, buoyancy=None, face_bottoms=None,
+                     wall_v=True):
     """Tendencies, AB2-updated fields and depth integrals of one step.
 
     ue, ve, tr_e: extended (Nz+2hz, Ny+2hy, Nx+2hx) u, v and tracers
@@ -60,17 +63,20 @@ def zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab, buoyancy=None, face_bott
     buoyancy: optional (be, b_total) from ``column_buoyancy``.
     face_bottoms: optional interior (bu, bv) face bottom planes of an
     immersed grid; the u*, v* integrals then count fluid faces only.
+    wall_v: local row 0 is the south wall (Gv, v* and its integral 0 there).
 
     Returns ``(Gu, Gv, Gtr, u_new, v_new, tr_new, (U0, V0, Us, Vs))``; the
     integrals are (Ny, Nx)."""
     if uses_kernel(cfg, ue):
         be, b_total = buoyancy if buoyancy is not None else column_buoyancy(cfg, grid, tr_e)
-        return zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms)
+        return zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms,
+                            wall_v)
     be = buoyancy[0] if buoyancy is not None else None
-    return zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be, face_bottoms)
+    return zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be, face_bottoms, wall_v)
 
 
-def zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be=None, face_bottoms=None):
+def zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be=None, face_bottoms=None,
+                           wall_v=True):
     """The plain PyTorch version of K1: the port's ``tendency_math`` on the
     extended tensors, then the AB2 update, the wall row and the integrals
     (any dtype, any device)."""
@@ -79,13 +85,13 @@ def zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be=None, face_bott
     f_ff = coriolis_ff(grid, cfg.coriolis).to(ue.dtype)
     Gu_e, Gv_e, Gtr_e = tendency_math(cfg, grid, f_ff, ue, ve, tr_e, be)
     Gu = grid.interior(Gu_e).contiguous()
-    Gv = mask_v_wall(grid.interior(Gv_e).contiguous())
+    Gv = mask_v_wall(grid.interior(Gv_e).contiguous(), wall_v)
     Gtr = {k: grid.interior(g).contiguous() for k, g in Gtr_e.items()}
 
     a, b = ab
     Gu_p, Gv_p, Gtr_p = prev
     u_new = grid.interior(ue) + a * Gu + b * Gu_p
-    v_new = mask_v_wall(grid.interior(ve) + a * Gv + b * Gv_p)
+    v_new = mask_v_wall(grid.interior(ve) + a * Gv + b * Gv_p, wall_v)
     tr_new = {k: grid.interior(tr_e[k]) + a * Gtr[k] + b * Gtr_p[k] for k in Gtr}
 
     dz = grid.dz_c[grid.hz : grid.hz + grid.Nz]
@@ -103,7 +109,8 @@ def zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be=None, face_bott
     return Gu, Gv, Gtr, u_new, v_new, tr_new, ints
 
 
-def zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms=None):
+def zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms=None,
+                 wall_v=True):
     """Launch the CUDA kernel alone on f32 CUDA tensors, given the extended
     buoyancy ``be`` and its column total ``b_total``; returns what
     ``zslab_tendencies`` returns."""
@@ -166,7 +173,7 @@ def zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms=No
             Gu.data_ptr(), Gv.data_ptr(), ptrs(Gtr.values()),
             u_new.data_ptr(), v_new.data_ptr(), ptrs(tr_new.values()),
             *[t.data_ptr() for t in ints],
-            len(names), Nx, Ny, Nz, hx, hy, hz, int(grid.north_fold), float(ab[0]), float(ab[1]),
-            float(cfg.weno_eps), stream,
+            len(names), Nx, Ny, Nz, hx, hy, hz, int(grid.north_fold), int(wall_v),
+            float(ab[0]), float(ab[1]), float(cfg.weno_eps), stream,
         )
     return Gu, Gv, Gtr, u_new, v_new, tr_new, tuple(ints)

@@ -1,0 +1,162 @@
+"""The decomposed step (port of ``gb25_tpu.parallel.sharded``).
+
+Each process of a ``torch.distributed`` group holds one tile of the
+(Rx, Ry) mesh: its own slice of the state, the window of the grid metrics
+around it (``parallel.localize``) and a ``MeshComm`` for its halo
+exchanges. ``sharded_step_fn`` / ``sharded_coupled_step_fn`` return this
+rank's ``fn(state_tile, dt)``, which runs ``n_inner`` steps of the same
+physics code the serial path runs, the comm threaded through.
+
+A 1x1 mesh takes the serial route (``comm=None``: kernel K2, no
+exchanges) unless ``force_comm`` keeps the decomposed program on one
+device, to measure it there: ``"ring"`` runs the exchange structure (each
+exchange a copy of the tile's own strips), ``"local"`` fills the ghosts
+from the boundary conditions with no exchange at all. Both compute what a
+tile of a real decomposition computes: localize, width-W extensions, the
+blocked barotropic solve (K5).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from gb25_tpu_torch.convert import state_from_numpy, state_to_numpy
+from gb25_tpu_torch.parallel.halo import MeshComm
+from gb25_tpu_torch.parallel.localize import localize_atmosphere, localize_grid
+
+FORCE_COMM_MODES = (False, "ring", "local")
+
+
+def make_comm(mesh, grid=None, force_ring: bool = False) -> MeshComm:
+    """The halo-exchange context of this rank's tile (the fold's pole
+    column from a tripolar ``grid``)."""
+    kw = {}
+    if grid is not None and grid.north_fold:
+        kw = dict(north_fold=True, pole_index=grid.pole_index)
+    return MeshComm(mesh, force_ring=force_ring, **kw)
+
+
+def _tile(grid, mesh, force_comm):
+    """(comm, local grid) of this rank; comm None on the serial route."""
+    if force_comm not in FORCE_COMM_MODES:
+        raise ValueError(f"force_comm must be one of {FORCE_COMM_MODES}, got {force_comm!r}")
+    if grid.Nx % mesh.Rx or grid.Ny % mesh.Ry:
+        raise ValueError(f"grid {grid.Nx}x{grid.Ny} not divisible by mesh {mesh.Rx}x{mesh.Ry}")
+    if mesh.size == 1 and not force_comm:
+        return None, grid
+    comm = make_comm(mesh, grid, force_ring=mesh.size == 1 and force_comm == "ring")
+    return comm, localize_grid(grid, comm, grid.Nx // mesh.Rx, grid.Ny // mesh.Ry)
+
+
+def sharded_step_fn(cfg, grid, mesh, n_inner: int | None = None, force_comm=False):
+    """This rank's ``fn(state_tile, dt) -> state_tile``: one step, or
+    ``n_inner`` steps (the immersed mask applied once), of the model on
+    ``grid`` (the global grid) decomposed over ``mesh``."""
+    from gb25_tpu_torch.models.hydrostatic import loop, time_step
+
+    comm, lgrid = _tile(grid, mesh, force_comm)
+
+    def fn(state, dt):
+        if n_inner is None:
+            return time_step(cfg, lgrid, state, dt, comm=comm)
+        return loop(cfg, lgrid, state, dt, n_inner, comm)
+
+    return fn
+
+
+def sharded_coupled_step_fn(ccfg, grid, atmos, mesh, n_inner: int | None = None,
+                            force_comm=False):
+    """This rank's coupled ``fn(state_tile, dt) -> state_tile``, the
+    atmosphere sliced to the tile."""
+    from gb25_tpu_torch.models.coupled import coupled_loop, coupled_time_step
+
+    comm, lgrid = _tile(grid, mesh, force_comm)
+    if comm is not None:
+        atmos = localize_atmosphere(atmos, comm, lgrid.Nx, lgrid.Ny)
+
+    def fn(state, dt):
+        if n_inner is None:
+            return coupled_time_step(ccfg, lgrid, atmos, state, dt, comm=comm)
+        return coupled_loop(ccfg, lgrid, atmos, state, dt, n_inner, comm)
+
+    return fn
+
+
+def _map_fields(state, f):
+    """``state`` with ``f`` applied to every 3-D and 2-D field."""
+    return state.replace(
+        u=f(state.u), v=f(state.v), eta=f(state.eta), Gu=f(state.Gu), Gv=f(state.Gv),
+        Geta=f(state.Geta), tracers={k: f(c) for k, c in state.tracers.items()},
+        Gtracers={k: f(c) for k, c in state.Gtracers.items()})
+
+
+def shard_state(state, mesh):
+    """This rank's tile of a global state (the clock is replicated)."""
+    Ny, Nx = state.eta.shape
+    nyl, nxl = Ny // mesh.Ry, Nx // mesh.Rx
+    y0, x0 = mesh.iy * nyl, mesh.ix * nxl
+    return _map_fields(state, lambda a: a[..., y0 : y0 + nyl, x0 : x0 + nxl].contiguous())
+
+
+def gather_state(state, mesh):
+    """The global state from every rank's tile, on every rank (one
+    all-gather per field)."""
+    if mesh.size == 1:
+        return state
+
+    def gather(a):
+        tiles = [torch.empty_like(a) for _ in range(mesh.size)]
+        dist.all_gather(tiles, a.contiguous(), group=mesh.group)
+        rows = [torch.cat([tiles[mesh.rank_of(ix, iy)] for ix in range(mesh.Rx)], dim=-1)
+                for iy in range(mesh.Ry)]
+        return torch.cat(rows, dim=-2)
+
+    return _map_fields(state, gather)
+
+
+def run_decomposed(mesh, cfg, grid, arrays, dt, steps, atmos=None, force_comm=False):
+    """``steps`` steps from a JAX-layout numpy state ``arrays`` (see
+    ``convert``), decomposed over ``mesh``; returns the gathered global
+    state as JAX-layout numpy arrays. ``cfg`` is a ``HydrostaticConfig``,
+    or a ``CoupledConfig`` with its ``atmos``. Fit for ``parallel.mesh.spawn``
+    (every rank passes the same global ``grid``)."""
+    state = shard_state(state_from_numpy(arrays, grid.device), mesh)
+    if atmos is None:
+        fn = sharded_step_fn(cfg, grid, mesh, n_inner=steps, force_comm=force_comm)
+    else:
+        fn = sharded_coupled_step_fn(cfg, grid, atmos, mesh, n_inner=steps,
+                                     force_comm=force_comm)
+    return state_to_numpy(gather_state(fn(state, dt), mesh))
+
+
+def tile_snapshot(mesh, grid, fields, force_comm=False):
+    """What this rank's tile sees, as numpy arrays in the port's layout: the
+    tile's grid (``grid/<name>``: its metrics and, on immersed grids, the
+    geometry built from the exchanged bottom) and each of ``fields`` (name
+    -> (kind, global array in the port's layout, h)) cut to the tile and
+    extended through the
+    exchange (``halo/<name>``): ``extend_field`` for a 3-D field,
+    ``extend_field_xy`` for a plane with h None, ``extend2`` at width h
+    otherwise. A decomposition check: each should equal the window of the
+    serially extended global field around the tile."""
+    from gb25_tpu_torch.ops.halos import extend2, extend_field, extend_field_xy
+
+    comm, lgrid = _tile(grid, mesh, force_comm)
+    Ny, Nx = lgrid.Ny, lgrid.Nx
+    y0, x0 = mesh.iy * Ny, mesh.ix * Nx
+    out = {f"grid/{n}": getattr(lgrid, n) for n in ("dxc", "dxf", "dyc", "dyf", "azc", "azf")}
+    if lgrid.immersed:
+        geo = lgrid.geometry
+        out.update({f"grid/{n}": getattr(geo, n) for n in ("bottom_e", "u_mask", "v_mask", "bu",
+                                                            "bv", "Hu", "Hv")})
+    for name, (kind, a, h) in fields.items():
+        a = torch.as_tensor(a[..., y0 : y0 + Ny, x0 : x0 + Nx], device=lgrid.device)
+        if a.dim() == 3:
+            e = extend_field(lgrid, a, kind, comm)
+        elif h is None:
+            e = extend_field_xy(lgrid, a, kind, comm)
+        else:
+            e = extend2(lgrid, a, kind, h, comm)
+        out[f"halo/{name}"] = e
+    return {k: v.cpu().numpy() for k, v in out.items()}

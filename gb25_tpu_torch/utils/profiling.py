@@ -3,11 +3,15 @@
 
     python -m gb25_tpu_torch.utils.profiling
         [--model flagship|climate|tripolar|keps] [--steps 4 --warmup 3 --kernels auto]
+        [--decomposed local|ring]
 
 Profiles a few steps at 1536x768x64 on the GPU after a warm-up: the
 flagship baroclinic-instability ocean, the coupled climate model at 1/4
 degree on the lat-lon islands grid or on the tripolar grid, or the
 flagship with the k-epsilon closure (started from e = 1e-5, eps = 1e-8).
+``--decomposed`` runs the model on the decomposed path forced onto a 1x1
+mesh (``parallel.sharded``, exchange_width = 30: one block of 30 K5
+substeps a step) in the "local" or the "ring" mode.
 Prints the device time per kernel name, grouped into the
 hand-written kernels and the torch ops around them, the device busy share
 of the profiled window (summed kernel time over wall time; overlap between
@@ -18,6 +22,7 @@ device memory. Needs a CUDA device; it fails without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -71,6 +76,8 @@ def group(name: str) -> str:
         return "K1 zslab_tendencies (CUDA)"
     if "barotropic_substep_kernel" in name:
         return "K2 barotropic_substep (CUDA)"
+    if "barotropic_block_kernel" in name:
+        return "K5 barotropic_block (CUDA)"
     if "implicit_diffusion_kernel" in name:
         return "K3 implicit_diffusion (CUDA)"
     if "catke_diffusivities_kernel" in name:
@@ -87,6 +94,7 @@ def main():
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--kernels", default="auto", choices=["auto", "torch"])
+    p.add_argument("--decomposed", default=None, choices=["local", "ring"])
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
@@ -97,28 +105,44 @@ def main():
         data_free_ocean_climate_model,
         loop,
     )
+    from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
     from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+    from gb25_tpu_torch.parallel import make_mesh, sharded_coupled_step_fn, sharded_step_fn
+
+    def blocked(cfg):
+        if args.decomposed is None:
+            return cfg
+        return dataclasses.replace(cfg, free_surface=SplitExplicitFreeSurface(exchange_width=30))
 
     if args.model in ("flagship", "keps"):
         closure = TKEDissipationVerticalDiffusivity() if args.model == "keps" else None
         cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, kernels=args.kernels,
                                                         closure=closure)
+        cfg = blocked(cfg)
 
         def run(s, n):
+            if args.decomposed:
+                return sharded_step_fn(cfg, grid, make_mesh(), n_inner=n,
+                                       force_comm=args.decomposed)(s, 60.0)
             return loop(cfg, grid, s, 60.0, n)
     else:
         grid_type = "gaussian_islands_tripolar" if args.model == "tripolar" else "gaussian_islands"
         ccfg, grid, atmos, state = data_free_ocean_climate_model(
             resolution=384 / NX, Nz=NZ, kernels=args.kernels, grid_type=grid_type)
+        ccfg = dataclasses.replace(ccfg, ocean=blocked(ccfg.ocean))
 
         def run(s, n):
+            if args.decomposed:
+                return sharded_coupled_step_fn(ccfg, grid, atmos, make_mesh(), n_inner=n,
+                                               force_comm=args.decomposed)(s, 60.0)
             return coupled_loop(ccfg, grid, atmos, s, 60.0, n)
 
     state = run(state, args.warmup)
     torch.cuda.reset_peak_memory_stats()
     rows, stages, wall_ms, _ = step_breakdown(run, state, args.steps)
     busy = sum(r[1] for r in rows)
-    print(f"{args.model} {NX}x{NY}x{NZ} kernels={args.kernels} on "
+    route = f" decomposed 1x1 {args.decomposed}" if args.decomposed else ""
+    print(f"{args.model}{route} {NX}x{NY}x{NZ} kernels={args.kernels} on "
           f"{torch.cuda.get_device_name(0)}: wall {wall_ms:.3f} ms/step, device busy "
           f"{busy:.3f} ms/step ({100 * busy / wall_ms:.1f}%), idle {100 * (1 - busy / wall_ms):.1f}%, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")

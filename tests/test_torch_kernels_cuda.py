@@ -11,7 +11,11 @@ K4 rtol 1e-6 (tests/test_pallas_catke.py: the same pointwise formulas,
 rounded alike with -fmad=false; K4's k-epsilon function bit for bit), K3
 rtol 1e-5 (the Pallas kernel's recurrence term by term), one step rtol
 1e-3 / atol 5e-6 (tests/test_zslab.py). The tripolar instances of K1 and K2
-and the four-tracer instance of K1 run on the same checks.
+and the four-tracer instance of K1 run on the same checks. K5 (the blocked
+barotropic substeps of the decomposed path) bit for bit (its plain
+version's operations in order, -fmad=false); K1 with wall_v=0 (a tile that
+is not south-most) at K1's tolerances; the decomposed 1x1 step at the
+one-step tolerances, its "ring" mode bit for bit with its "local" mode.
 """
 
 import dataclasses
@@ -336,3 +340,83 @@ def test_keps_steps_match_plain_steps(cuda):
                                                            b.tracers.values())):
         _close(x, y, 1e-3, 5e-6)
     assert float(a.tracers["e"].min()) >= 0.0 and float(a.tracers["eps"].min()) >= 0.0
+
+
+def _k5_operands(cuda, Ye, Xe, metric2d, masked, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def r(shape, scale, offset=0.0):
+        return offset + scale * torch.rand(shape, generator=gen, device=cuda)
+
+    m = (Ye, Xe) if metric2d else (Ye, 1)
+    ops = [r((Ye, Xe), 2e-2, -1e-2), r((Ye, Xe), 2.0, -1.0), r((Ye, Xe), 2.0, -1.0),
+           r((Ye, Xe), 0.2, 1.6), r((Ye, Xe), 0.2, 1.6), r((Ye, Xe), 2e-4, -1e-4),
+           r((Ye, Xe), 2e-4, -1e-4), r(m, 2e4, 1e5), r(m, 2e4, 1e5), r(m, 1e-10, 4e-10)]
+    masks = [(r((Ye, Xe), 1.0) > 0.1).float() for _ in range(2)] if masked else [None, None]
+    return ops, masks
+
+
+@pytest.mark.parametrize("metric2d,masked", [(False, False), (False, True), (True, True)],
+                         ids=["latlon", "immersed", "tripolar"])
+def test_k5_matches_plain_bitwise(cuda, metric2d, masked):
+    """K5 (one block of 30 substeps, W = 30) against its plain version: the
+    same operations in the same order under -fmad=false, bit for bit."""
+    from gb25_tpu_torch.models.free_surface import averaging_weights
+
+    ops, masks = _k5_operands(cuda, 32 + 60, 96 + 60, metric2d, masked, seed=11)
+    weights = averaging_weights(30)
+    before = pallas_barotropic.BLOCK_KERNEL.launches
+    got = pallas_barotropic._barotropic_block_cuda(weights, *ops, *masks)
+    torch.cuda.synchronize()
+    assert pallas_barotropic.BLOCK_KERNEL.launches == before + 30
+    want = pallas_barotropic.barotropic_block_plain(weights, *ops, *masks)
+    for g, w in zip(got, want):
+        assert torch.isfinite(w).all()
+        assert torch.equal(g, w), float((g - w).abs().max())
+
+
+def test_k1_without_wall_row_matches_plain(cuda):
+    """K1 on a tile that is not south-most (wall_v=0): row 0 of v*, Gv and
+    the v* integral is an interior row, and matches the plain version."""
+    cfg, grid, state = baroclinic_instability_model(128, 32, 8, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ue = extend_field(grid, state.u, "u")
+    ve = extend_field(grid, 1e-3 + state.v, "v")
+    tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
+    prev = (torch.zeros(grid.shape, device=cuda),
+            1e-7 * torch.randn(grid.shape, generator=gen, device=cuda),
+            {k: torch.zeros(grid.shape, device=cuda) for k in tr_e})
+    ab = (96.0, -36.0)
+    got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab, wall_v=False)
+    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, wall_v=False)
+    torch.cuda.synchronize()
+    _close(got[1], want[1], 2e-4, 1e-9)
+    _close(got[4], want[4], 2e-4, ab[0] * 2e-4 * float(want[1].abs().max()))
+    _close(got[6][3], want[6][3], 2e-4, 2e-4 * float(want[6][3].abs().max()) + 1e-6)
+    assert float(got[4][:, 0, :].abs().min()) > 0.0 and float(got[6][3][0].abs().min()) > 0.0
+
+
+@pytest.mark.parametrize("mode", ["local", "ring"])
+def test_decomposed_1x1_step_matches_plain(cuda, mode):
+    """One step of the decomposed 1x1 flagship (W = 30: one K5 block)
+    against the plain path on the same route; "ring" equals "local" bit for
+    bit (every exchange of a 1x1 ring is a copy of the tile's own strips)."""
+    from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
+    from gb25_tpu_torch.parallel import make_mesh, sharded_step_fn
+
+    cfg, grid, state = baroclinic_instability_model(128, 32, 8, device=cuda)
+    cfg = dataclasses.replace(cfg, free_surface=SplitExplicitFreeSurface(exchange_width=30))
+    mesh = make_mesh()
+    before = pallas_barotropic.BLOCK_KERNEL.launches, pallas_barotropic.KERNEL.launches
+    a = sharded_step_fn(cfg, grid, mesh, force_comm=mode)(state, 60.0)
+    torch.cuda.synchronize()
+    assert (pallas_barotropic.BLOCK_KERNEL.launches - before[0],
+            pallas_barotropic.KERNEL.launches - before[1]) == (30, 0)
+    plain = dataclasses.replace(cfg, kernels="torch")
+    b = sharded_step_fn(plain, grid, mesh, force_comm=mode)(state, 60.0)
+    for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), (a.tracers["T"], b.tracers["T"])):
+        _close(x, y, 1e-3, 5e-6)
+    c = sharded_step_fn(cfg, grid, mesh, force_comm="local" if mode == "ring" else "ring")(
+        state, 60.0)
+    for x, y in ((a.u, c.u), (a.v, c.v), (a.eta, c.eta), (a.tracers["T"], c.tracers["T"])):
+        assert torch.equal(x, y)
