@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``gb25_tpu_torch/csrc`` (one nvcc per
-source, all started together) and drives its four main paths through the
+source, all started together) and drives its main paths through the
 public entry points, each at 1536x768x64 f32 (halo 4, dt = 60 s, 30
 barotropic substeps):
 
@@ -70,18 +70,45 @@ barotropic substeps):
   "ring" runs on an NCCL process group of one rank (a ``HashStore``, no
   network); its exchanges are copies of the tile's own strips, "local"
   fills the ghosts from the boundary conditions.
+  the K6 route (kernels="pallas": the one-pass tendency kernel with TEOS-10
+  inside, the unfused AB2 update, the blocked free surface serially, W = 4):
+  22. K6 (pallas_tendencies) against its plain version, rtol 2e-4, in its
+     flagship instance (tracers T, S), its tripolar instance (T, S, e, 2-D
+     metric planes) on the climate operands of [12] and its four-tracer
+     instance on the k-epsilon operands of [16]: the one launch and the
+     split pair (momentum, then tracers), whether each is bit for bit with
+     the plain version, and whether the kernel's TEOS-10 buoyancy is; then
+     the k-epsilon flagship on the K6 route, 8 + 2x16 steps, per step
+     exactly 1 K6, 30 K5, 4 K3, 1 k-epsilon K4, 0 K1, 0 K2;
+  23. the flagship on the K6 route: one step kernels="pallas" against one
+     step kernels="torch" (tolerances of [5], but u, v and eta at an atol
+     of 1e-3 of their largest value and Gu, Gv on fluid faces at 8 ulps of
+     p over the face's spacing where that is larger: float32 rounding, see
+     ``route_step_compare``; u, v, eta, Gu and Gv of both beside the
+     "torch" step in float64), then 8 warm-up steps and two 256-step loops,
+     the second one timed; per step exactly 1 K6, 30 K5, 0 K1, 0 K2; finite
+     fields; ms/step beside [5]'s; then K5 against its plain version
+     (rtol 1e-6, and whether bit for bit) on the operands of one more
+     step's first block (4 substeps) and last block (2), both timed;
+  24. the tripolar climate on the K6 route: 8 coupled steps, one step
+     against "torch" and float64 (as in [23]), 8 warm-up steps and two
+     64-step loops, the second timed; per step exactly 1 K6, 30 K5, 3 K3, 1
+     K4, 0 K1, 0 K2; finite fields, land at rest; ms/step beside [13]'s;
+     K5 on one more step's first and last blocks (metric planes, masks).
 
-Every phase raises on failure, and the script then exits non-zero. [22]
-sums up the ms/step of every path. Three lines end the output: a JSON object with each kernel instance's launches
-on its main path, error against its plain version, times, its bound (the
-larger of its compulsory bytes over 3.35 TB/s and its operations over
-67 TFLOP/s) and its library time (null: no one PyTorch call computes any
-of these functions; K5's entry also carries its column instance and its
-launches in "ring" and on the flagship); then the card's name and power
-limit; then
+Every phase raises on failure, and the script then exits non-zero. [25]
+sums up the ms/step of every path. Three lines end the output: a JSON
+object with each kernel instance's launches on its main path, error
+against its plain version, times, its bound (the larger of its compulsory
+bytes over 3.35 TB/s and its operations over 67 TFLOP/s) and its library
+time (null: no one PyTorch call computes any of these functions; K5's
+entry also carries its column instance, its launches in "ring" and on the
+decomposed flagship, and under "k6_routes" its launches on each K6 route
+with the checks, times and bounds of [23]'s and [24]'s blocks); then the
+card's name and power limit; then
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
-prints no result. Times are CUDA-event means: ``ms`` of K1 and K3 is the
-kernel launch alone on operands prepared once (K3 summed over a step's
+prints no result. Times are CUDA-event means: ``ms`` of K1, K3 and K6 is
+the kernel launch alone on operands prepared once (K3 summed over a step's
 solves), of K4 its wrapper (the launch and one or two 1-D profile
 reshapes), of K2 the whole 30-substep loop wrapper, its plane building
 included, of K5 one block of 30 launches; ``plain_ms`` is the plain version
@@ -104,6 +131,7 @@ RESOLUTION = 384 / NX  # the climate model's 1/4 degree: 1536 x 768
 DT = 60.0
 WARMUP, STEPS, PLAIN_STEPS = 8, 256, 3
 CLIMATE_STEPS, CLIMATE_PLAIN_STEPS = 128, 2
+K6_CLIMATE_STEPS, K6_KEPS_STEPS = 64, 16
 TRIPOLAR_PLAIN_STEPS, KEPS_STEPS, KEPS_PLAIN_STEPS = 3, 128, 3
 DECOMPOSED_W, DECOMPOSED_STEPS = 30, 64  # the bench's decomposed 1x1 rows
 DEVICE = "cuda"
@@ -152,8 +180,11 @@ def compare(name, got, want, rtol, atol):
     max_abs = float(err.max())
     max_rel = float((err / want.abs().clamp_min(1e-30)).max())
     bad = int((err > atol + rtol * want.abs()).sum())
+    # atol may be a tensor (a bound per element): print its range
+    atol_txt = (f"{float(atol):.1e}" if not torch.is_tensor(atol)
+                else f"{float(atol.min()):.1e}..{float(atol.max()):.1e}")
     print(f"  {name:10s} max|ref| {float(want.abs().max()):.4e}  max abs err {max_abs:.3e}  "
-          f"max rel err {max_rel:.3e}  (rtol {rtol:g}, atol {atol:.1e}, outside: {bad})")
+          f"max rel err {max_rel:.3e}  (rtol {rtol:g}, atol {atol_txt}, outside: {bad})")
     if bad:
         raise AssertionError(f"{name}: {bad} elements outside rtol={rtol} atol={atol}")
     return max_abs
@@ -216,6 +247,19 @@ def k4_keps_bound(grid):
     source)."""
     n, ext, _, _ = sizes(grid)
     return bound(5 * ext + 6 * n, 50 * grid.Nx * grid.Ny * grid.Nz)
+
+
+def k6_bound(grid, ntr):
+    """K6 reads u, v and the tracers extended and (tripolar) the six
+    metrics and f as extended planes, and writes the interior G of each.
+    Operations per cell: ~600 for the momentum and two tracers and ~170 per
+    further tracer (K1's count), and ~120 for TEOS-10 (48 multiply-add
+    pairs of its Horner scheme, the reduced variables and b) and the
+    column sums (a hand count of the source)."""
+    n, ext, _, ext_plane = sizes(grid)
+    nprog = 2 + ntr
+    nbytes = nprog * ext + nprog * n + (7 * ext_plane if grid.north_fold else 0)
+    return bound(nbytes, (600 + 170 * (ntr - 2) + 120) * grid.Nx * grid.Ny * grid.Nz)
 
 
 def build_kernels(kernels):
@@ -719,6 +763,22 @@ def phase_k4_keps(cfg, grid, ue, ve, be, ee, epse):
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}, got
 
 
+def keps_operands(grid, state, gen):
+    """Extended k-epsilon fields: currents of ~0.05 m/s, a T perturbation
+    (both signs of N^2), e and eps around the start state."""
+    from gb25_tpu_torch.ops.halos import extend_field
+
+    def noise(s):
+        return s * torch.randn(grid.shape, generator=gen, device=DEVICE)
+
+    ue = extend_field(grid, noise(0.05), "u")
+    ve = extend_field(grid, noise(0.05), "v")
+    tr = {"T": state.tracers["T"] + noise(0.1), "S": state.tracers["S"],
+          "e": 1e-5 * (1.0 + torch.rand(grid.shape, generator=gen, device=DEVICE)),
+          "eps": 1e-8 * (1.0 + torch.rand(grid.shape, generator=gen, device=DEVICE))}
+    return ue, ve, {k: extend_field(grid, c, "c") for k, c in tr.items()}
+
+
 def keps(card):
     """The flagship with the k-epsilon closure: phases [15] to [18]."""
     from gb25_tpu_torch import baroclinic_instability_model, loop, time_step
@@ -729,7 +789,6 @@ def keps(card):
         pallas_tridiag,
         pallas_zslab,
     )
-    from gb25_tpu_torch.ops.halos import extend_field
 
     cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE,
                                                     closure=TKEDissipationVerticalDiffusivity())
@@ -739,21 +798,14 @@ def keps(card):
     def noise(s):
         return s * torch.randn(grid.shape, generator=gen, device=DEVICE)
 
-    # currents of ~0.05 m/s, a T perturbation (both signs of N^2), e and
-    # eps around the start state
-    ue = extend_field(grid, noise(0.05), "u")
-    ve = extend_field(grid, noise(0.05), "v")
-    tr = {"T": state.tracers["T"] + noise(0.1), "S": state.tracers["S"],
-          "e": 1e-5 * (1.0 + torch.rand(grid.shape, generator=gen, device=DEVICE)),
-          "eps": 1e-8 * (1.0 + torch.rand(grid.shape, generator=gen, device=DEVICE))}
-    tr_e = {k: extend_field(grid, c, "c") for k, c in tr.items()}
+    ue, ve, tr_e = keps_operands(grid, state, gen)
     be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
     print(f"[15] K4 k-epsilon vs plain at {NX}x{NY}x{NZ}, bit for bit")
     k4, diffs = phase_k4_keps(cfg, grid, ue, ve, be, tr_e["e"], tr_e["eps"])
     print("[16] K1 four-tracer instance vs plain")
     Gv_p = noise(1e-7)
     Gv_p[:, 0, :] = 0.0
-    prev = (noise(1e-7), Gv_p, {k: noise(1e-7) for k in tr})
+    prev = (noise(1e-7), Gv_p, {k: noise(1e-7) for k in tr_e})
     k1 = phase_k1_instance(cfg, grid, ue, ve, tr_e, be, b_total, prev, "four-tracer")
     del prev, be, b_total
     print("[17] K3 vs plain: the (u, v), (T, S), e and eps solves of a k-epsilon step")
@@ -974,11 +1026,355 @@ def decomposed_flagship(card, serial_ms, phase):
     return res
 
 
+# --------------------------------------------------------------------------
+# the K6 route: kernels="pallas"
+# --------------------------------------------------------------------------
+
+def phase_k6(cfg, grid, ue, ve, tr_e, label):
+    """K6 against its plain version on one instance's operands: the one
+    launch and the split pair at K1's tolerances, each bit for bit or not;
+    the kernel's TEOS-10 buoyancy against the plain one; the kernel alone
+    and the plain version timed."""
+    from gb25_tpu_torch.ops import pallas_tendency
+    from gb25_tpu_torch.ops.operators import coriolis_ff
+
+    f_ff = coriolis_ff(grid, cfg.coriolis).to(torch.float32)
+    args = (cfg, grid, f_ff, ue, ve, tr_e)
+    got = pallas_tendency.tendency_kernel(*args)
+    split = pallas_tendency.pallas_tendencies(*args, split=True)
+    want = pallas_tendency.pallas_tendencies_plain(*args)
+    torch.cuda.synchronize()
+    pairs = [("Gu", got[0], want[0], 1e-9), ("Gv", got[1], want[1], 1e-9)]
+    pairs += [("G" + k, got[2][k], want[2][k], 1e-7) for k in tr_e]
+    errs = [compare(n, g, w, 2e-4, atol) for n, g, w, atol in pairs]
+    bitwise = all(torch.equal(g, w) for _, g, w, _ in pairs)
+    split_same = (torch.equal(split[0], got[0]) and torch.equal(split[1], got[1])
+                  and all(torch.equal(split[2][k], got[2][k]) for k in tr_e))
+    if not split_same:
+        raise AssertionError("K6's split launches differ from its single launch")
+    del got, split, want
+    b_kernel = pallas_tendency.teos10_kernel(cfg.eos, tr_e["T"], tr_e["S"], grid.z_c)
+    b_plain = cfg.eos.buoyancy(tr_e["T"], tr_e["S"], grid.z_c)
+    b_bitwise = torch.equal(b_kernel, b_plain)
+    b_err = compare("b", b_kernel, b_plain, 1e-6, 0.0)
+    del b_kernel, b_plain
+    ms = cuda_time_ms(lambda: pallas_tendency.tendency_kernel(*args), reps=10)
+    plain_ms = cuda_time_ms(lambda: pallas_tendency.pallas_tendencies_plain(*args), reps=3)
+    print(f"  K6 {label} instance alone {ms:.3f} ms; plain {plain_ms:.3f} ms; bit for bit with "
+          f"the plain version: outputs {bitwise}, TEOS-10 b {b_bitwise} (max abs err "
+          f"{b_err:.3e}); split pair equals the single launch")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bitwise": bitwise,
+            "b_bitwise": b_bitwise}
+
+
+def cast_state(state, dtype):
+    """``state`` with every tensor cast to ``dtype``."""
+    def cast(x):
+        return {k: v.to(dtype) for k, v in x.items()} if isinstance(x, dict) else x.to(dtype)
+
+    return state.replace(**{f.name: cast(getattr(state, f.name))
+                            for f in dataclasses.fields(state) if f.name != "iteration"})
+
+
+def pressure_ulp_atol(cfg, grid, state):
+    """Per-face bounds for Gu and Gv: the gradient of two pressures, each
+    4 float32 ulps off, of the largest column total of b dz (~300 m^2/s^2)
+    over the face's spacing. K6 and the "torch" route's plain K1 sum that
+    total in other orders, and p = csum - total cancels it, so their
+    tendencies part by up to this much (on the CPU at 1 and 1/2 degree, up
+    to 0.3 of it): ~2e-8 on 28 km cells, more on the tripolar grid's
+    smaller fluid cells toward its poles. 0 on solid faces, where both
+    routes re-mask G to 0: the pole cells, whose spacings are floored at
+    1e-3 of the largest, are land."""
+    from gb25_tpu_torch.grids.immersed import interior_masks
+
+    hx, hy, hz = grid.halo
+    Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
+    b = cfg.eos.buoyancy(state.tracers["T"], state.tracers["S"], grid.z_c[hz : hz + Nz])
+    p = float((b * grid.dz_c[hz : hz + Nz]).sum(dim=0).abs().max())
+    ulps = 8.0 * torch.finfo(torch.float32).eps * p
+
+    def inner(m):  # (Ny, 1) column or (Ny, Nx) plane
+        m = m[0, hy : hy + Ny]
+        return m[:, hx : hx + Nx] if m.shape[1] > 1 else m
+
+    au, av = ulps / inner(grid.dxc), ulps / inner(grid.dyf)
+    if grid.immersed:
+        um, vm = interior_masks(grid)
+        return au * um, av * vm
+    return au, av
+
+
+def route_step_compare(cfg, grid, step, plain_step, state, step64=None):
+    """One step of the K6 route against one of the "torch" route from
+    ``state``: the same physics, formed differently (K6 against K1's plain
+    version, the AB2 update and forcing unfused against fused, the blocked
+    free surface against K2), so the two part by float32 rounding, which
+    two places amplify:
+    - the barotropic forcing, the depth integral of G, cancels over depth:
+      rounding in either route moves eta, and through the barotropic
+      correction u and v, by up to ~1e-3 of their largest values (both
+      routes' eta lie 5e-6 to 8e-6 from the float64 step's, of a largest
+      1e-2, on the flagship); those three are held at rtol 1e-3 and an
+      atol of 1e-3 of their largest value;
+    - Gu and Gv carry the pressure gradient of one ulp of p over the cell
+      on fluid faces (``pressure_ulp_atol``), their atol where it exceeds
+      [5]'s; solid faces are held at [5]'s.
+    The tracers and their G are held at [5]'s tolerances. ``step64`` (the
+    "torch" step in float64, on the state cast) shows how far each route's
+    u, v, eta, Gu and Gv lie from float64."""
+    atol_u, atol_v = pressure_ulp_atol(cfg, grid, state)
+    a, b = step(state), plain_step(state)
+    barotropic = {"u": (a.u, b.u), "v": (a.v, b.v), "eta": (a.eta, b.eta)}
+    for name, (x, y) in barotropic.items():
+        compare(name, x, y, 1e-3, 1e-3 * float(y.abs().max()))
+    momentum = {"Gu": (a.Gu, b.Gu), "Gv": (a.Gv, b.Gv)}
+    for (name, (x, y)), atol in zip(momentum.items(), (atol_u, atol_v)):
+        compare(name, x, y, 1e-3, atol.clamp(min=min(5e-6, 1e-3 * float(y.abs().max()))))
+    rest = {**{k: (a.tracers[k], b.tracers[k]) for k in a.tracers},
+            **{"G" + k: (a.Gtracers[k], b.Gtracers[k]) for k in a.Gtracers}}
+    for name, (x, y) in rest.items():
+        compare(name, x, y, 1e-3, min(5e-6, 1e-3 * float(y.abs().max())))
+    if step64 is not None:
+        c = step64(cast_state(state, torch.float64))
+        for name, (x, y) in {**barotropic, **momentum}.items():
+            z = getattr(c, name)
+            print(f"  {name} against the float64 'torch' step (max {float(z.abs().max()):.4e}): "
+                  f"K6 route {float((x.double() - z).abs().max()):.3e}, 'torch' route "
+                  f"{float((y.double() - z).abs().max()):.3e}")
+
+
+def k6_kernels():
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_tendency, pallas_zslab
+
+    return {"K6": pallas_tendency.KERNEL, "K5": pallas_barotropic.BLOCK_KERNEL,
+            "K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL}
+
+
+def capture_k5_blocks(run_step):
+    """Run ``run_step()`` with ``free_surface.barotropic_block`` wrapped and
+    return the operands of its first block and of its last, shorter one,
+    each as (weights, operands)."""
+    from gb25_tpu_torch.models import free_surface
+
+    wrapped = free_surface.barotropic_block
+    blocks = []
+
+    def spy(cfg, weights, *ops):
+        blocks[1:] = [(weights, ops)]
+        return wrapped(cfg, weights, *ops)
+
+    free_surface.barotropic_block = spy
+    try:
+        run_step()
+    finally:
+        free_surface.barotropic_block = wrapped
+    return blocks
+
+
+def phase_k5_route(blocks, label):
+    """K5 against its plain version on the operands of a K6-route step's
+    blocks (W = 4: seven blocks of 4 substeps and one of 2), at [19]'s
+    rtol, bit for bit or not; each block alone and its plain version timed.
+    Returns each block's record by its substep count."""
+    from gb25_tpu_torch.ops import pallas_barotropic
+
+    out = {}
+    for weights, ops in blocks:
+        n = len(weights)
+
+        def kernel():
+            return pallas_barotropic._barotropic_block_cuda(weights, *ops)
+
+        def plain():
+            return pallas_barotropic.barotropic_block_plain(weights, *ops)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        names = ("eta", "U", "V", "pe", "pU", "pV")
+        errs = [compare(f"{name} {n}", g, w, 1e-6, 1e-6 * float(w.abs().max()))
+                for name, g, w in zip(names, got, want)]
+        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+        del got, want
+        ms = cuda_time_ms(kernel, reps=20)
+        plain_ms = cuda_time_ms(plain, reps=5)
+        Ye, Xe = ops[0].shape
+        b = k5_bound(Ye, Xe, n, ops[7].shape[1] > 1, ops[-1] is not None)
+        print(f"  K5 {label} block of {n} substeps ({Ye}x{Xe}): {ms:.3f} ms (bound {b[0]:.4f} "
+              f"ms, {b[1]}); plain {plain_ms:.3f} ms; bit for bit with the plain version: "
+              f"{bitwise}")
+        out[str(n)] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": b[0], "bound_by": b[1], "bitwise": bitwise}
+    return out
+
+
+def k6_keps_route(card, serial_ms):
+    """[22], its four-tracer instance on the k-epsilon operands, then the
+    k-epsilon flagship on the K6 route, briefly, for that instance's
+    launches."""
+    from gb25_tpu_torch import baroclinic_instability_model, loop
+    from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+    from gb25_tpu_torch.ops import pallas_catke, pallas_tridiag
+
+    cfg, grid, state = baroclinic_instability_model(
+        NX, NY, NZ, device=DEVICE, kernels="pallas", closure=TKEDissipationVerticalDiffusivity())
+    ue, ve, tr_e = keps_operands(grid, state, torch.Generator(device=DEVICE).manual_seed(2468))
+    res = phase_k6(cfg, grid, ue, ve, tr_e, "four-tracer")
+    del ue, ve, tr_e
+    print(f"  k-epsilon flagship on the K6 route, {WARMUP} + 2x{K6_KEPS_STEPS} steps:")
+    kernels = {**k6_kernels(), "K3": pallas_tridiag.KERNEL, "K4_keps": pallas_catke.KEPS_KERNEL}
+    per_step = {"K6": 1, "K5": cfg.free_surface.substeps, "K1": 0, "K2": 0, "K3": 4,
+                "K4_keps": 1}
+    s, elapsed, launches, _ = run_main_path(lambda st, n: loop(cfg, grid, st, DT, n), state,
+                                            kernels, per_step, K6_KEPS_STEPS)
+    check_state(s, (NZ, NY, NX))
+    if float(s.tracers["e"].min()) < 0.0 or float(s.tracers["eps"].min()) < 0.0:
+        raise AssertionError("e or eps < 0 after the K6-route run")
+    ms_step = 1e3 * elapsed / K6_KEPS_STEPS
+    print(f"  k-epsilon flagship, K6 route, on {card}: {ms_step:.3f} ms/step (timed second "
+          f"{K6_KEPS_STEPS}-step loop); K1 route [18] {serial_ms:.3f} ms/step")
+    return res, launches, ms_step, k6_bound(grid, 4)
+
+
+def flagship_k6_model():
+    from gb25_tpu_torch import baroclinic_instability_model
+
+    return baroclinic_instability_model(NX, NY, NZ, device=DEVICE, kernels="pallas")
+
+
+def tripolar_k6_model():
+    from gb25_tpu_torch import data_free_ocean_climate_model
+
+    return data_free_ocean_climate_model(resolution=RESOLUTION, Nz=NZ, device=DEVICE,
+                                         grid_type="gaussian_islands_tripolar", kernels="pallas")
+
+
+def k6_instances():
+    """[22], its flagship instance on the flagship's state and its
+    tripolar instance on the climate operands of [12]."""
+    from gb25_tpu_torch.ops.halos import extend_field
+
+    cfg, grid, state = flagship_k6_model()
+    ue = extend_field(grid, state.u, "u")
+    ve = extend_field(grid, state.v, "v")
+    tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
+    flag = phase_k6(cfg, grid, ue, ve, tr_e, "flagship"), k6_bound(grid, 2)
+    del cfg, grid, state, ue, ve, tr_e
+    torch.cuda.empty_cache()
+    ccfg, grid, _, state = tripolar_k6_model()
+    ue, ve, tr_e = climate_operands(ccfg.ocean, grid, state,
+                                    torch.Generator(device=DEVICE).manual_seed(4321))[:3]
+    trip = phase_k6(ccfg.ocean, grid, ue, ve, tr_e, "tripolar"), k6_bound(grid, 3)
+    return flag, trip
+
+
+def k6_flagship(card, serial_ms):
+    """[23]: the flagship on the K6 route."""
+    from gb25_tpu_torch import loop, time_step
+
+    from gb25_tpu_torch import baroclinic_instability_model
+
+    cfg, grid, state = flagship_k6_model()
+    print("[23] flagship on the K6 route: one step kernels='pallas' vs 'torch'")
+    cfg_torch = dataclasses.replace(cfg, kernels="torch")
+    grid64 = baroclinic_instability_model(NX, NY, NZ, device=DEVICE, dtype=torch.float64)[1]
+    route_step_compare(cfg, grid, lambda s: time_step(cfg, grid, s, DT),
+                       lambda s: time_step(cfg_torch, grid, s, DT), state,
+                       lambda s: time_step(cfg_torch, grid64, s, DT))
+    del grid64
+    torch.cuda.empty_cache()
+    per_step = {"K6": 1, "K5": cfg.free_surface.substeps, "K1": 0, "K2": 0}
+    s, elapsed, launches, _ = run_main_path(lambda st, n: loop(cfg, grid, st, DT, n), state,
+                                            k6_kernels(), per_step, STEPS)
+    umax = check_state(s, (NZ, NY, NX))
+    ms_step = 1e3 * elapsed / STEPS
+    print(f"  flagship {NX}x{NY}x{NZ} f32, K6 route, on {card}: {ms_step:.3f} ms/step "
+          f"({NX * NY * NZ * STEPS / elapsed:.4e} cell-steps/s, timed second {STEPS}-step loop, "
+          f"max|u| {umax:.4f} m/s); K1 route [5] {serial_ms:.3f} ms/step")
+    print("  K5 on the operands of one more step's first and last blocks (metric columns):")
+    k5 = phase_k5_route(capture_k5_blocks(lambda: time_step(cfg, grid, s, DT)), "flagship")
+    return launches, ms_step, k5
+
+
+def k6_tripolar(card, serial_ms):
+    """[24]: the tripolar climate on the K6 route."""
+    from gb25_tpu_torch import coupled_loop, coupled_time_step, data_free_ocean_climate_model
+    from gb25_tpu_torch.ops import pallas_catke, pallas_tridiag
+
+    ccfg, grid, atmos, state = tripolar_k6_model()
+    cfg = ccfg.ocean
+    print(f"[24] tripolar climate on the K6 route: {WARMUP} coupled steps, then one step "
+          "kernels='pallas' vs 'torch'")
+    plain = dataclasses.replace(ccfg, ocean=dataclasses.replace(cfg, kernels="torch"))
+    moved = coupled_loop(ccfg, grid, atmos, state, DT, WARMUP)
+    c64, grid64, atmos64, _ = data_free_ocean_climate_model(
+        resolution=RESOLUTION, Nz=NZ, device=DEVICE, dtype=torch.float64,
+        grid_type="gaussian_islands_tripolar", kernels="torch")
+    route_step_compare(cfg, grid, lambda s: coupled_time_step(ccfg, grid, atmos, s, DT),
+                       lambda s: coupled_time_step(plain, grid, atmos, s, DT), moved,
+                       lambda s: coupled_time_step(c64, grid64, atmos64, s, DT))
+    del moved, c64, grid64, atmos64
+    torch.cuda.empty_cache()
+    kernels = {**k6_kernels(), "K3": pallas_tridiag.KERNEL, "K4": pallas_catke.KERNEL}
+    per_step = {"K6": 1, "K5": cfg.free_surface.substeps, "K1": 0, "K2": 0, "K3": 3, "K4": 1}
+    s, elapsed, launches, _ = run_main_path(
+        lambda st, n: coupled_loop(ccfg, grid, atmos, st, DT, n), state, kernels, per_step,
+        K6_CLIMATE_STEPS)
+    check_climate_state(s, grid)
+    ms_step = 1e3 * elapsed / K6_CLIMATE_STEPS
+    print(f"  tripolar climate {NX}x{NY}x{NZ} f32, K6 route, on {card}: {ms_step:.3f} ms/step "
+          f"(timed second {K6_CLIMATE_STEPS}-step loop); K1 route [13] {serial_ms:.3f} ms/step")
+    print("  K5 on the operands of one more step's first and last blocks (metric planes, "
+          "masks):")
+    k5 = phase_k5_route(
+        capture_k5_blocks(lambda: coupled_time_step(ccfg, grid, atmos, s, DT)), "tripolar")
+    return launches, ms_step, k5
+
+
+def k6_phases(card, serial):
+    """Phases [22] to [24]; ``serial``: the K1 route's ms/step of each
+    model in this run. Returns K6's kernel entries, K5 on the K6 routes
+    (its launches there and, on the flagship and tripolar routes, its
+    checks and times on real blocks) and the routes' ms/step."""
+    print(f"[22] K6 (pallas_tendencies) vs plain at {NX}x{NY}x{NZ}: flagship, tripolar and "
+          "four-tracer instances")
+    (flag_res, flag_b), (trip_res, trip_b) = k6_instances()
+    torch.cuda.empty_cache()
+    kk = (*k6_keps_route(card, serial["keps"]), None)
+    torch.cuda.empty_cache()
+    launches, ms_step, k5 = k6_flagship(card, serial["flagship"])
+    kf = (flag_res, launches, ms_step, flag_b, k5)
+    torch.cuda.empty_cache()
+    launches, ms_step, k5 = k6_tripolar(card, serial["climate_tripolar"])
+    kt = (trip_res, launches, ms_step, trip_b, k5)
+    torch.cuda.empty_cache()
+    entries, k5_routes, ms = [], {}, {}
+    for (res, launches, ms_step, b, k5), name, path in (
+            (kf, "pallas_tendencies", "flagship_k6"),
+            (kt, "pallas_tendencies_tripolar", "climate_tripolar_k6"),
+            (kk, "pallas_tendencies_keps", "keps_k6")):
+        e = entry(name, "tendencies.cu", "gb25_tpu/ops/pallas_tendency.py:115", path,
+                  launches["K6"], res, b)
+        e.update(bitwise=res["bitwise"], b_bitwise=res["b_bitwise"])
+        entries.append(e)
+        k5_routes[path] = {"launches": launches["K5"]}
+        if k5 is not None:
+            k5_routes[path]["blocks"] = k5
+        ms[path] = ms_step
+    return entries, k5_routes, ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    from gb25_tpu_torch.ops import pallas_barotropic, pallas_catke, pallas_tridiag, pallas_zslab
+    from gb25_tpu_torch.ops import (
+        pallas_barotropic,
+        pallas_catke,
+        pallas_tendency,
+        pallas_tridiag,
+        pallas_zslab,
+    )
 
     card = card_line()
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -988,7 +1384,7 @@ def main():
 
     built = build_kernels([pallas_zslab.KERNEL, pallas_barotropic.KERNEL, pallas_tridiag.KERNEL,
                            pallas_catke.KERNEL, pallas_catke.KEPS_KERNEL,
-                           pallas_barotropic.BLOCK_KERNEL])
+                           pallas_barotropic.BLOCK_KERNEL, pallas_tendency.KERNEL])
     print(f"[2] kernels built in {built:.1f} s")
 
     flag_kernels, flag = flagship(card)
@@ -1013,13 +1409,17 @@ def main():
         dflag = decomposed_flagship(card, flag["ms_step"], 21)
     finally:
         dist.destroy_process_group()
+    torch.cuda.empty_cache()
     summary = {"flagship": flag, "climate": clim, "climate_tripolar": trip, "keps": kep}
-    print(f"[22] on {card}: " + "; ".join(
+    k6_entries, k5_on_k6, k6_ms = k6_phases(
+        card, {name: r["ms_step"] for name, r in summary.items()})
+    print(f"[25] on {card}: " + "; ".join(
         f"{name} {r['ms_step']:.3f} ms/step ({r['rate']:.4e} cell-steps/s), plain "
         f"{r['plain_ms_step']:.3f}" for name, r in summary.items()) + "; " + "; ".join(
         f"decomposed 1x1 {name} local {r['local']['ms_step']:.3f}, ring "
         f"{r['ring']['ms_step']:.3f} ms/step" for name, r in
-        (("climate_tripolar", dclim), ("flagship", dflag))))
+        (("climate_tripolar", dclim), ("flagship", dflag))) + "; K6 route: " + "; ".join(
+        f"{name} {ms:.3f} ms/step" for name, ms in k6_ms.items()))
 
     k5_entry = entry("barotropic_block", "barotropic_block.cu",
                      "gb25_tpu/ops/pallas_barotropic.py:349", "climate_tripolar_decomposed",
@@ -1027,11 +1427,12 @@ def main():
     k5_entry.update(
         launches_ring=dclim["ring"]["launches"]["K5"],
         launches_flagship_decomposed=dflag["local"]["launches"]["K5"],
+        k6_routes=k5_on_k6,
         bitwise=k5["tripolar"]["bitwise"],
         columns={k: k5["columns"][k] for k in ("max_abs_err", "ms", "plain_ms", "bitwise")}
         | {"bound_ms": k5["columns"]["bound"][0]})
     print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels
-                      + [k5_entry]}))
+                      + [k5_entry] + k6_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -110,6 +110,11 @@ class LatitudeLongitudeGrid:
     # grids.immersed.ImmersedGeometry when bottom_height carries real
     # bathymetry (set by grids.immersed.with_bathymetry), else None
     geometry: object = None
+    # constants derived from the grid on first use (the serial blocked
+    # solve's tile, models.free_surface.serial_comm); not copied by
+    # dataclasses.replace
+    cache: dict = dataclasses.field(default_factory=dict, init=False, compare=False,
+                                    repr=False)
 
     north_fold = False  # the tripolar grid (grids.tripolar) folds its north edge
 

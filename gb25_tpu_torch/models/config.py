@@ -11,7 +11,7 @@ from gb25_tpu_torch.ops.eos import TEOS10EquationOfState
 
 EARTH_ROTATION_RATE = 7.292115e-5  # rad/s
 
-KERNEL_MODES = ("auto", "torch")
+KERNEL_MODES = ("auto", "torch", "pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -20,11 +20,13 @@ class SplitExplicitFreeSurface:
     forward-backward substeps over the window [t, t + 2 dt], replaced by
     their ``averaging``-weighted mean ("parabolic" or "flat").
 
-    ``exchange_width``: the halo width W of the decomposed path's blocked
-    solve (None: the grid halo). Each width-W exchange carries W substeps,
-    so W = substeps runs the solve as one block. Serial and decomposed runs
-    agree at the same W; the serial route re-imposes its boundary
-    conditions every substep and ignores it."""
+    ``exchange_width``: the halo width W of the blocked solve (None: the
+    grid halo), which the decomposed path runs and, serially, the
+    ``kernels="pallas"`` route, as the JAX package's does. Each width-W
+    exchange carries W substeps, so W = substeps runs the solve as one
+    block. Serial and decomposed runs agree at the same W; the serial
+    route of "auto" and "torch" re-imposes its boundary conditions every
+    substep (K2) and ignores it."""
 
     substeps: int = 30
     gravitational_acceleration: float = 9.80665
@@ -36,9 +38,16 @@ class SplitExplicitFreeSurface:
 class HydrostaticConfig:
     """Static configuration of the hydrostatic free-surface model.
 
-    ``kernels``: "auto" launches the Hopper kernels for CUDA tensors and
-    their plain PyTorch versions for CPU tensors; "torch" runs the plain
-    versions on any device (the counterpart of the JAX package's "jnp").
+    ``kernels``: "auto" runs the step in its fused form (K1 computes the
+    tendencies, the AB2 update and the depth integrals; the serial free
+    surface is K2), launching the Hopper kernels for CUDA tensors and
+    their plain PyTorch versions for CPU tensors; "torch" runs the fused
+    form's plain versions on any device. "pallas" is the JAX package's
+    route of that name: kernel K6 computes the tendencies (TEOS-10
+    inside), the step applies the AB2 update and integrates the forcing
+    itself, and the serial free surface is the blocked solve (K5) at
+    ``exchange_width``; it dispatches as "auto" does, so on CPU tensors it
+    runs the unfused form of the JAX package's "jnp" route.
 
     ``closure``: None, ``CATKEVerticalDiffusivity`` or
     ``TKEDissipationVerticalDiffusivity`` (k-epsilon); ``tracers`` is

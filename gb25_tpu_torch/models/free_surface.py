@@ -17,7 +17,9 @@ neighbours (W = ``exchange_width``), and kernel K5 advances W substeps on
 the extended planes, each substep spoiling one outer ring, before the next
 exchange. The wall ghosts then evolve within a block instead of being
 re-mirrored, a round-off drift that each exchange resets; serial and
-decomposed blocked runs at the same W agree.
+decomposed blocked runs at the same W agree. The ``kernels="pallas"``
+route runs the blocked solve serially too, as the JAX package does there:
+on a 1x1 tile of its own, whose ghosts come from the boundary conditions.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from torch.profiler import record_function
 
 from gb25_tpu_torch.ops.halos import extend2
 from gb25_tpu_torch.ops.pallas_barotropic import barotropic_block, barotropic_loop
+from gb25_tpu_torch.parallel.halo import make_comm
+from gb25_tpu_torch.parallel.mesh import Mesh
 
 
 def averaging_weights(substeps: int, kind: str = "parabolic") -> np.ndarray:
@@ -56,16 +60,28 @@ def face_depths(grid):
     return 0.5 * (Hc + He[1:-1, :-2]), 0.5 * (Hc + He[:-2, 1:-1])
 
 
-def barotropic_substep(cfg, grid, state, u_star, v_star, dt, integrals, comm=None):
+def barotropic_substep(cfg, grid, state, u_star, v_star, dt, integrals, comm=None, G_ab=None):
     """The split-explicit solve of one step; returns (eta_new, u_new, v_new).
 
     integrals: (U0, V0, Us, Vs), the depth integrals of (u, v, u*, v*) that
     K1 accumulates. The forcing is derived, GU = (Us - U0) / dt: u* was
     updated as u + dt G_ab, so no G_ab field exists. With ``comm`` (a tile
-    of the decomposed path) the solve is blocked (K5)."""
-    U0, V0, Us, Vs = integrals
-    GU = (Us - U0) / dt
-    GV = (Vs - V0) / dt
+    of the decomposed path) the solve is blocked (K5).
+
+    On the "pallas" route ``integrals`` is None and ``G_ab`` holds the
+    AB2-combined tendencies (c1 Gu + c2 Gu_prev, c1 Gv + c2 Gv_prev): the
+    integrals and the forcing GU = zint(Gu_ab) are taken here, and the
+    solve is blocked on the route's own 1x1 tile unless ``comm`` is
+    given."""
+    if integrals is None:
+        U0, V0, Us, Vs = (zint(grid, f) for f in (state.u, state.v, u_star, v_star))
+        GU, GV = zint(grid, G_ab[0]), zint(grid, G_ab[1])
+        if comm is None:
+            comm = serial_comm(grid)
+    else:
+        U0, V0, Us, Vs = integrals
+        GU = (Us - U0) / dt
+        GV = (Vs - V0) / dt
     if comm is not None:
         eta_b, U_b, V_b, Hu, Hv = _blocked_solve(cfg, grid, state.eta, U0, V0, GU, GV, dt, comm)
         return _finish(eta_b, u_star, v_star, U_b, V_b, Hu, Hv, Us, Vs)
@@ -78,6 +94,21 @@ def barotropic_substep(cfg, grid, state, u_star, v_star, dt, integrals, comm=Non
     eta_b, U_b, V_b = barotropic_loop(cfg, grid, state.eta, U0, V0, GU, GV, Hu, Hv, dt,
                                       mu=mu, mv=mv)
     return _finish(eta_b, u_star, v_star, U_b, V_b, Hu, Hv, Us, Vs)
+
+
+def zint(grid, f):
+    """The depth integral sum_k f dz_c of an interior (Nz, Ny, Nx) field."""
+    return (f * grid.dz_c[grid.hz : grid.hz + grid.Nz]).sum(dim=0)
+
+
+def serial_comm(grid):
+    """The 1x1 "local" tile of ``grid``'s serial blocked solve: no exchange,
+    ghosts from the boundary conditions (the fold on the tripolar grid).
+    Built once and kept in ``grid.cache``, its blocked statics with it."""
+    comm = grid.cache.get("serial_comm")
+    if comm is None:
+        comm = grid.cache["serial_comm"] = make_comm(Mesh(1, 1), grid)
+    return comm
 
 
 def _finish(eta_b, u_star, v_star, U_b, V_b, Hu, Hv, Us, Vs):

@@ -4,7 +4,8 @@ k-epsilon), immersed bathymetry, surface fluxes and the tripolar north
 fold), on the whole domain or, given a ``parallel.halo.MeshComm``
 (``comm``), on one tile of the decomposed path.
 
-One step, in the fused form the JAX package runs on its kernels:
+One step, in the fused form the JAX package runs on its kernels
+(``kernels="auto"`` and ``"torch"``):
   1. halo fill of u, v and the tracers (the fold rows on the tripolar
      grid; on a tile, exchanged with the neighbours); on immersed grids the
      extended velocities are masked on solid faces;
@@ -26,6 +27,15 @@ One step, in the fused form the JAX package runs on its kernels:
      (T, S) with kappa_c, e with kappa_e (and CATKE's dissipation rate),
      eps with kappa_eps; then e, eps >= 0;
   8. the clock.
+
+The ``kernels="pallas"`` route is the JAX package's unfused form around
+kernel K6: TEOS-10 runs eagerly only for K4 (step 2 without a closure is
+gone); K6 computes the tendencies, TEOS-10 inside, in place of K1 (step
+4); the increments of step 5 touch the tendencies alone; the step then
+forms x* = x + dt (c1 G + c2 G_prev) itself, and the free surface
+integrates u, u* and c1 G + c2 G_prev over depth and runs the blocked
+solve serially (blocks of W substeps in K5 on a 1x1 tile of its own). The
+decomposed form of this route is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,12 +52,14 @@ from gb25_tpu_torch.models.free_surface import barotropic_substep
 from gb25_tpu_torch.models.state import HydrostaticState, advance_clock
 from gb25_tpu_torch.ops.halos import extend_field
 from gb25_tpu_torch.ops.operators import (
+    coriolis_ff,
     diagnose_w,
     hydrostatic_pressure,
     kinetic_energy,
     vertical_vorticity,
 )
 from gb25_tpu_torch.ops.pallas_catke import catke_diffusivities_kernel, keps_diffusivities_kernel
+from gb25_tpu_torch.ops.pallas_tendency import pallas_tendencies
 from gb25_tpu_torch.ops.pallas_tridiag import implicit_diffusion
 from gb25_tpu_torch.ops.pallas_zslab import column_buoyancy, zslab_tendencies
 from gb25_tpu_torch.ops.stencils import dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f, iz_c
@@ -144,10 +156,11 @@ def _ab2_coeffs(cfg, state, dtype):
 
 
 def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
-    """Halo fill, the closure (K4) and kernel K1, then the increments after
-    the kernel. Returns (Gu, Gv, Gtr, updated, integrals, diffusivities)
-    with updated = (u*, v*, tracers*) and diffusivities None without a
-    closure.
+    """Halo fill, the closure (K4) and kernel K1 (K6 on the "pallas"
+    route), then the increments after the kernel. Returns (Gu, Gv, Gtr,
+    updated, integrals, diffusivities) with updated = (u*, v*, tracers*)
+    and diffusivities None without a closure; updated and integrals are
+    None on the "pallas" route, whose caller forms the update.
 
     ``surface_fluxes``: optional dict of (Ny, Nx) kinematic fluxes
     {"u", "v", "T", "S", "e"} (field units times m/s, positive into the
@@ -165,9 +178,14 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
             ue = ue * um_e
             ve = ve * vm_e
             face_bottoms = face_bottom_planes(grid)
-    with record_function("step/teos10"):
-        # once per step: K4 and K1 both read it
-        be, b_total = column_buoyancy(cfg, grid, tr_e)
+    fused = cfg.kernels != "pallas"
+    if fused:
+        with record_function("step/teos10"):
+            # once per step: K4 and K1 both read it
+            be, b_total = column_buoyancy(cfg, grid, tr_e)
+    elif cfg.closure is not None:
+        with record_function("step/teos10"):
+            be = buoyancy_field(cfg, grid, tr_e)  # K4's alone: K6 evaluates its own
 
     diffusivities = None
     if isinstance(cfg.closure, CATKEVerticalDiffusivity):
@@ -182,30 +200,47 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
         diffusivities = {"kappa_u": ku, "kappa_c": kc, "kappa_e": ke, "kappa_eps": keps,
                          "G_e": G_e, "G_eps": G_eps}
 
-    with record_function("step/K1_tendencies"):
-        Gu, Gv, Gtr, u_new, v_new, tr_new, ints = zslab_tendencies(
-            cfg, grid, ue, ve, tr_e, (state.Gu, state.Gv, state.Gtracers), ab,
-            buoyancy=(be, b_total), face_bottoms=face_bottoms, wall_v=owns_south_wall(comm))
+    if fused:
+        with record_function("step/K1_tendencies"):
+            Gu, Gv, Gtr, u_new, v_new, tr_new, ints = zslab_tendencies(
+                cfg, grid, ue, ve, tr_e, (state.Gu, state.Gv, state.Gtracers), ab,
+                buoyancy=(be, b_total), face_bottoms=face_bottoms,
+                wall_v=owns_south_wall(comm))
+        updated = (u_new, v_new, tr_new)
+    else:
+        with record_function("step/K6_tendencies"):
+            f_ff = coriolis_ff(grid, cfg.coriolis).to(ue.dtype)
+            Gu, Gv, Gtr = pallas_tendencies(cfg, grid, f_ff, ue, ve, tr_e)
+        updated = ints = None
     with record_function("step/increments"):
-        outs = _increments(grid, (Gu, Gv, Gtr, u_new, v_new, tr_new), ints, ab[0],
-                           diffusivities, surface_fluxes, owns_south_wall(comm))
+        outs = _increments(grid, (Gu, Gv, Gtr), updated, ints, ab[0], diffusivities,
+                           surface_fluxes, owns_south_wall(comm))
     return (*outs, diffusivities)
 
 
-def _increments(grid, outs, ints, dtc1, diffusivities, surface_fluxes, wall=True):
-    """The increments after K1, in the JAX package's order: the closure's
-    sources (of e, then of eps), the surface-flux deposits, the immersed
-    re-mask, the wall row (``wall``: this tile owns it). Each G -> G + inc
-    also moves the fused update, x* -> x* + dt c1 inc (the previous step's
-    increments sit in G_prev, which K1 consumed)."""
-    Gu, Gv, Gtr, u_new, v_new, tr_new = outs
+def _increments(grid, tendencies, updated, ints, dtc1, diffusivities, surface_fluxes, wall=True):
+    """The increments after the tendency kernel, in the JAX package's
+    order: the closure's sources (of e, then of eps), the surface-flux
+    deposits, the immersed re-mask, the wall row (``wall``: this tile owns
+    it). After K1 each G -> G + inc also moves the fused update ``updated``
+    = (u*, v*, tracers*), x* -> x* + dt c1 inc, and the integrals ``ints``
+    (the previous step's increments sit in G_prev, which K1 consumed);
+    after K6 both are None."""
+    Gu, Gv, Gtr = tendencies
+    u_new, v_new, tr_new = updated if updated is not None else (None, None, None)
     for name in ("e", "eps"):
         if diffusivities is not None and "G_" + name in diffusivities:
-            G = diffusivities["G_" + name]
-            Gtr[name] += G
-            tr_new[name] += dtc1 * G
+            src = diffusivities["G_" + name]
+            Gtr[name] += src
+            if updated is not None:
+                tr_new[name] += dtc1 * src
 
-    if surface_fluxes is not None:
+    if surface_fluxes is not None and updated is None:
+        dz_top = grid.dz_c[grid.hz + grid.Nz - 1, 0, 0]
+        for name, flux in surface_fluxes.items():
+            target = Gu if name == "u" else Gv if name == "v" else Gtr[name]
+            target[-1] += flux / dz_top
+    elif surface_fluxes is not None:
         U0, V0, Us, Vs = ints
         dz_top = grid.dz_c[grid.hz + grid.Nz - 1, 0, 0]
         if grid.immersed:
@@ -239,11 +274,12 @@ def _increments(grid, outs, ints, dtc1, diffusivities, surface_fluxes, wall=True
         um, vm = interior_masks(grid)
         Gu = Gu * um
         Gv = Gv * vm
-        u_new = u_new * um
-        v_new = v_new * vm
-    # a v deposit can re-add wall-row values
+        if updated is not None:
+            updated = (u_new * um, v_new * vm, tr_new)
+    # a v deposit can re-add wall-row values (K6 writes the row: it has no
+    # wall logic)
     Gv = mask_v_wall(Gv, wall)
-    return Gu, Gv, Gtr, (u_new, v_new, tr_new), ints
+    return Gu, Gv, Gtr, updated, ints
 
 
 def premask_state(grid, state):
@@ -262,19 +298,36 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
     """One quasi-AB2 hydrostatic step with the split-explicit free surface
     and, with a closure, the vertically implicit solves; with ``comm``, of
     the tile ``grid`` (see ``parallel.sharded``)."""
+    if comm is not None and cfg.kernels == "pallas":
+        raise NotImplementedError('kernels="pallas" on a tile of the decomposed path: the '
+                                  "decomposed K6 route is queued in ROADMAP.md")
     if not premasked:
         state = premask_state(grid, state)
     dtype = state.u.dtype
     dt_t = _scalar_type(dtype)(dt)
     c1, c2 = _ab2_coeffs(cfg, state, dtype)
     ab = (float(dt_t * c1), float(dt_t * c2))
-    Gu, Gv, Gtr, (u_star, v_star, tracers), ints, diffusivities = compute_tendencies(
+    Gu, Gv, Gtr, updated, ints, diffusivities = compute_tendencies(
         cfg, grid, state, ab, surface_fluxes, comm)
     wall = owns_south_wall(comm)
-    with record_function("step/K2_barotropic" if comm is None else "step/K5_barotropic"):
+    G_ab = None
+    if updated is None:
+        with record_function("step/ab2_update"):
+            # the unfused update of the "pallas" route, in the JAX package's
+            # association: x* = x + dt (c1 G + c2 G_prev)
+            a, b, h = float(c1), float(c2), float(dt_t)
+            G_ab = (a * Gu + b * state.Gu, a * Gv + b * state.Gv)
+            u_star = state.u + h * G_ab[0]
+            v_star = state.v + h * G_ab[1]
+            tracers = {k: state.tracers[k] + h * (a * Gtr[k] + b * state.Gtracers[k])
+                       for k in state.tracers}
+    else:
+        u_star, v_star, tracers = updated
         v_star = mask_v_wall(v_star, wall)
+    blocked = comm is not None or G_ab is not None
+    with record_function("step/K5_barotropic" if blocked else "step/K2_barotropic"):
         eta, u_new, v_new = barotropic_substep(cfg, grid, state, u_star, v_star, float(dt_t),
-                                               ints, comm)
+                                               ints, comm, G_ab)
         v_new = mask_v_wall(v_new, wall)
         if grid.north_fold:
             with record_function("step/north_fold"):

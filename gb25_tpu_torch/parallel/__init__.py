@@ -3,12 +3,11 @@
 tripolar fold across the top rank row, per-tile grids and the sharded
 step."""
 
-from gb25_tpu_torch.parallel.halo import MeshComm  # noqa: F401
+from gb25_tpu_torch.parallel.halo import MeshComm, make_comm  # noqa: F401
 from gb25_tpu_torch.parallel.localize import localize_atmosphere, localize_grid  # noqa: F401
 from gb25_tpu_torch.parallel.mesh import Mesh, factors, make_mesh, spawn  # noqa: F401
 from gb25_tpu_torch.parallel.sharded import (  # noqa: F401
     gather_state,
-    make_comm,
     run_decomposed,
     shard_state,
     sharded_coupled_step_fn,

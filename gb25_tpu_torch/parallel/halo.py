@@ -167,6 +167,15 @@ class MeshComm:
         return self.fill_xy_fold(_padded(a, hx, hy), hx, hy, kind)
 
 
+def make_comm(mesh, grid=None, force_ring: bool = False) -> MeshComm:
+    """The halo-exchange context of this rank's tile (the fold's pole
+    column from a tripolar ``grid``)."""
+    kw = {}
+    if grid is not None and grid.north_fold:
+        kw = dict(north_fold=True, pole_index=grid.pole_index)
+    return MeshComm(mesh, force_ring=force_ring, **kw)
+
+
 def _padded(a, hx, hy):
     """A new ``(..., Ny+2hy, Nx+2hx)`` tensor with ``a`` as its interior."""
     Ny, Nx = a.shape[-2:]

@@ -22,19 +22,10 @@ import torch
 import torch.distributed as dist
 
 from gb25_tpu_torch.convert import state_from_numpy, state_to_numpy
-from gb25_tpu_torch.parallel.halo import MeshComm
+from gb25_tpu_torch.parallel.halo import make_comm
 from gb25_tpu_torch.parallel.localize import localize_atmosphere, localize_grid
 
 FORCE_COMM_MODES = (False, "ring", "local")
-
-
-def make_comm(mesh, grid=None, force_ring: bool = False) -> MeshComm:
-    """The halo-exchange context of this rank's tile (the fold's pole
-    column from a tripolar ``grid``)."""
-    kw = {}
-    if grid is not None and grid.north_fold:
-        kw = dict(north_fold=True, pole_index=grid.pole_index)
-    return MeshComm(mesh, force_ring=force_ring, **kw)
 
 
 def _tile(grid, mesh, force_comm):

@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` file exposes a plain C interface. At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``gb25_tpu_torch/_build/`` (git-ignored), named by a hash of the source and
-the flags, and loaded with ``ctypes``. Nothing here runs at import time,
-and nothing falls back: a missing ``nvcc`` or a failed build raises.
+``gb25_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, and loaded with
+``ctypes``. Nothing here runs at import time, and nothing falls back: a
+missing ``nvcc`` or a failed build raises.
 
 Every exported launcher returns ``cudaGetLastError()`` as an int;
 ``CudaKernel.launch`` raises when it is not 0 and otherwise adds one to the
@@ -47,7 +48,9 @@ def build_library(source: str, extra_flags=()) -> tuple[Path, str]:
     (ptxas register and spill counts; empty when the build was cached)."""
     src = CSRC_DIR / source
     flags = (*NVCC_FLAGS, *extra_flags)
-    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    # the shared headers too: a source includes them from its own directory
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{src.stem}-{key}.so"
     if lib.exists():
         return lib, ""
@@ -115,15 +118,15 @@ def check_tensor(t, name, shape, dtype, device):
 
 
 def uses_kernel(cfg, t) -> bool:
-    """The dispatch rule of both kernels: "auto" launches the CUDA kernel
-    for a CUDA tensor and runs the plain version for a CPU tensor; "torch"
-    always runs the plain version."""
+    """The dispatch rule of every kernel: "auto" and "pallas" launch the
+    CUDA kernel for a CUDA tensor and run the plain version for a CPU
+    tensor; "torch" always runs the plain version."""
     if cfg.kernels == "torch":
         return False
-    if cfg.kernels != "auto":
+    if cfg.kernels not in ("auto", "pallas"):
         raise ValueError(f"unknown kernels mode {cfg.kernels!r}")
     if t.is_cuda:
         return True
     if t.device.type != "cpu":
-        raise ValueError(f"kernels='auto' has no kernel for device {t.device}")
+        raise ValueError(f"kernels={cfg.kernels!r} has no kernel for device {t.device}")
     return False

@@ -2,13 +2,14 @@
 ``gb25_tpu.utils.profiling``, built on ``torch.profiler``).
 
     python -m gb25_tpu_torch.utils.profiling
-        [--model flagship|climate|tripolar|keps] [--steps 4 --warmup 3 --kernels auto]
-        [--decomposed local|ring]
+        [--model flagship|climate|tripolar|keps] [--steps 4 --warmup 3]
+        [--kernels auto|torch|pallas] [--decomposed local|ring]
 
 Profiles a few steps at 1536x768x64 on the GPU after a warm-up: the
 flagship baroclinic-instability ocean, the coupled climate model at 1/4
 degree on the lat-lon islands grid or on the tripolar grid, or the
 flagship with the k-epsilon closure (started from e = 1e-5, eps = 1e-8).
+``--kernels pallas`` runs the K6 route (``models.hydrostatic``).
 ``--decomposed`` runs the model on the decomposed path forced onto a 1x1
 mesh (``parallel.sharded``, exchange_width = 30: one block of 30 K5
 substeps a step) in the "local" or the "ring" mode.
@@ -74,6 +75,8 @@ def step_breakdown(run, state, steps):
 def group(name: str) -> str:
     if "zslab_tendencies_kernel" in name:
         return "K1 zslab_tendencies (CUDA)"
+    if "tendency_stage_kernel" in name:
+        return "K6 tendencies (CUDA)"
     if "barotropic_substep_kernel" in name:
         return "K2 barotropic_substep (CUDA)"
     if "barotropic_block_kernel" in name:
@@ -93,7 +96,7 @@ def main():
                    choices=["flagship", "climate", "tripolar", "keps"])
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--warmup", type=int, default=3)
-    p.add_argument("--kernels", default="auto", choices=["auto", "torch"])
+    p.add_argument("--kernels", default="auto", choices=["auto", "torch", "pallas"])
     p.add_argument("--decomposed", default=None, choices=["local", "ring"])
     args = p.parse_args()
     if not torch.cuda.is_available():

@@ -16,6 +16,12 @@ barotropic substeps of the decomposed path) bit for bit (its plain
 version's operations in order, -fmad=false); K1 with wall_v=0 (a tile that
 is not south-most) at K1's tolerances; the decomposed 1x1 step at the
 one-step tolerances, its "ring" mode bit for bit with its "local" mode.
+K6 (the one-pass tendency kernel of the kernels="pallas" route) at K1's
+tolerances in its flagship, tripolar and four-tracer instances, its split
+pair bit for bit with its single launch and its TEOS-10 buoyancy within a
+few float32 ulps of the plain one; a K6-route step at the one-step
+tolerances against a "torch" step, with exactly 1 K6, 30 K5, 0 K1 and 0 K2
+launches (and 3 K3, 1 K4 in the coupled climate).
 """
 
 import dataclasses
@@ -33,8 +39,15 @@ from gb25_tpu_torch.grids.immersed import face_bottom_planes, face_masks
 from gb25_tpu_torch.models import loop
 from gb25_tpu_torch.models.free_surface import face_depths
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
-from gb25_tpu_torch.ops import pallas_barotropic, pallas_catke, pallas_tridiag, pallas_zslab
+from gb25_tpu_torch.ops import (
+    pallas_barotropic,
+    pallas_catke,
+    pallas_tendency,
+    pallas_tridiag,
+    pallas_zslab,
+)
 from gb25_tpu_torch.ops.halos import extend_field
+from gb25_tpu_torch.ops.operators import coriolis_ff
 
 pytestmark = pytest.mark.cuda
 
@@ -420,3 +433,69 @@ def test_decomposed_1x1_step_matches_plain(cuda, mode):
         state, 60.0)
     for x, y in ((a.u, c.u), (a.v, c.v), (a.eta, c.eta), (a.tracers["T"], c.tracers["T"])):
         assert torch.equal(x, y)
+
+
+def _k6_operands(cuda, case):
+    if case == "flagship":
+        cfg, grid, state = baroclinic_instability_model(100, 20, 10, device=cuda)
+        ue, ve = extend_field(grid, state.u, "u"), extend_field(grid, state.v, "v")
+        tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
+        return cfg, grid, ue, ve, tr_e
+    if case == "tripolar":
+        return _climate_operands(cuda, (128, 64, 8), 12, "gaussian_islands_tripolar")[:5]
+    return _keps_operands(cuda, (128, 64, 8), 13)[:5]
+
+
+@pytest.mark.parametrize("case", ["flagship", "tripolar", "four_tracers"])
+def test_k6_matches_plain(cuda, case):
+    cfg, grid, ue, ve, tr_e = _k6_operands(cuda, case)
+    f_ff = coriolis_ff(grid, cfg.coriolis).to(torch.float32)
+    pallas = dataclasses.replace(cfg, kernels="pallas")
+    before = pallas_tendency.KERNEL.launches
+    got = pallas_tendency.pallas_tendencies(pallas, grid, f_ff, ue, ve, tr_e)
+    split = pallas_tendency.pallas_tendencies(pallas, grid, f_ff, ue, ve, tr_e, split=True)
+    torch.cuda.synchronize()
+    assert pallas_tendency.KERNEL.launches == before + 3
+    want = pallas_tendency.pallas_tendencies_plain(cfg, grid, f_ff, ue, ve, tr_e)
+    for g, w in zip(got[:2], want[:2]):
+        _close(g, w, 2e-4, 1e-9)
+    assert list(got[2]) == list(tr_e)
+    for k in tr_e:
+        _close(got[2][k], want[2][k], 2e-4, 1e-7)
+        assert torch.equal(split[2][k], got[2][k])
+    assert torch.equal(split[0], got[0]) and torch.equal(split[1], got[1])
+    b = pallas_tendency.teos10_kernel(cfg.eos, tr_e["T"], tr_e["S"], grid.z_c)
+    _close(b, cfg.eos.buoyancy(tr_e["T"], tr_e["S"], grid.z_c), 1e-6, 0.0)
+
+
+def _k6_route_counts():
+    return [k.launches for k in (pallas_tendency.KERNEL, pallas_barotropic.BLOCK_KERNEL,
+                                 pallas_zslab.KERNEL, pallas_barotropic.KERNEL,
+                                 pallas_tridiag.KERNEL, pallas_catke.KERNEL)]
+
+
+def test_k6_route_step_matches_plain_step(cuda):
+    cfg, grid, state = baroclinic_instability_model(128, 32, 8, device=cuda, kernels="pallas")
+    before = _k6_route_counts()
+    a = time_step(cfg, grid, state, 60.0)
+    torch.cuda.synchronize()
+    assert [x - y for x, y in zip(_k6_route_counts(), before)] == [1, 30, 0, 0, 0, 0]
+    b = time_step(dataclasses.replace(cfg, kernels="torch"), grid, state, 60.0)
+    for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), (a.tracers["T"], b.tracers["T"]),
+                 (a.tracers["S"], b.tracers["S"])):
+        _close(x, y, 1e-3, 5e-6)
+
+
+def test_k6_route_coupled_step_matches_plain_step(cuda):
+    ccfg, grid, atmos, state = data_free_ocean_climate_model(
+        resolution=3.0, Nz=8, device=cuda, grid_type="gaussian_islands_tripolar",
+        kernels="pallas")
+    before = _k6_route_counts()
+    a = coupled_time_step(ccfg, grid, atmos, state, 60.0)
+    torch.cuda.synchronize()
+    assert [x - y for x, y in zip(_k6_route_counts(), before)] == [1, 30, 0, 0, 3, 1]
+    plain = dataclasses.replace(ccfg, ocean=dataclasses.replace(ccfg.ocean, kernels="torch"))
+    b = coupled_time_step(plain, grid, atmos, state, 60.0)
+    for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), *zip(a.tracers.values(),
+                                                           b.tracers.values())):
+        _close(x, y, 1e-3, 5e-6)
