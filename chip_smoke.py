@@ -12,7 +12,8 @@ barotropic substeps):
      register and spill counts;
   the flagship baroclinic-instability ocean:
   3. K1 (zslab_tendencies, tracers T, S) against its plain PyTorch version,
-     rtol 2e-4;
+     rtol 2e-4; its time beside its bound, registers, shared memory per
+     block, tile and blocks per SM (so for every K1 and K6 instance);
   4. K2 (barotropic_loop) against its plain version at 1536x768, rtol 1e-5;
   5. the main path: one step with kernels="auto" against one with
      kernels="torch" (rtol 1e-3; atol 1e-3 of each field's largest value,
@@ -76,8 +77,8 @@ barotropic substeps):
      flagship instance (tracers T, S), its tripolar instance (T, S, e, 2-D
      metric planes) on the climate operands of [12] and its four-tracer
      instance on the k-epsilon operands of [16]: the one launch and the
-     split pair (momentum, then tracers), whether each is bit for bit with
-     the plain version, and whether the kernel's TEOS-10 buoyancy is; then
+     split pair (momentum, then tracers), each bit for bit with the plain
+     version, and the kernel's TEOS-10 buoyancy bit for bit too; then
      the k-epsilon flagship on the K6 route, 8 + 2x16 steps, per step
      exactly 1 K6, 30 K5, 4 K3, 1 k-epsilon K4, 0 K1, 0 K2;
   23. the flagship on the K6 route: one step kernels="pallas" against one
@@ -101,7 +102,9 @@ sums up the ms/step of every path. Three lines end the output: a JSON
 object with each kernel instance's launches on its main path, error
 against its plain version, times, its bound (the larger of its compulsory
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s) and its library
-time (null: no one PyTorch call computes any of these functions; K5's
+time (null: no one PyTorch call computes any of these functions; K1's and
+K6's entries carry their registers, shared memory per block, tile and
+blocks per SM; K5's
 entry also carries its column instance, its launches in "ring" and on the
 decomposed flagship, and under "k6_routes" its launches on each K6 route
 with the checks, times and bounds of [23]'s and [24]'s blocks); then the
@@ -262,6 +265,13 @@ def k6_bound(grid, ntr):
     return bound(nbytes, (600 + 170 * (ntr - 2) + 120) * grid.Nx * grid.Ny * grid.Nz)
 
 
+def launch_line(info, b):
+    """An instance's launch shape and bound, for its phase's summary."""
+    return (f"bound {b[0]:.3f} ms ({b[1]}); {info['registers']} registers, "
+            f"{info['smem_bytes']} B shared memory per block, tile {info['tile'][0]}x"
+            f"{info['tile'][1]}, {info['blocks_per_sm']} blocks per SM")
+
+
 def build_kernels(kernels):
     """Build every kernel at once, one nvcc each; print the ptxas report."""
     t0 = time.perf_counter()
@@ -316,9 +326,12 @@ def phase_k1(cfg, grid, state, gen):
     wrapper_ms = cuda_time_ms(run_kernel, reps=10)
     plain_ms = cuda_time_ms(
         lambda: pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be), reps=3)
+    info = pallas_zslab.kernel_info(2, False, False)
     print(f"  K1 CUDA kernel alone {ms:.3f} ms; wrapper (TEOS-10 + column total + kernel) "
-          f"{wrapper_ms:.3f} ms; plain version alone {plain_ms:.3f} ms")
-    return {"max_abs_err": max(errs), "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms}
+          f"{wrapper_ms:.3f} ms; plain version alone {plain_ms:.3f} ms; "
+          + launch_line(info, k1_bound(grid, 2, False)))
+    return {"max_abs_err": max(errs), "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "launch": info}
 
 
 def check_k1(got, want, ab, grid, names):
@@ -472,7 +485,7 @@ def flagship(card):
          "replaces": "gb25_tpu/ops/pallas_zslab.py:275", "path": "flagship",
          "launches": launches["K1"], "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "wrapper_ms": k1["wrapper_ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None, **k1["launch"]},
         {"name": "barotropic_loop", "route": "cuda",
          "source": "gb25_tpu_torch/csrc/barotropic_loop.cu",
          "replaces": "gb25_tpu/ops/pallas_barotropic.py:94", "path": "flagship",
@@ -574,8 +587,10 @@ def phase_k1_instance(cfg, grid, ue, ve, tr_e, be, b_total, prev, label):
                                                         prev, ab, fb), reps=10)
     plain_ms = cuda_time_ms(lambda: pallas_zslab.zslab_tendencies_plain(
         cfg, grid, ue, ve, tr_e, prev, ab, be, fb), reps=3)
-    print(f"  K1 {label} instance alone {ms:.3f} ms; plain {plain_ms:.3f} ms")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+    info = pallas_zslab.kernel_info(len(tr_e), fb is not None, grid.north_fold)
+    print(f"  K1 {label} instance alone {ms:.3f} ms; plain {plain_ms:.3f} ms; "
+          + launch_line(info, k1_bound(grid, len(tr_e), fb is not None)))
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "launch": info}
 
 
 def phase_k2_masked(cfg, grid, ue, ve, gen):
@@ -645,7 +660,7 @@ def entry(name, source, replaces, path, launches, res, b):
     return {"name": name, "route": "cuda", "source": "gb25_tpu_torch/csrc/" + source,
             "replaces": replaces, "path": path, "launches": launches,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
-            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None, **res.get("launch", {})}
 
 
 def climate(card, grid_type, first):
@@ -1052,19 +1067,25 @@ def phase_k6(cfg, grid, ue, ve, tr_e, label):
                   and all(torch.equal(split[2][k], got[2][k]) for k in tr_e))
     if not split_same:
         raise AssertionError("K6's split launches differ from its single launch")
+    if not bitwise:
+        raise AssertionError("K6 is not bit for bit with its plain version")
     del got, split, want
     b_kernel = pallas_tendency.teos10_kernel(cfg.eos, tr_e["T"], tr_e["S"], grid.z_c)
     b_plain = cfg.eos.buoyancy(tr_e["T"], tr_e["S"], grid.z_c)
     b_bitwise = torch.equal(b_kernel, b_plain)
     b_err = compare("b", b_kernel, b_plain, 1e-6, 0.0)
     del b_kernel, b_plain
+    if not b_bitwise:
+        raise AssertionError("K6's TEOS-10 b is not bit for bit with the plain version's")
     ms = cuda_time_ms(lambda: pallas_tendency.tendency_kernel(*args), reps=10)
     plain_ms = cuda_time_ms(lambda: pallas_tendency.pallas_tendencies_plain(*args), reps=3)
+    info = pallas_tendency.kernel_info(len(tr_e), "all", grid.north_fold)
     print(f"  K6 {label} instance alone {ms:.3f} ms; plain {plain_ms:.3f} ms; bit for bit with "
           f"the plain version: outputs {bitwise}, TEOS-10 b {b_bitwise} (max abs err "
-          f"{b_err:.3e}); split pair equals the single launch")
+          f"{b_err:.3e}); split pair equals the single launch; "
+          + launch_line(info, k6_bound(grid, len(tr_e))))
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bitwise": bitwise,
-            "b_bitwise": b_bitwise}
+            "b_bitwise": b_bitwise, "launch": info}
 
 
 def cast_state(state, dtype):

@@ -17,22 +17,25 @@
 // v, T, S: 1.38 GB) and writes four interior ones (1.21 GB), ~0.77 ms at
 // 3.35 TB/s, against ~720 operations per cell (~600 of stencils, ~120 of
 // TEOS-10 and the column sums), ~0.81 ms at 67 TFLOP/s. As in the Pallas
-// kernel, b, p and w never reach device memory; the stencils' re-reads of
-// their neighbours have to hit L1/L2.
+// kernel, b, p and w never reach device memory.
 //
-// Design: one block per tile of 32 x 4 interior columns, threads along x
-// (coalesced loads of the (Z, Y, X) fields).
-//   A. The block evaluates TEOS-10 once per cell of its columns and of a
-//      one-column west and south apron (the pressure gradient reads p at
-//      i-1 and j-1) and keeps b dz in dynamic shared memory:
-//      33 x 5 x (Nz + 1) floats, 42.9 KB at Nz = 64.
-//   B. One thread per column sums b dz up from the floor: the column total
-//      that p = csum - total - b dz / 2 needs before its first level.
-//   C. Each thread marches its own column up from the floor, as K1 does:
-//      it carries the continuity sums (w) of its column and of the columns
-//      west and south of it, and the running sums of b dz (p) read from
-//      shared memory, and reads u, v and the tracers through L1/L2.
-// The tracer launch of split = true needs no b: it skips A and B.
+// Design: the level tile of tendency_tile.cuh, shared with kernel K1. A
+// block of 32 x kTY threads owns 32 x kTY interior columns and their
+// south and west apron (the pressure gradient reads p at i - 1 and j - 1).
+//   1. The column totals of b dz that p = csum - total - b dz / 2 needs
+//      before its first level, from a pre-pass: each carried column's owner
+//      evaluates TEOS-10 down its column from device memory and sums b dz
+//      up from the floor. Keeping the whole columns' b dz in shared memory
+//      instead (TEOS-10 once per cell, 76 KB a block at Nz = 64) leaves an
+//      SM fewer blocks and measured slower (PERF.md section 6); the
+//      pre-pass keeps nothing per level, so the depth is not limited.
+//   2. The march up z as K1's: u, v and the tracers staged per level by
+//      cp.async, the corner PV, kinetic energy and tracer face fluxes once
+//      per level in shared memory, b from TEOS-10 on the staged T and S,
+//      the continuity and b dz sums in registers of each carried column's
+//      owner.
+// The tracer launch of split = true needs no b: it skips the totals, the
+// momentum and the apron columns.
 //
 // TEOS-10 is written as torch evaluates ops/eos.py on a CUDA float32
 // tensor, so the kernel's b can equal the plain version's bit for bit: the
@@ -40,9 +43,7 @@
 // sum rounded on its own (-fmad=false), each Python constant rounded once to
 // float, and each division by a constant a product with the float
 // reciprocal (the wrapper passes the reciprocals, rounded as torch rounds
-// them). The column sums are sequential; the plain version's total comes
-// from torch's reduction, so p, and with it Gu and Gv, may differ by an
-// ulp of p.
+// them). The column sums are sequential, as the plain version's cumsum.
 //
 // The inputs arrive halo-filled (the fold rows included) and, on immersed
 // grids, with u and v masked on solid faces: like the Pallas kernel, K6 has
@@ -51,18 +52,16 @@
 #include <cuda_runtime.h>
 #include <cstddef>
 
-#include "tendency_stencils.cuh"
+#include "tendency_tile.cuh"
 
 namespace {
 
 constexpr int kMaxTracers = 4;
-constexpr int kTX = 32, kTY = 4;               // interior columns of a block
-constexpr int kSX = kTX + 1, kSY = kTY + 1;    // with the west and south apron
-constexpr int kSC = kSX * kSY;                 // columns of the shared b dz tile
 
 enum Mode { kAll = 0, kMomentum = 1, kTracers = 2 };
 
 struct Args {
+  const float* stage[2 + kMaxTracers];  // the staged fields: u, v, then the tracers or T, S
   Field u, v, T, S;
   Field tr[kMaxTracers];
   // (Ny+2hy) y profiles, or (Ny+2hy, Nx+2hx) planes on the tripolar grid
@@ -71,6 +70,8 @@ struct Args {
   float *Gu, *Gv;               // (Nz, Ny, Nx)
   float* Gtr[kMaxTracers];
   int Nx, Ny, Nz, hx, hy, hz;
+  int align;   // staged column -3 - align is 16-byte aligned; -1: 4-byte copies
+  int iT, iS;  // T and S among the staged fields after u and v
   float eps;                                              // WENO epsilon
   float inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0;  // TEOS-10 scalars
 };
@@ -139,156 +140,169 @@ __device__ __forceinline__ float teos10_buoyancy(const Args& A, float T, float S
   return (A.neg_g * (r - A.rho0)) * A.inv_rho0;
 }
 
-template <int NTR, int MODE, bool M2>
-__global__ void __launch_bounds__(kTX * kTY) tendency_stage_kernel(const Args A) {
-  // [Nz][kSY][kSX] b dz, then [kSC] column totals; row 0 and column 0 are
-  // the south and west apron
-  extern __shared__ float bdz[];
-  constexpr bool kMom = MODE != kTracers, kTrc = MODE != kMomentum;
-  const int i0 = blockIdx.x * kTX, j0 = blockIdx.y * kTY;
-  const int tid = threadIdx.y * kTX + threadIdx.x;
-  const int Nz = A.Nz;
+// The fields a launch stages: u, v and the tracers; for the momentum
+// launch u, v and T, S.
+template <int NTR, int MODE>
+__host__ __device__ constexpr int staged_fields() {
+  return MODE == kMomentum ? 4 : 2 + NTR;
+}
 
-  if constexpr (kMom) {
-    // A: b dz of every cell of the tile's columns (a ragged tile at the
-    // east or north edge has fewer), TEOS-10 once per cell
-    const int nx = min(kTX, A.Nx - i0) + 1, ny = min(kTY, A.Ny - j0) + 1;
-    for (int n = tid; n < Nz * kSC; n += kTX * kTY) {
-      const int k = n / kSC, c = n - k * kSC, yy = c / kSX, xx = c - yy * kSX;
-      if (xx < nx && yy < ny) {
-        const int Z = k + A.hz, Y = j0 + yy - 1 + A.hy, X = i0 + xx - 1 + A.hx;
-        bdz[n] = teos10_buoyancy(A, A.T(Z, Y, X), A.S(Z, Y, X), A.zc[Z]) * A.dzc[Z];
-      }
-    }
-    __syncthreads();
-    // B: the column totals, summed up from the floor
-    for (int c = tid; c < kSC; c += kTX * kTY) {
-      const int yy = c / kSX, xx = c - yy * kSX;
-      if (xx < nx && yy < ny) {
-        float tot = 0.0f;
-        for (int k = 0; k < Nz; ++k) tot = tot + bdz[k * kSC + c];
-        bdz[Nz * kSC + c] = tot;
-      }
-    }
-    __syncthreads();
+// Shared memory of a launch in bytes.
+template <int NTR, int MODE, bool M2>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * tile_floats<staged_fields<NTR, MODE>(), MODE == kMomentum ? 0 : NTR, M2>();
+}
+
+template <bool M2>
+__device__ __forceinline__ void start_column(Column& c, const Args& A, const Tile& t, int Xe) {
+  c.razc = 1.0f / metric_at<M2>(A.azc, t.Y0 + c.y, t.X0 + c.x, Xe);
+}
+
+// The column total of b dz, TEOS-10 down the column from device memory,
+// summed up from the floor.
+__device__ __forceinline__ float column_total(const Args& A, int Y, int X) {
+  float tot = 0.0f;
+  for (int k = 0; k < A.Nz; ++k) {
+    const int Z = k + A.hz;
+    tot = tot + teos10_buoyancy(A, A.T(Z, Y, X), A.S(Z, Y, X), A.zc[Z]) * A.dzc[Z];
+  }
+  return tot;
+}
+
+template <int NTR, int MODE, bool M2>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) tendency_stage_kernel(const Args A) {
+  constexpr bool kMom = MODE != kTracers, kTrc = MODE != kMomentum;
+  constexpr int NF = staged_fields<NTR, MODE>();
+  constexpr int NT = kTrc ? NTR : 0;  // tracers this launch advects
+  extern __shared__ __align__(16) float smem[];
+  const bool vec = A.align >= 0;
+  const Tile t(A.Nx, A.Ny, A.hx, A.hy, vec ? A.align : 0);
+  const int Xe = A.Nx + 2 * A.hx, Ye = A.Ny + 2 * A.hy;
+  const size_t plane = (size_t)Ye * Xe;
+  float* ring = smem;  // [kStages][NF][kSF]
+  float* mets = ring + kStages * NF * kSF;
+  float* pvq = mets + metric_floats<M2>();  // [kPY][kPX]
+  float* keq = pvq + kPY * kPX;              // [kCY][kCX]
+  float* wq = keq + kCY * kCX;
+  float* pq = wq + kCY * kCX;
+  float* fxq = pq + kCY * kCX;               // [NT][kTY][kCX]
+  float* fyq = fxq + NT * kTY * kCX;         // [NT][kCY][kTX]
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < A.Nz)
+      stage_level<NF>(ring + s * NF * kSF, A.stage, (size_t)(s + A.hz) * plane, t, Xe, vec);
+    cp_async_commit();
+  }
+  const Metrics<M2> m =
+      stage_metrics<M2>(mets, A.dxc, A.dxf, A.dyc, A.dyf, A.azf, A.fff, t, Xe, Ye);
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const bool own = tx < t.nx && ty < t.ny;
+  Column oc = {ty, tx, own};
+  Column ac = {};
+  if (kMom) ac = apron_column(t);
+  if (oc.on) start_column<M2>(oc, A, t, Xe);
+  if (ac.on) start_column<M2>(ac, A, t, Xe);
+
+  if (kMom) {
+    if (oc.on) oc.tot = column_total(A, t.Y0 + oc.y, t.X0 + oc.x);
+    if (ac.on) ac.tot = column_total(A, t.Y0 + ac.y, t.X0 + ac.x);
   }
 
-  // C: this thread's column, marched up from the floor
-  const int i = i0 + threadIdx.x, j = j0 + threadIdx.y;
-  if (i >= A.Nx || j >= A.Ny) return;
-  const int X = i + A.hx, Y = j + A.hy;
-  const size_t ij = (size_t)j * A.Nx + i;
+  // this thread's column
+  const int X = t.X0 + tx, Y = t.Y0 + ty;
+  const size_t ij = own ? (size_t)(t.j0 + ty) * A.Nx + t.i0 + tx : 0;
   const size_t plane_i = (size_t)A.Ny * A.Nx;
-  const int sc = (threadIdx.y + 1) * kSX + threadIdx.x + 1;  // this column in bdz
-
-  // carries: continuity sums (w = -sum) of the own (c), west (w) and south
-  // (s) columns; inclusive sums of b dz and the column totals
-  float sw_c = 0.f, sw_w = 0.f, sw_s = 0.f;
-  float cs_c = 0.f, cs_w = 0.f, cs_s = 0.f;
-  float tot_c = 0.f, tot_w = 0.f, tot_s = 0.f;
-  if constexpr (kMom) {
-    tot_c = bdz[Nz * kSC + sc];
-    tot_w = bdz[Nz * kSC + sc - 1];
-    tot_s = bdz[Nz * kSC + sc - kSX];
+  float r_dxc = 0.f, r_dyf = 0.f;
+  float cz[NT > 0 ? NT : 1][6];  // c(Z - 2 .. Z + 3) of each tracer
+  if (own) {
+    r_dxc = 1.0f / metric_at<M2>(A.dxc, Y, X, Xe);
+    r_dyf = 1.0f / metric_at<M2>(A.dyf, Y, X, Xe);
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+#pragma unroll
+      for (int r = 0; r < 6; ++r) cz[q][r] = A.tr[q](A.hz - 2 + r, Y, X);
   }
   // the vertical terms at the bottom face of the level, carried from the
   // level below: w = 0 on the sea floor
-  float xu = 0.f, xv = 0.f;
-  float fz[NTR];
+  float xu = 0.f, xv = 0.f, fz[NT > 0 ? NT : 1];
 #pragma unroll
-  for (int t = 0; t < NTR; ++t) fz[t] = 0.f;
+  for (int q = 0; q < NT; ++q) fz[q] = 0.f;
 
-  for (int k = 0; k < Nz; ++k) {
+  for (int k = 0; k < A.Nz; ++k) {
     const int Z = k + A.hz;
     const float dzc = A.dzc[Z];
-    const size_t o = (size_t)k * plane_i + ij;
-
-    // continuity -> w at the top face of this level
-    sw_c = sw_c + divergence<M2>(A, Z, Y, X) * dzc;
-    const float w_c1 = -sw_c;
-    float Gu_o = 0.f, Gv_o = 0.f, Gc[NTR];
-
-    if constexpr (kMom) {
-      sw_w = sw_w + divergence<M2>(A, Z, Y, X - 1) * dzc;
-      sw_s = sw_s + divergence<M2>(A, Z, Y - 1, X) * dzc;
-      const float w_w1 = -sw_w, w_s1 = -sw_s;
-
-      // hydrostatic pressure p = csum - total - b dz / 2
-      const float bdz_c = bdz[k * kSC + sc];
-      const float bdz_w = bdz[k * kSC + sc - 1];
-      const float bdz_s = bdz[k * kSC + sc - kSX];
-      cs_c = cs_c + bdz_c;
-      cs_w = cs_w + bdz_w;
-      cs_s = cs_s + bdz_s;
-      const float p_c = (cs_c - tot_c) - 0.5f * bdz_c;
-      const float p_w = (cs_w - tot_w) - 0.5f * bdz_w;
-      const float p_s = (cs_s - tot_s) - 0.5f * bdz_s;
-
-      // vector-invariant momentum: upwinded vorticity flux
-      float s[6];
-      for (int r = 0; r < 6; ++r) s[r] = pv<M2>(A, Z, Y - 2 + r, X);
-      const float vbar = 0.5f * (0.5f * (A.v(Z, Y + 1, X) + A.v(Z, Y + 1, X - 1)) +
-                                 0.5f * (A.v(Z, Y, X) + A.v(Z, Y, X - 1)));
-      float Gu = weno_upwind(s, vbar, A.eps) * vbar;
-      for (int r = 0; r < 6; ++r) s[r] = pv<M2>(A, Z, Y, X - 2 + r);
-      const float ubar = 0.5f * (0.5f * (A.u(Z, Y, X + 1) + A.u(Z, Y - 1, X + 1)) +
-                                 0.5f * (A.u(Z, Y, X) + A.u(Z, Y - 1, X)));
-      float Gv = -weno_upwind(s, ubar, A.eps) * ubar;
-
-      // Bernoulli gradient
-      const float K = kinetic(A, Z, Y, X);
-      const float r_dxc = 1.0f / met<M2>(A, A.dxc, Y, X);
-      const float r_dyf = 1.0f / met<M2>(A, A.dyf, Y, X);
-      Gu = Gu - (K - kinetic(A, Z, Y, X - 1)) * r_dxc;
-      Gv = Gv - (K - kinetic(A, Z, Y - 1, X)) * r_dyf;
-
-      // vertical advection -w du/dz, centered between the two faces
-      const float r_dzf1 = 1.0f / A.dzf[Z + 1];
-      const float xu1 = 0.5f * (w_c1 + w_w1) * ((A.u(Z + 1, Y, X) - A.u(Z, Y, X)) * r_dzf1);
-      const float xv1 = 0.5f * (w_c1 + w_s1) * ((A.v(Z + 1, Y, X) - A.v(Z, Y, X)) * r_dzf1);
-      Gu = Gu - 0.5f * (xu1 + xu);
-      Gv = Gv - 0.5f * (xv1 + xv);
-      xu = xu1;
-      xv = xv1;
-
-      // hydrostatic pressure gradient
-      Gu_o = Gu - (p_c - p_w) * r_dxc;
-      Gv_o = Gv - (p_c - p_s) * r_dyf;
+    // the own column's device-memory operands of this level, loaded before
+    // the wait: u, v one level up and the tracers three levels up
+    float un1 = 0.f, vn1 = 0.f, cnext[NT > 0 ? NT : 1];
+    if (own) {
+      if (kMom) {
+        un1 = A.u(Z + 1, Y, X);
+        vn1 = A.v(Z + 1, Y, X);
+      }
+#pragma unroll
+      for (int q = 0; q < NT; ++q) cnext[q] = k + 1 < A.Nz ? A.tr[q](Z + 4, Y, X) : 0.f;
     }
 
-    if constexpr (kTrc) {
-      // tracers: flux-form WENO-5
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // level k staged; every read of the slot reused next is done
+    if (k + kStages - 1 < A.Nz)
+      stage_level<NF>(ring + ((k + kStages - 1) % kStages) * NF * kSF, A.stage,
+                      (size_t)(Z + kStages - 1) * plane, t, Xe, vec);
+    cp_async_commit();
+
+    const float* slot = ring + (k % kStages) * NF * kSF + t.origin();
+    const Win u{slot}, v{slot + kSF};
+    // shared quantities of the level
+    if (kMom) {
+      const Win T{slot + (2 + A.iT) * kSF}, S{slot + (2 + A.iS) * kSF};
+      auto level = [&](Column& c) {
+        const float bdz = teos10_buoyancy(A, T(c.y, c.x), S(c.y, c.x), A.zc[Z]) * dzc;
+        column_level<true, M2>(c, u, v, m, dzc, bdz, keq, wq, pq);
+      };
+      if (oc.on) level(oc);
+      if (ac.on) level(ac);
+      corner_pv<M2>(u, v, m, t, pvq);
+    } else if (oc.on) {
+      column_level<false, M2>(oc, u, v, m, dzc, 0.f, keq, wq, pq);
+    }
+#pragma unroll
+    for (int q = 0; q < NT; ++q)
+      tracer_faces<M2>(Win{slot + (2 + q) * kSF}, u, v, m, t, A.eps, fxq + q * kTY * kCX,
+                       fyq + q * kCY * kTX);
+    __syncthreads();
+
+    if (own) {
+      const size_t o = (size_t)k * plane_i + ij;
+      float Gu = 0.f, Gv = 0.f, Gc[NT > 0 ? NT : 1];
+      if (kMom)
+        momentum(u, v, pvq, keq, wq, pq, ty, tx, r_dxc, r_dyf, un1, vn1, 1.0f / A.dzf[Z + 1],
+                 A.eps, xu, xv, Gu, Gv);
+      const float w = wq[centre(ty, tx)];
       const float r_dzc = 1.0f / dzc;
 #pragma unroll
-      for (int t = 0; t < NTR; ++t) {
-        const float fz1 = tracer_zflux(A, A.tr[t], Z + 1, Y, X, w_c1);
-        Gc[t] = tracer_horizontal<M2>(A, A.tr[t], Z, Y, X) - (fz1 - fz[t]) * r_dzc;
-        fz[t] = fz1;
-      }
-    }
-
-    // stores after every load of the level: the outputs are not declared
-    // disjoint from the inputs, so a load after a store could not reuse a
-    // value already in a register (K1 measured 8%)
-    if constexpr (kMom) {
-      A.Gu[o] = Gu_o;
-      A.Gv[o] = Gv_o;
-    }
-    if constexpr (kTrc) {
+      for (int q = 0; q < NT; ++q) {
+        Gc[q] = tracer(fxq + q * kTY * kCX, fyq + q * kCY * kTX, cz[q], w, fz[q], ty, tx,
+                       oc.razc, r_dzc, A.eps);
 #pragma unroll
-      for (int t = 0; t < NTR; ++t) A.Gtr[t][o] = Gc[t];
+        for (int r = 0; r < 5; ++r) cz[q][r] = cz[q][r + 1];
+        cz[q][5] = cnext[q];
+      }
+      if (kMom) {
+        A.Gu[o] = Gu;
+        A.Gv[o] = Gv;
+      }
+#pragma unroll
+      for (int q = 0; q < NT; ++q) A.Gtr[q][o] = Gc[q];
     }
   }
 }
 
 template <int NTR, int MODE, bool M2>
-cudaError_t launch(const Args& A, dim3 grid, dim3 block, size_t smem, cudaStream_t s) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tendency_stage_kernel<NTR, MODE, M2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+cudaError_t launch(const Args& A, dim3 grid, dim3 block, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<NTR, MODE, M2>();
+  const cudaError_t err = allow_shared(tendency_stage_kernel<NTR, MODE, M2>, smem);
+  if (err != cudaSuccess) return err;
   tendency_stage_kernel<NTR, MODE, M2><<<grid, block, smem, s>>>(A);
   return cudaGetLastError();
 }
@@ -310,6 +324,13 @@ Args eos_args(float inv_sau, float inv_ctu, float inv_zu, float neg_g, float rho
   return A;
 }
 
+template <int NTR, int MODE, bool M2>
+cudaError_t info(int* out) {
+  return launch_info(tendency_stage_kernel<NTR, MODE, M2>, smem_bytes<NTR, MODE, M2>(), out);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
 }  // namespace
 
 extern "C" const char* gb25_cuda_error_string(int err) {
@@ -330,7 +351,8 @@ extern "C" int tendencies_f32(
     float* Gu, float* Gv, float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy,
     int hz, int metric2d, int mode, float eps, float inv_sau, float inv_ctu, float inv_zu,
     float neg_g, float rho0, float inv_rho0, void* stream) {
-  if (ntr < 2 || ntr > kMaxTracers || mode < kAll || mode > kTracers)
+  if (ntr < 2 || ntr > kMaxTracers || mode < kAll || mode > kTracers || hx < 3 || hy < 3 ||
+      hz < 3)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mode != kTracers && (Gu == nullptr || Gv == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -341,24 +363,44 @@ extern "C" int tendencies_f32(
   A.v = Field{v, Xe, plane};
   A.T = Field{T, Xe, plane};
   A.S = Field{S, Xe, plane};
+  A.iT = A.iS = -1;
   for (int t = 0; t < kMaxTracers; ++t) {
     const bool used = t < ntr;
     A.tr[t] = Field{used ? tr[t] : nullptr, Xe, plane};
     A.Gtr[t] = used && mode != kMomentum ? Gtr[t] : nullptr;
     if (used && mode != kMomentum && A.Gtr[t] == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
+    if (used && tr[t] == T) A.iT = t;
+    if (used && tr[t] == S) A.iS = t;
+  }
+  if (A.iT < 0 || A.iS < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // the staged fields: u, v, then the tracers, or for the momentum launch T, S
+  const float* staged[2 + kMaxTracers] = {u, v};
+  int nstaged = 2;
+  if (mode == kMomentum) {
+    staged[nstaged++] = T;
+    staged[nstaged++] = S;
+    A.iT = 0;
+    A.iS = 1;
+  } else {
+    for (int t = 0; t < ntr; ++t) staged[nstaged++] = tr[t];
+  }
+  bool vec = Xe % 4 == 0;
+  for (int f = 0; f < 2 + kMaxTracers; ++f) {
+    A.stage[f] = f < nstaged ? staged[f] : nullptr;
+    vec = vec && (f >= nstaged || aligned16(staged[f]));
   }
   A.dxc = dxc; A.dxf = dxf; A.dyc = dyc; A.dyf = dyf; A.azc = azc; A.azf = azf; A.fff = fff;
   A.dzc = dzc; A.dzf = dzf; A.zc = zc;
   A.Gu = Gu; A.Gv = Gv;
   A.Nx = Nx; A.Ny = Ny; A.Nz = Nz; A.hx = hx; A.hy = hy; A.hz = hz;
+  A.align = vec ? (hx + 1) % 4 : -1;  // (X0 - 3) % 4: i0 is a multiple of 32
   A.eps = eps;
-  const size_t smem = mode == kTracers ? 0 : (size_t)(Nz + 1) * kSC * sizeof(float);
   dim3 block(kTX, kTY, 1);
   dim3 grid((Nx + kTX - 1) / kTX, (Ny + kTY - 1) / kTY, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // [mode][ntr - 2][metric2d]; the momentum launch reads no tracer but T, S
-  using Launch = cudaError_t (*)(const Args&, dim3, dim3, size_t, cudaStream_t);
+  using Launch = cudaError_t (*)(const Args&, dim3, dim3, cudaStream_t);
   static const Launch launchers[3][3][2] = {
       {{launch<2, kAll, false>, launch<2, kAll, true>},
        {launch<3, kAll, false>, launch<3, kAll, true>},
@@ -370,7 +412,27 @@ extern "C" int tendencies_f32(
        {launch<3, kTracers, false>, launch<3, kTracers, true>},
        {launch<4, kTracers, false>, launch<4, kTracers, true>}},
   };
-  return static_cast<int>(launchers[mode][ntr - 2][metric2d ? 1 : 0](A, grid, block, smem, s));
+  return static_cast<int>(launchers[mode][ntr - 2][metric2d ? 1 : 0](A, grid, block, s));
+}
+
+// The launch shape of one instance (ntr, mode, metric2d), as
+// tendency_tile.cuh's launch_info reports it into out[0..5).
+extern "C" int tendencies_info(int ntr, int mode, int metric2d, int* out) {
+  if (ntr < 2 || ntr > kMaxTracers || mode < kAll || mode > kTracers)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Info = cudaError_t (*)(int*);
+  static const Info infos[3][3][2] = {
+      {{info<2, kAll, false>, info<2, kAll, true>},
+       {info<3, kAll, false>, info<3, kAll, true>},
+       {info<4, kAll, false>, info<4, kAll, true>}},
+      {{info<2, kMomentum, false>, info<2, kMomentum, true>},
+       {info<2, kMomentum, false>, info<2, kMomentum, true>},
+       {info<2, kMomentum, false>, info<2, kMomentum, true>}},
+      {{info<2, kTracers, false>, info<2, kTracers, true>},
+       {info<3, kTracers, false>, info<3, kTracers, true>},
+       {info<4, kTracers, false>, info<4, kTracers, true>}},
+  };
+  return static_cast<int>(infos[mode][ntr - 2][metric2d ? 1 : 0](out));
 }
 
 // b = teos10_buoyancy(T, S, z) over n cells (the check's entry, not the

@@ -1,0 +1,440 @@
+// The level tile shared by kernel K1 (zslab_tendencies.cu) and kernel K6
+// (tendencies.cu): a block owns kTX x kTY interior columns and marches z
+// from the floor. At each level it stages u, v and the tracers, with the
+// WENO-5 reach of 3 in x and y, into a ring of shared-memory slots by
+// cp.async (level k + kStages - 1 is in flight while level k computes),
+// computes every quantity that several cells share once per level into
+// shared memory (the potential vorticity at the corners, the kinetic
+// energy, the tracers' WENO-5 face fluxes), and each thread then
+// differences them for its own cell. On the tripolar grid the six metric
+// planes are staged once per block; elsewhere their y profiles.
+//
+// Each stencil keeps the expression and rounding order of the array path
+// of the JAX package (ops/operators.py, models/hydrostatic.py) as the
+// port's plain versions evaluate it; a reciprocal of a metric is taken
+// once (the same float either way). The WENO-5 upwind test is strict
+// (vel > 0).
+//
+// Coordinates: (y, x) are relative to the tile's first interior cell;
+// extended index Y = Y0 + y, X = X0 + x.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cstddef>
+
+#include "cp_async.cuh"
+
+namespace {
+
+// The tile shape, the ring depth and the register cap are measured
+// choices (32 x 4 and 32 x 16 tiles, a three-level ring, 1, 2 and 4
+// blocks per SM were slower: PERF.md section 6).
+constexpr int kTX = 32;  // a warp along x
+constexpr int kTY = 8;   // rows of a tile
+constexpr int kThreads = kTX * kTY;
+constexpr int kStages = 2;  // levels in the shared-memory ring
+// Blocks per SM the registers must allow: 3 caps a thread at 80 registers
+// and gives an SM 24 warps to hide the barriers and the copies; left free,
+// the compiler takes 105-150 and an SM holds one or two blocks, 1.1-1.7x
+// slower.
+constexpr int kMinBlocks = 3;
+// A staged (y, x) window: rows -3 .. kTY + 2 and columns -3 - a ..
+// kTX + 2, where a <= 3 starts each row on a 16-byte boundary.
+constexpr int kSX = kTX + 12, kSY = kTY + 6, kSF = kSX * kSY;
+constexpr int kVX = kSX / 4;                 // 16-byte copies per staged row
+constexpr int kPX = kTX + 5, kPY = kTY + 5;  // corners -2 .. kT + 2
+constexpr int kCX = kTX + 1, kCY = kTY + 1;  // centres -1 .. kT - 1
+constexpr int kApron = kTX + kTY;  // the south row and the west column of centres
+constexpr int kMetrics = 6;        // dxc, dxf, dyc, dyf, 1 / azf, f
+enum { kDXC, kDXF, kDYC, kDYF, kRAZF, kFFF };
+static_assert(kSX % 4 == 0, "staged rows are whole 16-byte copies");
+static_assert(2 * kApron <= kThreads, "apron columns and apron faces need their own threads");
+
+// A halo-extended (Z, Y, X) field in device memory.
+struct Field {
+  const float* p;
+  int Xe;
+  size_t plane;  // (Ny + 2hy) * (Nx + 2hx)
+  __device__ __forceinline__ float operator()(int z, int y, int x) const {
+    return __ldg(p + (size_t)z * plane + (size_t)y * Xe + x);
+  }
+};
+
+// This block's tile.
+struct Tile {
+  int i0, j0;  // first interior column
+  int nx, ny;  // interior columns it holds (fewer at the ragged east and north edges)
+  int X0, Y0;  // extended index of (0, 0)
+  int a;       // staged column of x = -3 - a is 16-byte aligned
+  __device__ Tile(int Nx, int Ny, int hx, int hy, int align)
+      : i0(blockIdx.x * kTX), j0(blockIdx.y * kTY), nx(min(kTX, Nx - i0)),
+        ny(min(kTY, Ny - j0)), X0(i0 + hx), Y0(j0 + hy), a(align) {}
+  // the offset of (0, 0) in a staged window
+  __device__ __forceinline__ int origin() const { return 3 * kSX + 3 + a; }
+};
+
+// A staged window; (0, 0) at the tile's first interior cell.
+struct Win {
+  const float* p;
+  __device__ __forceinline__ float operator()(int y, int x) const { return p[y * kSX + x]; }
+};
+
+// A metric: a staged window (M2) or a staged y profile.
+template <bool M2>
+struct Met {
+  const float* p;
+  __device__ __forceinline__ float operator()(int y, int x) const {
+    return M2 ? p[y * kSX + x] : p[y];
+  }
+};
+
+template <bool M2>
+struct Metrics {
+  Met<M2> dxc, dxf, dyc, dyf, razf, fff;
+};
+
+template <bool M2>
+__host__ __device__ constexpr int metric_floats() {
+  return kMetrics * (M2 ? kSF : kSY);
+}
+
+// Shared memory of a tile kernel, in floats: the ring of NF staged fields,
+// the metrics, the corner PV, the kinetic energy, w and p at the centres
+// with their west and south apron, and the tracers' x- and y-face fluxes.
+template <int NF, int NTR, bool M2>
+__host__ __device__ constexpr int tile_floats() {
+  return kStages * NF * kSF + metric_floats<M2>() + kPY * kPX + 3 * kCY * kCX +
+         NTR * (kTY * kCX + kCY * kTX);
+}
+
+// Index of the corner (y, x), of the centre (y, x), of the x face (y, xf)
+// and of the y face (yf, x) in their shared arrays.
+__device__ __forceinline__ int corner(int y, int x) { return (y + 2) * kPX + x + 2; }
+__device__ __forceinline__ int centre(int y, int x) { return (y + 1) * kCX + x + 1; }
+__device__ __forceinline__ int xface(int y, int xf) { return y * kCX + xf; }
+__device__ __forceinline__ int yface(int yf, int x) { return yf * kTX + x; }
+
+// The first NF fields' level at offset zoff into one ring slot: rows -3
+// .. ny + 2, columns -3 .. nx + 2 of the tile, as 16-byte copies from
+// column -3 - a (vec) or as 4-byte copies (a = 0).
+template <int NF, int N>
+__device__ __forceinline__ void stage_level(float* slot, const float* const (&f)[N],
+                                            size_t zoff, const Tile& t, int Xe, bool vec) {
+  static_assert(NF <= N, "more staged fields than field pointers");
+  const int tid = threadIdx.y * kTX + threadIdx.x;
+  const int rows = t.ny + 6;
+  const size_t base = zoff + (size_t)(t.Y0 - 3) * Xe + (t.X0 - 3 - t.a);
+  if (vec) {
+    const int nvec = (t.a + t.nx + 6 + 3) / 4;
+    for (int n = tid; n < kSY * kVX; n += kThreads) {
+      const int y = n / kVX, v = n - y * kVX;
+      if (y < rows && v < nvec) {
+#pragma unroll
+        for (int q = 0; q < NF; ++q)
+          cp_async16(slot + q * kSF + y * kSX + 4 * v, f[q] + base + (size_t)y * Xe + 4 * v);
+      }
+    }
+  } else {
+    const int cols = t.nx + 6;
+    for (int n = tid; n < kSY * kSX; n += kThreads) {
+      const int y = n / kSX, x = n - y * kSX;
+      if (y < rows && x < cols) {
+#pragma unroll
+        for (int q = 0; q < NF; ++q)
+          cp_async4(slot + q * kSF + y * kSX + x, f[q] + base + (size_t)y * Xe + x);
+      }
+    }
+  }
+}
+
+// The metrics, once per block (plain loads): on M2 grids the six planes
+// over the staged window, else the six y profiles over its rows; 1 / azf
+// in place of azf. Returns the accessors.
+template <bool M2>
+__device__ Metrics<M2> stage_metrics(float* m, const float* dxc, const float* dxf,
+                                     const float* dyc, const float* dyf, const float* azf,
+                                     const float* fff, const Tile& t, int Xe, int Ye) {
+  const int tid = threadIdx.y * kTX + threadIdx.x;
+  if (M2) {
+    for (int n = tid; n < kSF; n += kThreads) {
+      const int y = n / kSX, x = n - y * kSX;
+      const int Y = t.Y0 - 3 + y, X = t.X0 - 3 - t.a + x;
+      if (Y < Ye && X < Xe) {
+        const size_t g = (size_t)Y * Xe + X;
+        m[kDXC * kSF + n] = dxc[g];
+        m[kDXF * kSF + n] = dxf[g];
+        m[kDYC * kSF + n] = dyc[g];
+        m[kDYF * kSF + n] = dyf[g];
+        m[kRAZF * kSF + n] = 1.0f / azf[g];
+        m[kFFF * kSF + n] = fff[g];
+      }
+    }
+  } else {
+    for (int n = tid; n < kSY; n += kThreads) {
+      const int Y = t.Y0 - 3 + n;
+      if (Y < Ye) {
+        m[kDXC * kSY + n] = dxc[Y];
+        m[kDXF * kSY + n] = dxf[Y];
+        m[kDYC * kSY + n] = dyc[Y];
+        m[kDYF * kSY + n] = dyf[Y];
+        m[kRAZF * kSY + n] = 1.0f / azf[Y];
+        m[kFFF * kSY + n] = fff[Y];
+      }
+    }
+  }
+  const int stride = M2 ? kSF : kSY, o = M2 ? t.origin() : 3;
+  return {{m + kDXC * stride + o}, {m + kDXF * stride + o}, {m + kDYC * stride + o},
+          {m + kDYF * stride + o}, {m + kRAZF * stride + o}, {m + kFFF * stride + o}};
+}
+
+// A metric at extended (Y, X) from device memory: a plane or a profile.
+template <bool M2>
+__device__ __forceinline__ float metric_at(const float* m, int Y, int X, int Xe) {
+  return M2 ? m[(size_t)Y * Xe + X] : m[Y];
+}
+
+// WENO-5 from five upwind-ordered samples, factored division-free form
+// (ops/weno.py::_weno5_from_shifts).
+__device__ __forceinline__ float weno5(float m2, float m1, float s0, float p1, float p2,
+                                       float eps) {
+  const float sixth = 1.0f / 6.0f;
+  const float c13 = 13.0f / 12.0f;
+  float d1 = m1 - m2, d2 = s0 - m1, d3 = p1 - s0, d4 = p2 - p1;
+  float q0 = s0 + (5.0f * d2 - 2.0f * d1) * sixth;
+  float q1 = s0 + (d2 + 2.0f * d3) * sixth;
+  float q2 = s0 + (4.0f * d3 - d4) * sixth;
+  float x0 = d2 - d1, x1 = d3 - d2, x2 = d4 - d3, y1 = d2 + d3;
+  float e0 = x0 + 2.0f * d2, e2 = x2 - 2.0f * d3;
+  float b0 = c13 * x0 * x0 + 0.25f * (e0 * e0);
+  float b1 = c13 * x1 * x1 + 0.25f * y1 * y1;
+  float b2 = c13 * x2 * x2 + 0.25f * (e2 * e2);
+  float t0 = (b0 + eps) * (b0 + eps);
+  float t1 = (b1 + eps) * (b1 + eps);
+  float t2 = (b2 + eps) * (b2 + eps);
+  float w0 = 0.1f * (t1 * t2), w1 = 0.6f * (t0 * t2), w2 = 0.3f * (t0 * t1);
+  return (w0 * q0 + w1 * q1 + w2 * q2) / (w0 + w1 + w2);
+}
+
+// Upwind selection over six samples s[0..5] ordered along the axis, with
+// the reconstruction point between s[2] and s[3]: from below when vel > 0.
+__device__ __forceinline__ float weno_upwind(const float s[6], float vel, float eps) {
+  return vel > 0.0f ? weno5(s[0], s[1], s[2], s[3], s[4], eps)
+                    : weno5(s[5], s[4], s[3], s[2], s[1], eps);
+}
+
+// q = f + zeta at the corner (y, x).
+template <bool M2>
+__device__ __forceinline__ float pv(const Win& u, const Win& v, const Metrics<M2>& m, int y,
+                                    int x) {
+  float zeta = ((v(y, x) * m.dyf(y, x) - v(y, x - 1) * m.dyf(y, x - 1)) -
+                (u(y, x) * m.dxc(y, x) - u(y - 1, x) * m.dxc(y - 1, x))) *
+               m.razf(y, x);
+  return m.fff(y, x) + zeta;
+}
+
+// Hollingsworth-corrected kinetic energy at the centre (y, x).
+__device__ __forceinline__ float kinetic(const Win& u, const Win& v, int y, int x) {
+  float u0 = u(y, x), u1 = u(y, x + 1);
+  float v0 = v(y, x), v1 = v(y + 1, x);
+  float Ks = 0.5f * (0.5f * (u1 * u1 + u0 * u0) + 0.5f * (v1 * v1 + v0 * v0));
+  float ub0 = 0.5f * (u(y + 1, x) + u(y - 1, x));
+  float ub1 = 0.5f * (u(y + 1, x + 1) + u(y - 1, x + 1));
+  float vb0 = 0.5f * (v(y, x + 1) + v(y, x - 1));
+  float vb1 = 0.5f * (v(y + 1, x + 1) + v(y + 1, x - 1));
+  float Kb = 0.5f * (0.5f * (ub1 * ub1 + ub0 * ub0) + 0.5f * (vb1 * vb1 + vb0 * vb0));
+  const float third = 1.0f / 3.0f;
+  return (2.0f * third) * Ks + third * Kb;
+}
+
+// Horizontal divergence of (u, v) at the centre (y, x); razc = 1 / azc there.
+template <bool M2>
+__device__ __forceinline__ float divergence(const Win& u, const Win& v, const Metrics<M2>& m,
+                                            int y, int x, float razc) {
+  return ((u(y, x + 1) * m.dyc(y, x + 1) - u(y, x) * m.dyc(y, x)) +
+          (v(y + 1, x) * m.dxf(y + 1, x) - v(y, x) * m.dxf(y, x))) *
+         razc;
+}
+
+// Tracer flux through the x face (y, xf) and through the y face (yf, x).
+template <bool M2>
+__device__ __forceinline__ float xface_flux(const Win& c, const Win& u, const Metrics<M2>& m,
+                                            int y, int xf, float eps) {
+  float s[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) s[r] = c(y, xf - 3 + r);
+  const float vel = u(y, xf);
+  return (vel * m.dyc(y, xf)) * weno_upwind(s, vel, eps);
+}
+
+template <bool M2>
+__device__ __forceinline__ float yface_flux(const Win& c, const Win& v, const Metrics<M2>& m,
+                                            int yf, int x, float eps) {
+  float s[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) s[r] = c(yf - 3 + r, x);
+  const float vel = v(yf, x);
+  return (vel * m.dxf(yf, x)) * weno_upwind(s, vel, eps);
+}
+
+// A column whose vertical sums the block carries: its own column for each
+// thread of the tile, and for the first kApron threads one column of the
+// south row (y = -1) or the west column (x = -1), which the momentum
+// stencil reads at j - 1 and i - 1.
+struct Column {
+  int y, x;
+  bool on;      // the column exists in this tile
+  float sw;     // continuity sum: w at the top face = -sw
+  float cs;     // running sum of b dz
+  float tot;    // the column total of b dz
+  float razc;   // 1 / azc
+};
+
+__device__ __forceinline__ Column apron_column(const Tile& t) {
+  const int tid = threadIdx.y * kTX + threadIdx.x;
+  Column c = {};
+  if (tid < kTX) {
+    c.y = -1;
+    c.x = tid;
+    c.on = tid < t.nx;
+  } else if (tid < kApron) {
+    c.y = tid - kTX;
+    c.x = -1;
+    c.on = c.y < t.ny;
+  }
+  return c;
+}
+
+// One level of a column: w at the top face (continuity) into wq and, with
+// MOM, the kinetic energy into keq and p = csum - total - b dz / 2 into pq.
+// The sums are rounded term by term (no fused multiply-add), as a cumsum
+// of the products rounds them: p ~ 500 m^2/s^2 against horizontal
+// differences far smaller, so one ulp of p shows in the pressure gradient.
+template <bool MOM, bool M2>
+__device__ __forceinline__ void column_level(Column& c, const Win& u, const Win& v,
+                                             const Metrics<M2>& m, float dzc, float bdz,
+                                             float* keq, float* wq, float* pq) {
+  const int ci = centre(c.y, c.x);
+  c.sw = __fadd_rn(c.sw, __fmul_rn(divergence<M2>(u, v, m, c.y, c.x, c.razc), dzc));
+  wq[ci] = -c.sw;
+  if (MOM) {
+    keq[ci] = kinetic(u, v, c.y, c.x);
+    c.cs = __fadd_rn(c.cs, bdz);
+    pq[ci] = __fsub_rn(__fsub_rn(c.cs, c.tot), __fmul_rn(0.5f, bdz));
+  }
+}
+
+// The potential vorticity at every corner the tile's vorticity fluxes read.
+template <bool M2>
+__device__ __forceinline__ void corner_pv(const Win& u, const Win& v, const Metrics<M2>& m,
+                                          const Tile& t, float* pvq) {
+  const int tid = threadIdx.y * kTX + threadIdx.x;
+  for (int n = tid; n < kPY * kPX; n += kThreads) {
+    const int y = n / kPX - 2, x = n % kPX - 2;
+    if (y < t.ny + 3 && x < t.nx + 3) pvq[n] = pv<M2>(u, v, m, y, x);
+  }
+}
+
+// Tracer c's fluxes through the west face and the south face of this
+// thread's cell and, for the last kApron threads, through one east face of
+// the tile's east column or one north face of its north row.
+template <bool M2>
+__device__ __forceinline__ void tracer_faces(const Win& c, const Win& u, const Win& v,
+                                             const Metrics<M2>& m, const Tile& t, float eps,
+                                             float* fx, float* fy) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  if (tx < t.nx && ty < t.ny) {
+    fx[xface(ty, tx)] = xface_flux<M2>(c, u, m, ty, tx, eps);
+    fy[yface(ty, tx)] = yface_flux<M2>(c, v, m, ty, tx, eps);
+  }
+  const int b = kThreads - 1 - (ty * kTX + tx);
+  if (b < kTX) {
+    if (b < t.nx) fy[yface(t.ny, b)] = yface_flux<M2>(c, v, m, t.ny, b, eps);
+  } else if (b < kApron) {
+    if (b - kTX < t.ny) fx[xface(b - kTX, t.nx)] = xface_flux<M2>(c, u, m, b - kTX, t.nx, eps);
+  }
+}
+
+// The momentum tendencies (Gu, Gv) of the cell (y, x) from the shared
+// corner PV, kinetic energy, w and p: the upwinded vorticity flux, the
+// Bernoulli gradient, the vertical advection centred between the carried
+// bottom-face terms (xu, xv, updated to the top face) and the pressure
+// gradient. un1, vn1: u and v one level up; r_dzf1 = 1 / dz_f there.
+__device__ __forceinline__ void momentum(const Win& u, const Win& v, const float* pvq,
+                                         const float* keq, const float* wq, const float* pq,
+                                         int y, int x, float r_dxc, float r_dyf, float un1,
+                                         float vn1, float r_dzf1, float eps, float& xu,
+                                         float& xv, float& Gu, float& Gv) {
+  float s[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) s[r] = pvq[corner(y - 2 + r, x)];
+  const float vbar =
+      0.5f * (0.5f * (v(y + 1, x) + v(y + 1, x - 1)) + 0.5f * (v(y, x) + v(y, x - 1)));
+  Gu = weno_upwind(s, vbar, eps) * vbar;
+#pragma unroll
+  for (int r = 0; r < 6; ++r) s[r] = pvq[corner(y, x - 2 + r)];
+  const float ubar =
+      0.5f * (0.5f * (u(y, x + 1) + u(y - 1, x + 1)) + 0.5f * (u(y, x) + u(y - 1, x)));
+  Gv = -weno_upwind(s, ubar, eps) * ubar;
+
+  const int c = centre(y, x), cw = centre(y, x - 1), cs = centre(y - 1, x);
+  const float K = keq[c];
+  Gu = Gu - (K - keq[cw]) * r_dxc;
+  Gv = Gv - (K - keq[cs]) * r_dyf;
+
+  const float w_c1 = wq[c];
+  const float xu1 = 0.5f * (w_c1 + wq[cw]) * ((un1 - u(y, x)) * r_dzf1);
+  const float xv1 = 0.5f * (w_c1 + wq[cs]) * ((vn1 - v(y, x)) * r_dzf1);
+  Gu = Gu - 0.5f * (xu1 + xu);
+  Gv = Gv - 0.5f * (xv1 + xv);
+  xu = xu1;
+  xv = xv1;
+
+  const float p_c = pq[c];
+  Gu = Gu - (p_c - pq[cw]) * r_dxc;
+  Gv = Gv - (p_c - pq[cs]) * r_dyf;
+}
+
+// Let a tile kernel take smem bytes of dynamic shared memory.
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// The launch shape of a tile kernel with smem bytes of shared memory:
+// registers per thread, shared memory per block, the tile's columns in x
+// and in y, and the blocks one SM holds at once.
+template <class Kernel>
+cudaError_t launch_info(Kernel kernel, size_t smem, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], kernel, kThreads, smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(smem + attr.sharedSizeBytes);
+  out[2] = kTX;
+  out[3] = kTY;
+  return err;
+}
+
+// A tracer's tendency at the cell (y, x): the flux-form WENO-5 divergence
+// of its shared face fluxes and its vertical flux, reconstructed from the
+// column's six levels cz = c(Z - 2 .. Z + 3) at the top face (w) and
+// carried from the level below (fz, updated to the top face).
+__device__ __forceinline__ float tracer(const float* fx, const float* fy, const float cz[6],
+                                        float w, float& fz, int y, int x, float r_azc,
+                                        float r_dzc, float eps) {
+  const float fz1 = w * weno_upwind(cz, w, eps);
+  const float h = -((fx[xface(y, x + 1)] - fx[xface(y, x)]) +
+                    (fy[yface(y + 1, x)] - fy[yface(y, x)])) *
+                  r_azc;
+  const float G = h - (fz1 - fz) * r_dzc;
+  fz = fz1;
+  return G;
+}
+
+}  // namespace

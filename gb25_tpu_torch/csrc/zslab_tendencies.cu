@@ -13,47 +13,45 @@
 // reads five extended fields (u, v, T, S, b) and four previous tendencies
 // and writes eight interior fields (~5 GB at 1536x768x64 f32, ~1.6 ms at
 // 3.35 TB/s) against ~600 flop per cell (~6e10 flop, ~1 ms at the float32
-// rate); the climate instance adds one tracer (~6.6 GB, ~2.0 ms). The
-// stencil re-reads its neighbours many times over; those re-reads have to
-// hit L1/L2 or the kernel turns into a cache-bandwidth bound far above
-// that floor.
+// rate); the climate instance adds one tracer (~6.6 GB, ~2.0 ms).
 //
-// Design: one thread per interior (x, y) column, threads along x, so every
-// load of a (Z, Y, X) field is coalesced across a warp and neighbouring
-// columns share cache lines. Each thread marches z from the bottom up and
-// carries, in registers, the continuity sum (w) and the running sum of b dz
-// (hydrostatic pressure) for its own column and for the columns to its west
-// and south, which the momentum stencil reads (w and p at i-1 and j-1).
-// The vertical fluxes at the bottom face of each level are carried from
-// the level below, so each face is reconstructed once. The AB2 update, the
-// wall row and the depth integrals of u, v, u*, v* accumulate in registers
-// of the owning column. The tracer count (2 to 4), the immersed integrals
-// and the 2-D metrics are template parameters, so the flagship instance
-// computes exactly what it did before any of them existed. A 2-D metric
-// is read at the (y, x) of the face or center it weights, as the plain
-// version's broadcast product reads it. On immersed grids only the
-// accumulation of Us and Vs is masked, with the fluid test z_c > face
-// bottom of grids/immersed.py; the stored u*, v* stay unmasked and the
-// caller re-masks them. Outputs are fresh buffers: nothing is updated in
-// place (the caller may still hold the previous state). Simple first: no
-// shared-memory tiling, no TMA; those come when the kernel is tuned.
+// Design (the level tile of tendency_tile.cuh, shared with kernel K6): a
+// block of 32 x kTY threads owns 32 x kTY interior columns and marches z
+// from the floor. Per level it stages u, v and the tracers with the
+// WENO-5 reach of 3 into a shared-memory ring by cp.async, the next level's
+// copies in flight while this level computes; computes each corner's PV,
+// each centre's kinetic energy and each tracer face's WENO-5 flux once
+// into shared memory; and each thread then differences them for its own
+// cell. The carries stay in registers: each thread's column sums (w from
+// continuity, the running sum of b dz for p) and, for 32 + kTY threads,
+// those of one column of the tile's south or west apron, which the
+// momentum stencil reads at j - 1 and i - 1; the bottom-face vertical
+// terms; a six-level register ring per tracer for the vertical WENO-5
+// (one new load a level); the AB2 update, the wall row and the depth
+// integrals of u, v, u*, v*. b and its column total come from device
+// memory (the caller's TEOS-10). The tracer count (2 to 4), the immersed
+// integrals and the 2-D metrics are template parameters. On immersed
+// grids only the accumulation of Us and Vs is masked, with the fluid test
+// z_c > face bottom of grids/immersed.py; the stored u*, v* stay unmasked
+// and the caller re-masks them. Outputs are fresh buffers: nothing is
+// updated in place (the caller may still hold the previous state).
 //
 // Semantics follow the array path of the JAX package (ops/operators.py,
 // models/hydrostatic.py): w = 0 below the bottom and the surface value
 // above it; the fields' z ghosts (zero gradient) come with the extended
-// inputs; the WENO-5 upwind test is strict (vel > 0). The stencils are
-// shared with kernel K6 (tendency_stencils.cuh).
+// inputs; the WENO-5 upwind test is strict (vel > 0).
 
 #include <cuda_runtime.h>
 #include <cstddef>
 
-#include "tendency_stencils.cuh"
+#include "tendency_tile.cuh"
 
 namespace {
 
 constexpr int kMaxTracers = 4;
 
 struct Args {
+  const float* stage[2 + kMaxTracers];  // u, v, tracers: the staged fields
   Field u, v, b;
   Field tr[kMaxTracers];
   const float* btot;  // (Ny+2hy, Nx+2hx): column total of b dz
@@ -69,157 +67,189 @@ struct Args {
   float* trn[kMaxTracers];
   float *U0, *V0, *Us, *Vs;                              // (Ny, Nx) depth integrals
   int Nx, Ny, Nz, hx, hy, hz;
+  int align;             // staged column -3 - align is 16-byte aligned; -1: 4-byte copies
   int wall_row;          // 0: row 0 is the south wall; -1: no wall row on this tile
   float a, b_prev, eps;  // dt*c1, dt*c2, WENO epsilon
 };
 
+// A carried column's column total of b dz and 1 / azc.
+template <bool M2>
+__device__ __forceinline__ void start_column(Column& c, const Args& A, const Tile& t, int Xe) {
+  const int Y = t.Y0 + c.y, X = t.X0 + c.x;
+  c.tot = A.btot[(size_t)Y * Xe + X];
+  c.razc = 1.0f / metric_at<M2>(A.azc, Y, X, Xe);
+}
+
 template <int NTR, bool IMM, bool M2>
-__global__ void __launch_bounds__(128) zslab_tendencies_kernel(const Args A) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y;
-  if (i >= A.Nx || j >= A.Ny) return;
-  const int X = i + A.hx, Y = j + A.hy;
-  const size_t ij = (size_t)j * A.Nx + i;
+__global__ void __launch_bounds__(kThreads, kMinBlocks) zslab_tendencies_kernel(const Args A) {
+  constexpr int NF = 2 + NTR;
+  extern __shared__ __align__(16) float smem[];
+  const bool vec = A.align >= 0;
+  const Tile t(A.Nx, A.Ny, A.hx, A.hy, vec ? A.align : 0);
+  const int Xe = A.Nx + 2 * A.hx, Ye = A.Ny + 2 * A.hy;
+  const size_t plane = (size_t)Ye * Xe;
+  float* ring = smem;  // [kStages][NF][kSF]
+  float* mets = ring + kStages * NF * kSF;
+  float* pvq = mets + metric_floats<M2>();  // [kPY][kPX]
+  float* keq = pvq + kPY * kPX;              // [kCY][kCX]
+  float* wq = keq + kCY * kCX;
+  float* pq = wq + kCY * kCX;
+  float* fxq = pq + kCY * kCX;               // [NTR][kTY][kCX]
+  float* fyq = fxq + NTR * kTY * kCX;        // [NTR][kCY][kTX]
+
+  // the first levels in flight, then the metrics
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < A.Nz)
+      stage_level<NF>(ring + s * NF * kSF, A.stage, (size_t)(s + A.hz) * plane, t, Xe, vec);
+    cp_async_commit();
+  }
+  const Metrics<M2> m =
+      stage_metrics<M2>(mets, A.dxc, A.dxf, A.dyc, A.dyf, A.azf, A.fff, t, Xe, Ye);
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const bool own = tx < t.nx && ty < t.ny;
+  Column oc = {ty, tx, own};
+  Column ac = apron_column(t);
+  if (oc.on) start_column<M2>(oc, A, t, Xe);
+  if (ac.on) start_column<M2>(ac, A, t, Xe);
+
+  // this thread's column
+  const int i = t.i0 + tx, j = t.j0 + ty;
+  const int X = t.X0 + tx, Y = t.Y0 + ty;
+  const size_t ij = own ? (size_t)j * A.Nx + i : 0;
   const size_t plane_i = (size_t)A.Ny * A.Nx;
-
-  // carries: continuity sums (w = -sum) and inclusive b dz sums, for the
-  // own (c), west (w) and south (s) columns
-  float sw_c = 0.f, sw_w = 0.f, sw_s = 0.f;
-  float cs_c = 0.f, cs_w = 0.f, cs_s = 0.f;
-  const size_t Xe = A.Nx + 2 * A.hx;
-  const float tot_c = A.btot[(size_t)Y * Xe + X];
-  const float tot_w = A.btot[(size_t)Y * Xe + X - 1];
-  const float tot_s = A.btot[(size_t)(Y - 1) * Xe + X];
-  float w_c = 0.f, w_w = 0.f, w_s = 0.f;  // w at the bottom face of the level
-
-  // bottom-face carries of the vertical terms (w = 0 on the sea floor)
-  int Z = A.hz;
-  float xu = 0.5f * (w_c + w_w) * ((A.u(Z, Y, X) - A.u(Z - 1, Y, X)) * (1.0f / A.dzf[Z]));
-  float xv = 0.5f * (w_c + w_s) * ((A.v(Z, Y, X) - A.v(Z - 1, Y, X)) * (1.0f / A.dzf[Z]));
-  float fz[NTR];
+  float r_dxc = 0.f, r_dyf = 0.f;
+  float cz[NTR][6];  // c(Z - 2 .. Z + 3) of each tracer
+  float bu = 0.f, bv = 0.f;  // face bottoms of this column (immersed)
+  if (own) {
+    r_dxc = 1.0f / metric_at<M2>(A.dxc, Y, X, Xe);
+    r_dyf = 1.0f / metric_at<M2>(A.dyf, Y, X, Xe);
 #pragma unroll
-  for (int t = 0; t < NTR; ++t) fz[t] = tracer_zflux(A, A.tr[t], Z, Y, X, w_c);
-
+    for (int q = 0; q < NTR; ++q)
+#pragma unroll
+      for (int r = 0; r < 6; ++r) cz[q][r] = A.tr[q](A.hz - 2 + r, Y, X);
+    if (IMM) {
+      bu = A.bu[ij];
+      bv = A.bv[ij];
+    }
+  }
+  // the vertical terms at the bottom face of the level, carried from the
+  // level below: w = 0 on the sea floor
+  float xu = 0.f, xv = 0.f, fz[NTR];
+#pragma unroll
+  for (int q = 0; q < NTR; ++q) fz[q] = 0.f;
   const float wall = (j != A.wall_row) ? 1.0f : 0.0f;  // v and Gv vanish on the south wall
   float U0 = 0.f, V0 = 0.f, Us = 0.f, Vs = 0.f;
-  float bu = 0.f, bv = 0.f;  // face bottoms of this column (immersed)
-  if (IMM) {
-    bu = A.bu[ij];
-    bv = A.bv[ij];
-  }
 
   for (int k = 0; k < A.Nz; ++k) {
-    Z = k + A.hz;
+    const int Z = k + A.hz;
     const float dzc = A.dzc[Z];
-
-    // continuity -> w at the top face of this level. The column sums are
-    // rounded term by term (no fused multiply-add), as a cumsum of the
-    // products rounds them: p ~ 500 m^2/s^2 against horizontal differences
-    // far smaller, so one ulp of p shows in the pressure gradient.
-    sw_c = __fadd_rn(sw_c, __fmul_rn(divergence<M2>(A, Z, Y, X), dzc));
-    sw_w = __fadd_rn(sw_w, __fmul_rn(divergence<M2>(A, Z, Y, X - 1), dzc));
-    sw_s = __fadd_rn(sw_s, __fmul_rn(divergence<M2>(A, Z, Y - 1, X), dzc));
-    const float w_c1 = -sw_c, w_w1 = -sw_w, w_s1 = -sw_s;
-
-    // hydrostatic pressure p = csum - total - b dz / 2
-    const float bdz_c = __fmul_rn(A.b(Z, Y, X), dzc);
-    const float bdz_w = __fmul_rn(A.b(Z, Y, X - 1), dzc);
-    const float bdz_s = __fmul_rn(A.b(Z, Y - 1, X), dzc);
-    cs_c = __fadd_rn(cs_c, bdz_c);
-    cs_w = __fadd_rn(cs_w, bdz_w);
-    cs_s = __fadd_rn(cs_s, bdz_s);
-    const float p_c = __fsub_rn(__fsub_rn(cs_c, tot_c), __fmul_rn(0.5f, bdz_c));
-    const float p_w = __fsub_rn(__fsub_rn(cs_w, tot_w), __fmul_rn(0.5f, bdz_w));
-    const float p_s = __fsub_rn(__fsub_rn(cs_s, tot_s), __fmul_rn(0.5f, bdz_s));
-
-    // vector-invariant momentum: upwinded vorticity flux
-    float s[6];
-    for (int r = 0; r < 6; ++r) s[r] = pv<M2>(A, Z, Y - 2 + r, X);
-    const float vbar = 0.5f * (0.5f * (A.v(Z, Y + 1, X) + A.v(Z, Y + 1, X - 1)) +
-                               0.5f * (A.v(Z, Y, X) + A.v(Z, Y, X - 1)));
-    float Gu = weno_upwind(s, vbar, A.eps) * vbar;
-    for (int r = 0; r < 6; ++r) s[r] = pv<M2>(A, Z, Y, X - 2 + r);
-    const float ubar = 0.5f * (0.5f * (A.u(Z, Y, X + 1) + A.u(Z, Y - 1, X + 1)) +
-                               0.5f * (A.u(Z, Y, X) + A.u(Z, Y - 1, X)));
-    float Gv = -weno_upwind(s, ubar, A.eps) * ubar;
-
-    // Bernoulli gradient
-    const float K = kinetic(A, Z, Y, X);
-    const float r_dxc = 1.0f / met<M2>(A, A.dxc, Y, X), r_dyf = 1.0f / met<M2>(A, A.dyf, Y, X);
-    Gu = Gu - (K - kinetic(A, Z, Y, X - 1)) * r_dxc;
-    Gv = Gv - (K - kinetic(A, Z, Y - 1, X)) * r_dyf;
-
-    // vertical advection -w du/dz, centered between the two faces
-    const float r_dzf1 = 1.0f / A.dzf[Z + 1];
-    const float xu1 = 0.5f * (w_c1 + w_w1) * ((A.u(Z + 1, Y, X) - A.u(Z, Y, X)) * r_dzf1);
-    const float xv1 = 0.5f * (w_c1 + w_s1) * ((A.v(Z + 1, Y, X) - A.v(Z, Y, X)) * r_dzf1);
-    Gu = Gu - 0.5f * (xu1 + xu);
-    Gv = Gv - 0.5f * (xv1 + xv);
-    xu = xu1;
-    xv = xv1;
-
-    // hydrostatic pressure gradient
-    Gu = Gu - (p_c - p_w) * r_dxc;
-    Gv = Gv - (p_c - p_s) * r_dyf;
-    Gv = Gv * wall;
-
-    // tracers: flux-form WENO-5
-    const float r_dzc = 1.0f / dzc;
-    float fz1[NTR], Gc[NTR];
-#pragma unroll
-    for (int t = 0; t < NTR; ++t) fz1[t] = tracer_zflux(A, A.tr[t], Z + 1, Y, X, w_c1);
-#pragma unroll
-    for (int t = 0; t < NTR; ++t) {
-      Gc[t] = tracer_horizontal<M2>(A, A.tr[t], Z, Y, X) - (fz1[t] - fz[t]) * r_dzc;
-      fz[t] = fz1[t];
-    }
-
-    // quasi-AB2 update: x* = x + dt c1 G + dt c2 G_prev. Every load comes
-    // before the first store of the level: the outputs are not declared
-    // disjoint from the inputs, so a load after a store could not reuse a
-    // value already in a register.
+    // device-memory operands of this level, loaded before the wait: b of
+    // the carried columns; for the own column u, v one level up, the
+    // tracers three levels up (the vertical ring) and the previous G
+    const float b_o = oc.on ? A.b(Z, t.Y0 + oc.y, t.X0 + oc.x) : 0.f;
+    const float b_a = ac.on ? A.b(Z, t.Y0 + ac.y, t.X0 + ac.x) : 0.f;
+    float un1 = 0.f, vn1 = 0.f, Gu_p = 0.f, Gv_p = 0.f, cnext[NTR], Gtr_p[NTR];
     const size_t o = (size_t)k * plane_i + ij;
-    const float u0 = A.u(Z, Y, X), v0 = A.v(Z, Y, X);
-    const float un = (u0 + A.a * Gu) + A.b_prev * A.Gu_p[o];
-    const float vn = ((v0 + A.a * Gv) + A.b_prev * A.Gv_p[o]) * wall;
-    float trn[NTR];
+    if (own) {
+      un1 = A.u(Z + 1, Y, X);
+      vn1 = A.v(Z + 1, Y, X);
+      Gu_p = A.Gu_p[o];
+      Gv_p = A.Gv_p[o];
 #pragma unroll
-    for (int t = 0; t < NTR; ++t)
-      trn[t] = (A.tr[t](Z, Y, X) + A.a * Gc[t]) + A.b_prev * A.Gtr_p[t][o];
-    A.Gu[o] = Gu;
-    A.Gv[o] = Gv;
-#pragma unroll
-    for (int t = 0; t < NTR; ++t) A.Gtr[t][o] = Gc[t];
-    A.un[o] = un;
-    A.vn[o] = vn;
-#pragma unroll
-    for (int t = 0; t < NTR; ++t) A.trn[t][o] = trn[t];
-
-    U0 = U0 + u0 * dzc;
-    V0 = V0 + v0 * dzc;
-    if (IMM) {
-      const float zc = A.zc[Z];
-      Us = Us + (un * (zc > bu ? 1.0f : 0.0f)) * dzc;
-      Vs = Vs + (vn * (zc > bv ? 1.0f : 0.0f)) * dzc;
-    } else {
-      Us = Us + un * dzc;
-      Vs = Vs + vn * dzc;
+      for (int q = 0; q < NTR; ++q) {
+        cnext[q] = k + 1 < A.Nz ? A.tr[q](Z + 4, Y, X) : 0.f;
+        Gtr_p[q] = A.Gtr_p[q][o];
+      }
     }
 
-    w_c = w_c1;
-    w_w = w_w1;
-    w_s = w_s1;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // level k staged; every read of the slot reused next is done
+    if (k + kStages - 1 < A.Nz)
+      stage_level<NF>(ring + ((k + kStages - 1) % kStages) * NF * kSF, A.stage,
+                      (size_t)(Z + kStages - 1) * plane, t, Xe, vec);
+    cp_async_commit();
+
+    const float* slot = ring + (k % kStages) * NF * kSF + t.origin();
+    const Win u{slot}, v{slot + kSF};
+    // shared quantities of the level
+    if (oc.on) column_level<true, M2>(oc, u, v, m, dzc, __fmul_rn(b_o, dzc), keq, wq, pq);
+    if (ac.on) column_level<true, M2>(ac, u, v, m, dzc, __fmul_rn(b_a, dzc), keq, wq, pq);
+    corner_pv<M2>(u, v, m, t, pvq);
+#pragma unroll
+    for (int q = 0; q < NTR; ++q)
+      tracer_faces<M2>(Win{slot + (2 + q) * kSF}, u, v, m, t, A.eps, fxq + q * kTY * kCX,
+                       fyq + q * kCY * kTX);
+    __syncthreads();
+
+    if (own) {
+      float Gu, Gv;
+      momentum(u, v, pvq, keq, wq, pq, ty, tx, r_dxc, r_dyf, un1, vn1, 1.0f / A.dzf[Z + 1],
+               A.eps, xu, xv, Gu, Gv);
+      Gv = Gv * wall;
+      const float w = wq[centre(ty, tx)];
+      const float r_dzc = 1.0f / dzc;
+      float Gc[NTR];
+#pragma unroll
+      for (int q = 0; q < NTR; ++q)
+        Gc[q] = tracer(fxq + q * kTY * kCX, fyq + q * kCY * kTX, cz[q], w, fz[q], ty, tx,
+                       oc.razc, r_dzc, A.eps);
+
+      // quasi-AB2 update: x* = x + dt c1 G + dt c2 G_prev
+      const float u0 = u(ty, tx), v0 = v(ty, tx);
+      const float un = (u0 + A.a * Gu) + A.b_prev * Gu_p;
+      const float vn = ((v0 + A.a * Gv) + A.b_prev * Gv_p) * wall;
+      A.Gu[o] = Gu;
+      A.Gv[o] = Gv;
+      A.un[o] = un;
+      A.vn[o] = vn;
+#pragma unroll
+      for (int q = 0; q < NTR; ++q) {
+        A.Gtr[q][o] = Gc[q];
+        A.trn[q][o] = (cz[q][2] + A.a * Gc[q]) + A.b_prev * Gtr_p[q];
+#pragma unroll
+        for (int r = 0; r < 5; ++r) cz[q][r] = cz[q][r + 1];
+        cz[q][5] = cnext[q];
+      }
+
+      U0 = U0 + u0 * dzc;
+      V0 = V0 + v0 * dzc;
+      if (IMM) {
+        const float zc = A.zc[Z];
+        Us = Us + (un * (zc > bu ? 1.0f : 0.0f)) * dzc;
+        Vs = Vs + (vn * (zc > bv ? 1.0f : 0.0f)) * dzc;
+      } else {
+        Us = Us + un * dzc;
+        Vs = Vs + vn * dzc;
+      }
+    }
   }
-  A.U0[ij] = U0;
-  A.V0[ij] = V0;
-  A.Us[ij] = Us;
-  A.Vs[ij] = Vs;
+  if (own) {
+    A.U0[ij] = U0;
+    A.V0[ij] = V0;
+    A.Us[ij] = Us;
+    A.Vs[ij] = Vs;
+  }
 }
 
 template <int NTR, bool IMM, bool M2>
-void launch(const Args& A, dim3 grid, dim3 block, cudaStream_t s) {
-  zslab_tendencies_kernel<NTR, IMM, M2><<<grid, block, 0, s>>>(A);
+cudaError_t launch(const Args& A, dim3 grid, dim3 block, cudaStream_t s) {
+  const size_t smem = sizeof(float) * tile_floats<2 + NTR, NTR, M2>();
+  const cudaError_t err = allow_shared(zslab_tendencies_kernel<NTR, IMM, M2>, smem);
+  if (err != cudaSuccess) return err;
+  zslab_tendencies_kernel<NTR, IMM, M2><<<grid, block, smem, s>>>(A);
+  return cudaGetLastError();
 }
+
+// out: registers per thread, shared memory per block (bytes), the tile's
+// columns in x and in y, blocks resident on one SM.
+template <int NTR, bool IMM, bool M2>
+cudaError_t info(int* out) {
+  const size_t smem = sizeof(float) * tile_floats<2 + NTR, NTR, M2>();
+  return launch_info(zslab_tendencies_kernel<NTR, IMM, M2>, smem, out);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -243,7 +273,8 @@ extern "C" int zslab_tendencies_f32(
     float* const* trn, float* U0, float* V0, float* Us, float* Vs, int ntr, int Nx, int Ny,
     int Nz, int hx, int hy, int hz, int metric2d, int wall_v, float a, float b_prev, float eps,
     void* stream) {
-  if (ntr < 2 || ntr > kMaxTracers) return static_cast<int>(cudaErrorInvalidValue);
+  if (ntr < 2 || ntr > kMaxTracers || hx < 3 || hy < 3 || hz < 3)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool imm = bu != nullptr;
   if (imm && (bv == nullptr || zc == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (metric2d && !imm) return static_cast<int>(cudaErrorInvalidValue);
@@ -253,12 +284,17 @@ extern "C" int zslab_tendencies_f32(
   A.u = Field{u, Xe, plane};
   A.v = Field{v, Xe, plane};
   A.b = Field{b, Xe, plane};
+  A.stage[0] = u;
+  A.stage[1] = v;
+  bool vec = Xe % 4 == 0 && aligned16(u) && aligned16(v);
   for (int t = 0; t < kMaxTracers; ++t) {
     const bool used = t < ntr;
     A.tr[t] = Field{used ? tr[t] : nullptr, Xe, plane};
+    A.stage[2 + t] = used ? tr[t] : nullptr;
     A.Gtr_p[t] = used ? Gtr_p[t] : nullptr;
     A.Gtr[t] = used ? Gtr[t] : nullptr;
     A.trn[t] = used ? trn[t] : nullptr;
+    vec = vec && (!used || aligned16(tr[t]));
   }
   A.btot = btot;
   A.dxc = dxc; A.dxf = dxf; A.dyc = dyc; A.dyf = dyf; A.azc = azc; A.azf = azf; A.fff = fff;
@@ -269,18 +305,32 @@ extern "C" int zslab_tendencies_f32(
   A.un = un; A.vn = vn;
   A.U0 = U0; A.V0 = V0; A.Us = Us; A.Vs = Vs;
   A.Nx = Nx; A.Ny = Ny; A.Nz = Nz; A.hx = hx; A.hy = hy; A.hz = hz;
+  A.align = vec ? (hx + 1) % 4 : -1;  // (X0 - 3) % 4: i0 is a multiple of 32
   A.wall_row = wall_v ? 0 : -1;
   A.a = a; A.b_prev = b_prev; A.eps = eps;
-  dim3 block(128, 1, 1);
-  dim3 grid((Nx + 127) / 128, Ny, 1);
+  dim3 block(kTX, kTY, 1);
+  dim3 grid((Nx + kTX - 1) / kTX, (Ny + kTY - 1) / kTY, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // [ntr - 2][flat, immersed, tripolar]
-  using Launch = void (*)(const Args&, dim3, dim3, cudaStream_t);
+  using Launch = cudaError_t (*)(const Args&, dim3, dim3, cudaStream_t);
   static const Launch launchers[3][3] = {
       {launch<2, false, false>, launch<2, true, false>, launch<2, true, true>},
       {launch<3, false, false>, launch<3, true, false>, launch<3, true, true>},
       {launch<4, false, false>, launch<4, true, false>, launch<4, true, true>},
   };
-  launchers[ntr - 2][imm ? (metric2d ? 2 : 1) : 0](A, grid, block, s);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launchers[ntr - 2][imm ? (metric2d ? 2 : 1) : 0](A, grid, block, s));
+}
+
+// The launch shape of one instance (ntr, immersed, metric2d), as
+// tendency_tile.cuh's launch_info reports it into out[0..5).
+extern "C" int zslab_tendencies_info(int ntr, int immersed, int metric2d, int* out) {
+  if (ntr < 2 || ntr > kMaxTracers || (metric2d && !immersed))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Info = cudaError_t (*)(int*);
+  static const Info infos[3][3] = {
+      {info<2, false, false>, info<2, true, false>, info<2, true, true>},
+      {info<3, false, false>, info<3, true, false>, info<3, true, true>},
+      {info<4, false, false>, info<4, true, false>, info<4, true, true>},
+  };
+  return static_cast<int>(infos[ntr - 2][immersed ? (metric2d ? 2 : 1) : 0](out));
 }

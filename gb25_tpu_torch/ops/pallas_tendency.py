@@ -33,7 +33,7 @@ import torch
 
 from gb25_tpu_torch.ops.eos import _CTU, _SAU, _ZU
 from gb25_tpu_torch.ops.operators import diagnose_w
-from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, uses_kernel
+from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, launch_info, uses_kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,13 +42,11 @@ _MAX_TRACERS = 4
 _PTRS = ctypes.c_void_p * _MAX_TRACERS  # one pointer per tracer slot, unused slots null
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _MODES = {"all": 0, "momentum": 1, "tracers": 2}
-# the kernel's shared b dz tile: (32 + 1) x (4 + 1) columns of Nz + 1 floats
-_TILE_COLUMNS = 33 * 5
-_MAX_SHARED_BYTES = 232448  # per block on Hopper
 
 KERNEL = CudaKernel(
     "tendencies.cu",
-    {"tendencies_f32": [_P] * 4 + [_PP] + [_P] * 12 + [_PP] + [_I] * 9 + [_F] * 7 + [_P]},
+    {"tendencies_f32": [_P] * 4 + [_PP] + [_P] * 12 + [_PP] + [_I] * 9 + [_F] * 7 + [_P],
+     "tendencies_info": [_I] * 3 + [ctypes.POINTER(_I)]},
     extra_flags=("-fmad=false",),
 )
 # the same library's TEOS-10 entry, for checks only (its own launch count)
@@ -131,8 +129,6 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
     names = list(tr_e)
     if not 2 <= len(names) <= _MAX_TRACERS or not {"T", "S"} <= set(names):
         raise ValueError(f"K6 advects T, S and at most {_MAX_TRACERS - 2} more tracers, got {names}")
-    if which != "tracers" and (Nz + 1) * _TILE_COLUMNS * 4 > _MAX_SHARED_BYTES:
-        raise ValueError(f"K6 keeps b dz of Nz + 1 levels in shared memory: Nz = {Nz} is too deep")
     ext = (Nz + 2 * hz, Ny + 2 * hy, Nx + 2 * hx)
     for name, t in (("ue", ue), ("ve", ve), *tr_e.items()):
         check_tensor(t, name, ext, f32, dev)
@@ -176,6 +172,12 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
     if which == "tracers":
         return Gtr
     return Gu, Gv, Gtr
+
+
+def kernel_info(ntr, which, metric2d):
+    """One instance's launch shape on the current CUDA device (see
+    ``pallas_zslab.kernel_info``)."""
+    return launch_info(KERNEL, "tendencies_info", ntr, _MODES[which], int(metric2d))
 
 
 def teos10_kernel(eos, T, S, z_c):

@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from gb25_tpu_torch.ops.operators import coriolis_ff
-from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, uses_kernel
+from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, launch_info, uses_kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,7 +39,8 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 KERNEL = CudaKernel(
     "zslab_tendencies.cu",
     {"zslab_tendencies_f32": [_P] * 3 + [_PP] + [_P] * 15 + [_PP] + [_P] * 2 + [_PP]
-     + [_P] * 2 + [_PP] + [_P] * 4 + [_I] * 9 + [_F] * 3 + [_P]},
+     + [_P] * 2 + [_PP] + [_P] * 4 + [_I] * 9 + [_F] * 3 + [_P],
+     "zslab_tendencies_info": [_I] * 3 + [ctypes.POINTER(_I)]},
 )
 
 
@@ -177,3 +178,10 @@ def zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms=No
             float(ab[0]), float(ab[1]), float(cfg.weno_eps), stream,
         )
     return Gu, Gv, Gtr, u_new, v_new, tr_new, tuple(ints)
+
+
+def kernel_info(ntr, immersed, metric2d):
+    """One instance's launch shape on the current CUDA device: registers
+    per thread, shared memory per block (bytes), the tile (x, y) and the
+    blocks one SM holds."""
+    return launch_info(KERNEL, "zslab_tendencies_info", ntr, int(immersed), int(metric2d))

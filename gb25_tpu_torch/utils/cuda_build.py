@@ -95,12 +95,17 @@ class CudaKernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, name: str, *args):
+    def call(self, name: str, *args):
+        """Call an exported function; raise on a CUDA error."""
         lib = self.load()
         err = getattr(lib, name)(*args)
         if err != 0:
             msg = lib.gb25_cuda_error_string(err).decode()
-            raise RuntimeError(f"{self.source}:{name} launch failed: CUDA error {err} ({msg})")
+            raise RuntimeError(f"{self.source}:{name} failed: CUDA error {err} ({msg})")
+
+    def launch(self, name: str, *args):
+        """Call a launcher and count the launch."""
+        self.call(name, *args)
         self.launches += 1
 
 
@@ -130,3 +135,13 @@ def uses_kernel(cfg, t) -> bool:
     if t.device.type != "cpu":
         raise ValueError(f"kernels={cfg.kernels!r} has no kernel for device {t.device}")
     return False
+
+
+def launch_info(kernel, name, *args) -> dict:
+    """A tile kernel's launch shape from its ``*_info`` entry: registers
+    per thread, shared memory per block (bytes), the tile's columns in x
+    and y, and the blocks one SM holds at once."""
+    out = (ctypes.c_int * 5)()
+    kernel.call(name, *args, out)
+    return {"registers": out[0], "smem_bytes": out[1], "tile": [out[2], out[3]],
+            "blocks_per_sm": out[4]}

@@ -15,6 +15,7 @@ V dxf, so only reassociation differs: 1e-12 of each field's largest value.
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gb25_tpu.grids import simple_latitude_longitude_grid as jax_grid
@@ -30,6 +31,17 @@ from gb25_tpu_torch.ops.pallas_barotropic import barotropic_loop
 from gb25_tpu.utils.correctness import _leaf_names
 
 DT = 60.0
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: beside other busy
+    test processes, torch's default of one OpenMP thread per core made the
+    plain versions' many small launches ~100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def t2(a):

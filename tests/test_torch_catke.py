@@ -41,6 +41,17 @@ from gb25_tpu_torch.ops.pallas_catke import (
 NAMES = ("kappa_u", "kappa_c", "kappa_e", "G_e", "lam_e")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: beside other busy
+    test processes, torch's default of one OpenMP thread per core made the
+    plain versions' many small launches ~100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t2(a):
     return torch.as_tensor(np.ascontiguousarray(np.transpose(a)))
 

@@ -51,6 +51,17 @@ from gb25_tpu_torch.utils.correctness import compare_states
 DT = 60.0
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: beside other busy
+    test processes, torch's default of one OpenMP thread per core made the
+    plain versions' many small launches ~100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_arrays(state):
     return {name: np.asarray(x) for name, x in _leaf_names(state)}
 

@@ -25,6 +25,17 @@ GRID_ARGS = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: beside other busy
+    test processes, torch's default of one OpenMP thread per core made the
+    plain versions' many small launches ~100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("args", GRID_ARGS, ids=["simple", "uniform_z", "bounded_x"])
 def test_latlon_metrics_bitwise(args, dtype):

@@ -19,9 +19,12 @@ one-step tolerances, its "ring" mode bit for bit with its "local" mode.
 K6 (the one-pass tendency kernel of the kernels="pallas" route) at K1's
 tolerances in its flagship, tripolar and four-tracer instances, its split
 pair bit for bit with its single launch and its TEOS-10 buoyancy within a
-few float32 ulps of the plain one; a K6-route step at the one-step
-tolerances against a "torch" step, with exactly 1 K6, 30 K5, 0 K1 and 0 K2
-launches (and 3 K3, 1 K4 in the coupled climate).
+few float32 ulps of the plain one; K1 at its tolerances and K6 bit for bit
+with their plain versions on grids that their 32 x 8 level tiles do not
+divide, narrower than a tile, with unaligned rows and 400 levels deep; a
+K6-route step at the one-step tolerances against a "torch" step, with
+exactly 1 K6, 30 K5, 0 K1 and 0 K2 launches (and 3 K3, 1 K4 in the coupled
+climate).
 """
 
 import dataclasses
@@ -50,6 +53,17 @@ from gb25_tpu_torch.ops.halos import extend_field
 from gb25_tpu_torch.ops.operators import coriolis_ff
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: beside other busy
+    test processes, torch's default of one OpenMP thread per core made the
+    plain versions' many small launches ~100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -466,6 +480,83 @@ def test_k6_matches_plain(cuda, case):
     assert torch.equal(split[0], got[0]) and torch.equal(split[1], got[1])
     b = pallas_tendency.teos10_kernel(cfg.eos, tr_e["T"], tr_e["S"], grid.z_c)
     _close(b, cfg.eos.buoyancy(tr_e["T"], tr_e["S"], grid.z_c), 1e-6, 0.0)
+
+
+# The level tiles of K1 and K6 (csrc/tendency_tile.cuh) hold 32 x 8
+# columns: these grids leave ragged east and north tiles, a grid narrower
+# than one tile row (Ny = 5), rows whose stride is not a multiple of 16
+# bytes (Nx = 37: 4-byte copies into shared memory) and a column deeper
+# than any the models run (Nz = 400: the march keeps nothing per level).
+TILE_CASES = {
+    "flagship_100x20x10": ("flagship", (100, 20, 10)),
+    "flagship_37x5x6": ("flagship", (37, 5, 6)),
+    "flagship_40x8x400": ("flagship", (40, 8, 400)),
+    "islands_100x50x6": ("gaussian_islands", (100, 50, 6)),
+    "tripolar_100x50x6": ("gaussian_islands_tripolar", (100, 50, 6)),
+    "tripolar_37x18x6": ("gaussian_islands_tripolar", (37, 18, 6)),
+}
+
+
+def _tile_operands(cuda, case, shape):
+    if case != "flagship":
+        return _climate_operands(cuda, shape, 14, case)
+    cfg, grid, state = baroclinic_instability_model(*shape, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(15)
+
+    def noise(s):
+        return s * torch.randn(grid.shape, generator=gen, device=cuda)
+
+    ue = extend_field(grid, state.u + noise(0.05), "u")
+    ve = extend_field(grid, state.v + noise(0.05), "v")
+    tr = {"T": state.tracers["T"] + noise(0.1), "S": state.tracers["S"]}
+    tr_e = {k: extend_field(grid, c, "c") for k, c in tr.items()}
+    be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
+    return cfg, grid, ue, ve, tr_e, be, b_total, noise
+
+
+@pytest.mark.parametrize("name", list(TILE_CASES))
+def test_k1_tiles_match_plain(cuda, name):
+    cfg, grid, ue, ve, tr_e, be, b_total, noise = _tile_operands(cuda, *TILE_CASES[name])
+    prev = (noise(1e-7), noise(1e-7), {k: noise(1e-7) for k in tr_e})
+    prev[1][:, 0, :] = 0.0
+    ab = (96.0, -36.0)
+    fb = face_bottom_planes(grid) if grid.immersed else None
+    before = pallas_zslab.KERNEL.launches
+    got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab,
+                                        buoyancy=(be, b_total), face_bottoms=fb)
+    torch.cuda.synchronize()
+    assert pallas_zslab.KERNEL.launches == before + 1
+    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be, fb)
+    _close(got[0], want[0], 2e-4, 1e-9)
+    _close(got[1], want[1], 2e-4, 1e-9)
+    for k in tr_e:
+        _close(got[2][k], want[2][k], 2e-4, 1e-7)
+        _close(got[5][k], want[5][k], 2e-4, ab[0] * 2e-4 * float(want[2][k].abs().max()))
+    for g, w, G in ((got[3], want[3], want[0]), (got[4], want[4], want[1])):
+        _close(g, w, 2e-4, ab[0] * 2e-4 * float(G.abs().max()))
+    for g, w in zip(got[6], want[6]):
+        _close(g, w, 2e-4, 2e-4 * float(w.abs().max()) + 1e-6)
+    assert float(got[4][:, 0, :].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("name", list(TILE_CASES))
+def test_k6_tiles_match_plain_bitwise(cuda, name):
+    """K6 and its split pair bit for bit with the plain version: the same
+    operations in the same order under -fmad=false."""
+    cfg, grid, ue, ve, tr_e = _tile_operands(cuda, *TILE_CASES[name])[:5]
+    f_ff = coriolis_ff(grid, cfg.coriolis).to(torch.float32)
+    pallas = dataclasses.replace(cfg, kernels="pallas")
+    before = pallas_tendency.KERNEL.launches
+    got = pallas_tendency.pallas_tendencies(pallas, grid, f_ff, ue, ve, tr_e)
+    split = pallas_tendency.pallas_tendencies(pallas, grid, f_ff, ue, ve, tr_e, split=True)
+    torch.cuda.synchronize()
+    assert pallas_tendency.KERNEL.launches == before + 3
+    want = pallas_tendency.pallas_tendencies_plain(cfg, grid, f_ff, ue, ve, tr_e)
+    for out in (got, split):
+        for g, w in ((out[0], want[0]), (out[1], want[1]),
+                     *((out[2][k], want[2][k]) for k in tr_e)):
+            assert torch.isfinite(w).all()
+            assert torch.equal(g, w), float((g - w).abs().max())
 
 
 def _k6_route_counts():

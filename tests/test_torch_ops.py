@@ -27,6 +27,17 @@ RTOL = 1e-12
 SHAPE = (12, 10, 8)  # (Nx, Ny, Nz), JAX layout
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: beside other busy
+    test processes, torch's default of one OpenMP thread per core made the
+    plain versions' many small launches ~100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t3(a):
     """JAX (X, Y, Z) numpy array -> port (Z, Y, X) tensor (and back)."""
     a = np.asarray(a)

@@ -31,6 +31,17 @@ from gb25_tpu_torch.parallel import spawn
 from gb25_tpu_torch.parallel.sharded import tile_snapshot
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: beside other busy
+    test processes, torch's default of one OpenMP thread per core made the
+    plain versions' many small launches ~100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_factors_policy():
     """tests/test_sharded.py's cases, and the JAX policy on every N to 64."""
     assert factors(4) == (2, 2)

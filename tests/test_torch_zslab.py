@@ -31,6 +31,17 @@ from gb25_tpu_torch.ops.pallas_zslab import zslab_tendencies, zslab_tendencies_p
 DT = 60.0
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: beside other busy
+    test processes, torch's default of one OpenMP thread per core made the
+    plain versions' many small launches ~100x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t3(a):
     return torch.from_numpy(np.array(np.transpose(np.asarray(a))))
 
