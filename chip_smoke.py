@@ -26,7 +26,9 @@ barotropic substeps):
   7. K4 (catke_diffusivities) against its plain version, all five outputs,
      rtol 1e-6;
   8. K3 (implicit_diffusion) against its plain version: the u, v pair, the
-     T, S pair and e with its decay rate, rtol 1e-5;
+     T, S pair and e with its decay rate, bit for bit (the run fails
+     otherwise); each solve's registers, shared memory, columns a block,
+     blocks per SM and levels in flight;
   9. K1 in its climate instance (tracers T, S, e and the immersed u*, v*
      integrals), rtol 2e-4, and K2 with the solid-face masks, rtol 1e-5;
   10. the main path: 8 coupled steps from rest, then from there one step
@@ -51,7 +53,7 @@ barotropic substeps):
   15. K4's k-epsilon function against its plain version, bit for bit;
   16. K1 in its four-tracer instance, rtol 2e-4;
   17. K3's four solves of a k-epsilon step (u, v; T, S; e; eps, neither
-     damped), rtol 1e-5;
+     damped), bit for bit as in [8];
   18. the main path: one step kernels vs plain (tolerances of [5]), 8
      warm-up steps and two 128-step loops, launch counts per step exactly
      1 K1, 30 K2, 4 K3, 1 k-epsilon K4 and no CATKE K4; then finite
@@ -60,14 +62,17 @@ barotropic substeps):
   rows, exchange_width = 30: one block of 30 substeps a step):
   19. K5 (barotropic_block) against its plain version on one block at the
      decomposed climate shape, (768 + 60) x (1536 + 60) planes, with
-     tripolar metric planes and masks and with lat-lon metric columns,
-     rtol 1e-6 (and whether the two agree bit for bit);
+     tripolar metric planes and masks and with lat-lon metric columns, bit
+     for bit on the whole extended planes (the run fails otherwise), in
+     exactly ceil(30 / s) launches (s: the kernel's substeps a launch);
+     its registers, shared memory, tile, blocks per SM and s;
   20. the tripolar climate model: 8 steps, then one step kernels vs plain
      (tolerances of [5]), one step "ring" against "local" bit for bit,
      then in each mode 8 warm-up steps and two 64-step loops, the second
-     timed, launch counts per step exactly 1 K1, 30 K5, 0 K2, 3 K3, 1 K4;
-     finite fields, land at rest; ms/step beside [13]'s;
-  21. the flagship the same way: per step 1 K1, 30 K5, 0 K2; beside [5]'s.
+     timed, launch counts per step exactly 1 K1, ceil(30 / s) K5, 0 K2, 3
+     K3, 1 K4; finite fields, land at rest; ms/step beside [13]'s;
+  21. the flagship the same way: per step 1 K1, ceil(30 / s) K5, 0 K2;
+     beside [5]'s.
   "ring" runs on an NCCL process group of one rank (a ``HashStore``, no
   network); its exchanges are copies of the tile's own strips, "local"
   fills the ghosts from the boundary conditions.
@@ -80,21 +85,24 @@ barotropic substeps):
      split pair (momentum, then tracers), each bit for bit with the plain
      version, and the kernel's TEOS-10 buoyancy bit for bit too; then
      the k-epsilon flagship on the K6 route, 8 + 2x16 steps, per step
-     exactly 1 K6, 30 K5, 4 K3, 1 k-epsilon K4, 0 K1, 0 K2;
+     exactly 1 K6, 4 K3, 1 k-epsilon K4, 0 K1, 0 K2 and K5's ceil(n / s)
+     launches for each block of n substeps (seven blocks of 4, one of 2);
   23. the flagship on the K6 route: one step kernels="pallas" against one
      step kernels="torch" (tolerances of [5], but u, v and eta at an atol
      of 1e-3 of their largest value and Gu, Gv on fluid faces at 8 ulps of
      p over the face's spacing where that is larger: float32 rounding, see
      ``route_step_compare``; u, v, eta, Gu and Gv of both beside the
      "torch" step in float64), then 8 warm-up steps and two 256-step loops,
-     the second one timed; per step exactly 1 K6, 30 K5, 0 K1, 0 K2; finite
-     fields; ms/step beside [5]'s; then K5 against its plain version
-     (rtol 1e-6, and whether bit for bit) on the operands of one more
-     step's first block (4 substeps) and last block (2), both timed;
+     the second one timed; per step exactly 1 K6, 0 K1, 0 K2 and K5's
+     launches of [22]; finite fields; ms/step beside [5]'s; then K5
+     against its plain version, bit for bit and in ceil(n / s) launches,
+     on the operands of one more step's first block (4 substeps) and last
+     block (2), both timed;
   24. the tripolar climate on the K6 route: 8 coupled steps, one step
      against "torch" and float64 (as in [23]), 8 warm-up steps and two
-     64-step loops, the second timed; per step exactly 1 K6, 30 K5, 3 K3, 1
-     K4, 0 K1, 0 K2; finite fields, land at rest; ms/step beside [13]'s;
+     64-step loops, the second timed; per step exactly 1 K6, 3 K3, 1 K4, 0
+     K1, 0 K2 and K5's launches of [22]; finite fields, land at rest;
+     ms/step beside [13]'s;
      K5 on one more step's first and last blocks (metric planes, masks).
 
 Every phase raises on failure, and the script then exits non-zero. [25]
@@ -102,9 +110,10 @@ sums up the ms/step of every path. Three lines end the output: a JSON
 object with each kernel instance's launches on its main path, error
 against its plain version, times, its bound (the larger of its compulsory
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s) and its library
-time (null: no one PyTorch call computes any of these functions; K1's and
-K6's entries carry their registers, shared memory per block, tile and
-blocks per SM; K5's
+time (null: no one PyTorch call computes any of these functions; K1's,
+K3's, K5's and K6's entries carry their registers, shared memory per
+block, tile and blocks per SM, K3's its levels in flight and K5's its
+substeps a launch; K5's
 entry also carries its column instance, its launches in "ring" and on the
 decomposed flagship, and under "k6_routes" its launches on each K6 route
 with the checks, times and bounds of [23]'s and [24]'s blocks); then the
@@ -114,7 +123,8 @@ prints no result. Times are CUDA-event means: ``ms`` of K1, K3 and K6 is
 the kernel launch alone on operands prepared once (K3 summed over a step's
 solves), of K4 its wrapper (the launch and one or two 1-D profile
 reshapes), of K2 the whole 30-substep loop wrapper, its plane building
-included, of K5 one block of 30 launches; ``plain_ms`` is the plain version
+included, of K5 one block of 30 substeps (ceil(30 / s) launches);
+``plain_ms`` is the plain version
 on the same operands.
 """
 
@@ -546,25 +556,29 @@ def phase_k3(cfg, grid, solves):
     dzf = grid.dz_f[grid.hz : grid.hz + grid.Nz]
     a_lam, a_mu = pallas_tridiag.vertical_coefficients(DT, dzc, dzf)
     out = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "per_solve_ms": {},
-           "bound_ms": 0.0}
+           "per_solve_launch": {}, "bound_ms": 0.0}
     for name, (fields, kappa, damp) in solves.items():
         got = pallas_tridiag.implicit_diffusion(cfg, fields, kappa, DT, dzc, dzf, damp)
         want = pallas_tridiag.implicit_diffusion_plain(fields, kappa, DT, a_lam, a_mu, damp)
         torch.cuda.synchronize()
-        for i, (g, w) in enumerate(zip(got, want)):
-            err = compare(f"{name}[{i}]", g, w, 1e-5, 1e-6 * float(w.abs().max()))
+        for i, (g, w) in enumerate(zip(got, want)):  # bit for bit
+            err = compare(f"{name}[{i}]", g, w, 0.0, 0.0)
             out["max_abs_err"] = max(out["max_abs_err"], err)
         ms = cuda_time_ms(
             lambda: pallas_tridiag.implicit_kernel(fields, kappa, DT, a_lam, a_mu, damp), reps=10)
         plain_ms = cuda_time_ms(
             lambda: pallas_tridiag.implicit_diffusion_plain(fields, kappa, DT, a_lam, a_mu, damp),
             reps=2)
-        b, _ = k3_bound(grid, len(fields), damp is not None)
-        print(f"  K3 {name}: {ms:.3f} ms (bound {b:.3f} ms); plain {plain_ms:.3f} ms")
+        b = k3_bound(grid, len(fields), damp is not None)
+        info = pallas_tridiag.kernel_info(grid.Nz, len(fields), damp is not None)
+        print(f"  K3 {name}: {ms:.3f} ms; plain {plain_ms:.3f} ms; bit for bit; "
+              + launch_line(info, b) + f", {info['levels_in_flight']} levels in flight")
         out["ms"] += ms
         out["plain_ms"] += plain_ms
-        out["bound_ms"] += b
+        out["bound_ms"] += b[0]
         out["per_solve_ms"][name] = ms
+        out["per_solve_launch"][name] = info
+    out["launch"] = next(iter(out["per_solve_launch"].values()))
     return out
 
 
@@ -748,7 +762,7 @@ def climate(card, grid_type, first):
         k3_entry = entry("implicit_diffusion", "implicit_diffusion.cu",
                          "gb25_tpu/ops/pallas_tridiag.py:87", path, launches["K3"], k3,
                          (k3["bound_ms"], "bytes"))
-        k3_entry["per_solve_ms"] = k3["per_solve_ms"]
+        k3_entry.update(per_solve_ms=k3["per_solve_ms"], per_solve_launch=k3["per_solve_launch"])
         entries += [k3_entry,
                     entry("catke_diffusivities", "catke_diffusivities.cu",
                           "gb25_tpu/ops/pallas_catke.py:64", path, launches["K4"], k4,
@@ -867,7 +881,7 @@ def keps(card):
     k3_entry = entry("implicit_diffusion_keps", "implicit_diffusion.cu",
                      "gb25_tpu/ops/pallas_tridiag.py:87", path, launches["K3"], k3,
                      (k3["bound_ms"], "bytes"))
-    k3_entry["per_solve_ms"] = k3["per_solve_ms"]
+    k3_entry.update(per_solve_ms=k3["per_solve_ms"], per_solve_launch=k3["per_solve_launch"])
     return [
         entry("zslab_tendencies_keps", "zslab_tendencies.cu", "gb25_tpu/ops/pallas_zslab.py:275",
               path, launches["K1"], k1, k1_bound(grid, 4, False)),
@@ -902,6 +916,7 @@ def phase_k5(gen):
     W = DECOMPOSED_W
     Ye, Xe = NY + 2 * W, NX + 2 * W
     weights = averaging_weights(W)
+    n_launch = -(-W // pallas_barotropic.substeps_per_launch())
 
     def r(shape, scale, offset=0.0):
         return offset + scale * torch.rand(shape, generator=gen, device=DEVICE)
@@ -922,22 +937,45 @@ def phase_k5(gen):
         def plain():
             return pallas_barotropic.barotropic_block_plain(weights, *ops, *masks)
 
-        got, want = kernel(), plain()
+        got, want = check_k5_launches(kernel, n_launch), plain()
         torch.cuda.synchronize()
         names = ("eta", "U", "V", "pe", "pU", "pV")
-        errs = [compare(f"{n} {label}", g, w, 1e-6, 1e-6 * float(w.abs().max()))
+        errs = [compare(f"{n} {label}", g, w, 0.0, 0.0)  # bit for bit
                 for n, g, w in zip(names, got, want)]
-        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
         del got, want
         ms = cuda_time_ms(kernel, reps=10)
         plain_ms = cuda_time_ms(plain, reps=3)
         b = k5_bound(Ye, Xe, W, metric2d, masked)
-        print(f"  K5 {label} ({Ye}x{Xe}, {W} substeps): {ms:.3f} ms (bound {b[0]:.4f} ms); "
-              f"plain {plain_ms:.3f} ms; bit for bit with the plain version: {bitwise}")
+        info = pallas_barotropic.block_info(masked, metric2d)
+        print(f"  K5 {label} ({Ye}x{Xe}, {W} substeps in {n_launch} launches): {ms:.3f} ms; "
+              f"plain {plain_ms:.3f} ms; bit for bit; " + launch_line(info, b)
+              + f", {info['substeps']} substeps a launch")
         out[label] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound": b,
-                      "bitwise": bitwise}
+                      "bitwise": True, "launch": info}
         del ops, masks
     return out
+
+
+def check_k5_launches(run, want):
+    """``run()``'s outputs; raise unless it made exactly ``want`` K5
+    launches."""
+    from gb25_tpu_torch.ops import pallas_barotropic
+
+    before = pallas_barotropic.BLOCK_KERNEL.launches
+    out = run()
+    made = pallas_barotropic.BLOCK_KERNEL.launches - before
+    if made != want:
+        raise AssertionError(f"K5 made {made} launches for a block, expected {want}")
+    return out
+
+
+def k5_per_step(cfg, grid):
+    """K5's launches in one step of ``cfg``'s blocked solve on ``grid``."""
+    from gb25_tpu_torch.models.free_surface import exchange_width
+    from gb25_tpu_torch.ops import pallas_barotropic
+
+    fs = cfg.free_surface
+    return pallas_barotropic.step_launches(fs.substeps, exchange_width(fs, grid))
 
 
 def decomposed(label, build, state, serial_ms, kernels, per_step, steps, phase):
@@ -1002,7 +1040,7 @@ def decomposed_climate(card, serial_ms, phase):
     kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
                "K5": pallas_barotropic.BLOCK_KERNEL, "K3": pallas_tridiag.KERNEL,
                "K4": pallas_catke.KERNEL}
-    per_step = {"K1": 1, "K2": 0, "K5": fs.substeps, "K3": 3, "K4": 1}
+    per_step = {"K1": 1, "K2": 0, "K5": k5_per_step(ccfg.ocean, grid), "K3": 3, "K4": 1}
     res = decomposed("tripolar climate", build, state, serial_ms, kernels, per_step,
                      DECOMPOSED_STEPS, phase)
     for mode in res:
@@ -1032,7 +1070,7 @@ def decomposed_flagship(card, serial_ms, phase):
 
     kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
                "K5": pallas_barotropic.BLOCK_KERNEL}
-    per_step = {"K1": 1, "K2": 0, "K5": cfg.free_surface.substeps}
+    per_step = {"K1": 1, "K2": 0, "K5": k5_per_step(cfg, grid)}
     res = decomposed("flagship", build, state, serial_ms, kernels, per_step, DECOMPOSED_STEPS,
                      phase)
     for mode in res:
@@ -1201,6 +1239,7 @@ def phase_k5_route(blocks, label):
     from gb25_tpu_torch.ops import pallas_barotropic
 
     out = {}
+    s = pallas_barotropic.substeps_per_launch()
     for weights, ops in blocks:
         n = len(weights)
 
@@ -1210,22 +1249,21 @@ def phase_k5_route(blocks, label):
         def plain():
             return pallas_barotropic.barotropic_block_plain(weights, *ops)
 
-        got, want = kernel(), plain()
+        got, want = check_k5_launches(kernel, -(-n // s)), plain()
         torch.cuda.synchronize()
         names = ("eta", "U", "V", "pe", "pU", "pV")
-        errs = [compare(f"{name} {n}", g, w, 1e-6, 1e-6 * float(w.abs().max()))
+        errs = [compare(f"{name} {n}", g, w, 0.0, 0.0)  # bit for bit
                 for name, g, w in zip(names, got, want)]
-        bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
         del got, want
         ms = cuda_time_ms(kernel, reps=20)
         plain_ms = cuda_time_ms(plain, reps=5)
         Ye, Xe = ops[0].shape
         b = k5_bound(Ye, Xe, n, ops[7].shape[1] > 1, ops[-1] is not None)
-        print(f"  K5 {label} block of {n} substeps ({Ye}x{Xe}): {ms:.3f} ms (bound {b[0]:.4f} "
-              f"ms, {b[1]}); plain {plain_ms:.3f} ms; bit for bit with the plain version: "
-              f"{bitwise}")
+        print(f"  K5 {label} block of {n} substeps ({Ye}x{Xe}) in {-(-n // s)} launch(es): "
+              f"{ms:.3f} ms (bound {b[0]:.4f} ms, {b[1]}); plain {plain_ms:.3f} ms; bit for bit")
         out[str(n)] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": b[0], "bound_by": b[1], "bitwise": bitwise}
+                       "bound_ms": b[0], "bound_by": b[1], "bitwise": True,
+                       "launches": -(-n // s)}
     return out
 
 
@@ -1244,7 +1282,7 @@ def k6_keps_route(card, serial_ms):
     del ue, ve, tr_e
     print(f"  k-epsilon flagship on the K6 route, {WARMUP} + 2x{K6_KEPS_STEPS} steps:")
     kernels = {**k6_kernels(), "K3": pallas_tridiag.KERNEL, "K4_keps": pallas_catke.KEPS_KERNEL}
-    per_step = {"K6": 1, "K5": cfg.free_surface.substeps, "K1": 0, "K2": 0, "K3": 4,
+    per_step = {"K6": 1, "K5": k5_per_step(cfg, grid), "K1": 0, "K2": 0, "K3": 4,
                 "K4_keps": 1}
     s, elapsed, launches, _ = run_main_path(lambda st, n: loop(cfg, grid, st, DT, n), state,
                                             kernels, per_step, K6_KEPS_STEPS)
@@ -1304,7 +1342,7 @@ def k6_flagship(card, serial_ms):
                        lambda s: time_step(cfg_torch, grid64, s, DT))
     del grid64
     torch.cuda.empty_cache()
-    per_step = {"K6": 1, "K5": cfg.free_surface.substeps, "K1": 0, "K2": 0}
+    per_step = {"K6": 1, "K5": k5_per_step(cfg, grid), "K1": 0, "K2": 0}
     s, elapsed, launches, _ = run_main_path(lambda st, n: loop(cfg, grid, st, DT, n), state,
                                             k6_kernels(), per_step, STEPS)
     umax = check_state(s, (NZ, NY, NX))
@@ -1337,7 +1375,7 @@ def k6_tripolar(card, serial_ms):
     del moved, c64, grid64, atmos64
     torch.cuda.empty_cache()
     kernels = {**k6_kernels(), "K3": pallas_tridiag.KERNEL, "K4": pallas_catke.KERNEL}
-    per_step = {"K6": 1, "K5": cfg.free_surface.substeps, "K1": 0, "K2": 0, "K3": 3, "K4": 1}
+    per_step = {"K6": 1, "K5": k5_per_step(cfg, grid), "K1": 0, "K2": 0, "K3": 3, "K4": 1}
     s, elapsed, launches, _ = run_main_path(
         lambda st, n: coupled_loop(ccfg, grid, atmos, st, DT, n), state, kernels, per_step,
         K6_CLIMATE_STEPS)
@@ -1445,6 +1483,7 @@ def main():
     k5_entry = entry("barotropic_block", "barotropic_block.cu",
                      "gb25_tpu/ops/pallas_barotropic.py:349", "climate_tripolar_decomposed",
                      dclim["local"]["launches"]["K5"], k5["tripolar"], k5["tripolar"]["bound"])
+    k5_entry.update(columns_launch=k5["columns"]["launch"])
     k5_entry.update(
         launches_ring=dclim["ring"]["launches"]["K5"],
         launches_flagship_decomposed=dflag["local"]["launches"]["K5"],

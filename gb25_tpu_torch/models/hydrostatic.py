@@ -60,7 +60,7 @@ from gb25_tpu_torch.ops.operators import (
 )
 from gb25_tpu_torch.ops.pallas_catke import catke_diffusivities_kernel, keps_diffusivities_kernel
 from gb25_tpu_torch.ops.pallas_tendency import pallas_tendencies
-from gb25_tpu_torch.ops.pallas_tridiag import implicit_diffusion
+from gb25_tpu_torch.ops.pallas_tridiag import grid_coefficients, implicit_solve
 from gb25_tpu_torch.ops.pallas_zslab import column_buoyancy, zslab_tendencies
 from gb25_tpu_torch.ops.stencils import dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f, iz_c
 from gb25_tpu_torch.ops.weno import weno5_upwind
@@ -360,15 +360,14 @@ def _implicit_solves(cfg, grid, u, v, tracers, d, dt):
     """Backward-Euler vertical diffusion with the closure's diffusivities:
     (u, v) with kappa_u, (T, S) with kappa_c, e with kappa_e (and CATKE's
     dissipation rate lam_e), eps with kappa_eps; then e, eps >= 0."""
-    dzc = grid.dz_c[grid.hz : grid.hz + grid.Nz]
-    dzf = grid.dz_f[grid.hz : grid.hz + grid.Nz]
-    u, v = implicit_diffusion(cfg, (u, v), d["kappa_u"], dt, dzc, dzf)
-    T, S = implicit_diffusion(cfg, (tracers["T"], tracers["S"]), d["kappa_c"], dt, dzc, dzf)
+    coef = grid_coefficients(grid, dt)
+    u, v = implicit_solve(cfg, (u, v), d["kappa_u"], dt, *coef)
+    T, S = implicit_solve(cfg, (tracers["T"], tracers["S"]), d["kappa_c"], dt, *coef)
     out = {**tracers, "T": T, "S": S}
     for name in ("e", "eps"):
         if name in tracers:
-            (x,) = implicit_diffusion(cfg, (tracers[name],), d["kappa_" + name], dt, dzc, dzf,
-                                      damping=d.get("lam_" + name))
+            (x,) = implicit_solve(cfg, (tracers[name],), d["kappa_" + name], dt, *coef,
+                                  damping=d.get("lam_" + name))
             out[name] = torch.clamp(x, min=0.0)
     return u, v, out
 

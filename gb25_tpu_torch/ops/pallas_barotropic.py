@@ -20,20 +20,23 @@ Kernel K5 (port of ``pallas_barotropic_block``), the decomposed path's
 form: one exchange block of substeps on width-W extended planes, with no
 boundary of its own (the exchanged ghosts carry walls, neighbours and the
 fold; see ``models.free_surface``). ``barotropic_block`` launches
-``csrc/barotropic_block.cu`` once per substep for CUDA tensors under
-``kernels="auto"`` and runs ``barotropic_block_plain`` otherwise.
+``csrc/barotropic_block.cu`` for CUDA tensors under ``kernels="auto"``,
+once for each chunk of at most ``substeps_per_launch()`` substeps
+(``launch_chunks``), and runs ``barotropic_block_plain`` otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from gb25_tpu_torch.grids.tripolar import fold_x
-from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, uses_kernel
+from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, launch_info, uses_kernel
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 
 KERNEL = CudaKernel(
     "barotropic_loop.cu",
@@ -41,7 +44,8 @@ KERNEL = CudaKernel(
 )
 BLOCK_KERNEL = CudaKernel(
     "barotropic_block.cu",
-    {"barotropic_block_substep_f32": [_P] * 18 + [ctypes.c_float] + [ctypes.c_int] * 3 + [_P]},
+    {"barotropic_block_f32": [_P] * 19 + [_I] * 5 + [_P],
+     "barotropic_block_info": [_I] * 2 + [ctypes.POINTER(_I)]},
     extra_flags=("-fmad=false",),
 )
 
@@ -193,6 +197,39 @@ def barotropic_block_plain(weights, eta, U, V, pu, pv, fu, fv, au, av, rz, mu=No
     return eta, U, V, pe, pU, pV
 
 
+def launch_chunks(weights, s):
+    """K5's launch plan: a block's weights split, in order, into chunks of
+    at most ``s`` substeps, one launch each (ceil(len(weights) / s))."""
+    return [weights[i : i + s] for i in range(0, len(weights), s)]
+
+
+def block_info(masked, metric2d):
+    """K5's launch shape: registers, shared memory per block, the interior
+    tile (columns, rows) of a full launch, blocks per SM and the most
+    substeps a launch."""
+    return launch_info(BLOCK_KERNEL, "barotropic_block_info", int(masked), int(metric2d),
+                       extra=("substeps",))
+
+
+@functools.cache
+def _substeps(kernel):
+    return launch_info(kernel, "barotropic_block_info", 0, 0, extra=("substeps",))["substeps"]
+
+
+def substeps_per_launch():
+    """The most substeps one K5 launch advances (its widest apron), read
+    from the built kernel."""
+    return _substeps(BLOCK_KERNEL)
+
+
+def step_launches(substeps, width):
+    """K5's launches in one step of ``substeps`` substeps in blocks of
+    ``width`` (the blocked solve's W): each block's ceil(n / s)."""
+    s = substeps_per_launch()
+    return sum(len(launch_chunks(range(min(width, substeps - m)), s))
+               for m in range(0, substeps, width))
+
+
 def _barotropic_block_cuda(weights, eta, U, V, pu, pv, fu, fv, au, av, rz, mu=None, mv=None):
     dev = eta.device
     Ye, Xe = eta.shape
@@ -206,21 +243,27 @@ def _barotropic_block_cuda(weights, eta, U, V, pu, pv, fu, fv, au, av, rz, mu=No
     if (mu is None) != (mv is None):
         raise ValueError("K5 takes both solid-face masks or neither")
     mask_ptrs = (None, None) if mu is None else (mu.data_ptr(), mv.data_ptr())
+    chunks = launch_chunks(weights, substeps_per_launch())
+    if not chunks:
+        raise ValueError("K5 needs at least one substep")
 
-    acc = [torch.zeros_like(eta) for _ in range(3)]
-    # ping-pong: substep m reads `cur` and writes `nxt`; the inputs are
-    # never written
-    bufs = [[torch.empty_like(eta) for _ in range(3)] for _ in range(2)]
+    # one allocation: the accumulators, which the first launch writes and
+    # later ones add to, then one or two sets of (eta, U, V) in ping-pong
+    # (launch i reads `cur` and writes `nxt`; the inputs are never written)
+    planes = torch.empty((3 * (1 + min(2, len(chunks))), Ye, Xe), dtype=eta.dtype, device=dev)
+    acc = planes[:3].unbind()
+    bufs = (planes[3:6].unbind(), planes[6:9].unbind())
     cur = (eta, U, V)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        for m, w in enumerate(weights):
-            nxt = bufs[m % 2]
+        for i, chunk in enumerate(chunks):
+            nxt = bufs[i % 2]
+            w = (ctypes.c_float * len(chunk))(*chunk)  # rounded to float32 as torch does
             BLOCK_KERNEL.launch(
-                "barotropic_block_substep_f32",
+                "barotropic_block_f32",
                 *[t.data_ptr() for t in (*cur, *nxt, pu, pv, fu, fv, au, av, rz)],
                 *mask_ptrs, *[t.data_ptr() for t in acc],
-                float(torch.tensor(w, dtype=torch.float32)), Xe, Ye, int(metric2d), stream,
+                w, len(chunk), int(i == 0), Xe, Ye, int(metric2d), stream,
             )
             cur = nxt
     return (*cur, *acc)

@@ -7,10 +7,13 @@ with lam_k = kappa_k dt / (dz_c[k] dz_f[k]) (0 at the sea floor) and
 mu_k = kappa_{k+1} dt / (dz_c[k] dz_f[k+1]) (0 at the surface), for one or
 two right-hand sides that share kappa (and one forward elimination).
 
-``implicit_diffusion`` launches ``csrc/implicit_diffusion.cu`` for CUDA
-tensors under ``kernels="auto"`` and runs ``implicit_diffusion_plain``
-for CPU tensors or ``kernels="torch"``. There is no fallback from a CUDA
-tensor to the plain version.
+``implicit_solve`` (and ``implicit_diffusion``, which builds the
+coefficients from the profiles first) launches
+``csrc/implicit_diffusion.cu`` for CUDA tensors under ``kernels="auto"``
+and runs ``implicit_diffusion_plain`` for CPU tensors or
+``kernels="torch"``. There is no fallback from a CUDA tensor to the plain
+version. The model's step takes its coefficients from
+``grid_coefficients``, built once per grid and dt.
 """
 
 from __future__ import annotations
@@ -19,16 +22,17 @@ import ctypes
 
 import torch
 
-from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, uses_kernel
+from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, launch_info, uses_kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-MAX_NZ = 128  # the kernel keeps a column's forward coefficients in registers/local memory
+MAX_NZ = 128  # the kernel keeps a column's coefficients in shared memory
 
 KERNEL = CudaKernel(
     "implicit_diffusion.cu",
-    {"implicit_diffusion_f32": [_P] * 8 + [ctypes.c_float] + [_I] * 4 + [_P]},
+    {"implicit_diffusion_f32": [_P] * 8 + [ctypes.c_float] + [_I] * 4 + [_P],
+     "implicit_diffusion_info": [_I] * 3 + [ctypes.POINTER(_I)]},
     extra_flags=("-fmad=false",),
 )
 
@@ -48,15 +52,33 @@ def vertical_coefficients(dt, dz_c, dz_f):
     return (dt_t * c_lam).contiguous(), (dt_t * c_mu).contiguous()
 
 
+def grid_coefficients(grid, dt):
+    """``vertical_coefficients`` of ``grid``'s interior profiles for the
+    step ``dt`` (a float), built once per grid and dt and kept in
+    ``grid.cache``; a new dt replaces the pair."""
+    hit = grid.cache.get("k3_coefficients")
+    if hit is None or hit[0] != dt:
+        hz, Nz = grid.hz, grid.Nz
+        pair = vertical_coefficients(dt, grid.dz_c[hz : hz + Nz], grid.dz_f[hz : hz + Nz])
+        hit = grid.cache["k3_coefficients"] = (dt, pair)
+    return hit[1]
+
+
 def implicit_diffusion(cfg, fields, kappa, dt, dz_c, dz_f, damping=None):
     """Solve for each of ``fields`` (a tuple of one or two ``(Nz, Ny, Nx)``
     tensors) with the face diffusivity ``kappa`` (same shape) and the
     optional decay rate ``damping``; dz_c, dz_f are interior (Nz, 1, 1)
     profiles. Returns a tuple of solutions."""
+    a_lam, a_mu = vertical_coefficients(dt, dz_c, dz_f)
+    return implicit_solve(cfg, fields, kappa, dt, a_lam, a_mu, damping)
+
+
+def implicit_solve(cfg, fields, kappa, dt, a_lam, a_mu, damping=None):
+    """``implicit_diffusion`` on coefficients from ``vertical_coefficients``
+    (or ``grid_coefficients``)."""
     fields = tuple(fields)
     if not 1 <= len(fields) <= 2:
         raise ValueError(f"K3 solves one or two right-hand sides, got {len(fields)}")
-    a_lam, a_mu = vertical_coefficients(dt, dz_c, dz_f)
     if uses_kernel(cfg, fields[0]):
         return implicit_kernel(fields, kappa, dt, a_lam, a_mu, damping)
     return implicit_diffusion_plain(fields, kappa, dt, a_lam, a_mu, damping)
@@ -93,6 +115,14 @@ def implicit_diffusion_plain(fields, kappa, dt, a_lam, a_mu, damping=None):
             x_next = x[k]
         outs.append(x)
     return tuple(outs)
+
+
+def kernel_info(Nz, nf, damped):
+    """K3's launch shape for nf right-hand sides at Nz levels: registers,
+    shared memory per block, columns a block (``tile``), blocks per SM and
+    the levels its ring of copies holds in flight."""
+    return launch_info(KERNEL, "implicit_diffusion_info", Nz, nf, int(damped),
+                       extra=("levels_in_flight",))
 
 
 def implicit_kernel(fields, kappa, dt, a_lam, a_mu, damping=None):

@@ -137,11 +137,12 @@ def uses_kernel(cfg, t) -> bool:
     return False
 
 
-def launch_info(kernel, name, *args) -> dict:
+def launch_info(kernel, name, *args, extra=()) -> dict:
     """A tile kernel's launch shape from its ``*_info`` entry: registers
     per thread, shared memory per block (bytes), the tile's columns in x
-    and y, and the blocks one SM holds at once."""
-    out = (ctypes.c_int * 5)()
+    and y, and the blocks one SM holds at once; then one further integer
+    for each name in ``extra``."""
+    out = (ctypes.c_int * (5 + len(extra)))()
     kernel.call(name, *args, out)
     return {"registers": out[0], "smem_bytes": out[1], "tile": [out[2], out[3]],
-            "blocks_per_sm": out[4]}
+            "blocks_per_sm": out[4], **{k: out[5 + i] for i, k in enumerate(extra)}}

@@ -50,19 +50,20 @@ VARIANTS = {
 KERNELS = {"K1": pallas_zslab, "K6": pallas_tendency}  # each module's KERNEL is swapped
 
 
-def variant_sources(name, constants):
-    """A copy of the sources with the tile's constants set; its directory."""
+def variant_sources(name, constants, source="tendency_tile.cuh"):
+    """A copy of the sources with the constants of ``source`` set; its
+    directory."""
     out = cuda_build.BUILD_DIR / "variants" / name
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(cuda_build.CSRC_DIR, out)
-    tile = out / "tendency_tile.cuh"
-    text = tile.read_text()
+    path = out / source
+    text = path.read_text()
     for const, value in constants.items():
         text, n = re.subn(rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};",
                           text)
         if n != 1:
-            raise RuntimeError(f"tendency_tile.cuh defines {const} {n} times, expected once")
-    tile.write_text(text)
+            raise RuntimeError(f"{source} defines {const} {n} times, expected once")
+    path.write_text(text)
     return out
 
 

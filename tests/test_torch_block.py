@@ -38,7 +38,7 @@ from gb25_tpu_torch.grids import simple_latitude_longitude_grid, tripolar_grid
 from gb25_tpu_torch.models import baroclinic_instability_config
 from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
 from gb25_tpu_torch.models.free_surface import averaging_weights, barotropic_substep
-from gb25_tpu_torch.ops.pallas_barotropic import barotropic_block_plain
+from gb25_tpu_torch.ops.pallas_barotropic import barotropic_block_plain, launch_chunks
 from gb25_tpu_torch.parallel import Mesh, MeshComm
 
 
@@ -107,6 +107,19 @@ def test_plain_k5_matches_jax_kernel_f32(metric2d, masked):
         assert np.isfinite(w).all()
         np.testing.assert_allclose(back(g), w, rtol=1e-6, atol=1e-6 * np.abs(w).max(),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("n,s", [(1, 6), (2, 6), (4, 6), (6, 6), (7, 6), (30, 6), (30, 4),
+                                 (30, 10), (2, 3), (13, 5)])
+def test_k5_launch_chunks(n, s):
+    """K5's launch plan: a block of n substeps is ceil(n / s) launches of
+    at most s substeps each, which cover its weights in order."""
+    weights = averaging_weights(30)[:n]
+    chunks = launch_chunks(weights, s)
+    assert len(chunks) == -(-n // s)
+    assert all(1 <= len(c) <= s for c in chunks)
+    assert all(len(c) == s for c in chunks[:-1])
+    np.testing.assert_array_equal(np.concatenate(chunks), weights)
 
 
 def _island(Nx, Ny):

@@ -9,11 +9,17 @@ Tolerances: K1 rtol 2e-4 (the JAX package's kernel-vs-array bound, with
 tests/test_zslab.py's atol), K2 rtol 1e-5 (tests/test_barotropic_kernel.py),
 K4 rtol 1e-6 (tests/test_pallas_catke.py: the same pointwise formulas,
 rounded alike with -fmad=false; K4's k-epsilon function bit for bit), K3
-rtol 1e-5 (the Pallas kernel's recurrence term by term), one step rtol
-1e-3 / atol 5e-6 (tests/test_zslab.py). The tripolar instances of K1 and K2
-and the four-tracer instance of K1 run on the same checks. K5 (the blocked
-barotropic substeps of the decomposed path) bit for bit (its plain
-version's operations in order, -fmad=false); K1 with wall_v=0 (a tile that
+bit for bit (the Pallas kernel's recurrence term by term, -fmad=false; one
+and two right-hand sides, with and without damping, 1 to 128 levels, rows
+that its blocks of columns do not divide), one step rtol 1e-3 / atol 5e-6
+(tests/test_zslab.py). The tripolar instances of K1 and K2 and the
+four-tracer instance of K1 run on the same checks. K5 (the blocked
+barotropic substeps of the decomposed path) bit for bit on the whole
+extended planes (its plain version's operations in order, -fmad=false),
+with exactly ceil(n / s) launches for a block of n substeps, s substeps a
+launch: blocks of 1, 2, 4, s, s + 1 and 30 substeps, with metric columns,
+masks and metric planes, on planes that its tiles do not divide and on a
+plane smaller than one tile with its apron; K1 with wall_v=0 (a tile that
 is not south-most) at K1's tolerances; the decomposed 1x1 step at the
 one-step tolerances, its "ring" mode bit for bit with its "local" mode.
 K6 (the one-pass tendency kernel of the kernels="pallas" route) at K1's
@@ -23,8 +29,8 @@ few float32 ulps of the plain one; K1 at its tolerances and K6 bit for bit
 with their plain versions on grids that their 32 x 8 level tiles do not
 divide, narrower than a tile, with unaligned rows and 400 levels deep; a
 K6-route step at the one-step tolerances against a "torch" step, with
-exactly 1 K6, 30 K5, 0 K1 and 0 K2 launches (and 3 K3, 1 K4 in the coupled
-climate).
+exactly 1 K6, 0 K1 and 0 K2 launches, K5's ceil(n / s) for each of the
+step's blocks (and 3 K3, 1 K4 in the coupled climate).
 """
 
 import dataclasses
@@ -197,7 +203,29 @@ def test_k3_matches_plain(cuda, case):
     a_lam, a_mu = pallas_tridiag.vertical_coefficients(60.0, dzc, dzf)
     want = pallas_tridiag.implicit_diffusion_plain(fields, kappa, 60.0, a_lam, a_mu, damping)
     for g, w in zip(got, want):
-        _close(g, w, 1e-5, 1e-6 * float(w.abs().max()))
+        assert torch.equal(g, w), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("Nx", [31, 96, 100])
+@pytest.mark.parametrize("Nz", [1, 7, 64, 128])
+@pytest.mark.parametrize("nf,damped", [(1, False), (1, True), (2, False), (2, True)])
+def test_k3_columns_match_plain_bitwise(cuda, nf, damped, Nz, Nx):
+    """K3 on columns of 1 to 128 levels, in rows of 31, 96 and 100 columns
+    (blocks of columns that do not divide them), against its plain version
+    bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(Nz * 1000 + Nx)
+    shape = (Nz, 3, Nx)
+    fields = tuple(20.0 * n + torch.randn(shape, generator=gen, device=cuda) for n in range(nf))
+    kappa = 10.0 ** (6.0 * torch.rand(shape, generator=gen, device=cuda) - 5.0)
+    damping = 1e-3 * torch.rand(shape, generator=gen, device=cuda) if damped else None
+    dz = 1.0 + 99.0 * torch.rand((Nz, 1, 1), generator=gen, device=cuda)
+    a_lam, a_mu = pallas_tridiag.vertical_coefficients(60.0, dz, 0.5 + 0.5 * dz)
+    got = pallas_tridiag.implicit_kernel(fields, kappa, 60.0, a_lam, a_mu, damping)
+    want = pallas_tridiag.implicit_diffusion_plain(fields, kappa, 60.0, a_lam, a_mu, damping)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.isfinite(w).all()
+        assert torch.equal(g, w), float((g - w).abs().max())
 
 
 def test_k3_rejects_deep_columns(cuda):
@@ -395,7 +423,52 @@ def test_k5_matches_plain_bitwise(cuda, metric2d, masked):
     before = pallas_barotropic.BLOCK_KERNEL.launches
     got = pallas_barotropic._barotropic_block_cuda(weights, *ops, *masks)
     torch.cuda.synchronize()
-    assert pallas_barotropic.BLOCK_KERNEL.launches == before + 30
+    s = pallas_barotropic.substeps_per_launch()
+    assert pallas_barotropic.BLOCK_KERNEL.launches == before + -(-30 // s)
+    want = pallas_barotropic.barotropic_block_plain(weights, *ops, *masks)
+    for g, w in zip(got, want):
+        assert torch.isfinite(w).all()
+        assert torch.equal(g, w), float((g - w).abs().max())
+
+
+def _k5_coupled_operands(cuda, Ye, Xe, metric2d, masked, seed):
+    """K5 operands whose substeps couple neighbours strongly (pu au rz ~
+    0.15, where a real block's ~1e-3 lets a wrong apron cell fade below a
+    float32 ulp within a few cells), so that any cell read from outside a
+    tile's exact neighbourhood changes the interior's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def r(shape, scale, offset=0.0):
+        return offset + scale * torch.rand(shape, generator=gen, device=cuda)
+
+    m = (Ye, Xe) if metric2d else (Ye, 1)
+    ops = [r((Ye, Xe), 2e-2, -1e-2), r((Ye, Xe), 2.0, -1.0), r((Ye, Xe), 2.0, -1.0),
+           r((Ye, Xe), 0.2, 1.6), r((Ye, Xe), 0.2, 1.6), r((Ye, Xe), 2e-4, -1e-4),
+           r((Ye, Xe), 2e-4, -1e-4), r(m, 0.4, 0.8), r(m, 0.4, 0.8), r(m, 0.1, 0.05)]
+    masks = [(r((Ye, Xe), 1.0) > 0.1).float() for _ in range(2)] if masked else [None, None]
+    return ops, masks
+
+
+@pytest.mark.parametrize("plane", [(92, 156), (53, 131), (5, 7)],
+                         ids=["block", "ragged", "tiny"])
+@pytest.mark.parametrize("metric2d,masked", [(False, False), (False, True), (True, True)],
+                         ids=["latlon", "immersed", "tripolar"])
+@pytest.mark.parametrize("n", ["1", "2", "4", "s", "s+1", "30"])
+def test_k5_blocks_match_plain_bitwise(cuda, n, metric2d, masked, plane):
+    """K5 on blocks of n substeps, s substeps a launch: ceil(n / s) launches
+    and every output bit for bit with the plain version on the whole
+    extended plane, on planes that the tile does not divide and on a plane
+    smaller than one tile with its apron."""
+    from gb25_tpu_torch.models.free_surface import averaging_weights
+
+    s = pallas_barotropic.substeps_per_launch()
+    n = {"s": s, "s+1": s + 1}.get(n) or int(n)
+    ops, masks = _k5_coupled_operands(cuda, *plane, metric2d, masked, seed=n + plane[1])
+    weights = averaging_weights(30)[:n]
+    before = pallas_barotropic.BLOCK_KERNEL.launches
+    got = pallas_barotropic._barotropic_block_cuda(weights, *ops, *masks)
+    torch.cuda.synchronize()
+    assert pallas_barotropic.BLOCK_KERNEL.launches == before + -(-n // s)
     want = pallas_barotropic.barotropic_block_plain(weights, *ops, *masks)
     for g, w in zip(got, want):
         assert torch.isfinite(w).all()
@@ -438,7 +511,8 @@ def test_decomposed_1x1_step_matches_plain(cuda, mode):
     a = sharded_step_fn(cfg, grid, mesh, force_comm=mode)(state, 60.0)
     torch.cuda.synchronize()
     assert (pallas_barotropic.BLOCK_KERNEL.launches - before[0],
-            pallas_barotropic.KERNEL.launches - before[1]) == (30, 0)
+            pallas_barotropic.KERNEL.launches - before[1]) == (
+                pallas_barotropic.step_launches(30, 30), 0)
     plain = dataclasses.replace(cfg, kernels="torch")
     b = sharded_step_fn(plain, grid, mesh, force_comm=mode)(state, 60.0)
     for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), (a.tracers["T"], b.tracers["T"])):
@@ -559,6 +633,14 @@ def test_k6_tiles_match_plain_bitwise(cuda, name):
             assert torch.equal(g, w), float((g - w).abs().max())
 
 
+def _k6_route_k5_launches(cfg, grid):
+    """K5's launches in one K6-route step: ceil(n / s) for each block."""
+    from gb25_tpu_torch.models.free_surface import exchange_width
+
+    fs = cfg.free_surface
+    return pallas_barotropic.step_launches(fs.substeps, exchange_width(fs, grid))
+
+
 def _k6_route_counts():
     return [k.launches for k in (pallas_tendency.KERNEL, pallas_barotropic.BLOCK_KERNEL,
                                  pallas_zslab.KERNEL, pallas_barotropic.KERNEL,
@@ -570,7 +652,8 @@ def test_k6_route_step_matches_plain_step(cuda):
     before = _k6_route_counts()
     a = time_step(cfg, grid, state, 60.0)
     torch.cuda.synchronize()
-    assert [x - y for x, y in zip(_k6_route_counts(), before)] == [1, 30, 0, 0, 0, 0]
+    k5 = _k6_route_k5_launches(cfg, grid)
+    assert [x - y for x, y in zip(_k6_route_counts(), before)] == [1, k5, 0, 0, 0, 0]
     b = time_step(dataclasses.replace(cfg, kernels="torch"), grid, state, 60.0)
     for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), (a.tracers["T"], b.tracers["T"]),
                  (a.tracers["S"], b.tracers["S"])):
@@ -584,7 +667,8 @@ def test_k6_route_coupled_step_matches_plain_step(cuda):
     before = _k6_route_counts()
     a = coupled_time_step(ccfg, grid, atmos, state, 60.0)
     torch.cuda.synchronize()
-    assert [x - y for x, y in zip(_k6_route_counts(), before)] == [1, 30, 0, 0, 3, 1]
+    k5 = _k6_route_k5_launches(ccfg.ocean, grid)
+    assert [x - y for x, y in zip(_k6_route_counts(), before)] == [1, k5, 0, 0, 3, 1]
     plain = dataclasses.replace(ccfg, ocean=dataclasses.replace(ccfg.ocean, kernels="torch"))
     b = coupled_time_step(plain, grid, atmos, state, 60.0)
     for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), *zip(a.tracers.values(),

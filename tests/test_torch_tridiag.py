@@ -24,7 +24,11 @@ from gb25_tpu.ops.pallas_tridiag import pallas_implicit_diffusion
 from gb25_tpu.ops.tridiagonal import implicit_vertical_diffusion as jax_implicit_vertical_diffusion
 from gb25_tpu_torch.grids import simple_latitude_longitude_grid
 from gb25_tpu_torch.models import baroclinic_instability_config
+from gb25_tpu_torch.models import baroclinic_instability_model, time_step
+from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+from gb25_tpu_torch.ops import pallas_tridiag
 from gb25_tpu_torch.ops.pallas_tridiag import (
+    grid_coefficients,
     implicit_diffusion,
     implicit_diffusion_plain,
     vertical_coefficients,
@@ -136,3 +140,27 @@ def test_dispatch_and_arguments_on_cpu():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="one or two"):
         implicit_diffusion(cfg, (t2(f0),) * 3, t2(kappa), DT, tdzc, tdzf)
+
+
+def test_coefficients_built_once_per_grid_and_dt(monkeypatch):
+    """The step's (dt c_lam, dt c_mu) come from the grid's cache: equal to
+    a fresh ``vertical_coefficients`` pair, reused by a second step with
+    the same dt, built anew for a new dt."""
+    cfg, grid, state = baroclinic_instability_model(
+        16, 8, 6, device="cpu", closure=TKEDissipationVerticalDiffusivity())
+    built = []
+    fresh = pallas_tridiag.vertical_coefficients
+    monkeypatch.setattr(pallas_tridiag, "vertical_coefficients",
+                        lambda *a: built.append(a[0]) or fresh(*a))
+    hz, Nz = grid.hz, grid.Nz
+    state = time_step(cfg, grid, state, DT)
+    pair = grid_coefficients(grid, DT)
+    for got, want in zip(pair, fresh(DT, grid.dz_c[hz : hz + Nz], grid.dz_f[hz : hz + Nz])):
+        assert torch.equal(got, want)
+    state = time_step(cfg, grid, state, DT)
+    assert built == [DT] and grid_coefficients(grid, DT) is pair
+    time_step(cfg, grid, state, 2 * DT)
+    assert built == [DT, 2 * DT]
+    for got, want in zip(grid_coefficients(grid, 2 * DT),
+                         fresh(2 * DT, grid.dz_c[hz : hz + Nz], grid.dz_f[hz : hz + Nz])):
+        assert torch.equal(got, want)
