@@ -14,12 +14,16 @@ barotropic substeps):
   3. K1 (zslab_tendencies, tracers T, S) against its plain PyTorch version,
      rtol 2e-4; its time beside its bound, registers, shared memory per
      block, tile and blocks per SM (so for every K1 and K6 instance);
-  4. K2 (barotropic_loop) against its plain version at 1536x768, rtol 1e-5;
+  4. K2 (barotropic_loop: all 30 substeps in one cooperative launch)
+     against its plain version at 1536x768, bit for bit (the run fails
+     otherwise), in the instance its size takes (the tiles on chip) and in
+     its L2 instance; its launch line: registers, shared memory a block,
+     blocks per SM, the grid of tiles, cells a tile, the instance;
   5. the main path: one step with kernels="auto" against one with
      kernels="torch" (rtol 1e-3; atol 1e-3 of each field's largest value,
      at most 5e-6), then 8 warm-up steps and two 256-step loops, the
-     second one timed; the launch counts must show one K1 launch and 30
-     K2 launches per step, and the fields must stay finite;
+     second one timed; the launch counts must show one K1 launch and one
+     K2 launch per step, and the fields must stay finite;
   6. a few steps of the plain path, timed;
   the coupled climate model (Gaussian islands, CATKE, air-sea fluxes) at
   resolution 1/4 degree:
@@ -30,12 +34,13 @@ barotropic substeps):
      otherwise); each solve's registers, shared memory, columns a block,
      blocks per SM and levels in flight;
   9. K1 in its climate instance (tracers T, S, e and the immersed u*, v*
-     integrals), rtol 2e-4, and K2 with the solid-face masks, rtol 1e-5;
+     integrals), rtol 2e-4, and K2 with the solid-face masks, bit for bit,
+     as in [4];
   10. the main path: 8 coupled steps from rest, then from there one step
      with kernels="auto" against one with kernels="torch" (tolerances of
      [5]); then 8 warm-up steps and two 128-step loops, the second one
      timed; the launch counts must show per
-     step exactly 1 K1, 30 K2, 3 K3 and 1 K4 launch; then the fields must
+     step exactly 1 K1, 1 K2, 3 K3 and 1 K4 launch; then the fields must
      be finite with 0 < max|u| < 10 m/s, e >= 0, u and v 0 on the faces of
      land columns and eta 0 on land columns;
   11. a few coupled steps of the plain path, timed;
@@ -43,10 +48,10 @@ barotropic substeps):
   grid: the islands on its two north poles, the north fold):
   12. K1 in its tripolar instance (the metrics and f as 2-D planes), rtol
      2e-4, and K2's fold instance (masks, the fold's ghost flux above the
-     seam row, 2-D planes), rtol 1e-5;
+     seam row, 2-D planes), bit for bit, as in [4];
   13. the main path as [10]: 8 coupled steps, one step kernels vs plain,
      8 warm-up steps and two 128-step loops, launch counts per step exactly
-     1 K1, 30 K2, 3 K3, 1 K4; finite fields, land at rest;
+     1 K1, 1 K2, 3 K3, 1 K4; finite fields, land at rest;
   14. 3 coupled steps of the plain path, timed;
   the flagship with the k-epsilon closure (tracers T, S, e, eps, from
   e = 1e-5, eps = 1e-8):
@@ -56,7 +61,7 @@ barotropic substeps):
      damped), bit for bit as in [8];
   18. the main path: one step kernels vs plain (tolerances of [5]), 8
      warm-up steps and two 128-step loops, launch counts per step exactly
-     1 K1, 30 K2, 4 K3, 1 k-epsilon K4 and no CATKE K4; then finite
+     1 K1, 1 K2, 4 K3, 1 k-epsilon K4 and no CATKE K4; then finite
      fields, e >= 0 and eps >= 0; 3 steps of the plain path, timed;
   the decomposed path, forced onto a 1x1 mesh (the bench's decomposed 1x1
   rows, exchange_width = 30: one block of 30 substeps a step):
@@ -111,9 +116,10 @@ object with each kernel instance's launches on its main path, error
 against its plain version, times, its bound (the larger of its compulsory
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s) and its library
 time (null: no one PyTorch call computes any of these functions; K1's,
-K3's, K5's and K6's entries carry their registers, shared memory per
-block, tile and blocks per SM, K3's its levels in flight and K5's its
-substeps a launch; K5's
+K2's, K3's, K5's and K6's entries carry their registers, shared memory per
+block, tile and blocks per SM, K2's its grid of tiles, cells a tile, its
+instance and its L2 instance's check and time, K3's its levels in flight
+and K5's its substeps a launch; K5's
 entry also carries its column instance, its launches in "ring" and on the
 decomposed flagship, and under "k6_routes" its launches on each K6 route
 with the checks, times and bounds of [23]'s and [24]'s blocks); then the
@@ -122,8 +128,8 @@ card's name and power limit; then
 prints no result. Times are CUDA-event means: ``ms`` of K1, K3 and K6 is
 the kernel launch alone on operands prepared once (K3 summed over a step's
 solves), of K4 its wrapper (the launch and one or two 1-D profile
-reshapes), of K2 the whole 30-substep loop wrapper, its plane building
-included, of K5 one block of 30 substeps (ceil(30 / s) launches);
+reshapes), of K2 the whole 30-substep loop wrapper (one launch, the
+plane building and un-weighting inside it), of K5 one block of 30 substeps (ceil(30 / s) launches);
 ``plain_ms`` is the plain version
 on the same operands.
 """
@@ -228,12 +234,12 @@ def k1_bound(grid, ntr, immersed):
 
 
 def k2_bound(grid, substeps, masked):
-    """The loop reads eta, U, V and four forcing planes (two mask planes,
-    on the tripolar grid the 1 / area plane) and writes three filtered
-    planes; 14 (16 masked) operations per cell and substep, the Pallas
-    kernel's own count."""
+    """The loop reads eta, U, V, GU, GV, Hu and Hv (two mask planes; on
+    the tripolar grid the five metric planes dyc, dxf, dxc, dyf and azc,
+    else five columns) and writes three filtered planes; 14 (16 masked)
+    operations per cell and substep, the Pallas kernel's own count."""
     _, _, plane, _ = sizes(grid)
-    nbytes = (7 + (2 if masked else 0) + int(grid.north_fold) + 3) * plane
+    nbytes = (7 + (2 if masked else 0) + 5 * int(grid.north_fold) + 3) * plane
     return bound(nbytes, (16 if masked else 14) * substeps * grid.Nx * grid.Ny)
 
 
@@ -371,9 +377,8 @@ def check_k1(got, want, ab, grid, names):
 
 
 def phase_k2(cfg, grid, state, gen):
-    """K2 against barotropic_loop_plain at 1536x768."""
+    """K2 against the plain path at 1536x768."""
     from gb25_tpu_torch.models.free_surface import face_depths
-    from gb25_tpu_torch.ops.pallas_barotropic import barotropic_loop
 
     dz = grid.dz_c[grid.hz : grid.hz + grid.Nz]
     U0 = (state.u * dz).sum(0)
@@ -387,21 +392,44 @@ def phase_k2(cfg, grid, state, gen):
 
 
 def time_k2(cfg, grid, eta0, U0, V0, GU, GV, Hu, Hv, mu, mv):
-    from gb25_tpu_torch.ops.pallas_barotropic import barotropic_loop
+    """K2 against the plain path (plane building, plain substeps,
+    un-weighting) bit for bit, in the instance the size takes and in the L2
+    instance; both timed, the plain path timed."""
+    from gb25_tpu_torch.ops import pallas_barotropic as pb
 
     cfg_plain = dataclasses.replace(cfg, kernels="torch")
 
     def run(c):
-        return barotropic_loop(c, grid, eta0, U0, V0, GU, GV, Hu, Hv, DT, mu=mu, mv=mv)
+        return pb.barotropic_loop(c, grid, eta0, U0, V0, GU, GV, Hu, Hv, DT, mu=mu, mv=mv)
 
+    ops = pb.loop_operands(cfg, grid, eta0, U0, V0, GU, GV, Hu, Hv, DT, mu, mv)
     got, want = run(cfg), run(cfg_plain)
+    l2 = pb._barotropic_loop_cuda(*ops, on_chip=False)
     torch.cuda.synchronize()
-    errs = [compare(n, x, y, 1e-5, 1e-6 * float(y.abs().max()))
-            for n, x, y in zip(("eta_b", "U_b", "V_b"), got, want)]
+    names = ("eta_b", "U_b", "V_b")
+    errs = [compare(n, x, y, 0.0, 0.0) for n, x, y in zip(names, got, want)]
+    l2_errs = [compare(n + " L2", x, y, 0.0, 0.0) for n, x, y in zip(names, l2, want)]
+    del got, want, l2
     ms = cuda_time_ms(lambda: run(cfg), reps=20)
+    l2_ms = cuda_time_ms(lambda: pb._barotropic_loop_cuda(*ops, on_chip=False), reps=20)
     plain_ms = cuda_time_ms(lambda: run(cfg_plain), reps=5)
-    print(f"  K2 loop of {cfg.free_surface.substeps} substeps: {ms:.3f} ms; plain {plain_ms:.3f} ms")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+    masked, tripolar = mu is not None, grid.north_fold
+    info = pb.loop_info(masked, tripolar)
+    plan = pb.launch_plan(grid.Nx, grid.Ny, masked, tripolar)
+    launch = {"registers": info["registers"], "smem_bytes": plan.get("smem_bytes", 0),
+              "tile": plan.get("tile", [0, 0]), "blocks_per_sm": info["blocks_per_sm"],
+              "grid": plan.get("grid", [0, 0]), "cells": plan.get("cells", 0),
+              "instance": plan["instance"]}
+    print(f"  K2 loop of {cfg.free_surface.substeps} substeps in one launch: {ms:.3f} ms "
+          f"({plan['instance']} instance; L2 instance {l2_ms:.3f} ms, {info['l2_registers']} "
+          f"registers, {info['l2_blocks_per_sm']} blocks per SM); plain {plain_ms:.3f} ms; "
+          f"{info['registers']} registers, {launch['smem_bytes']} B shared memory per block, "
+          f"{info['blocks_per_sm']} blocks per SM, grid {launch['grid'][0]}x{launch['grid'][1]} "
+          f"tiles of {launch['tile'][0]}x{launch['tile'][1]} ({launch['cells']} cells)")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bitwise": True,
+            "launch": launch,
+            "l2": {"max_abs_err": max(l2_errs), "ms": l2_ms, "registers": info["l2_registers"],
+                   "blocks_per_sm": info["l2_blocks_per_sm"]}}
 
 
 def phase_step_compare(step, plain_step, state):
@@ -467,9 +495,8 @@ def flagship(card):
     launches = {"K1": pallas_zslab.KERNEL.launches, "K2": pallas_barotropic.KERNEL.launches}
     n_steps = WARMUP + 2 * STEPS
     substeps = cfg.free_surface.substeps
-    if launches != {"K1": n_steps, "K2": n_steps * substeps}:
-        raise AssertionError(f"launch counts {launches}, expected K1 = {n_steps}, "
-                             f"K2 = {n_steps * substeps}")
+    if launches != {"K1": n_steps, "K2": n_steps}:
+        raise AssertionError(f"launch counts {launches}, expected K1 = K2 = {n_steps}")
     umax = check_state(s, (NZ, NY, NX))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms_step = 1e3 * elapsed / STEPS
@@ -500,7 +527,8 @@ def flagship(card):
          "source": "gb25_tpu_torch/csrc/barotropic_loop.cu",
          "replaces": "gb25_tpu/ops/pallas_barotropic.py:94", "path": "flagship",
          "launches": launches["K2"], "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"], "bound_ms": k2_b, "bound_by": k2_by, "library_ms": None},
+         "plain_ms": k2["plain_ms"], "bound_ms": k2_b, "bound_by": k2_by, "library_ms": None,
+         "bitwise": k2["bitwise"], **k2["launch"], "l2": k2["l2"]},
     ], {"ms_step": ms_step, "rate": rate, "plain_ms_step": plain_ms_step}
 
 
@@ -728,7 +756,7 @@ def climate(card, grid_type, first):
     del moved
     kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
                "K3": pallas_tridiag.KERNEL, "K4": pallas_catke.KERNEL}
-    per_step = {"K1": 1, "K2": cfg.free_surface.substeps, "K3": 3, "K4": 1}
+    per_step = {"K1": 1, "K2": 1, "K3": 3, "K4": 1}
     s, elapsed, launches, _ = run_main_path(
         lambda st, n: coupled_loop(ccfg, grid, atmos, st, DT, n), state, kernels, per_step,
         CLIMATE_STEPS)
@@ -758,6 +786,7 @@ def climate(card, grid_type, first):
               "barotropic_loop.cu", "gb25_tpu/ops/pallas_barotropic.py:94", path,
               launches["K2"], k2m, k2_bound(grid, substeps, True)),
     ]
+    entries[-1].update(bitwise=k2m["bitwise"], l2=k2m["l2"])
     if not tripolar:
         k3_entry = entry("implicit_diffusion", "implicit_diffusion.cu",
                          "gb25_tpu/ops/pallas_tridiag.py:87", path, launches["K3"], k3,
@@ -856,8 +885,7 @@ def keps(card):
     kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
                "K3": pallas_tridiag.KERNEL, "K4_keps": pallas_catke.KEPS_KERNEL,
                "K4_catke": pallas_catke.KERNEL}
-    substeps = cfg.free_surface.substeps
-    per_step = {"K1": 1, "K2": substeps, "K3": 4, "K4_keps": 1, "K4_catke": 0}
+    per_step = {"K1": 1, "K2": 1, "K3": 4, "K4_keps": 1, "K4_catke": 0}
     s, elapsed, launches, _ = run_main_path(lambda st, n: loop(cfg, grid, st, DT, n), state,
                                             kernels, per_step, KEPS_STEPS)
     umax = check_state(s, (NZ, NY, NX))

@@ -77,8 +77,8 @@ def group(name: str) -> str:
         return "K1 zslab_tendencies (CUDA)"
     if "tendency_stage_kernel" in name:
         return "K6 tendencies (CUDA)"
-    if "barotropic_substep_kernel" in name:
-        return "K2 barotropic_substep (CUDA)"
+    if "barotropic_loop_" in name:
+        return "K2 barotropic_loop (CUDA)"
     if "barotropic_block_kernel" in name:
         return "K5 barotropic_block (CUDA)"
     if "implicit_diffusion_kernel" in name:

@@ -6,8 +6,12 @@ configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: K1 rtol 2e-4 (the JAX package's kernel-vs-array bound, with
-tests/test_zslab.py's atol), K2 rtol 1e-5 (tests/test_barotropic_kernel.py),
-K4 rtol 1e-6 (tests/test_pallas_catke.py: the same pointwise formulas,
+tests/test_zslab.py's atol), K2 bit for bit (its plain version's operations
+in order, -fmad=false; all substeps in one launch, in the on-chip and the
+L2 instance, flat, masked, fold and fold without masks, on strongly
+coupled operands at sizes that its tiles do not divide; masks other than
+0 and 1 refused; whether a CUDA graph captures its cooperative launch is
+reported, not asserted), K4 rtol 1e-6 (tests/test_pallas_catke.py: the same pointwise formulas,
 rounded alike with -fmad=false; K4's k-epsilon function bit for bit), K3
 bit for bit (the Pallas kernel's recurrence term by term, -fmad=false; one
 and two right-hand sides, with and without damping, 1 to 128 levels, rows
@@ -125,11 +129,11 @@ def test_k2_matches_plain(cuda, shape):
     before = pallas_barotropic.KERNEL.launches
     got = pallas_barotropic.barotropic_loop(cfg, grid, eta0, U0, V0, GU, GV, Hu, Hv, 60.0)
     torch.cuda.synchronize()
-    assert pallas_barotropic.KERNEL.launches == before + cfg.free_surface.substeps
+    assert pallas_barotropic.KERNEL.launches == before + 1
     plain = dataclasses.replace(cfg, kernels="torch")
     want = pallas_barotropic.barotropic_loop(plain, grid, eta0, U0, V0, GU, GV, Hu, Hv, 60.0)
     for g, w in zip(got, want):
-        _close(g, w, 1e-5, 1e-6 * float(w.abs().max()))
+        assert torch.equal(g, w), float((g - w).abs().max())
 
 
 def test_step_matches_plain_step(cuda):
@@ -280,12 +284,12 @@ def test_k2_masked_matches_plain(cuda, grid_type):
     got = pallas_barotropic.barotropic_loop(cfg, grid, eta0, U0, V0, GU * mu, GV * mv, Hu, Hv,
                                             dt, mu=mu, mv=mv)
     torch.cuda.synchronize()
-    assert pallas_barotropic.KERNEL.launches == before + cfg.free_surface.substeps
+    assert pallas_barotropic.KERNEL.launches == before + 1
     plain = dataclasses.replace(cfg, kernels="torch")
     want = pallas_barotropic.barotropic_loop(plain, grid, eta0, U0, V0, GU * mu, GV * mv, Hu,
                                              Hv, dt, mu=mu, mv=mv)
     for g, w in zip(got, want):
-        _close(g, w, 1e-5, 1e-6 * float(w.abs().max()))
+        assert torch.equal(g, w), float((g - w).abs().max())
 
 
 @pytest.mark.parametrize("grid_type", ["gaussian_islands", "gaussian_islands_tripolar"])
@@ -299,7 +303,7 @@ def test_coupled_step_matches_plain_step(cuda, grid_type):
     torch.cuda.synchronize()
     after = [k.launches for k in (pallas_zslab.KERNEL, pallas_barotropic.KERNEL,
                                   pallas_tridiag.KERNEL, pallas_catke.KERNEL)]
-    assert [x - y for x, y in zip(after, counts)] == [1, 30, 3, 1]
+    assert [x - y for x, y in zip(after, counts)] == [1, 1, 3, 1]
     b = coupled_time_step(plain, grid, atmos, state, 60.0)
     for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), *zip(a.tracers.values(),
                                                            b.tracers.values())):
@@ -321,11 +325,110 @@ def test_k2_fold_without_masks_matches_plain(cuda):
     before = pallas_barotropic.KERNEL.launches
     got = pallas_barotropic.barotropic_loop(cfg, grid, eta0, U0, V0, GU, GV, H, H, 10.0)
     torch.cuda.synchronize()
-    assert pallas_barotropic.KERNEL.launches == before + cfg.free_surface.substeps
+    assert pallas_barotropic.KERNEL.launches == before + 1
     want = pallas_barotropic.barotropic_loop(dataclasses.replace(cfg, kernels="torch"), grid,
                                              eta0, U0, V0, GU, GV, H, H, 10.0)
     for g, w in zip(got, want):
-        _close(g, w, 1e-5, 1e-6 * float(w.abs().max()))
+        assert torch.equal(g, w), float((g - w).abs().max())
+
+
+def _k2_operands(cuda, Ny, Nx, tripolar, masked, seed):
+    """K2's raw operands with neighbours coupled strongly (dtau^2 g H / dx^2
+    ~ 0.15 at dtau = g = 1), so that a wrong edge, halo or fold cell changes
+    the result's bits: (eta0, U0, V0, GU, GV, Hu, Hv), (dyc, dxf, dxc, dyf,
+    azc) as (Ny,) columns or (Ny, Nx) planes, and the masks or None."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def r(shape, scale, offset=0.0):
+        return offset + scale * torch.rand(shape, generator=gen, device=cuda)
+
+    m = (Ny, Nx) if tripolar else (Ny,)
+    ins = [r((Ny, Nx), 2e-2, -1e-2), r((Ny, Nx), 2.0, -1.0), r((Ny, Nx), 2.0, -1.0),
+           r((Ny, Nx), 2e-2, -1e-2), r((Ny, Nx), 2e-2, -1e-2), r((Ny, Nx), 0.1, 0.1),
+           r((Ny, Nx), 0.1, 0.1)]
+    metrics = [r(m, 0.4, 0.8) for _ in range(5)]
+    masks = [(r((Ny, Nx), 1.0) > 0.1).float() for _ in range(2)] if masked else None
+    return ins, metrics, masks
+
+
+K2_CASES = {"flat": (False, False), "masked": (False, True), "fold": (True, True),
+            "fold_no_masks": (True, False)}
+
+
+@pytest.mark.parametrize("shape", [(20, 100), (13, 37), (5, 7), (77, 301), (768, 1536)],
+                         ids=["100x20", "37x13", "7x5", "301x77", "1536x768"])
+@pytest.mark.parametrize("case", list(K2_CASES))
+@pytest.mark.parametrize("on_chip", [True, False], ids=["on_chip", "l2"])
+def test_k2_instances_match_plain_bitwise(cuda, on_chip, case, shape):
+    """K2 in one launch against loop_plain (its plane building, the plain
+    substeps and the un-weighting): bit for bit, in the on-chip instance
+    (shared-memory tiles) and the L2 instance, on grids that the tiles do
+    not divide, with the pole column inside a tile."""
+    from gb25_tpu_torch.models.free_surface import averaging_weights
+
+    tripolar, masked = K2_CASES[case]
+    Ny, Nx = shape
+    ins, metrics, masks = _k2_operands(cuda, Ny, Nx, tripolar, masked, seed=Nx + Ny)
+    plan = pallas_barotropic.launch_plan(Nx, Ny, masked, tripolar, on_chip)
+    assert plan["instance"] == ("on_chip" if on_chip else "l2")
+    # the pole column half-way across the second tile (of the whole row in L2)
+    tx = plan["tile"][0] if on_chip else Nx
+    pole = ((tx + tx // 2) % Nx if tx >= 3 else Nx // 3) if tripolar else None
+    weights = averaging_weights(30)
+    before = pallas_barotropic.KERNEL.launches
+    got = pallas_barotropic._barotropic_loop_cuda(*ins, *metrics, weights, 1.0, 1.0, masks, pole,
+                                                  on_chip=on_chip)
+    torch.cuda.synchronize()
+    assert pallas_barotropic.KERNEL.launches == before + 1
+    want = pallas_barotropic.loop_plain(*ins, *metrics, weights, 1.0, 1.0, masks, pole)
+    for g, w in zip(got, want):
+        assert torch.isfinite(w).all()
+        assert torch.equal(g, w), float((g - w).abs().max())
+
+
+def test_k2_refuses_masks_other_than_0_and_1(cuda):
+    """K2 keeps a solid-face mask as one bit a cell: a mask value of 0.5 or
+    -0 is refused, never rounded to a bit."""
+    from gb25_tpu_torch.models.free_surface import averaging_weights
+
+    ins, metrics, masks = _k2_operands(cuda, 20, 100, False, True, seed=6)
+    for bad in (0.5, -0.0):
+        mu = masks[0].clone()
+        mu[3, 7] = bad
+        with pytest.raises(ValueError, match="masks of 0 and 1"):
+            pallas_barotropic._barotropic_loop_cuda(*ins, *metrics, averaging_weights(30), 1.0,
+                                                    1.0, (mu, masks[1]))
+
+
+def test_k2_graph_capture_reported(cuda, capsys):
+    """Whether torch.cuda.graph captures K2's cooperative launch, and
+    whether a replay equals the eager call: printed, never a failure."""
+    from gb25_tpu_torch.models.free_surface import averaging_weights
+
+    ins, metrics, masks = _k2_operands(cuda, 64, 128, False, True, seed=5)
+    weights = averaging_weights(30)
+
+    def run():
+        return pallas_barotropic._barotropic_loop_cuda(*ins, *metrics, weights, 1.0, 1.0, masks)
+
+    want = run()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        run()  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            out = run()
+        graph.replay()
+        torch.cuda.synchronize()
+        report = f"captured; replay equals eager: {all(map(torch.equal, out, want))}"
+    except Exception as exc:  # the finding, whatever it is
+        report = f"not captured: {type(exc).__name__}: {exc}"
+    with capsys.disabled():
+        print(f"\nK2 cooperative launch under torch.cuda.graph: {report}")
 
 
 def _keps_operands(cuda, shape, seed):
@@ -380,7 +483,7 @@ def test_k1_four_tracers_matches_plain(cuda):
 
 def test_keps_steps_match_plain_steps(cuda):
     """Two k-epsilon flagship steps (an Euler and an AB2 step) through the
-    kernels against the plain path: one K1, 30 K2, four K3 (u and v, T and
+    kernels against the plain path: one K1, one K2, four K3 (u and v, T and
     S, e, eps) and one k-epsilon K4 launch per step."""
     cfg, grid, state = baroclinic_instability_model(128, 32, 8, device=cuda,
                                                     closure=TKEDissipationVerticalDiffusivity())
@@ -389,7 +492,7 @@ def test_keps_steps_match_plain_steps(cuda):
     counts = [k.launches for k in kernels]
     a = loop(cfg, grid, state, 60.0, 2)
     torch.cuda.synchronize()
-    assert [k.launches - c for k, c in zip(kernels, counts)] == [2, 60, 8, 2, 0]
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [2, 2, 8, 2, 0]
     b = loop(dataclasses.replace(cfg, kernels="torch"), grid, state, 60.0, 2)
     for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), *zip(a.tracers.values(),
                                                            b.tracers.values())):
