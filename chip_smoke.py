@@ -5,7 +5,31 @@
 Builds the port's CUDA kernels from ``gb25_tpu_torch/csrc`` (one nvcc per
 source, all started together) and drives its main paths through the
 public entry points, each at 1536x768x64 f32 (halo 4, dt = 60 s, 30
-barotropic substeps):
+barotropic substeps). Every serial loop (``loop``, ``coupled_loop``,
+``sw_loop``) runs as the user runs it: replayed from a captured CUDA graph
+of 16 steps (``models.device_loop``). So each main path below also checks
+the device loop:
+  - launch counts, zeroed just before each main path and read just
+    after it: a replay does not pass through the kernels' wrappers, so
+    each capture reads the wrappers' counts before and after it (the
+    launches it recorded), and a kernel's launches on the device are its
+    wrapper's count (eager steps, steps a capture recorded) less what the
+    captures recorded plus what the replays made (recorded x replays);
+    both are held to launches per step x steps, and the eager and replayed
+    steps must make up the run. In the run, a probe of 17 steps (one
+    replayed block, one step from the host) runs under the profiler, which
+    must see each kernel's launches per step x 17 on the device; were no
+    kernel of the replayed block seen (a profiler blind inside graphs) the
+    counts would stand alone; a count above that fails the run, and one
+    below (the profiler loses records of a busy window) runs the probe
+    again, up to 4 times, before it fails the run. The method is printed
+    and named in the kernel entries;
+  - the device loop against the host loop over 16 steps from the state
+    after the timed loop, bit for bit on every field, the clock and the
+    iteration (the run fails otherwise or if no graph was replayed), and
+    the host loop's ms/step beside the replayed one.
+The decomposed rows ([20], [21]) run from the host, as the loops do with
+a comm; their counts are the wrappers'.
 
   1. the card's name and power limit, torch and CUDA versions;
   2. the kernel build (nvcc, sm_90a), its time and each kernel's ptxas
@@ -89,7 +113,7 @@ barotropic substeps):
      instance on the k-epsilon operands of [16]: the one launch and the
      split pair (momentum, then tracers), each bit for bit with the plain
      version, and the kernel's TEOS-10 buoyancy bit for bit too; then
-     the k-epsilon flagship on the K6 route, 8 + 2x16 steps, per step
+     the k-epsilon flagship on the K6 route, 8 + 2x32 steps, per step
      exactly 1 K6, 4 K3, 1 k-epsilon K4, 0 K1, 0 K2 and K5's ceil(n / s)
      launches for each block of n substeps (seven blocks of 4, one of 2);
   23. the flagship on the K6 route: one step kernels="pallas" against one
@@ -108,9 +132,18 @@ barotropic substeps):
      64-step loops, the second timed; per step exactly 1 K6, 3 K3, 1 K4, 0
      K1, 0 K2 and K5's launches of [22]; finite fields, land at rest;
      ms/step beside [13]'s;
-     K5 on one more step's first and last blocks (metric planes, masks).
+     K5 on one more step's first and last blocks (metric planes, masks);
+  the shallow-water model of bench.py --config atmosphere at 1536x768:
+  25. 8 steps, then one step on the card against the same step on the CPU
+     in float64 (tolerances of ``sw_step_vs_f64``: float32 rounding of the
+     Bernoulli potential and of the mass flux over a face); 8 warm-up
+     steps and two 256-step loops, the second timed, replayed; finite
+     fields, max|u| between 0.01 and 10 m/s (the geostrophic jet), the
+     mass sum(h azc) kept to float32 rounding; the device loop against the
+     host loop bit for bit; the same 8 + 256 + 256 steps launched from the
+     host, timed.
 
-Every phase raises on failure, and the script then exits non-zero. [25]
+Every phase raises on failure, and the script then exits non-zero. [26]
 sums up the ms/step of every path. Three lines end the output: a JSON
 object with each kernel instance's launches on its main path, error
 against its plain version, times, its bound (the larger of its compulsory
@@ -122,7 +155,10 @@ instance and its L2 instance's check and time, K3's its levels in flight
 and K5's its substeps a launch; K5's
 entry also carries its column instance, its launches in "ring" and on the
 decomposed flagship, and under "k6_routes" its launches on each K6 route
-with the checks, times and bounds of [23]'s and [24]'s blocks); then the
+with the checks, times and bounds of [23]'s and [24]'s blocks; each entry
+of a replayed path carries its launches on the device over the run, the
+method that established them and the device loop's eager and replayed
+steps; ``launches`` stays the wrapper's count); then the
 card's name and power limit; then
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
 prints no result. Times are CUDA-event means: ``ms`` of K1, K3 and K6 is
@@ -136,6 +172,7 @@ on the same operands.
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -150,7 +187,7 @@ RESOLUTION = 384 / NX  # the climate model's 1/4 degree: 1536 x 768
 DT = 60.0
 WARMUP, STEPS, PLAIN_STEPS = 8, 256, 3
 CLIMATE_STEPS, CLIMATE_PLAIN_STEPS = 128, 2
-K6_CLIMATE_STEPS, K6_KEPS_STEPS = 64, 16
+K6_CLIMATE_STEPS, K6_KEPS_STEPS = 64, 32
 TRIPOLAR_PLAIN_STEPS, KEPS_STEPS, KEPS_PLAIN_STEPS = 3, 128, 3
 DECOMPOSED_W, DECOMPOSED_STEPS = 30, 64  # the bench's decomposed 1x1 rows
 DEVICE = "cuda"
@@ -487,22 +524,17 @@ def flagship(card):
     cfg_plain = dataclasses.replace(cfg, kernels="torch")
     phase_step_compare(lambda s: time_step(cfg, grid, s, DT),
                        lambda s: time_step(cfg_plain, grid, s, DT), state)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    pallas_zslab.KERNEL.launches = 0
-    pallas_barotropic.KERNEL.launches = 0
-    s, elapsed = timed_loop(lambda st, n: loop(cfg, grid, st, DT, n), state, WARMUP, STEPS)
-    launches = {"K1": pallas_zslab.KERNEL.launches, "K2": pallas_barotropic.KERNEL.launches}
-    n_steps = WARMUP + 2 * STEPS
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL}
+    step_n = lambda st, n: loop(cfg, grid, st, DT, n)  # noqa: E731
+    s, elapsed, launches, _, loop_rec = run_main_path(step_n, state, kernels,
+                                                      {"K1": 1, "K2": 1}, STEPS)
     substeps = cfg.free_surface.substeps
-    if launches != {"K1": n_steps, "K2": n_steps}:
-        raise AssertionError(f"launch counts {launches}, expected K1 = K2 = {n_steps}")
     umax = check_state(s, (NZ, NY, NX))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ms_step = 1e3 * elapsed / STEPS
     rate = NX * NY * NZ * STEPS / elapsed
-    print(f"  launches over {n_steps} steps: {launches}; max|u| = {umax:.4f} m/s; "
-          f"iteration {s.iteration}; peak device memory {peak_gb:.2f} GB")
+    print(f"  max|u| = {umax:.4f} m/s")
+    host_ms = loop_vs_host("flagship", step_n, host_steps(
+        lambda st: time_step(cfg, grid, st, DT, premasked=True), grid), s, ms_step)
     del s
 
     print(f"[6] flagship plain path, {PLAIN_STEPS} steps")
@@ -512,7 +544,8 @@ def flagship(card):
     check_state(sp, (NZ, NY, NX))
     print(f"  flagship {NX}x{NY}x{NZ} f32 on {card}: {ms_step:.3f} ms/step, "
           f"{rate:.4e} cell-steps/s ({rate / REFERENCE_CELL_STEPS_PER_SEC:.3f}x GB-25 on one "
-          f"GH200), timed second {STEPS}-step loop; plain torch {plain_ms_step:.3f} ms/step")
+          f"GH200), timed second {STEPS}-step loop, replayed; launched from the host "
+          f"{host_ms:.3f} ms/step; plain torch {plain_ms_step:.3f} ms/step")
 
     k1_b, k1_by = k1_bound(grid, 2, False)
     k2_b, k2_by = k2_bound(grid, substeps, False)
@@ -522,14 +555,16 @@ def flagship(card):
          "replaces": "gb25_tpu/ops/pallas_zslab.py:275", "path": "flagship",
          "launches": launches["K1"], "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
          "wrapper_ms": k1["wrapper_ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None, **k1["launch"]},
+         "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None, **k1["launch"],
+         **on_device(loop_rec, "K1")},
         {"name": "barotropic_loop", "route": "cuda",
          "source": "gb25_tpu_torch/csrc/barotropic_loop.cu",
          "replaces": "gb25_tpu/ops/pallas_barotropic.py:94", "path": "flagship",
          "launches": launches["K2"], "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2_b, "bound_by": k2_by, "library_ms": None,
-         "bitwise": k2["bitwise"], **k2["launch"], "l2": k2["l2"]},
-    ], {"ms_step": ms_step, "rate": rate, "plain_ms_step": plain_ms_step}
+         "bitwise": k2["bitwise"], **k2["launch"], "l2": k2["l2"], **on_device(loop_rec, "K2")},
+    ], {"ms_step": ms_step, "rate": rate, "plain_ms_step": plain_ms_step,
+        "host_ms_step": host_ms, "loop": loop_rec}
 
 
 # --------------------------------------------------------------------------
@@ -677,24 +712,198 @@ def check_climate_state(state, grid):
 
 
 def run_main_path(step_n, state, kernels, per_step, steps):
-    """Set every launch count to 0, run ``steps`` timed (after warm-up and
-    one untimed loop), read the counts and hold them to ``per_step``
-    (name -> launches per step) exactly. Returns (state, elapsed, launches,
-    peak GB)."""
+    """Set every launch count and the device loop's tallies to 0, run the
+    main path (``WARMUP`` steps, ``steps`` untimed, ``PROBE_STEPS`` under
+    the profiler, ``steps`` timed), read the counts and hold each kernel's
+    launches on the device to ``per_step`` (name -> launches per step) x
+    the steps, exactly.
+
+    A replay does not pass through the kernels' wrappers. Each capture
+    reads the wrappers' counts before and after it: the launches it
+    recorded, which ran nothing then and run at every replay. So a kernel's
+    launches on the device are its wrapper's count less what captures
+    recorded plus what replays made (``device_loop.STATS.launches``), and
+    the wrappers' counts alone must be per step x (eager + recorded steps).
+    The probe holds those counts to the device: in that window of the run
+    (one replayed block and one step from the host) the profiler must see
+    per step x ``PROBE_STEPS`` launches of each kernel; where it sees the
+    host step's launches and none of the block's (a profiler that does not
+    trace inside a graph) the counts stand alone, and the method says so.
+    A probe that sees more fails the run; one that sees fewer (lost
+    records) is run again, and the run fails if ``PROBE_ATTEMPTS`` probes
+    all see fewer. Without a replay (the decomposed path's host loop) every
+    step passes through the wrappers and the profiler must see all of a
+    probe's. Returns (state, elapsed, launches on the
+    device, peak GB, the loop's record)."""
+    from gb25_tpu_torch.models import device_loop
+
+    gc.collect()  # earlier phases' cyclic garbage would count in the peak
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
-    s, elapsed = timed_loop(step_n, state, WARMUP, steps)
-    launches = {name: k.launches for name, k in kernels.items()}
-    n_steps = WARMUP + 2 * steps
-    want = {name: n * n_steps for name, n in per_step.items()}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} over {n_steps} steps, expected {want}")
+    stats = device_loop.STATS
+    stats.reset()
+    s = step_n(step_n(state, WARMUP), steps)
+    probe_want = {name: n * PROBE_STEPS for name, n in per_step.items()}
+    probes = []
+    while len(probes) < PROBE_ATTEMPTS:
+        replayed_before, probe_from = stats.replayed_steps, s
+        seen, s = device_launches(lambda: step_n(probe_from, PROBE_STEPS), per_step)
+        probe_replayed = stats.replayed_steps - replayed_before
+        host_only = {name: n * (PROBE_STEPS - probe_replayed) for name, n in per_step.items()}
+        probes.append(seen)
+        if any(seen[name] > probe_want[name] for name in per_step):
+            raise AssertionError(f"the profiler saw {seen} launches over {PROBE_STEPS} probe steps, "
+                                 f"more than the {probe_want} the steps make")
+        if seen == probe_want or (probe_replayed and seen == host_only):
+            break
+    else:
+        raise AssertionError(f"the profiler saw fewer launches than {probe_want} in each of "
+                             f"{PROBE_ATTEMPTS} probes of {PROBE_STEPS} steps: {probes}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = step_n(s, steps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    calls = {name: k.launches for name, k in kernels.items()}
+    launches = {name: stats.launches(k) for name, k in kernels.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"  launches over {n_steps} steps: {launches}; iteration {s.iteration}; "
-          f"peak device memory {peak_gb:.2f} GB")
-    return s, elapsed, launches, peak_gb
+    n_steps = WARMUP + 2 * steps + len(probes) * PROBE_STEPS
+    replayed = stats.replays > 0
+    if replayed and stats.eager_steps + stats.replayed_steps != n_steps:
+        raise AssertionError(f"{stats.eager_steps} eager and {stats.replayed_steps} replayed "
+                             f"steps do not make up the {n_steps} steps")
+    wrapper_steps = stats.eager_steps + stats.captured_steps if replayed else n_steps
+    want_calls = {name: n * wrapper_steps for name, n in per_step.items()}
+    want = {name: n * n_steps for name, n in per_step.items()}
+    if calls != want_calls or launches != want:
+        raise AssertionError(f"launches on the device {launches} over {n_steps} steps, expected "
+                             f"{want}; through the wrappers {calls} over {wrapper_steps} steps, "
+                             f"expected {want_calls}")
+    counted = ("eager launches + capture-time counts x replays" if replayed
+               else "wrapper counts (host loop, no replay)")
+    lost = (f" (after {len(probes) - 1} probe(s) whose records the profiler lost in part: "
+            f"{probes[:-1]})" if len(probes) > 1 else "")
+    if seen == probe_want:
+        method = f"{counted}; the profiler saw all {PROBE_STEPS} probe steps' launches{lost}"
+    else:
+        method = (f"{counted}; the profiler saw the probe's {PROBE_STEPS - probe_replayed} host "
+                  f"step(s) and no kernel of its {probe_replayed} replayed steps{lost}")
+    record = {"steps": n_steps, "eager_steps": stats.eager_steps,
+              "replayed_steps": stats.replayed_steps, "captured_steps": stats.captured_steps,
+              "replays": stats.replays, "block": device_loop.BLOCK_STEPS,
+              "pool_gb": stats.pool_bytes / 1e9, "peak_gb": peak_gb, "method": method,
+              "wrapper_calls": calls, "probe": {"steps": PROBE_STEPS, "attempts": len(probes),
+                                                "replayed_steps": probe_replayed, "seen": seen}}
+    how = (f"{stats.eager_steps} eager, {stats.captured_steps} recorded by a capture; "
+           f"{stats.replayed_steps} steps replayed in {stats.replays} replays of "
+           f"{device_loop.BLOCK_STEPS}-step graphs" if replayed else "every step from the host")
+    print(f"  launches on the device over {n_steps} steps: {launches}, by {method} (profiler "
+          f"{seen}); through the wrappers {calls} ({wrapper_steps} steps: {how}); iteration "
+          f"{s.iteration}; peak device memory {peak_gb:.2f} GB, graph pools "
+          f"{record['pool_gb']:.2f} GB")
+    return s, elapsed, launches, peak_gb, record
+
+
+# one replayed block and one step from the host: the main path's window
+# under the profiler. The profiler was seen to lose records of a busy
+# window, in runs of 512 (on the tripolar K6 route, ~24,000 records in 17
+# steps: one probe in nine lost a step's K5 and K3 launches), never to add
+# any: a probe that sees fewer is run again, up to PROBE_ATTEMPTS in all.
+# A kernel a graph does not launch is missing from every replay, so a
+# repeat hides no fault; a probe that sees more fails at once.
+PROBE_STEPS, PROBE_ATTEMPTS = 17, 4
+
+
+def device_launches(run, names):
+    """The launches of each kernel of ``names`` that the profiler sees on the
+    device while ``run()`` runs, by the kernel's symbol
+    (``profiling.KERNELS``); ``run()``'s result. The count ends at a marker
+    kernel launched after ``run()``, and the window runs on past it, so
+    that work queued after the run is not counted (where the profiler lost
+    the marker, every record counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gb25_tpu_torch.utils.profiling import KERNELS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda._sleep(1000)  # the marker: ATen's spin_kernel
+        pad = torch.zeros(1, device=DEVICE)
+        for _ in range(64):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    end = min((e.time_range.start for e in on_device if "spin_kernel" in e.name),
+              default=float("inf"))
+    counts = dict.fromkeys(names, 0)
+    for e in on_device:
+        if e.time_range.start < end:
+            for name in names:
+                if KERNELS[name][0] in e.name:
+                    counts[name] += 1
+    return counts, out
+
+
+def loop_vs_host(label, step_n, host_n, state, loop_ms):
+    """The device loop (``step_n``, replayed from its kept graph) against the
+    host loop (``host_n``, every step launched from the host) over
+    BLOCK_STEPS steps from ``state``: bit for bit on every field, the clock
+    and the iteration. Every kernel is deterministic and bit for bit with
+    its plain twin, so a difference is the loop's fault (a stale cache, an
+    aliased buffer, a host scalar baked into the graph). Both timed, the
+    host loop on its second run; ``loop_ms``: the main path's replayed
+    ms/step. Returns the host loop's ms/step."""
+    from gb25_tpu_torch.models import device_loop
+
+    n = device_loop.BLOCK_STEPS
+    device_loop.STATS.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = step_n(state, n)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    if device_loop.STATS.replays == 0:
+        raise AssertionError(f"{label}: the device loop replayed no graph")
+    host_n(state, n)  # untimed: the allocator's own pool refills after the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = host_n(state, n)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    ta, tb = device_loop._tensors(a), device_loop._tensors(b)
+    differ = [f for f in ta if not torch.equal(ta[f], tb[f])]
+    if differ or a.iteration != b.iteration or list(ta) != list(tb):
+        raise AssertionError(f"{label}: the device loop differs from the host loop in {differ} "
+                             f"(iteration {a.iteration} vs {b.iteration})")
+    host_ms = 1e3 * t_host / n
+    print(f"  device loop vs host loop over {n} steps from iteration {state.iteration}: bit for "
+          f"bit in {len(ta)} tensors (every field, the clock), iteration {a.iteration}; "
+          f"{device_loop.STATS.replays} replay, {device_loop.STATS.eager_steps} eager steps; "
+          f"{1e3 * t_loop / n:.3f} ms/step replayed in this call, {host_ms:.3f} ms/step from the "
+          f"host ({loop_ms:.3f} ms/step replayed in the timed loop)")
+    return host_ms
+
+
+def host_steps(step, grid):
+    """``step`` launched from the host ``n`` times, from the state masked as
+    the loops mask it: the device loop's eager twin."""
+    from gb25_tpu_torch.models import device_loop
+    from gb25_tpu_torch.models.hydrostatic import premask_state
+
+    return lambda st, n: device_loop.host_loop(step, premask_state(grid, st), n)
+
+
+def on_device(loop_rec, name):
+    """A kernel entry's record of how its path ran through the device loop:
+    the method that counted its launches, its wrapper's calls, what the
+    profiler saw in the probe, the steps run eagerly and replayed, the
+    block."""
+    return {"launch_method": loop_rec["method"], "wrapper_calls": loop_rec["wrapper_calls"][name],
+            "profiler_probe": loop_rec["probe"]["seen"][name],
+            "device_loop": {k: loop_rec[k] for k in ("eager_steps", "replayed_steps", "block")}}
 
 
 def entry(name, source, replaces, path, launches, res, b):
@@ -757,13 +966,16 @@ def climate(card, grid_type, first):
     kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
                "K3": pallas_tridiag.KERNEL, "K4": pallas_catke.KERNEL}
     per_step = {"K1": 1, "K2": 1, "K3": 3, "K4": 1}
-    s, elapsed, launches, _ = run_main_path(
-        lambda st, n: coupled_loop(ccfg, grid, atmos, st, DT, n), state, kernels, per_step,
-        CLIMATE_STEPS)
+    step_n = lambda st, n: coupled_loop(ccfg, grid, atmos, st, DT, n)  # noqa: E731
+    s, elapsed, launches, _, loop_rec = run_main_path(step_n, state, kernels, per_step,
+                                                      CLIMATE_STEPS)
     check_climate_state(s, grid)
-    del s
     ms_step = 1e3 * elapsed / CLIMATE_STEPS
     rate = NX * NY * NZ * CLIMATE_STEPS / elapsed
+    host_ms = loop_vs_host(label, step_n, host_steps(
+        lambda st: coupled_time_step(ccfg, grid, atmos, st, DT, premasked=True), grid), s,
+        ms_step)
+    del s
 
     plain_steps = TRIPOLAR_PLAIN_STEPS if tripolar else CLIMATE_PLAIN_STEPS
     print(f"[{phase + 2}] {label} plain path, {plain_steps} steps")
@@ -772,8 +984,8 @@ def climate(card, grid_type, first):
     check_state(sp, (NZ, NY, NX))
     plain_ms_step = 1e3 * plain_elapsed / plain_steps
     print(f"  {label} {NX}x{NY}x{NZ} f32 on {card}: {ms_step:.3f} ms/step, {rate:.4e} "
-          f"cell-steps/s, timed second {CLIMATE_STEPS}-step loop; plain torch "
-          f"{plain_ms_step:.3f} ms/step")
+          f"cell-steps/s, timed second {CLIMATE_STEPS}-step loop, replayed; launched from the "
+          f"host {host_ms:.3f} ms/step; plain torch {plain_ms_step:.3f} ms/step")
 
     substeps = cfg.free_surface.substeps
     path = "climate_tripolar" if tripolar else "climate"
@@ -787,16 +999,21 @@ def climate(card, grid_type, first):
               launches["K2"], k2m, k2_bound(grid, substeps, True)),
     ]
     entries[-1].update(bitwise=k2m["bitwise"], l2=k2m["l2"])
+    entries[0].update(on_device(loop_rec, "K1"))
+    entries[1].update(on_device(loop_rec, "K2"))
     if not tripolar:
         k3_entry = entry("implicit_diffusion", "implicit_diffusion.cu",
                          "gb25_tpu/ops/pallas_tridiag.py:87", path, launches["K3"], k3,
                          (k3["bound_ms"], "bytes"))
-        k3_entry.update(per_solve_ms=k3["per_solve_ms"], per_solve_launch=k3["per_solve_launch"])
+        k3_entry.update(per_solve_ms=k3["per_solve_ms"], per_solve_launch=k3["per_solve_launch"],
+                        **on_device(loop_rec, "K3"))
         entries += [k3_entry,
                     entry("catke_diffusivities", "catke_diffusivities.cu",
                           "gb25_tpu/ops/pallas_catke.py:64", path, launches["K4"], k4,
                           k4_bound(grid))]
-    return entries, {"ms_step": ms_step, "rate": rate, "plain_ms_step": plain_ms_step}
+        entries[-1].update(on_device(loop_rec, "K4"))
+    return entries, {"ms_step": ms_step, "rate": rate, "plain_ms_step": plain_ms_step,
+                     "host_ms_step": host_ms, "loop": loop_rec}
 
 
 # --------------------------------------------------------------------------
@@ -884,39 +1101,44 @@ def keps(card):
                        lambda s: time_step(cfg_plain, grid, s, DT), state)
     kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
                "K3": pallas_tridiag.KERNEL, "K4_keps": pallas_catke.KEPS_KERNEL,
-               "K4_catke": pallas_catke.KERNEL}
-    per_step = {"K1": 1, "K2": 1, "K3": 4, "K4_keps": 1, "K4_catke": 0}
-    s, elapsed, launches, _ = run_main_path(lambda st, n: loop(cfg, grid, st, DT, n), state,
-                                            kernels, per_step, KEPS_STEPS)
+               "K4": pallas_catke.KERNEL}
+    per_step = {"K1": 1, "K2": 1, "K3": 4, "K4_keps": 1, "K4": 0}
+    step_n = lambda st, n: loop(cfg, grid, st, DT, n)  # noqa: E731
+    s, elapsed, launches, _, loop_rec = run_main_path(step_n, state, kernels, per_step,
+                                                      KEPS_STEPS)
     umax = check_state(s, (NZ, NY, NX))
     e_min, eps_min = float(s.tracers["e"].min()), float(s.tracers["eps"].min())
     if e_min < 0.0 or eps_min < 0.0:
         raise AssertionError(f"e or eps < 0 after the run: {e_min}, {eps_min}")
     print(f"  max|u| {umax:.4f} m/s; e in [{e_min:.3e}, {float(s.tracers['e'].max()):.3e}], "
           f"eps in [{eps_min:.3e}, {float(s.tracers['eps'].max()):.3e}]")
-    del s
     ms_step = 1e3 * elapsed / KEPS_STEPS
     rate = NX * NY * NZ * KEPS_STEPS / elapsed
+    host_ms = loop_vs_host("k-epsilon", step_n, host_steps(
+        lambda st: time_step(cfg, grid, st, DT, premasked=True), grid), s, ms_step)
+    del s
     sp, plain_elapsed = timed_loop(lambda st, n: loop(cfg_plain, grid, st, DT, n), state, 0,
                                    KEPS_PLAIN_STEPS)
     check_state(sp, (NZ, NY, NX))
     plain_ms_step = 1e3 * plain_elapsed / KEPS_PLAIN_STEPS
     print(f"  k-epsilon flagship {NX}x{NY}x{NZ} f32 on {card}: {ms_step:.3f} ms/step, "
-          f"{rate:.4e} cell-steps/s, timed second {KEPS_STEPS}-step loop; plain torch "
-          f"{plain_ms_step:.3f} ms/step")
+          f"{rate:.4e} cell-steps/s, timed second {KEPS_STEPS}-step loop, replayed; launched "
+          f"from the host {host_ms:.3f} ms/step; plain torch {plain_ms_step:.3f} ms/step")
 
     path = "keps"
     k3_entry = entry("implicit_diffusion_keps", "implicit_diffusion.cu",
                      "gb25_tpu/ops/pallas_tridiag.py:87", path, launches["K3"], k3,
                      (k3["bound_ms"], "bytes"))
-    k3_entry.update(per_solve_ms=k3["per_solve_ms"], per_solve_launch=k3["per_solve_launch"])
+    k3_entry.update(per_solve_ms=k3["per_solve_ms"], per_solve_launch=k3["per_solve_launch"],
+                    **on_device(loop_rec, "K3"))
     return [
         entry("zslab_tendencies_keps", "zslab_tendencies.cu", "gb25_tpu/ops/pallas_zslab.py:275",
-              path, launches["K1"], k1, k1_bound(grid, 4, False)),
+              path, launches["K1"], k1, k1_bound(grid, 4, False)) | on_device(loop_rec, "K1"),
         k3_entry,
         entry("keps_diffusivities", "keps_diffusivities.cu", "gb25_tpu/ops/pallas_catke.py:228",
-              path, launches["K4_keps"], k4, k4_keps_bound(grid)),
-    ], {"ms_step": ms_step, "rate": rate, "plain_ms_step": plain_ms_step}
+              path, launches["K4_keps"], k4, k4_keps_bound(grid)) | on_device(loop_rec, "K4_keps"),
+    ], {"ms_step": ms_step, "rate": rate, "plain_ms_step": plain_ms_step,
+        "host_ms_step": host_ms, "loop": loop_rec}
 
 
 # --------------------------------------------------------------------------
@@ -1037,7 +1259,7 @@ def decomposed(label, build, state, serial_ms, kernels, per_step, steps, phase):
     res = {}
     for mode in ("local", "ring"):
         print(f"  mode {mode!r}:")
-        s, elapsed, launches, _ = run_main_path(step_n(mode), state, kernels, per_step, steps)
+        s, elapsed, launches, _, _ = run_main_path(step_n(mode), state, kernels, per_step, steps)
         res[mode] = {"ms_step": 1e3 * elapsed / steps, "launches": launches, "state": s}
         fns.clear()
     print(f"  decomposed 1x1 {label} {NX}x{NY}x{NZ} f32: local {res['local']['ms_step']:.3f}, "
@@ -1312,15 +1534,15 @@ def k6_keps_route(card, serial_ms):
     kernels = {**k6_kernels(), "K3": pallas_tridiag.KERNEL, "K4_keps": pallas_catke.KEPS_KERNEL}
     per_step = {"K6": 1, "K5": k5_per_step(cfg, grid), "K1": 0, "K2": 0, "K3": 4,
                 "K4_keps": 1}
-    s, elapsed, launches, _ = run_main_path(lambda st, n: loop(cfg, grid, st, DT, n), state,
-                                            kernels, per_step, K6_KEPS_STEPS)
+    s, elapsed, launches, _, loop_rec = run_main_path(
+        lambda st, n: loop(cfg, grid, st, DT, n), state, kernels, per_step, K6_KEPS_STEPS)
     check_state(s, (NZ, NY, NX))
     if float(s.tracers["e"].min()) < 0.0 or float(s.tracers["eps"].min()) < 0.0:
         raise AssertionError("e or eps < 0 after the K6-route run")
     ms_step = 1e3 * elapsed / K6_KEPS_STEPS
     print(f"  k-epsilon flagship, K6 route, on {card}: {ms_step:.3f} ms/step (timed second "
-          f"{K6_KEPS_STEPS}-step loop); K1 route [18] {serial_ms:.3f} ms/step")
-    return res, launches, ms_step, k6_bound(grid, 4)
+          f"{K6_KEPS_STEPS}-step loop, replayed); K1 route [18] {serial_ms:.3f} ms/step")
+    return res, launches, ms_step, k6_bound(grid, 4), None, loop_rec, None
 
 
 def flagship_k6_model():
@@ -1371,16 +1593,20 @@ def k6_flagship(card, serial_ms):
     del grid64
     torch.cuda.empty_cache()
     per_step = {"K6": 1, "K5": k5_per_step(cfg, grid), "K1": 0, "K2": 0}
-    s, elapsed, launches, _ = run_main_path(lambda st, n: loop(cfg, grid, st, DT, n), state,
-                                            k6_kernels(), per_step, STEPS)
+    step_n = lambda st, n: loop(cfg, grid, st, DT, n)  # noqa: E731
+    s, elapsed, launches, _, loop_rec = run_main_path(step_n, state, k6_kernels(), per_step,
+                                                      STEPS)
     umax = check_state(s, (NZ, NY, NX))
     ms_step = 1e3 * elapsed / STEPS
+    host_ms = loop_vs_host("flagship, K6 route", step_n, host_steps(
+        lambda st: time_step(cfg, grid, st, DT, premasked=True), grid), s, ms_step)
     print(f"  flagship {NX}x{NY}x{NZ} f32, K6 route, on {card}: {ms_step:.3f} ms/step "
           f"({NX * NY * NZ * STEPS / elapsed:.4e} cell-steps/s, timed second {STEPS}-step loop, "
-          f"max|u| {umax:.4f} m/s); K1 route [5] {serial_ms:.3f} ms/step")
+          f"replayed, max|u| {umax:.4f} m/s); launched from the host {host_ms:.3f} ms/step; K1 "
+          f"route [5] {serial_ms:.3f} ms/step")
     print("  K5 on the operands of one more step's first and last blocks (metric columns):")
     k5 = phase_k5_route(capture_k5_blocks(lambda: time_step(cfg, grid, s, DT)), "flagship")
-    return launches, ms_step, k5
+    return launches, ms_step, k5, loop_rec, host_ms
 
 
 def k6_tripolar(card, serial_ms):
@@ -1404,18 +1630,22 @@ def k6_tripolar(card, serial_ms):
     torch.cuda.empty_cache()
     kernels = {**k6_kernels(), "K3": pallas_tridiag.KERNEL, "K4": pallas_catke.KERNEL}
     per_step = {"K6": 1, "K5": k5_per_step(cfg, grid), "K1": 0, "K2": 0, "K3": 3, "K4": 1}
-    s, elapsed, launches, _ = run_main_path(
-        lambda st, n: coupled_loop(ccfg, grid, atmos, st, DT, n), state, kernels, per_step,
-        K6_CLIMATE_STEPS)
+    step_n = lambda st, n: coupled_loop(ccfg, grid, atmos, st, DT, n)  # noqa: E731
+    s, elapsed, launches, _, loop_rec = run_main_path(step_n, state, kernels, per_step,
+                                                      K6_CLIMATE_STEPS)
     check_climate_state(s, grid)
     ms_step = 1e3 * elapsed / K6_CLIMATE_STEPS
+    host_ms = loop_vs_host("tripolar climate, K6 route", step_n, host_steps(
+        lambda st: coupled_time_step(ccfg, grid, atmos, st, DT, premasked=True), grid), s,
+        ms_step)
     print(f"  tripolar climate {NX}x{NY}x{NZ} f32, K6 route, on {card}: {ms_step:.3f} ms/step "
-          f"(timed second {K6_CLIMATE_STEPS}-step loop); K1 route [13] {serial_ms:.3f} ms/step")
+          f"(timed second {K6_CLIMATE_STEPS}-step loop, replayed); launched from the host "
+          f"{host_ms:.3f} ms/step; K1 route [13] {serial_ms:.3f} ms/step")
     print("  K5 on the operands of one more step's first and last blocks (metric planes, "
           "masks):")
     k5 = phase_k5_route(
         capture_k5_blocks(lambda: coupled_time_step(ccfg, grid, atmos, s, DT)), "tripolar")
-    return launches, ms_step, k5
+    return launches, ms_step, k5, loop_rec, host_ms
 
 
 def k6_phases(card, serial):
@@ -1427,28 +1657,134 @@ def k6_phases(card, serial):
           "four-tracer instances")
     (flag_res, flag_b), (trip_res, trip_b) = k6_instances()
     torch.cuda.empty_cache()
-    kk = (*k6_keps_route(card, serial["keps"]), None)
+    kk = k6_keps_route(card, serial["keps"])
     torch.cuda.empty_cache()
-    launches, ms_step, k5 = k6_flagship(card, serial["flagship"])
-    kf = (flag_res, launches, ms_step, flag_b, k5)
+    launches, ms_step, k5, loop_rec, host_ms = k6_flagship(card, serial["flagship"])
+    kf = (flag_res, launches, ms_step, flag_b, k5, loop_rec, host_ms)
     torch.cuda.empty_cache()
-    launches, ms_step, k5 = k6_tripolar(card, serial["climate_tripolar"])
-    kt = (trip_res, launches, ms_step, trip_b, k5)
+    launches, ms_step, k5, loop_rec, host_ms = k6_tripolar(card, serial["climate_tripolar"])
+    kt = (trip_res, launches, ms_step, trip_b, k5, loop_rec, host_ms)
     torch.cuda.empty_cache()
     entries, k5_routes, ms = [], {}, {}
-    for (res, launches, ms_step, b, k5), name, path in (
+    for (res, launches, ms_step, b, k5, loop_rec, host_ms), name, path in (
             (kf, "pallas_tendencies", "flagship_k6"),
             (kt, "pallas_tendencies_tripolar", "climate_tripolar_k6"),
             (kk, "pallas_tendencies_keps", "keps_k6")):
         e = entry(name, "tendencies.cu", "gb25_tpu/ops/pallas_tendency.py:115", path,
                   launches["K6"], res, b)
-        e.update(bitwise=res["bitwise"], b_bitwise=res["b_bitwise"])
+        e.update(bitwise=res["bitwise"], b_bitwise=res["b_bitwise"], **on_device(loop_rec, "K6"))
         entries.append(e)
-        k5_routes[path] = {"launches": launches["K5"]}
+        k5_routes[path] = {"launches": launches["K5"], **on_device(loop_rec, "K5")}
         if k5 is not None:
             k5_routes[path]["blocks"] = k5
-        ms[path] = ms_step
+        ms[path] = {"ms_step": ms_step, "host_ms_step": host_ms, "loop": loop_rec}
     return entries, k5_routes, ms
+
+
+# --------------------------------------------------------------------------
+# the shallow-water model: bench.py --config atmosphere
+# --------------------------------------------------------------------------
+
+def sw_mass(grid, h):
+    """sum(h azc) over the lat-lon grid's cells, in float64."""
+    az = grid.azc[0, grid.hy : grid.hy + grid.Ny, 0].double()
+    return float((h.double() * az[:, None]).sum())
+
+
+def sw_step_vs_f64(cfg, grid, state):
+    """One step on the card against the same step on the CPU in float64,
+    from the same state (the card's float32 values widened). Tolerance:
+    float32 rounding of the Bernoulli potential phi = K + g h (~1e4
+    m^2/s^2) differenced over a face, 4 eps32 max|phi| over the face's
+    spacing for Gu and Gv, and of the mass flux, 4 eps32 max(h) max|u, v|
+    over the cell's least spacing for Gh; for u, v and h those times dt c1
+    (c1 = 1.6) plus 4 float32 ulps of the field's largest value; rtol 1e-6
+    (the grid's float32 metrics)."""
+    from gb25_tpu_torch import shallow_water_model, sw_time_step
+
+    got = sw_time_step(cfg, grid, state, DT)
+    cfg64, grid64, _ = shallow_water_model(NX, NY, device="cpu", dtype=torch.float64)
+    fields = ("u", "v", "h", "Gu", "Gv", "Gh", "time")
+    want = sw_time_step(cfg64, grid64, state.replace(
+        **{k: getattr(state, k).to("cpu", torch.float64) for k in fields}), DT)
+    eps = torch.finfo(torch.float32).eps
+    hy = grid64.hy
+    dxc = grid64.dxc[0, hy : hy + NY].to(DEVICE)  # (Ny, 1) rows
+    dyf = grid64.dyf[0, hy : hy + NY].to(DEVICE)
+    h_max = float(state.h.abs().max())
+    vel = max(float(state.u.abs().max()), float(state.v.abs().max()))
+    phi = cfg.gravitational_acceleration * h_max + vel**2
+    a = {"Gu": 4 * eps * phi / dxc, "Gv": 4 * eps * phi / dyf,
+         "Gh": 4 * eps * h_max * vel / torch.minimum(dxc, dyf)}
+    for name, g in (("u", "Gu"), ("v", "Gv"), ("h", "Gh")):
+        ref = getattr(want, name)
+        a[name] = 1.6 * DT * a[g] + 4 * eps * float(ref.abs().max())
+    for name, atol in a.items():
+        compare(name, getattr(got, name), getattr(want, name).to(DEVICE), 1e-6, atol)
+    if float(got.time) != float(want.time) or got.iteration != want.iteration:
+        raise AssertionError("the clock differs from the float64 step's")
+
+
+def shallow_water(card):
+    """[25]: the shallow-water model of bench.py --config atmosphere."""
+    from gb25_tpu_torch import shallow_water_model, sw_loop, sw_time_step
+    from gb25_tpu_torch.models import device_loop
+
+    cfg, grid, state = shallow_water_model(NX, NY, device=DEVICE)
+    print(f"[25] shallow water (bench.py --config atmosphere) at {NX}x{NY} f32, dt = {DT:g} s: "
+          f"{WARMUP} steps, then one step against the same step on the CPU in float64")
+    sw_step_vs_f64(cfg, grid, sw_loop(cfg, grid, state, DT, WARMUP))
+
+    def step(st):
+        return sw_time_step(cfg, grid, st, DT)
+
+    def step_n(st, n):
+        return sw_loop(cfg, grid, st, DT, n)
+
+    def host_n(st, n):
+        return device_loop.host_loop(step, st, n)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    device_loop.STATS.reset()
+    s, elapsed = timed_loop(step_n, state, WARMUP, STEPS)
+    stats = dataclasses.replace(device_loop.STATS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = WARMUP + 2 * STEPS
+    if stats.replays == 0 or stats.eager_steps + stats.replayed_steps != n_steps:
+        raise AssertionError(f"the shallow-water loop ran {stats}, expected replays making up "
+                             f"{n_steps} steps")
+    ms_step = 1e3 * elapsed / STEPS
+    for name in ("u", "v", "h"):
+        if not torch.isfinite(getattr(s, name)).all():
+            raise AssertionError(f"{name} is not finite after the run")
+    umax = float(s.u.abs().max())
+    if not 0.01 < umax < 10.0:
+        raise AssertionError(f"max|u| = {umax} m/s: no sane geostrophic jet")
+    m0, m1 = sw_mass(grid, state.h), sw_mass(grid, s.h)
+    drift = abs(m1 - m0) / m0
+    # each step rounds h + dt Gh to float32: at most eps32 / 2 of the mass
+    # a step, were every cell rounded the same way
+    if drift > n_steps * torch.finfo(torch.float32).eps:
+        raise AssertionError(f"mass drifted by {drift:.3e} of itself over {n_steps} steps")
+    print(f"  {n_steps} steps: {stats.eager_steps} eager, {stats.replayed_steps} replayed in "
+          f"{stats.replays} replays of {device_loop.BLOCK_STEPS}-step graphs (pools "
+          f"{stats.pool_bytes / 1e9:.3f} GB); peak device memory {peak_gb:.3f} GB; max|u| "
+          f"{umax:.4f} m/s; mass sum(h azc) drifted by {drift:.3e} of itself (bound "
+          f"{n_steps * torch.finfo(torch.float32).eps:.1e}); fields finite")
+    host_ms = loop_vs_host("shallow water", step_n, host_n, s, ms_step)
+    del s
+    _, host_elapsed = timed_loop(host_n, state, WARMUP, STEPS)
+    host_ms_step = 1e3 * host_elapsed / STEPS
+    rate, host_rate = NX * NY * STEPS / elapsed, NX * NY * STEPS / host_elapsed
+    print(f"  shallow water {NX}x{NY} f32 on {card}: replayed {ms_step:.4f} ms/step "
+          f"({rate:.4e} cell-steps/s), launched from the host {host_ms_step:.4f} ms/step "
+          f"({host_rate:.4e} cell-steps/s), {host_ms_step / ms_step:.2f}x; {WARMUP} + {STEPS} + "
+          f"{STEPS} steps each, the second {STEPS} timed (host loop over {device_loop.BLOCK_STEPS} "
+          f"steps in the check above: {host_ms:.4f} ms/step)")
+    return {"ms_step": ms_step, "rate": rate, "host_ms_step": host_ms_step,
+            "host_rate": host_rate, "peak_gb": peak_gb, "pool_gb": stats.pool_bytes / 1e9}
 
 
 def main():
@@ -1500,13 +1836,22 @@ def main():
     summary = {"flagship": flag, "climate": clim, "climate_tripolar": trip, "keps": kep}
     k6_entries, k5_on_k6, k6_ms = k6_phases(
         card, {name: r["ms_step"] for name, r in summary.items()})
-    print(f"[25] on {card}: " + "; ".join(
-        f"{name} {r['ms_step']:.3f} ms/step ({r['rate']:.4e} cell-steps/s), plain "
-        f"{r['plain_ms_step']:.3f}" for name, r in summary.items()) + "; " + "; ".join(
-        f"decomposed 1x1 {name} local {r['local']['ms_step']:.3f}, ring "
-        f"{r['ring']['ms_step']:.3f} ms/step" for name, r in
+    sw = shallow_water(card)
+    torch.cuda.empty_cache()
+
+    def host(r):
+        return "" if r.get("host_ms_step") is None else f", from the host {r['host_ms_step']:.3f}"
+
+    print(f"[26] on {card}, ms/step of the timed loops (replayed from CUDA graphs; from the "
+          "host where named): " + "; ".join(
+              f"{name} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s){host(r)}, plain "
+              f"{r['plain_ms_step']:.3f}" for name, r in summary.items()) + "; " + "; ".join(
+        f"decomposed 1x1 {name} (host loop) local {r['local']['ms_step']:.3f}, ring "
+        f"{r['ring']['ms_step']:.3f}" for name, r in
         (("climate_tripolar", dclim), ("flagship", dflag))) + "; K6 route: " + "; ".join(
-        f"{name} {ms:.3f} ms/step" for name, ms in k6_ms.items()))
+        f"{name} {r['ms_step']:.3f}{host(r)}" for name, r in k6_ms.items())
+          + f"; shallow water {sw['ms_step']:.3f} ({sw['rate']:.4e} cell-steps/s), from the host "
+          f"{sw['host_ms_step']:.3f} ({sw['host_rate']:.4e} cell-steps/s)")
 
     k5_entry = entry("barotropic_block", "barotropic_block.cu",
                      "gb25_tpu/ops/pallas_barotropic.py:349", "climate_tripolar_decomposed",

@@ -12,6 +12,14 @@ tensors their plain PyTorch versions run instead. The JAX package
     # the coupled climate model: Gaussian islands, CATKE, air-sea fluxes
     ccfg, grid, atmos, state = data_free_ocean_climate_model(resolution=0.25, Nz=64)
     state = coupled_loop(ccfg, grid, atmos, state, 60.0, n)
+
+    # the rotating shallow-water model (bench.py --config atmosphere)
+    cfg, grid, state = shallow_water_model(1536, 768)
+    state = sw_loop(cfg, grid, state, 60.0, n)
+
+On the card each loop replays its steps from a captured CUDA graph
+(``models.device_loop``); on the CPU and on the decomposed path it
+launches them step by step from the host.
 """
 
 from gb25_tpu_torch.models import (  # noqa: F401
@@ -22,5 +30,8 @@ from gb25_tpu_torch.models import (  # noqa: F401
     coupled_time_step,
     data_free_ocean_climate_model,
     loop,
+    shallow_water_model,
+    sw_loop,
+    sw_time_step,
     time_step,
 )

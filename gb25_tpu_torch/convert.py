@@ -5,8 +5,10 @@ leaves ("u", "v", "eta", "tracers/T", ..., "Gtracers/S", "time",
 "time_lo", "iteration"), with 3-D fields in JAX's (X, Y, Z) and 2-D fields
 in (X, Y); any tracer set crosses (T, S and, with CATKE, e). The port
 stores (Z, Y, X) and (Y, X), so every array has its axes reversed on the
-way in and out. The same holds for a bathymetry (X, Y) -> (Y, X) and for
-an atmosphere record (X, Y, T) -> (T, Y, X), one contiguous plane per time.
+way in and out. The same holds for a bathymetry (X, Y) -> (Y, X), for
+an atmosphere record (X, Y, T) -> (T, Y, X), one contiguous plane per time,
+and for a shallow-water state (leaves "u", "v", "h", "Gu", "Gv", "Gh",
+"time", "iteration", planes (X, Y) -> (Y, X)).
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import torch
 
 from gb25_tpu_torch.grids.immersed import with_bathymetry
 from gb25_tpu_torch.models.atmosphere import PrescribedAtmosphere
-from gb25_tpu_torch.models.state import HydrostaticState
+from gb25_tpu_torch.models.state import HydrostaticState, ShallowWaterState
+
+SW_PLANES = ("u", "v", "h", "Gu", "Gv", "Gh")
 
 
 def _to_port(a: np.ndarray, device) -> torch.Tensor:
@@ -55,6 +59,22 @@ def state_to_numpy(state: HydrostaticState) -> dict:
     out.update({f"Gtracers/{k}": _to_jax(state.Gtracers[k]) for k in sorted(state.Gtracers)})
     out.update({"time": _to_jax(state.time), "time_lo": _to_jax(state.time_lo),
                 "iteration": np.asarray(state.iteration, np.int32)})
+    return out
+
+
+def sw_state_from_numpy(arrays: dict, device) -> ShallowWaterState:
+    """The port's shallow-water state on ``device`` from JAX-layout numpy
+    arrays."""
+    return ShallowWaterState(**{k: _to_port(arrays[k], device) for k in SW_PLANES},
+                             time=_to_port(arrays["time"], device),
+                             iteration=int(arrays["iteration"]))
+
+
+def sw_state_to_numpy(state: ShallowWaterState) -> dict:
+    """The port's shallow-water state as JAX-layout numpy arrays, in the JAX
+    leaf order."""
+    out = {k: _to_jax(getattr(state, k)) for k in SW_PLANES}
+    out.update({"time": _to_jax(state.time), "iteration": np.asarray(state.iteration, np.int32)})
     return out
 
 

@@ -15,4 +15,17 @@ from gb25_tpu_torch.models.coupled import (  # noqa: F401
     data_free_ocean_climate_model,
 )
 from gb25_tpu_torch.models.hydrostatic import loop, time_step  # noqa: F401
-from gb25_tpu_torch.models.state import HydrostaticState, advance_clock, initial_state  # noqa: F401
+from gb25_tpu_torch.models.shallow_water import (  # noqa: F401
+    ShallowWaterConfig,
+    shallow_water_model,
+    shallow_water_state,
+    sw_loop,
+    sw_tendencies,
+    sw_time_step,
+)
+from gb25_tpu_torch.models.state import (  # noqa: F401
+    HydrostaticState,
+    ShallowWaterState,
+    advance_clock,
+    initial_state,
+)

@@ -56,15 +56,18 @@ class PrescribedAtmosphere:
 
     def _time_weights(self, t):
         """(k0, k1, wt) at model time ``t`` (a 0-d tensor), as 0-d tensors
-        on the device: no host synchronisation."""
+        on the device: no host synchronisation (indexing with a 0-d tensor
+        would read it on the host), so a captured step reads the time of
+        each replay."""
         times = self.times
         tt = torch.remainder(t, self.period)
         nt = times.shape[0]
         k0 = torch.clamp(torch.searchsorted(times, tt.reshape(1), right=True)[0] - 1, 0, nt - 1)
         last = k0 + 1 >= nt
         k1 = torch.where(last, torch.zeros_like(k0), k0 + 1)
-        t0 = times[k0]
-        t1 = torch.where(last, t0 + (times[1] - times[0]), times[k1])
+        t0 = times.index_select(0, k0.reshape(1))[0]
+        t1 = torch.where(last, t0 + (times[1] - times[0]),
+                         times.index_select(0, k1.reshape(1))[0])
         wt = torch.clamp((tt - t0) / torch.clamp(t1 - t0, min=1e-30), 0.0, 1.0)
         return k0, k1, wt
 

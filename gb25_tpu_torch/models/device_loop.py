@@ -1,0 +1,295 @@
+"""The device-resident loop: n time steps replayed from a captured CUDA
+graph, the port's counterpart of the ``jax.lax.fori_loop`` that runs the
+JAX package's ``loop``, ``coupled_loop`` and ``sw_loop`` as one program on
+the device.
+
+``device_loop(step, state, n, cache)`` takes the step as a
+``functools.partial`` of a step function over all its arguments but the
+state; the function and those arguments are the key of the captured graph
+(``plan`` gives the split of n). On a CUDA state it:
+  1. runs the first step eagerly where it must: the Euler step at
+     iteration 0 (the AB2 coefficients branch on the host's iteration, so
+     that step cannot be recorded), and before a capture one real step,
+     which builds the kernels and fills every per-grid cache (K3's
+     coefficients, K2's metric planes and mask check, the blocked solve's
+     statics). A capture only records kernels: a tensor first filled under
+     it would hold garbage until the first replay, and a host read under it
+     raises, so no cache may be cold when it starts;
+  2. captures ``block`` steps into one CUDA graph that reads a static copy
+     of the state and ends by copying its result back into that copy, so
+     that replays chain with no host work between them and the state is
+     copied once a block, not once a step. ``cache`` (the grid's) keeps one
+     graph: a later call with the same key and state layout replays it
+     without capturing again, and a call with another frees it before it
+     captures its own;
+  3. copies the state into the static copy (unless it is that copy), replays
+     the graph as often as n allows and runs the rest eagerly;
+  4. returns a state of its own, which no later replay writes: its iteration
+     advanced by n on the host, its clock by the steps on the device.
+
+On a CPU state it is the plain host loop (``host_loop``): the CPU has no
+graphs. The decomposed path (a ``comm``) keeps the host loop on the card
+too: its exchanges are ``torch.distributed`` P2P calls, which gloo cannot
+capture (capturing NCCL or the forced 1x1 mesh's exchanges is queued in
+ROADMAP.md); the callers pass those to ``host_loop``. Nowhere else does the
+loop fall back: a capture that fails raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+import gc
+import weakref
+
+import torch
+
+from gb25_tpu_torch.utils.cuda_build import launch_counts
+
+# steps a captured graph holds; chosen on the H100 (PERF.md, the block
+# length table): the copy of the state back into the graph's input is paid
+# once a block
+BLOCK_STEPS = 16
+
+_ENTRY = "device_loop"  # the captured graph's name in a grid's cache
+
+
+@dataclasses.dataclass
+class LoopStats:
+    """Steps run by ``device_loop`` since the last ``reset``: eagerly,
+    recorded by a capture (launching nothing), and replayed; the graphs
+    captured and replayed, and the memory their pools took. A replay does
+    not pass through the kernels' wrappers, so their launch counts see the
+    eager and the recorded steps only: ``recorded_launches`` holds each
+    kernel's launches that captures recorded, ``replayed_launches`` those
+    that replays made (a graph's recorded launches, each replay)."""
+
+    eager_steps: int = 0
+    captured_steps: int = 0
+    replayed_steps: int = 0
+    captures: int = 0
+    replays: int = 0
+    pool_bytes: int = 0  # device memory the captured graphs' private pools reserved
+    recorded_launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    replayed_launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+
+    def reset(self):
+        self.__init__()
+
+    def launches(self, kernel):
+        """``kernel``'s launches on the device since its count and these
+        stats were set to 0: its wrapper's count, less the launches that
+        captures recorded (which ran nothing), plus those that replays
+        made."""
+        return (kernel.launches - self.recorded_launches[kernel]
+                + self.replayed_launches[kernel])
+
+
+STATS = LoopStats()
+
+
+def plan(n, iteration, block, captured):
+    """(head, replays, tail): of ``n`` steps from ``iteration``, the steps
+    run eagerly first (the Euler step at iteration 0; one real step before
+    the graph is ``captured``), the replays of a graph of ``block`` steps,
+    and the steps left over, run eagerly. Without a replay all n run
+    eagerly and nothing is captured."""
+    head = min(n, 1 if iteration == 0 or not captured else 0)
+    replays, tail = divmod(n - head, block)
+    if replays == 0:
+        return n, 0, 0
+    return head, replays, tail
+
+
+def host_loop(step, state, n):
+    """``n`` calls of ``step``, each launched from the host."""
+    for _ in range(n):
+        state = step(state)
+    return state
+
+
+def device_loop(step, state, n, cache, block=BLOCK_STEPS):
+    """``n`` applications of ``step`` (a ``functools.partial``: state ->
+    next state) to ``state``; on a CUDA state, replayed from a graph of
+    ``block`` steps kept in ``cache`` (the grid's) under the key that
+    ``step``'s function and arguments, the state's layout and ``block``
+    make."""
+    if not isinstance(step, functools.partial):
+        raise TypeError("device_loop takes the step as a functools.partial of a step function "
+                        "over its arguments but the state: they make the captured graph's key")
+    tensors = _tensors(state)
+    if not _on_card(tensors):
+        return _eager(step, state, n)
+    key = (_step_key(step), _layout(tensors), block)
+    entry = cache.get(_ENTRY)
+    if entry is not None and entry.key != key:
+        del cache[_ENTRY]  # frees the graph and its pool before another capture
+        entry = None
+    head, replays, tail = plan(n, state.iteration, block, entry is not None)
+    if replays == 0:
+        return _eager(step, state, n)
+    state = _eager(step, state, head)
+    if entry is None:
+        entry = cache[_ENTRY] = _capture(step, state, block, key, cache)
+    static = entry.static
+    for field, t in _tensors(state).items():
+        if t is not static[field]:
+            static[field].copy_(t)
+    for _ in range(replays):
+        entry.graph.replay()
+    STATS.replays += replays
+    STATS.replayed_steps += replays * block
+    for kernel, count in entry.recorded.items():
+        STATS.replayed_launches[kernel] += count * replays
+    state = _with_tensors(state, static).replace(iteration=state.iteration + replays * block)
+    return _own(_eager(step, state, tail), static)
+
+
+@dataclasses.dataclass
+class _Captured:
+    graph: torch.cuda.CUDAGraph
+    static: dict    # field -> tensor: the state the graph reads and writes back
+    key: tuple      # what the graph was captured for (``device_loop``)
+    keep: tuple     # the grid's cached operands at capture, which the graph reads
+    recorded: dict  # kernel -> its launches in the graph, which each replay makes
+
+
+def _on_card(tensors):
+    return next(iter(tensors.values())).is_cuda
+
+
+def _capture(step, state, block, key, cache):
+    static = {field: t.clone() for field, t in _tensors(state).items()}
+    graph = torch.cuda.CUDAGraph()
+    # A graph freed while another captures (cyclic garbage that holds one,
+    # collected at some allocation) frees device memory, which ends the
+    # capture with an error: collect first, and not during the capture.
+    gc.collect()
+    torch.cuda.empty_cache()  # as the capture does: what it reserves then is its pool
+    reserved = torch.cuda.memory_reserved()
+    before = launch_counts()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            out = _tensors(host_loop(step, _with_tensors(state, static), block))
+            _check_aliases(out, static)
+            for field, t in out.items():
+                if t is not static[field]:
+                    static[field].copy_(t)
+    finally:
+        if collecting:
+            gc.enable()
+    recorded = {k: c - before.get(k, 0) for k, c in launch_counts().items()
+                if c != before.get(k, 0)}
+    STATS.captures += 1
+    STATS.captured_steps += block
+    STATS.pool_bytes += torch.cuda.memory_reserved() - reserved
+    STATS.recorded_launches.update(recorded)
+    # the graph reads the per-grid operands by address, and a later dt
+    # replaces K3's coefficients in the cache: keep what it held
+    keep = tuple(v for name, v in cache.items() if name != _ENTRY)
+    return _Captured(graph, static, key, keep, recorded)
+
+
+def _eager(step, state, n):
+    STATS.eager_steps += n
+    return host_loop(step, state, n)
+
+
+def _tensors(state):
+    """A state's tensors by field, dict fields flattened to "field/name"."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if torch.is_tensor(v):
+            out[f.name] = v
+        elif isinstance(v, dict):
+            out.update({f"{f.name}/{k}": t for k, t in v.items()})
+    return out
+
+
+def _with_tensors(state, tensors):
+    """``state`` with its tensors taken from ``tensors`` (``_tensors``'s
+    names)."""
+    kw = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if torch.is_tensor(v):
+            kw[f.name] = tensors[f.name]
+        elif isinstance(v, dict):
+            kw[f.name] = {k: tensors[f"{f.name}/{k}"] for k in v}
+    return state.replace(**kw)
+
+
+def _layout(tensors):
+    """The fields' names, shapes, dtypes and devices (not their strides:
+    the copy into the static state takes any)."""
+    return tuple((f, tuple(t.shape), t.dtype, t.device) for f, t in tensors.items())
+
+
+def _step_key(step):
+    """``step``'s function and arguments, each held as ``_arg`` holds it."""
+    return (_arg(step.func), tuple(_arg(a) for a in step.args),
+            tuple((k, _arg(v)) for k, v in sorted(step.keywords.items())))
+
+
+def _arg(x):
+    """A step argument in a graph's key: itself where it is a value (a
+    config, dt, a flag), else a ``_Ref`` (the grid, whose cache holds the
+    graph; an atmosphere; the step function)."""
+    return x if _is_value(x) else _Ref(x)
+
+
+def _is_value(x):
+    """A plain value, or a tuple or frozen dataclass of values."""
+    if x is None or isinstance(x, (bool, int, float, str, torch.dtype)):
+        return True
+    if isinstance(x, tuple):
+        return all(map(_is_value, x))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return x.__dataclass_params__.frozen and all(
+            _is_value(getattr(x, f.name)) for f in dataclasses.fields(x))
+    return False
+
+
+class _Ref:
+    """An argument told apart by identity and held by weak reference, so
+    that the key neither keeps it alive (the grid would keep itself) nor
+    matches another object that takes its address after it is freed."""
+
+    __hash__ = None
+
+    def __init__(self, x):
+        try:
+            self.ref = weakref.ref(x)
+        except TypeError:  # no weak reference to it (a dict): held
+            self.ref = lambda: x
+
+    def __eq__(self, other):
+        x = self.ref()
+        return isinstance(other, _Ref) and x is not None and x is other.ref()
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _check_aliases(out, static):
+    """A step's result may pass a field through (the same tensor), but no
+    field may alias another field's static tensor: the copy back would read
+    it half written."""
+    owner = {_storage(t): field for field, t in static.items()}
+    for field, t in out.items():
+        other = owner.get(_storage(t), field)
+        if other != field:
+            raise ValueError(f"the step's {field} aliases the loop's static {other}")
+
+
+def _own(state, static):
+    """``state`` with every tensor that lies in the static copy cloned: a
+    later replay or call overwrites that copy."""
+    kept = {_storage(t) for t in static.values()}
+    tensors = {f: t.clone() if _storage(t) in kept else t for f, t in _tensors(state).items()}
+    return _with_tensors(state, tensors)

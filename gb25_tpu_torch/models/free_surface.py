@@ -24,6 +24,8 @@ on a 1x1 tile of its own, whose ghosts come from the boundary conditions.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 from torch.profiler import record_function
@@ -137,7 +139,7 @@ def blocked_statics(grid, comm, W):
     planes; the face depths from the bottom extended by W + 1."""
     key = (id(grid), W)
     hit = comm.cache.get(key)
-    if hit is not None and hit[0] is grid:
+    if hit is not None and hit[0]() is grid:
         return hit[1]
     hx, hy, hz, Nx, Ny, Nz = *grid.halo, grid.Nx, grid.Ny, grid.Nz
 
@@ -166,7 +168,10 @@ def blocked_statics(grid, comm, W):
         Hv = 0.5 * (He[1:-1, 1:-1] + He[:-2, 1:-1])
         mu = mv = None
     statics = (*metrics, Hu, Hv, mu, mv)
-    comm.cache[key] = (grid, statics)
+    # the grid by weak reference: the serial tile's comm lives in the grid's
+    # own cache, and a strong one would make a cycle that only the garbage
+    # collector frees (with the device memory of the grid's captured loop)
+    comm.cache[key] = (weakref.ref(grid), statics)
     return statics
 
 

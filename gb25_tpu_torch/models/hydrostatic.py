@@ -40,6 +40,8 @@ decomposed form of this route is not ported yet (ROADMAP.md).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch.profiler import record_function
@@ -48,6 +50,7 @@ from gb25_tpu_torch.grids.immersed import face_bottom_planes, face_masks, interi
 from gb25_tpu_torch.grids.tripolar import north_fold_projection
 from gb25_tpu_torch.parallel.fold import north_fold_projection_dist
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
+from gb25_tpu_torch.models.device_loop import device_loop, host_loop
 from gb25_tpu_torch.models.free_surface import barotropic_substep
 from gb25_tpu_torch.models.state import HydrostaticState, advance_clock
 from gb25_tpu_torch.ops.halos import extend_field
@@ -373,8 +376,12 @@ def _implicit_solves(cfg, grid, u, v, tracers, d, dt):
 
 
 def loop(cfg, grid, state, dt, n, comm=None):
-    """``n`` time steps (the immersed mask applied once, before the first)."""
+    """``n`` time steps (the immersed mask applied once, before the first):
+    on the card replayed from a captured CUDA graph (``device_loop``), on
+    the CPU and on a tile of the decomposed path (``comm``) launched step
+    by step from the host."""
     state = premask_state(grid, state)
-    for _ in range(n):
-        state = time_step(cfg, grid, state, dt, premasked=True, comm=comm)
-    return state
+    step = functools.partial(time_step, cfg, grid, dt=dt, premasked=True, comm=comm)
+    if comm is not None:
+        return host_loop(step, state, n)
+    return device_loop(step, state, n, grid.cache)

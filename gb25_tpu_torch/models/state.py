@@ -1,8 +1,11 @@
-"""Prognostic model state (port of ``gb25_tpu.models.state``).
+"""Prognostic model states (port of ``gb25_tpu.models.state`` and of the
+state of ``gb25_tpu.models.shallow_water``).
 
 3-D fields are ``(Nz, Ny, Nx)`` and the free surface ``(Ny, Nx)``; the
-clock is a pair of 0-d tensors in the state's dtype and the iteration a
-Python int (the step branches on it without reading the device).
+clock is a pair of 0-d tensors in the state's dtype (the shallow-water
+model's a single one, uncompensated, as the JAX package's) and the
+iteration a Python int (the step branches on it without reading the
+device).
 """
 
 from __future__ import annotations
@@ -58,3 +61,18 @@ def initial_state(grid, tracers=("T", "S")) -> HydrostaticState:
         Gu=z3(), Gv=z3(), Geta=z2(), Gtracers={name: z3() for name in tracers},
         time=z0(), time_lo=z0(), iteration=0,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShallowWaterState:
+    u: torch.Tensor     # (Ny, Nx) at (f, c)
+    v: torch.Tensor     # (Ny, Nx) at (c, f)
+    h: torch.Tensor     # (Ny, Nx) thickness at centres
+    Gu: torch.Tensor    # previous tendencies (AB2 history)
+    Gv: torch.Tensor
+    Gh: torch.Tensor
+    time: torch.Tensor  # seconds, 0-d
+    iteration: int
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)

@@ -9,6 +9,7 @@ from gb25_tpu_torch.parallel.mesh import Mesh, factors, make_mesh, spawn  # noqa
 from gb25_tpu_torch.parallel.sharded import (  # noqa: F401
     gather_state,
     run_decomposed,
+    run_decomposed_sw,
     shard_state,
     sharded_coupled_step_fn,
     sharded_step_fn,

@@ -13,15 +13,23 @@ device, to measure it there: ``"ring"`` runs the exchange structure (each
 exchange a copy of the tile's own strips), ``"local"`` fills the ghosts
 from the boundary conditions with no exchange at all. Both compute what a
 tile of a real decomposition computes: localize, width-W extensions, the
-blocked barotropic solve (K5).
+blocked barotropic solve (K5). ``run_decomposed_sw`` runs the
+shallow-water model the same way.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.distributed as dist
 
-from gb25_tpu_torch.convert import state_from_numpy, state_to_numpy
+from gb25_tpu_torch.convert import (
+    state_from_numpy,
+    state_to_numpy,
+    sw_state_from_numpy,
+    sw_state_to_numpy,
+)
 from gb25_tpu_torch.parallel.halo import make_comm
 from gb25_tpu_torch.parallel.localize import localize_atmosphere, localize_grid
 
@@ -75,16 +83,21 @@ def sharded_coupled_step_fn(ccfg, grid, atmos, mesh, n_inner: int | None = None,
 
 
 def _map_fields(state, f):
-    """``state`` with ``f`` applied to every 3-D and 2-D field."""
-    return state.replace(
-        u=f(state.u), v=f(state.v), eta=f(state.eta), Gu=f(state.Gu), Gv=f(state.Gv),
-        Geta=f(state.Geta), tracers={k: f(c) for k, c in state.tracers.items()},
-        Gtracers={k: f(c) for k, c in state.Gtracers.items()})
+    """``state`` (hydrostatic or shallow-water) with ``f`` applied to every
+    3-D and 2-D field; the 0-d clock is left as it is."""
+    kw = {}
+    for field in dataclasses.fields(state):
+        v = getattr(state, field.name)
+        if torch.is_tensor(v) and v.dim() >= 2:
+            kw[field.name] = f(v)
+        elif isinstance(v, dict):
+            kw[field.name] = {k: f(c) for k, c in v.items()}
+    return state.replace(**kw)
 
 
 def shard_state(state, mesh):
     """This rank's tile of a global state (the clock is replicated)."""
-    Ny, Nx = state.eta.shape
+    Ny, Nx = state.u.shape[-2:]
     nyl, nxl = Ny // mesh.Ry, Nx // mesh.Rx
     y0, x0 = mesh.iy * nyl, mesh.ix * nxl
     return _map_fields(state, lambda a: a[..., y0 : y0 + nyl, x0 : x0 + nxl].contiguous())
@@ -119,6 +132,19 @@ def run_decomposed(mesh, cfg, grid, arrays, dt, steps, atmos=None, force_comm=Fa
         fn = sharded_coupled_step_fn(cfg, grid, atmos, mesh, n_inner=steps,
                                      force_comm=force_comm)
     return state_to_numpy(gather_state(fn(state, dt), mesh))
+
+
+def run_decomposed_sw(mesh, cfg, grid, arrays, dt, steps):
+    """``steps`` shallow-water steps from a JAX-layout numpy state
+    ``arrays`` (``convert.sw_state_to_numpy``'s), decomposed over ``mesh``:
+    each rank localizes the one-level ``grid`` (the global grid) and runs
+    ``sw_loop`` on its tile with the comm. Returns the gathered global
+    state as JAX-layout numpy arrays. Fit for ``parallel.mesh.spawn``."""
+    from gb25_tpu_torch.models.shallow_water import sw_loop
+
+    comm, lgrid = _tile(grid, mesh, False)
+    state = shard_state(sw_state_from_numpy(arrays, grid.device), mesh)
+    return sw_state_to_numpy(gather_state(sw_loop(cfg, lgrid, state, dt, steps, comm), mesh))
 
 
 def tile_snapshot(mesh, grid, fields, force_comm=False):

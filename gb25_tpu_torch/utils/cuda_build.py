@@ -10,7 +10,8 @@ missing ``nvcc`` or a failed build raises.
 Every exported launcher returns ``cudaGetLastError()`` as an int;
 ``CudaKernel.launch`` raises when it is not 0 and otherwise adds one to the
 kernel's launch count, which a run reads to prove that its main path went
-through the kernel.
+through the kernel. ``launch_counts`` reads every kernel's count at once
+(``models.device_loop`` takes what a captured graph recorded from it).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import weakref
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -69,6 +71,14 @@ def build_library(source: str, extra_flags=()) -> tuple[Path, str]:
     return lib, proc.stdout + proc.stderr
 
 
+_KERNELS = weakref.WeakSet()  # every CudaKernel made
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, by kernel."""
+    return {k: k.launches for k in list(_KERNELS)}
+
+
 class CudaKernel:
     """One ``.cu`` file: its library (built at first use), its launchers'
     ctypes signatures and a plain integer launch count. ``extra_flags`` are
@@ -81,6 +91,7 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""
         self._lib = None
+        _KERNELS.add(self)
 
     def load(self):
         if self._lib is None:

@@ -2,28 +2,37 @@
 ``gb25_tpu.utils.profiling``, built on ``torch.profiler``).
 
     python -m gb25_tpu_torch.utils.profiling
-        [--model flagship|climate|tripolar|keps] [--steps 4 --warmup 3]
-        [--kernels auto|torch|pallas] [--decomposed local|ring]
+        [--model flagship|climate|tripolar|keps|shallow_water] [--steps 4 --warmup 3]
+        [--kernels auto|torch|pallas] [--decomposed local|ring] [--blocks 1 2 4 8 16]
 
-Profiles a few steps at 1536x768x64 on the GPU after a warm-up: the
-flagship baroclinic-instability ocean, the coupled climate model at 1/4
-degree on the lat-lon islands grid or on the tripolar grid, or the
-flagship with the k-epsilon closure (started from e = 1e-5, eps = 1e-8).
+Profiles at 1536x768x64 on the GPU after a warm-up: the flagship
+baroclinic-instability ocean, the coupled climate model at 1/4 degree on
+the lat-lon islands grid or on the tripolar grid, the flagship with the
+k-epsilon closure (started from e = 1e-5, eps = 1e-8), or the
+shallow-water model of ``bench.py --config atmosphere`` at 1536x768.
 ``--kernels pallas`` runs the K6 route (``models.hydrostatic``).
 ``--decomposed`` runs the model on the decomposed path forced onto a 1x1
 mesh (``parallel.sharded``, exchange_width = 30: one block of 30 K5
 substeps a step) in the "local" or the "ring" mode.
-Prints the device time per kernel name, grouped into the
-hand-written kernels and the torch ops around them, the device busy share
-of the profiled window (summed kernel time over wall time; overlap between
-kernels is ignored, which a single stream does not have) and the peak
-device memory. Needs a CUDA device; it fails without one.
+
+Two windows. First ``--steps`` steps launched one by one from the host:
+the device time per kernel name, grouped into the hand-written kernels and
+the torch ops around them, each stage's device span (the ``step/*``
+profiler ranges) and the device busy share of the window (summed kernel
+time over wall time; a single stream has no overlap). Then the loop as a
+user runs it, replayed from its captured CUDA graph
+(``models.device_loop``; not on the decomposed path, which runs from the
+host): wall, device busy, idle share, peak device memory and the graph's
+pool. The ranges do not exist inside a replay, so the breakdown by stage
+comes from the first window. ``--blocks`` times the replayed loop with
+graphs of each block length. Needs a CUDA device; it fails without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 
 import torch
@@ -72,32 +81,72 @@ def step_breakdown(run, state, steps):
     return rows, stages, wall_ms / steps, state
 
 
+# each hand-written kernel's device symbol (its instances share it) and the
+# group its time is summed under, by the short name chip_smoke.py uses
+KERNELS = {
+    "K1": ("zslab_tendencies_kernel", "K1 zslab_tendencies (CUDA)"),
+    "K6": ("tendency_stage_kernel", "K6 tendencies (CUDA)"),
+    "K2": ("barotropic_loop_", "K2 barotropic_loop (CUDA)"),
+    "K5": ("barotropic_block_kernel", "K5 barotropic_block (CUDA)"),
+    "K3": ("implicit_diffusion_kernel", "K3 implicit_diffusion (CUDA)"),
+    "K4": ("catke_diffusivities_kernel", "K4 catke_diffusivities (CUDA)"),
+    "K4_keps": ("keps_diffusivities_kernel", "K4 keps_diffusivities (CUDA)"),
+}
+
+
 def group(name: str) -> str:
-    if "zslab_tendencies_kernel" in name:
-        return "K1 zslab_tendencies (CUDA)"
-    if "tendency_stage_kernel" in name:
-        return "K6 tendencies (CUDA)"
-    if "barotropic_loop_" in name:
-        return "K2 barotropic_loop (CUDA)"
-    if "barotropic_block_kernel" in name:
-        return "K5 barotropic_block (CUDA)"
-    if "implicit_diffusion_kernel" in name:
-        return "K3 implicit_diffusion (CUDA)"
-    if "catke_diffusivities_kernel" in name:
-        return "K4 catke_diffusivities (CUDA)"
-    if "keps_diffusivities_kernel" in name:
-        return "K4 keps_diffusivities (CUDA)"
+    for symbol, label in KERNELS.values():
+        if symbol in name:
+            return label
     return "torch ops (halo fill, TEOS-10, masks, fluxes, planes, correction)"
+
+
+def replayed_line(run, state, steps):
+    """Profile ``run(state, steps)`` (a loop replayed from its kept graph);
+    returns (wall ms/step, device busy ms/step, peak allocated GB, reserved
+    GB, state)."""
+    torch.cuda.reset_peak_memory_stats()
+    rows, _, wall_ms, state = step_breakdown(run, state, steps)
+    busy = sum(r[1] for r in rows)
+    return wall_ms, busy, torch.cuda.max_memory_allocated() / 1e9, \
+        torch.cuda.memory_reserved() / 1e9, state
+
+
+def block_sweep(step, state, cache, blocks, steps=64):
+    """ms/step of the loop replayed from graphs of each block length in
+    ``blocks``: for each, a call from ``state`` that captures (freeing the
+    graph of the block before), then ``steps`` timed steps (a multiple of
+    every block) from where it ended; with the pool each graph reserved and
+    the peak allocated memory."""
+    from gb25_tpu_torch.models import device_loop
+
+    out = []
+    for block in blocks:
+        if steps % block:
+            raise ValueError(f"{steps} steps are no whole number of blocks of {block}")
+        device_loop.STATS.reset()
+        warm = device_loop.device_loop(step, state, block + 1, cache, block)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        device_loop.device_loop(step, warm, steps, cache, block)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / steps
+        out.append((block, ms, device_loop.STATS.pool_bytes / 1e9,
+                    torch.cuda.max_memory_allocated() / 1e9))
+        del warm
+    return out
 
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="flagship",
-                   choices=["flagship", "climate", "tripolar", "keps"])
+                   choices=["flagship", "climate", "tripolar", "keps", "shallow_water"])
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--kernels", default="auto", choices=["auto", "torch", "pallas"])
     p.add_argument("--decomposed", default=None, choices=["local", "ring"])
+    p.add_argument("--blocks", type=int, nargs="*", default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
@@ -105,10 +154,17 @@ def main():
     from gb25_tpu_torch.models import (
         baroclinic_instability_model,
         coupled_loop,
+        coupled_time_step,
         data_free_ocean_climate_model,
+        device_loop,
         loop,
+        shallow_water_model,
+        sw_loop,
+        sw_time_step,
+        time_step,
     )
     from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
+    from gb25_tpu_torch.models.hydrostatic import premask_state
     from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
     from gb25_tpu_torch.parallel import make_mesh, sharded_coupled_step_fn, sharded_step_fn
 
@@ -117,11 +173,22 @@ def main():
             return cfg
         return dataclasses.replace(cfg, free_surface=SplitExplicitFreeSurface(exchange_width=30))
 
-    if args.model in ("flagship", "keps"):
+    shape = f"{NX}x{NY}x{NZ}"
+    if args.model == "shallow_water":
+        cfg, grid, state = shallow_water_model(NX, NY)
+        shape = f"{NX}x{NY}"
+
+        step = functools.partial(sw_time_step, cfg, grid, dt=60.0)
+
+        def run(s, n):
+            return sw_loop(cfg, grid, s, 60.0, n)
+    elif args.model in ("flagship", "keps"):
         closure = TKEDissipationVerticalDiffusivity() if args.model == "keps" else None
         cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, kernels=args.kernels,
                                                         closure=closure)
         cfg = blocked(cfg)
+
+        step = functools.partial(time_step, cfg, grid, dt=60.0, premasked=True)
 
         def run(s, n):
             if args.decomposed:
@@ -134,21 +201,26 @@ def main():
             resolution=384 / NX, Nz=NZ, kernels=args.kernels, grid_type=grid_type)
         ccfg = dataclasses.replace(ccfg, ocean=blocked(ccfg.ocean))
 
+        step = functools.partial(coupled_time_step, ccfg, grid, atmos, dt=60.0, premasked=True)
+
         def run(s, n):
             if args.decomposed:
                 return sharded_coupled_step_fn(ccfg, grid, atmos, make_mesh(), n_inner=n,
                                                force_comm=args.decomposed)(s, 60.0)
             return coupled_loop(ccfg, grid, atmos, s, 60.0, n)
 
-    state = run(state, args.warmup)
+    def eager(s, n):  # every step from the host (the decomposed path's run does so itself)
+        return run(s, n) if args.decomposed else device_loop.host_loop(step, s, n)
+
+    state = premask_state(grid, run(state, args.warmup))
     torch.cuda.reset_peak_memory_stats()
-    rows, stages, wall_ms, _ = step_breakdown(run, state, args.steps)
+    rows, stages, wall_ms, state = step_breakdown(eager, state, args.steps)
     busy = sum(r[1] for r in rows)
     route = f" decomposed 1x1 {args.decomposed}" if args.decomposed else ""
-    print(f"{args.model}{route} {NX}x{NY}x{NZ} kernels={args.kernels} on "
-          f"{torch.cuda.get_device_name(0)}: wall {wall_ms:.3f} ms/step, device busy "
-          f"{busy:.3f} ms/step ({100 * busy / wall_ms:.1f}%), idle {100 * (1 - busy / wall_ms):.1f}%, "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    print(f"{args.model}{route} {shape} kernels={args.kernels} on "
+          f"{torch.cuda.get_device_name(0)}, {args.steps} steps launched from the host: wall "
+          f"{wall_ms:.3f} ms/step, device busy {busy:.3f} ms/step ({100 * busy / wall_ms:.1f}%), "
+          f"idle {100 * (1 - busy / wall_ms):.1f}%, peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     groups = {}
     for name, ms, calls in rows:
         g = groups.setdefault(group(name), [0.0, 0.0])
@@ -162,6 +234,24 @@ def main():
     print("top kernels (device ms/step, launches/step):")
     for name, ms, calls in rows[:25]:
         print(f"  {ms:9.3f}  {calls:6.1f}  {name[:110]}")
+    if args.decomposed:
+        return  # the decomposed path runs from the host: no replayed loop
+
+    n = 2 * device_loop.BLOCK_STEPS
+    device_loop.STATS.reset()
+    state = run(state, n + 1)  # one step from the host, a capture, replays
+    pool = device_loop.STATS.pool_bytes / 1e9
+    wall_r, busy_r, peak, reserved, state = replayed_line(run, state, n)
+    print(f"replayed loop ({n} steps, {n // device_loop.BLOCK_STEPS} replays of a "
+          f"{device_loop.BLOCK_STEPS}-step graph): wall {wall_r:.3f} ms/step, device busy "
+          f"{busy_r:.3f} ms/step ({100 * busy_r / wall_r:.1f}%), idle "
+          f"{100 * (1 - busy_r / wall_r):.1f}%, peak device memory {peak:.2f} GB allocated, "
+          f"{reserved:.2f} GB reserved, graph pool {pool:.2f} GB")
+    if args.blocks:
+        print("the replayed loop by block length (64 steps timed after a call that captures):")
+        for block, ms, pool, peak in block_sweep(step, state, grid.cache, args.blocks):
+            print(f"  block {block:3d}: {ms:.3f} ms/step, graph pool {pool:.2f} GB, peak "
+                  f"allocated {peak:.2f} GB")
 
 
 if __name__ == "__main__":

@@ -34,10 +34,18 @@ with their plain versions on grids that their 32 x 8 level tiles do not
 divide, narrower than a tile, with unaligned rows and 400 levels deep; a
 K6-route step at the one-step tolerances against a "torch" step, with
 exactly 1 K6, 0 K1 and 0 K2 launches, K5's ceil(n / s) for each of the
-step's blocks (and 3 K3, 1 K4 in the coupled climate).
+step's blocks (and 3 K3, 1 K4 in the coupled climate). The device loop
+(``models.device_loop``): ``loop``, ``coupled_loop`` and ``sw_loop``
+replayed from their captured CUDA graph against the same steps launched
+from the host, bit for bit on every field, the clock and the iteration, at
+128x64x8 on the flagship (both tendency routes), k-epsilon, the climate on
+the islands and the tripolar grid and shallow water, over a call that
+captures and a second call that replays the kept graph; a step that cannot
+be captured makes the loop raise.
 """
 
 import dataclasses
+import functools
 
 import pytest
 import torch
@@ -46,10 +54,13 @@ from gb25_tpu_torch import (
     baroclinic_instability_model,
     coupled_time_step,
     data_free_ocean_climate_model,
+    shallow_water_model,
+    sw_time_step,
     time_step,
 )
 from gb25_tpu_torch.grids.immersed import face_bottom_planes, face_masks
-from gb25_tpu_torch.models import loop
+from gb25_tpu_torch.models import coupled_loop, device_loop, loop, sw_loop
+from gb25_tpu_torch.models.hydrostatic import premask_state
 from gb25_tpu_torch.models.free_surface import face_depths
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.ops import (
@@ -777,3 +788,85 @@ def test_k6_route_coupled_step_matches_plain_step(cuda):
     for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), *zip(a.tracers.values(),
                                                            b.tracers.values())):
         _close(x, y, 1e-3, 5e-6)
+
+
+def _looped_model(cuda, name):
+    """(run_n, step, grid, state) of one serial path at 128x64x8: the loop
+    a user calls and the step it repeats."""
+    if name == "shallow_water":
+        cfg, grid, state = shallow_water_model(128, 64, device=cuda)
+        return (lambda s, n: sw_loop(cfg, grid, s, 60.0, n),
+                lambda s: sw_time_step(cfg, grid, s, 60.0), grid, state)
+    if name in ("climate", "tripolar"):
+        grid_type = "gaussian_islands" if name == "climate" else "gaussian_islands_tripolar"
+        ccfg, grid, atmos, state = data_free_ocean_climate_model(resolution=3.0, Nz=8, device=cuda,
+                                                                 grid_type=grid_type)
+        return (lambda s, n: coupled_loop(ccfg, grid, atmos, s, 60.0, n),
+                lambda s: coupled_time_step(ccfg, grid, atmos, s, 60.0, premasked=True), grid,
+                state)
+    kw = {"flagship": {}, "flagship_k6_route": {"kernels": "pallas"},
+          "keps": {"closure": TKEDissipationVerticalDiffusivity()}}[name]
+    cfg, grid, state = baroclinic_instability_model(128, 64, 8, device=cuda, **kw)
+    return (lambda s, n: loop(cfg, grid, s, 60.0, n),
+            lambda s: time_step(cfg, grid, s, 60.0, premasked=True), grid, state)
+
+
+@pytest.mark.parametrize("name", ["flagship", "flagship_k6_route", "keps", "climate", "tripolar",
+                                  "shallow_water"])
+def test_device_loop_matches_host_loop_bitwise(cuda, name):
+    """A call from iteration 0 (the Euler step eager, a capture, 2 replays,
+    3 steps left over), then a call that replays the kept graph twice,
+    against the same steps launched from the host (the immersed mask
+    applied at the start of each call, as the loops do)."""
+    run_n, step, grid, state = _looped_model(cuda, name)
+    k = device_loop.BLOCK_STEPS
+    device_loop.STATS.reset()
+    a = run_n(state, 1 + 2 * k + 3)
+    b = run_n(a, 2 * k)
+    torch.cuda.synchronize()
+    stats = device_loop.STATS
+    assert (stats.captures, stats.replays, stats.eager_steps) == (1, 4, 4)
+    want_a = device_loop.host_loop(step, premask_state(grid, state), 1 + 2 * k + 3)
+    want_b = device_loop.host_loop(step, premask_state(grid, want_a), 2 * k)
+    for got, want in ((a, want_a), (b, want_b)):
+        assert got.iteration == want.iteration
+        tg, tw = device_loop._tensors(got), device_loop._tensors(want)
+        assert list(tg) == list(tw)
+        for field in tg:
+            assert torch.equal(tg[field], tw[field]), field
+
+
+def _host_read_step(cfg, grid, s):
+    float(s.h.sum())  # a host read: refused while a stream captures
+    return sw_time_step(cfg, grid, s, 60.0)
+
+
+def test_failed_capture_raises(cuda):
+    """No quiet fallback: a step that reads the device from the host cannot
+    be captured, and the loop raises."""
+    cfg, grid, state = shallow_water_model(64, 32, device=cuda)
+    with pytest.raises(RuntimeError):
+        device_loop.device_loop(functools.partial(_host_read_step, cfg, grid), state,
+                                device_loop.BLOCK_STEPS + 1, grid.cache)
+    torch.cuda.synchronize()
+
+
+def test_device_loop_counts_replayed_launches(cuda):
+    """The loop's tally of launches on the device: the wrappers count the
+    eager steps and the steps a capture recorded, and each replay adds what
+    its graph recorded, so K1 and K2 show one launch for each of the n
+    steps, of which the wrappers saw the eager and the recorded ones."""
+    cfg, grid, state = baroclinic_instability_model(128, 64, 8, device=cuda)
+    kernels = (pallas_zslab.KERNEL, pallas_barotropic.KERNEL)
+    k = device_loop.BLOCK_STEPS
+    for kernel in kernels:
+        kernel.launches = 0
+    device_loop.STATS.reset()
+    loop(cfg, grid, state, 60.0, 1 + 2 * k + 3)
+    stats = device_loop.STATS
+    assert (stats.eager_steps, stats.captured_steps, stats.replays) == (4, k, 2)
+    for kernel in kernels:
+        assert kernel.launches == 4 + k
+        assert stats.recorded_launches[kernel] == k
+        assert stats.replayed_launches[kernel] == 2 * k
+        assert stats.launches(kernel) == 1 + 2 * k + 3
