@@ -142,15 +142,46 @@ a comm; their counts are the wrappers'.
      mass sum(h azc) kept to float32 rounding; the device loop against the
      host loop bit for bit; the same 8 + 256 + 256 steps launched from the
      host, timed.
+  the serial flagship's further run-script choices (the JAX package's
+  utils/args.py), each phase's wall time printed:
+  26. K1's unfused instances (no AB2 update, no integrals) on the
+     flagship's fields after 8 steps: the float32 one and the bf16-storage
+     one (u, v, the tracers and b read as bfloat16, float32 arithmetic),
+     each against its plain version at rtol 2e-4, the bf16 one on operands
+     rounded beforehand bit for bit with itself on the raw ones and apart
+     from the float32 one; each timed beside its bound and launch line;
+  27. the precision modes: "bf16s" (K1's bf16-storage instance and K2,
+     8 + 2x128 steps), "bfloat16" (the cast array path and K2, 8 + 2x32)
+     and "f32x2" (the float64 array path and K2, at 768x384x64, 8 + 2x32):
+     held to float32 by the JAX package's own test of the mode at its size
+     (bf16s, f32x2: one step at 32x16x8, every field pointwise within 0.5
+     and in RMS within 0.05 of its largest value; bfloat16: 10 steps at
+     32x16x6, u within 0.15 of max|u|, T within 0.3); at the row's size one
+     step from rest against the float32 step, finite, its distances
+     printed; one step after 8 against the mode's "torch" step (the
+     tolerances of [5]),
+     then the main path (bf16s: per step 1 K1, 1 K2, the profiler probe and
+     the device loop against the host loop; the array rows: 0 K1, 1 K2,
+     counted without a probe); peak memory and graph pool;
+  28. VerticalScalarDiffusivity: K1 (the fused flagship instance) against
+     its plain version at rtol 2e-4, K3's constant-kappa pair bit for bit
+     on the (u, v) and (T, S) solves of the state after 8 steps, one step
+     against "torch", then 8 + 2x128 steps: per step 1 K1, 1 K2, 2 K3;
+  29. ExplicitFreeSurface at dt = 5 s (the quasi-AB2 step damps the
+     fastest gravity wave of the 80-degree rows below ~6 s; at 10 s u grew
+     to non-finite values within 161 steps): one step against "torch"
+     after 8, then 8 + 2x64 steps: per step 1 K1 (the unfused float32
+     instance), 0 K2; fields and G_eta finite.
 
-Every phase raises on failure, and the script then exits non-zero. [26]
+Every phase raises on failure, and the script then exits non-zero. [30]
 sums up the ms/step of every path. Three lines end the output: a JSON
 object with each kernel instance's launches on its main path, error
 against its plain version, times, its bound (the larger of its compulsory
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s) and its library
 time (null: no one PyTorch call computes any of these functions; K1's,
 K2's, K3's, K5's and K6's entries carry their registers, shared memory per
-block, tile and blocks per SM, K2's its grid of tiles, cells a tile, its
+block, tile and blocks per SM (K1's unfused instances' and K3's
+constant-kappa entries, from [26]-[29], too), K2's its grid of tiles, cells a tile, its
 instance and its L2 instance's check and time, K3's its levels in flight
 and K5's its substeps a launch; K5's
 entry also carries its column instance, its launches in "ring" and on the
@@ -190,6 +221,17 @@ CLIMATE_STEPS, CLIMATE_PLAIN_STEPS = 128, 2
 K6_CLIMATE_STEPS, K6_KEPS_STEPS = 64, 32
 TRIPOLAR_PLAIN_STEPS, KEPS_STEPS, KEPS_PLAIN_STEPS = 3, 128, 3
 DECOMPOSED_W, DECOMPOSED_STEPS = 30, 64  # the bench's decomposed 1x1 rows
+# the further run-script choices ([26]-[29]): steps of each timed loop; the
+# cast array path's rows (eager tendency math, 0.13-0.16 s a step) run
+# fewer, two blocks of the replayed graph, the f32x2 row at half width as
+# bench.py:365 shrinks it. The explicit free surface's gravity waves (c =
+# sqrt(g 4000 m) ~ 198 m/s) are stepped by the quasi-AB2 scheme, which
+# damps a wave of frequency w only while w dt < ~0.55 (chi = 0.1): the
+# fastest discrete wave at the 80-degree rows (dx ~ 4.5 km, dy ~ 23 km)
+# has w ~ 0.089 /s, so dt = 5 s (10 s grew to non-finite u in 161 steps)
+PRECISION_STEPS = {"bf16s": 128, "bfloat16": 32, "f32x2": 32}
+F32X2_SHAPE = (768, 384, 64)
+CHOICE_STEPS, EXPLICIT_STEPS, EXPLICIT_DT = 128, 64, 5.0
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -270,6 +312,16 @@ def k1_bound(grid, ntr, immersed):
     return bound(nbytes, (600 + 170 * (ntr - 2)) * cells)
 
 
+def k1_unfused_bound(grid, value_bytes):
+    """K1's unfused instances read u, v, b and the two tracers extended
+    (``value_bytes`` a value: 4, or 2 stored as bfloat16) and the column
+    total of b, and write the four interior tendencies; ~600 operations
+    per cell (K1's count)."""
+    n, ext, _, ext_plane = sizes(grid)
+    nbytes = 5 * ext * value_bytes // 4 + ext_plane + 4 * n
+    return bound(nbytes, 600 * grid.Nx * grid.Ny * grid.Nz)
+
+
 def k2_bound(grid, substeps, masked):
     """The loop reads eta, U, V, GU, GV, Hu and Hv (two mask planes; on
     the tripolar grid the five metric planes dyc, dxf, dxc, dyf and azc,
@@ -280,12 +332,12 @@ def k2_bound(grid, substeps, masked):
     return bound(nbytes, (16 if masked else 14) * substeps * grid.Nx * grid.Ny)
 
 
-def k3_bound(grid, nf, damped):
-    """Each solve reads its fields, kappa (and the decay rate) and writes
-    the solutions; 6 + 4 nf (+2) operations per cell (the Pallas kernel's
-    own count)."""
+def k3_bound(grid, nf, damped, const_kappa=False):
+    """Each solve reads its fields, kappa (a field unless constant) and the
+    decay rate and writes the solutions; 6 + 4 nf (+2) operations per cell
+    (the Pallas kernel's own count)."""
     n, _, _, _ = sizes(grid)
-    return bound((2 * nf + 1 + int(damped)) * n,
+    return bound((2 * nf + int(not const_kappa) + int(damped)) * n,
                  (6 + 4 * nf + 2 * int(damped)) * grid.Nx * grid.Ny * grid.Nz)
 
 
@@ -632,8 +684,9 @@ def phase_k3(cfg, grid, solves):
         plain_ms = cuda_time_ms(
             lambda: pallas_tridiag.implicit_diffusion_plain(fields, kappa, DT, a_lam, a_mu, damp),
             reps=2)
-        b = k3_bound(grid, len(fields), damp is not None)
-        info = pallas_tridiag.kernel_info(grid.Nz, len(fields), damp is not None)
+        const = isinstance(kappa, float)
+        b = k3_bound(grid, len(fields), damp is not None, const)
+        info = pallas_tridiag.kernel_info(grid.Nz, len(fields), damp is not None, const)
         print(f"  K3 {name}: {ms:.3f} ms; plain {plain_ms:.3f} ms; bit for bit; "
               + launch_line(info, b) + f", {info['levels_in_flight']} levels in flight")
         out["ms"] += ms
@@ -711,7 +764,7 @@ def check_climate_state(state, grid):
     return umax
 
 
-def run_main_path(step_n, state, kernels, per_step, steps):
+def run_main_path(step_n, state, kernels, per_step, steps, probe=True):
     """Set every launch count and the device loop's tallies to 0, run the
     main path (``WARMUP`` steps, ``steps`` untimed, ``PROBE_STEPS`` under
     the profiler, ``steps`` timed), read the counts and hold each kernel's
@@ -733,7 +786,9 @@ def run_main_path(step_n, state, kernels, per_step, steps):
     records) is run again, and the run fails if ``PROBE_ATTEMPTS`` probes
     all see fewer. Without a replay (the decomposed path's host loop) every
     step passes through the wrappers and the profiler must see all of a
-    probe's. Returns (state, elapsed, launches on the
+    probe's. ``probe=False`` (the cast array path's rows, whose eager
+    tendency math launches hundreds of small kernels a step) runs no probe:
+    the counts stand alone. Returns (state, elapsed, launches on the
     device, peak GB, the loop's record)."""
     from gb25_tpu_torch.models import device_loop
 
@@ -746,8 +801,11 @@ def run_main_path(step_n, state, kernels, per_step, steps):
     stats.reset()
     s = step_n(step_n(state, WARMUP), steps)
     probe_want = {name: n * PROBE_STEPS for name, n in per_step.items()}
-    probes = []
-    while len(probes) < PROBE_ATTEMPTS:
+    probes, seen, probe_replayed = [], {}, 0
+    while probe:
+        if len(probes) == PROBE_ATTEMPTS:
+            raise AssertionError(f"the profiler saw fewer launches than {probe_want} in each of "
+                                 f"{PROBE_ATTEMPTS} probes of {PROBE_STEPS} steps: {probes}")
         replayed_before, probe_from = stats.replayed_steps, s
         seen, s = device_launches(lambda: step_n(probe_from, PROBE_STEPS), per_step)
         probe_replayed = stats.replayed_steps - replayed_before
@@ -758,9 +816,6 @@ def run_main_path(step_n, state, kernels, per_step, steps):
                                  f"more than the {probe_want} the steps make")
         if seen == probe_want or (probe_replayed and seen == host_only):
             break
-    else:
-        raise AssertionError(f"the profiler saw fewer launches than {probe_want} in each of "
-                             f"{PROBE_ATTEMPTS} probes of {PROBE_STEPS} steps: {probes}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s = step_n(s, steps)
@@ -785,7 +840,9 @@ def run_main_path(step_n, state, kernels, per_step, steps):
                else "wrapper counts (host loop, no replay)")
     lost = (f" (after {len(probes) - 1} probe(s) whose records the profiler lost in part: "
             f"{probes[:-1]})" if len(probes) > 1 else "")
-    if seen == probe_want:
+    if not probe:
+        method = f"{counted}; no profiler probe"
+    elif seen == probe_want:
         method = f"{counted}; the profiler saw all {PROBE_STEPS} probe steps' launches{lost}"
     else:
         method = (f"{counted}; the profiler saw the probe's {PROBE_STEPS - probe_replayed} host "
@@ -1787,6 +1844,302 @@ def shallow_water(card):
             "host_rate": host_rate, "peak_gb": peak_gb, "pool_gb": stats.pool_bytes / 1e9}
 
 
+
+# --------------------------------------------------------------------------
+# the serial flagship's further run-script choices: precision modes,
+# VerticalScalarDiffusivity, ExplicitFreeSurface
+# --------------------------------------------------------------------------
+
+def phase_k1_unfused(cfg, grid, state):
+    """[26]: K1's unfused float32 and bf16-storage instances against their
+    plain versions on the flagship's extended fields (``state``), rtol
+    2e-4; the bf16 instance on operands rounded beforehand bit for bit with
+    itself on the raw ones, and apart from the float32 instance; each
+    kernel alone and its plain version timed."""
+    from gb25_tpu_torch.ops import pallas_zslab as z
+    from gb25_tpu_torch.ops.halos import extend_field
+
+    ue = extend_field(grid, state.u, "u")
+    ve = extend_field(grid, state.v, "v")
+    tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
+    be, b_total = z.column_buoyancy(cfg, grid, tr_e)
+    out, outputs = {}, {}
+    for form, storage in (("unfused", None), ("unfused_bf16", torch.bfloat16)):
+        got = z.zslab_tendencies(cfg, grid, ue, ve, tr_e, buoyancy=(be, b_total), storage=storage)
+        want = z.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, be=be, storage=storage)
+        torch.cuda.synchronize()
+        pairs = [("Gu", got[0], want[0], 1e-9), ("Gv", got[1], want[1], 1e-9)]
+        pairs += [("G" + k, got[2][k], want[2][k], 1e-7) for k in tr_e]
+        errs = [compare(n, g, w, 2e-4, atol) for n, g, w, atol in pairs]
+        if float(got[1][:, 0, :].abs().max()) != 0.0:
+            raise AssertionError(f"K1 {form} left Gv nonzero on the south wall row")
+        ops = ((ue, ve, tr_e, be, b_total) if storage is None
+               else z.bf16_operands(cfg, grid, ue, ve, tr_e))
+        ms = cuda_time_ms(lambda: z.zslab_kernel_unfused(cfg, grid, *ops), reps=10)
+        plain_ms = cuda_time_ms(lambda: z.zslab_tendencies_plain(
+            cfg, grid, ue, ve, tr_e, be=be, storage=storage), reps=3)
+        info = z.kernel_info(2, False, False, form)
+        b = k1_unfused_bound(grid, 2 if storage is not None else 4)
+        print(f"  K1 {form} instance alone {ms:.3f} ms; plain {plain_ms:.3f} ms; "
+              + launch_line(info, b))
+        out[form] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "launch": info,
+                     "bound": b}
+        outputs[form] = [got[0], got[1], *got[2].values()]
+        del want, ops
+
+    def rt(x):
+        return x.to(torch.bfloat16).float()
+
+    pre = z.zslab_tendencies(cfg, grid, rt(ue), rt(ve), {k: rt(c) for k, c in tr_e.items()},
+                             storage=torch.bfloat16)
+    pre = [pre[0], pre[1], *pre[2].values()]
+    if not all(torch.equal(a, b) for a, b in zip(outputs["unfused_bf16"], pre)):
+        raise AssertionError("the bf16-storage instance on rounded operands differs from itself "
+                             "on the raw ones")
+    bite = max(float((a - b).abs().max())
+               for a, b in zip(outputs["unfused_bf16"], outputs["unfused"]))
+    if bite == 0.0:
+        raise AssertionError("the bf16-storage instance equals the float32 one: no rounding")
+    print(f"  bf16 storage: bit for bit on operands rounded beforehand; apart from the float32 "
+          f"instance by up to {bite:.3e}")
+    return out
+
+
+def fields_of(s):
+    return {"u": s.u, "v": s.v, "eta": s.eta, **s.tracers, "Gu": s.Gu, "Gv": s.Gv,
+            **{"G" + k: g for k, g in s.Gtracers.items()}}
+
+
+def precision_distance(label, got, ref, bounded):
+    """One step of a precision mode against the float32 step from the same
+    state: every field finite; each field's largest and RMS distance over
+    the float32 field's largest value printed and, where ``bounded``, held
+    to the JAX package's bounds for "bf16s" (tests/test_zslab.py:438-446:
+    pointwise 0.5, RMS 0.05)."""
+    a, b = fields_of(ref), fields_of(got)
+    worst = {}
+    for name in a:
+        x, y = a[name].double(), b[name].double()
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"{label}: {name} is not finite")
+        scale = float(x.abs().max()) + 1e-30
+        pt, rms = float((x - y).abs().max()), float(((x - y) ** 2).mean().sqrt())
+        worst[name] = (pt / scale, rms / scale)
+        if bounded and (pt > 0.5 * scale or rms > 0.05 * scale):
+            raise AssertionError(f"{label}: {name} parts from the float32 step by {pt:.3e} "
+                                 f"(RMS {rms:.3e}) of a largest {scale:.3e}")
+    print(f"  {label} vs the float32 step, max abs err and RMS err over max|f32|"
+          f"{' (bounds 0.5, 0.05)' if bounded else ''}: "
+          + ", ".join(f"{k} {p:.2e} {r:.2e}" for k, (p, r) in worst.items()))
+
+
+def precision_at_test_size(mode):
+    """A precision mode held to the float32 step at the size and by the
+    protocol of the JAX package's own test of it, on the card: "bf16s" and
+    "f32x2" one step from rest at 32x16x8 (tests/test_zslab.py:423-447,
+    every field within its bounds); "bfloat16" 10 steps at 32x16x6
+    (tests/test_precision.py: u within 0.15 of max|u|, T within 0.3)."""
+    from gb25_tpu_torch import baroclinic_instability_model, loop, time_step
+
+    if mode != "bfloat16":
+        cfg, grid, state = baroclinic_instability_model(32, 16, 8, device=DEVICE)
+        precision_distance(f"{mode} at 32x16x8", time_step(
+            dataclasses.replace(cfg, compute_dtype=mode), grid, state, DT),
+            time_step(cfg, grid, state, DT), bounded=True)
+        return
+    cfg, grid, state = baroclinic_instability_model(32, 16, 6, device=DEVICE)
+    s32 = loop(cfg, grid, state, DT, 10)
+    s16 = loop(dataclasses.replace(cfg, compute_dtype=mode), grid, state, DT, 10)
+    du = float((s16.u - s32.u).abs().max()) / max(float(s32.u.abs().max()), 1e-6)
+    dT = float((s16.tracers["T"] - s32.tracers["T"]).abs().max())
+    if not du < 0.15 or not dT < 0.3:
+        raise AssertionError(f"bfloat16 at 32x16x6 over 10 steps: u {du:.3e} of max|u| "
+                             f"(bound 0.15), T {dT:.3e} (bound 0.3)")
+    print(f"  bfloat16 at 32x16x6, 10 steps vs float32: u {du:.3e} of max|u| (bound 0.15), "
+          f"T {dT:.3e} (bound 0.3)")
+
+
+def choice_row(label, cfg, grid, state, kernels, per_step, steps, dt=DT, probe=True,
+               host_check=True):
+    """A further choice's flagship: one step kernels="auto" against
+    kernels="torch" (the tolerances of [5]), then the main path
+    (``run_main_path``) and, with ``host_check``, the device loop against
+    the host loop; returns the row's record."""
+    from gb25_tpu_torch import loop, time_step
+
+    cfg_plain = dataclasses.replace(cfg, kernels="torch")
+    phase_step_compare(lambda s: time_step(cfg, grid, s, dt),
+                       lambda s: time_step(cfg_plain, grid, s, dt), state)
+    step_n = lambda st, n: loop(cfg, grid, st, dt, n)  # noqa: E731
+    s, elapsed, launches, peak_gb, rec = run_main_path(step_n, state, kernels, per_step, steps,
+                                                       probe)
+    umax = check_state(s, grid.shape)
+    ms_step = 1e3 * elapsed / steps
+    rate = grid.Nx * grid.Ny * grid.Nz * steps / elapsed
+    host_ms = None
+    if host_check:
+        host_ms = loop_vs_host(label, step_n, host_steps(
+            lambda st: time_step(cfg, grid, st, dt, premasked=True), grid), s, ms_step)
+    print(f"  {label} {grid.Nx}x{grid.Ny}x{grid.Nz} f32 state: {ms_step:.3f} ms/step, "
+          f"{rate:.4e} cell-steps/s, timed second {steps}-step loop, replayed"
+          + (f"; launched from the host {host_ms:.3f} ms/step" if host_ms else "")
+          + f"; max|u| {umax:.4f} m/s; peak device memory {peak_gb:.2f} GB, graph pool "
+          f"{rec['pool_gb']:.2f} GB")
+    return {"ms_step": ms_step, "rate": rate, "host_ms_step": host_ms, "steps": steps,
+            "launches": launches, "loop": rec, "peak_gb": peak_gb, "pool_gb": rec["pool_gb"],
+            "shape": [grid.Nx, grid.Ny, grid.Nz], "dt": dt}
+
+
+def precision_rows(card):
+    """[27]: the precision modes on the flagship: "bf16s" (K1's
+    bf16-storage instance and K2), "bfloat16" (the cast array path and K2)
+    and "f32x2" (the float64 array path and K2, at 768x384x64). Each: held
+    to float32 at the size and by the protocol of the JAX package's own
+    test of the mode (``precision_at_test_size``); at the row's size one
+    step from rest against the float32 step, finite and its distances
+    printed (the rounding of b in bf16 storage moves the pressure
+    gradient by more as the cells shrink: on the CPU eta's RMS distance
+    grew from 0.004 of its largest value at 128x64x16 to 0.023 at
+    768x384x16, so the JAX test's bounds hold only at its size); one step
+    after 8 float32 steps against the same mode's "torch" step; then the
+    main path from there."""
+    from gb25_tpu_torch import baroclinic_instability_model, loop, time_step
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_zslab
+
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL}
+    rows = {}
+    for mode, steps in PRECISION_STEPS.items():
+        t0 = time.perf_counter()
+        shape = F32X2_SHAPE if mode == "f32x2" else (NX, NY, NZ)
+        cfg32, grid, state = baroclinic_instability_model(*shape, device=DEVICE)
+        cfg = dataclasses.replace(cfg32, compute_dtype=mode)
+        moved = loop(cfg32, grid, state, DT, WARMUP)
+        print(f"  {mode}: held to float32 at the JAX test's size; one step against the "
+              f"float32 step; after {WARMUP} float32 steps one against its 'torch' step, then "
+              f"{WARMUP} + 2x{steps} steps replayed")
+        precision_at_test_size(mode)
+        precision_distance(mode, time_step(cfg, grid, state, DT), time_step(cfg32, grid, state, DT),
+                           bounded=False)
+        kernel = mode == "bf16s"
+        rows[mode] = choice_row(mode, cfg, grid, moved, kernels,
+                                {"K1": int(kernel), "K2": 1}, steps, probe=kernel,
+                                host_check=kernel)
+        rows[mode]["wall_s"] = time.perf_counter() - t0
+        print(f"  {mode} row on {card}: {rows[mode]['wall_s']:.1f} s")
+        del grid, state, moved
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def vertical_scalar(card):
+    """[28]: the flagship with VerticalScalarDiffusivity (nu 1e-4, kappa
+    1e-5): K1 (the fused flagship instance) against its plain version at
+    rtol 2e-4 and K3's constant-kappa pair bit for bit on the operands of
+    the state after 8 steps, then one step against "torch" and the main
+    path: per step 1 K1, 1 K2, 2 K3."""
+    from gb25_tpu_torch import baroclinic_instability_model, loop
+    from gb25_tpu_torch.models import VerticalScalarDiffusivity
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_tridiag, pallas_zslab
+    from gb25_tpu_torch.ops.halos import extend_field
+
+    t0 = time.perf_counter()
+    cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE,
+                                                    closure=VerticalScalarDiffusivity())
+    moved = loop(cfg, grid, state, DT, WARMUP)
+    gen = torch.Generator(device=DEVICE).manual_seed(9753)
+
+    def noise(s):
+        return s * torch.randn(grid.shape, generator=gen, device=DEVICE)
+
+    ue = extend_field(grid, moved.u, "u")
+    ve = extend_field(grid, moved.v, "v")
+    tr_e = {k: extend_field(grid, c, "c") for k, c in moved.tracers.items()}
+    be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
+    Gv_p = noise(1e-7)
+    Gv_p[:, 0, :] = 0.0
+    prev = (noise(1e-7), Gv_p, {k: noise(1e-7) for k in tr_e})
+    k1 = phase_k1_instance(cfg, grid, ue, ve, tr_e, be, b_total, prev, "vertical-scalar")
+    del ue, ve, tr_e, be, b_total, prev
+    nu, kappa = cfg.closure.nu, cfg.closure.kappa
+    k3 = phase_k3(cfg, grid, {"u,v": ((moved.u, moved.v), nu, None),
+                              "T,S": ((moved.tracers["T"], moved.tracers["S"]), kappa, None)})
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
+               "K3": pallas_tridiag.KERNEL}
+    row = choice_row("vertical scalar", cfg, grid, moved, kernels, {"K1": 1, "K2": 1, "K3": 2},
+                     CHOICE_STEPS)
+    row.update(k1=k1, k3=k3, wall_s=time.perf_counter() - t0)
+    print(f"  vertical-scalar phase on {card}: {row['wall_s']:.1f} s")
+    return row
+
+
+def explicit_free_surface(card):
+    """[29]: the flagship with ExplicitFreeSurface at dt = EXPLICIT_DT: one
+    step against "torch" after 8 steps (K1's unfused float32 instance
+    against its plain version inside it), then the main path: per step 1
+    K1 (unfused), 0 K2."""
+    from gb25_tpu_torch import baroclinic_instability_model, loop
+    from gb25_tpu_torch.models import ExplicitFreeSurface
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_zslab
+
+    t0 = time.perf_counter()
+    cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE,
+                                                    free_surface=ExplicitFreeSurface())
+    moved = loop(cfg, grid, state, EXPLICIT_DT, WARMUP)
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL}
+    row = choice_row("explicit free surface", cfg, grid, moved, kernels, {"K1": 1, "K2": 0},
+                     EXPLICIT_STEPS, dt=EXPLICIT_DT)
+    s = loop(cfg, grid, moved, EXPLICIT_DT, 1)
+    if not torch.isfinite(s.Geta).all() or float(s.Geta.abs().max()) == 0.0:
+        raise AssertionError("G_eta is not finite, or 0, under the explicit free surface")
+    row["wall_s"] = time.perf_counter() - t0
+    print(f"  explicit-free-surface phase on {card}: {row['wall_s']:.1f} s")
+    return row
+
+
+def further_choices(card, flagship_ms):
+    """[26]-[29]; returns their kernel entries and rows."""
+    from gb25_tpu_torch import baroclinic_instability_model, loop
+
+    t0 = time.perf_counter()
+    cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE)
+    print(f"[26] K1's unfused instances vs plain at {NX}x{NY}x{NZ}, on the flagship's fields "
+          f"after {WARMUP} steps")
+    k1u = phase_k1_unfused(cfg, grid, loop(cfg, grid, state, DT, WARMUP))
+    del grid, state
+    torch.cuda.empty_cache()
+    print(f"  [26] {time.perf_counter() - t0:.1f} s")
+    print("[27] precision modes of the flagship")
+    prec = precision_rows(card)
+    print("[28] the flagship with VerticalScalarDiffusivity")
+    vsd = vertical_scalar(card)
+    torch.cuda.empty_cache()
+    print(f"[29] the flagship with ExplicitFreeSurface, dt = {EXPLICIT_DT:g} s")
+    expl = explicit_free_surface(card)
+    torch.cuda.empty_cache()
+    rows = {**prec, "vertical_scalar": vsd, "explicit": expl}
+    print("  ms/step beside the float32 flagship's " + f"{flagship_ms:.3f} ([5]): " + "; ".join(
+        f"{name} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s)" for name, r in rows.items()))
+
+    def unfused_entry(name, form, path, row):
+        r = k1u[form]
+        e = entry(name, "zslab_tendencies.cu", "gb25_tpu/ops/pallas_zslab.py:275", path,
+                  row["launches"]["K1"], r, r["bound"])
+        return e | on_device(row["loop"], "K1")
+
+    k3 = vsd["k3"]
+    k3_entry = entry("implicit_diffusion_constant_kappa", "implicit_diffusion.cu",
+                     "gb25_tpu/ops/pallas_tridiag.py:87", "vertical_scalar",
+                     vsd["launches"]["K3"], k3, (k3["bound_ms"], "bytes"))
+    k3_entry.update(per_solve_ms=k3["per_solve_ms"], per_solve_launch=k3["per_solve_launch"],
+                    **on_device(vsd["loop"], "K3"))
+    entries = [unfused_entry("zslab_tendencies_unfused", "unfused", "explicit", expl),
+               unfused_entry("zslab_tendencies_bf16_storage", "unfused_bf16", "bf16s",
+                             prec["bf16s"]),
+               k3_entry]
+    return entries, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1838,11 +2191,12 @@ def main():
         card, {name: r["ms_step"] for name, r in summary.items()})
     sw = shallow_water(card)
     torch.cuda.empty_cache()
+    choice_entries, choices = further_choices(card, flag["ms_step"])
 
     def host(r):
         return "" if r.get("host_ms_step") is None else f", from the host {r['host_ms_step']:.3f}"
 
-    print(f"[26] on {card}, ms/step of the timed loops (replayed from CUDA graphs; from the "
+    print(f"[30] on {card}, ms/step of the timed loops (replayed from CUDA graphs; from the "
           "host where named): " + "; ".join(
               f"{name} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s){host(r)}, plain "
               f"{r['plain_ms_step']:.3f}" for name, r in summary.items()) + "; " + "; ".join(
@@ -1851,7 +2205,11 @@ def main():
         (("climate_tripolar", dclim), ("flagship", dflag))) + "; K6 route: " + "; ".join(
         f"{name} {r['ms_step']:.3f}{host(r)}" for name, r in k6_ms.items())
           + f"; shallow water {sw['ms_step']:.3f} ({sw['rate']:.4e} cell-steps/s), from the host "
-          f"{sw['host_ms_step']:.3f} ({sw['host_rate']:.4e} cell-steps/s)")
+          f"{sw['host_ms_step']:.3f} ({sw['host_rate']:.4e} cell-steps/s); " + "; ".join(
+              f"{name} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s, {r['steps']} steps"
+              f"{', ' + 'x'.join(map(str, r['shape'])) if r['shape'] != [NX, NY, NZ] else ''}"
+              f"{', dt %g s' % r['dt'] if r['dt'] != DT else ''}){host(r)}"
+              for name, r in choices.items()))
 
     k5_entry = entry("barotropic_block", "barotropic_block.cu",
                      "gb25_tpu/ops/pallas_barotropic.py:349", "climate_tripolar_decomposed",
@@ -1865,7 +2223,7 @@ def main():
         columns={k: k5["columns"][k] for k in ("max_abs_err", "ms", "plain_ms", "bitwise")}
         | {"bound_ms": k5["columns"]["bound"][0]})
     print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels
-                      + [k5_entry] + k6_entries}))
+                      + [k5_entry] + k6_entries + choice_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

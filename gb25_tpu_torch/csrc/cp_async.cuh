@@ -8,14 +8,15 @@
 
 namespace {
 
-// 16 bytes; both addresses 16-byte aligned. .cg: cached in L2 only.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// 16 bytes (4 floats or 8 bfloat16); both addresses 16-byte aligned. .cg:
+// cached in L2 only.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 // 4 bytes, for rows whose stride is not a multiple of 16 bytes.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }

@@ -20,6 +20,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
 
@@ -42,24 +43,35 @@ constexpr int kMinBlocks = 3;
 // A staged (y, x) window: rows -3 .. kTY + 2 and columns -3 - a ..
 // kTX + 2, where a <= 3 starts each row on a 16-byte boundary.
 constexpr int kSX = kTX + 12, kSY = kTY + 6, kSF = kSX * kSY;
-constexpr int kVX = kSX / 4;                 // 16-byte copies per staged row
+// The same window of bfloat16 (K1's bf16-storage instance): 16 bytes hold
+// 8 values, so a <= 7 and a row is 48 values.
+constexpr int kSXH = kTX + 16, kSFH = kSXH * kSY;
 constexpr int kPX = kTX + 5, kPY = kTY + 5;  // corners -2 .. kT + 2
 constexpr int kCX = kTX + 1, kCY = kTY + 1;  // centres -1 .. kT - 1
 constexpr int kApron = kTX + kTY;  // the south row and the west column of centres
 constexpr int kMetrics = 6;        // dxc, dxf, dyc, dyf, 1 / azf, f
 enum { kDXC, kDXF, kDYC, kDYF, kRAZF, kFFF };
-static_assert(kSX % 4 == 0, "staged rows are whole 16-byte copies");
+static_assert(kSX % 4 == 0 && kSXH % 8 == 0, "staged rows are whole 16-byte copies");
 static_assert(2 * kApron <= kThreads, "apron columns and apron faces need their own threads");
 
-// A halo-extended (Z, Y, X) field in device memory.
-struct Field {
-  const float* p;
+// A value of device memory as float (bfloat16 widens exactly).
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+// A halo-extended (Z, Y, X) field in device memory, stored as T (float, or
+// bfloat16 in K1's bf16-storage instance), read as float.
+template <class T>
+struct FieldT {
+  const T* p;
   int Xe;
   size_t plane;  // (Ny + 2hy) * (Nx + 2hx)
   __device__ __forceinline__ float operator()(int z, int y, int x) const {
-    return __ldg(p + (size_t)z * plane + (size_t)y * Xe + x);
+    return load_f32(p + (size_t)z * plane + (size_t)y * Xe + x);
   }
 };
+using Field = FieldT<float>;
 
 // This block's tile.
 struct Tile {
@@ -115,37 +127,55 @@ __device__ __forceinline__ int centre(int y, int x) { return (y + 1) * kCX + x +
 __device__ __forceinline__ int xface(int y, int xf) { return y * kCX + xf; }
 __device__ __forceinline__ int yface(int yf, int x) { return yf * kTX + x; }
 
-// The first NF fields' level at offset zoff into one ring slot: rows -3
-// .. ny + 2, columns -3 .. nx + 2 of the tile, as 16-byte copies from
-// column -3 - a (vec) or as 4-byte copies (a = 0).
-template <int NF, int N>
-__device__ __forceinline__ void stage_level(float* slot, const float* const (&f)[N],
-                                            size_t zoff, const Tile& t, int Xe, bool vec) {
+// The first NF fields' level at offset zoff into one ring slot of T, rows
+// of SX values: rows -3 .. ny + 2, columns -3 .. nx + 2 of the tile, as
+// 16-byte copies from column -3 - a (vec), else value by value from column
+// -3 (a = 0): float by 4-byte copies, bfloat16 (whose cp.async has no
+// 2-byte form) by plain loads, which the block barrier after the wait
+// publishes as it does the copies.
+template <int NF, int SX, class T, int N>
+__device__ __forceinline__ void stage_window(T* slot, const T* const (&f)[N], size_t zoff,
+                                             const Tile& t, int Xe, bool vec, int a) {
   static_assert(NF <= N, "more staged fields than field pointers");
+  constexpr int kPer = 16 / sizeof(T);  // values a 16-byte copy carries
+  constexpr int kVec = SX / kPer;       // 16-byte copies per staged row
+  constexpr int kSlot = SX * kSY;
   const int tid = threadIdx.y * kTX + threadIdx.x;
   const int rows = t.ny + 6;
-  const size_t base = zoff + (size_t)(t.Y0 - 3) * Xe + (t.X0 - 3 - t.a);
+  const size_t base = zoff + (size_t)(t.Y0 - 3) * Xe + (t.X0 - 3 - a);
   if (vec) {
-    const int nvec = (t.a + t.nx + 6 + 3) / 4;
-    for (int n = tid; n < kSY * kVX; n += kThreads) {
-      const int y = n / kVX, v = n - y * kVX;
+    const int nvec = (a + t.nx + 6 + kPer - 1) / kPer;
+    for (int n = tid; n < kSY * kVec; n += kThreads) {
+      const int y = n / kVec, v = n - y * kVec;
       if (y < rows && v < nvec) {
 #pragma unroll
         for (int q = 0; q < NF; ++q)
-          cp_async16(slot + q * kSF + y * kSX + 4 * v, f[q] + base + (size_t)y * Xe + 4 * v);
+          cp_async16(slot + q * kSlot + y * SX + kPer * v,
+                     f[q] + base + (size_t)y * Xe + kPer * v);
       }
     }
   } else {
     const int cols = t.nx + 6;
-    for (int n = tid; n < kSY * kSX; n += kThreads) {
-      const int y = n / kSX, x = n - y * kSX;
+    for (int n = tid; n < kSY * SX; n += kThreads) {
+      const int y = n / SX, x = n - y * SX;
       if (y < rows && x < cols) {
 #pragma unroll
-        for (int q = 0; q < NF; ++q)
-          cp_async4(slot + q * kSF + y * kSX + x, f[q] + base + (size_t)y * Xe + x);
+        for (int q = 0; q < NF; ++q) {
+          if constexpr (sizeof(T) == 4)
+            cp_async4(slot + q * kSlot + y * SX + x, f[q] + base + (size_t)y * Xe + x);
+          else
+            slot[q * kSlot + y * SX + x] = f[q][base + (size_t)y * Xe + x];
+        }
       }
     }
   }
+}
+
+// The float ring's staging: columns from -3 - t.a.
+template <int NF, int N>
+__device__ __forceinline__ void stage_level(float* slot, const float* const (&f)[N],
+                                            size_t zoff, const Tile& t, int Xe, bool vec) {
+  stage_window<NF, kSX>(slot, f, zoff, t, Xe, vec, t.a);
 }
 
 // The metrics, once per block (plain loads): on M2 grids the six planes

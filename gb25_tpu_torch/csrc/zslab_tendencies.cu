@@ -1,19 +1,30 @@
 // Tendency stage of the hydrostatic step, with the quasi-AB2 update, the
-// south-wall row and the four barotropic depth integrals fused in.
+// south-wall row and the four barotropic depth integrals fused in, or
+// (unfused) the tendencies and the wall row alone.
 //
 // Replaces: gb25_tpu/ops/pallas_zslab.py::zslab_tendencies (the z-slab
-// Pallas kernel, pallas_call at :769) with ab2, wall_v and
-// integrals=True: the flagship instance (tracers T, S), the climate
+// Pallas kernel, pallas_call at :769). Fused (ab2, wall_v and
+// integrals=True): the flagship instance (tracers T, S), the climate
 // instance (tracers T, S, e, with the immersed-masked u*/v* integrals), the
 // tripolar climate instance (the same, with the metrics and f as 2-D
 // planes: the JAX kernel's metric_spec 2-D branch, :555-564) and the
-// k-epsilon instance (tracers T, S, e, eps).
+// k-epsilon instance (tracers T, S, e, eps). Unfused (no ab2, no
+// integrals: the step's route under a compute_dtype or the explicit free
+// surface, gb25_tpu/models/hydrostatic.py:876-904), with tracers T, S and
+// lat-lon metric columns: the float32 instance and the bfloat16-storage
+// instance (storage_dtype=bfloat16, :296-310, 384-391): u, v, the tracers
+// and b are read as bfloat16 and widened to float32 (the Pallas kernel's
+// window upcast, :626-631); every operation and the column total of b dz
+// stay float32, and the tendencies are written in float32.
 //
 // What bounds it on an H100: device memory. Per step the flagship instance
 // reads five extended fields (u, v, T, S, b) and four previous tendencies
 // and writes eight interior fields (~5 GB at 1536x768x64 f32, ~1.6 ms at
 // 3.35 TB/s) against ~600 flop per cell (~6e10 flop, ~1 ms at the float32
-// rate); the climate instance adds one tracer (~6.6 GB, ~2.0 ms).
+// rate); the climate instance adds one tracer (~6.6 GB, ~2.0 ms). The
+// unfused float32 instance reads the five extended fields and writes four
+// (~2.8 GB, ~0.85 ms), the bfloat16 instance reads those five at 2 bytes a
+// value (~2.0 GB, ~0.6 ms): the ~1 ms of operations bound both.
 //
 // Design (the level tile of tendency_tile.cuh, shared with kernel K6): a
 // block of 32 x kTY threads owns 32 x kTY interior columns and marches z
@@ -30,7 +41,15 @@
 // (one new load a level); the AB2 update, the wall row and the depth
 // integrals of u, v, u*, v*. b and its column total come from device
 // memory (the caller's TEOS-10). The tracer count (2 to 4), the immersed
-// integrals and the 2-D metrics are template parameters. On immersed
+// integrals, the 2-D metrics, the fused epilogue (AB2 update, wall row of
+// v*, integrals) and the storage type of the streamed fields are template
+// parameters. The bfloat16 instance stages each level by 16-byte copies of
+// 8 values (rows of 48 from a 16-byte boundary, where Nx + 2hx is a
+// multiple of 8 and the fields are 16-byte aligned; else value by value)
+// into a ring of bfloat16 slots, then widens the level once into one
+// float32 slot, which the stencils read as they read the float32 ring: one
+// more block barrier a level; 30848 B of shared memory a block at 2
+// tracers against 29952 B for the float32 ring. On immersed
 // grids only the accumulation of Us and Vs is masked, with the fluid test
 // z_c > face bottom of grids/immersed.py; the stored u*, v* stay unmasked
 // and the caller re-masks them. Outputs are fresh buffers: nothing is
@@ -41,19 +60,24 @@
 // above it; the fields' z ghosts (zero gradient) come with the extended
 // inputs; the WENO-5 upwind test is strict (vel > 0).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
+#include <type_traits>
 
 #include "tendency_tile.cuh"
 
 namespace {
 
 constexpr int kMaxTracers = 4;
+using bf16 = __nv_bfloat16;
 
+// S: the storage type of u, v, b and the tracers (float or bf16).
+template <class S>
 struct Args {
-  const float* stage[2 + kMaxTracers];  // u, v, tracers: the staged fields
-  Field u, v, b;
-  Field tr[kMaxTracers];
+  const S* stage[2 + kMaxTracers];  // u, v, tracers: the staged fields
+  FieldT<S> u, v, b;
+  FieldT<S> tr[kMaxTracers];
   const float* btot;  // (Ny+2hy, Nx+2hx): column total of b dz
   // (Ny+2hy) y profiles, or (Ny+2hy, Nx+2hx) planes on the tripolar grid
   const float *dxc, *dxf, *dyc, *dyf, *azc, *azf, *fff;
@@ -67,29 +91,66 @@ struct Args {
   float* trn[kMaxTracers];
   float *U0, *V0, *Us, *Vs;                              // (Ny, Nx) depth integrals
   int Nx, Ny, Nz, hx, hy, hz;
-  int align;             // staged column -3 - align is 16-byte aligned; -1: 4-byte copies
+  int align;             // staged column -3 - align is 16-byte aligned; -1: value by value
   int wall_row;          // 0: row 0 is the south wall; -1: no wall row on this tile
   float a, b_prev, eps;  // dt*c1, dt*c2, WENO epsilon
 };
 
 // A carried column's column total of b dz and 1 / azc.
-template <bool M2>
-__device__ __forceinline__ void start_column(Column& c, const Args& A, const Tile& t, int Xe) {
+template <bool M2, class A_>
+__device__ __forceinline__ void start_column(Column& c, const A_& A, const Tile& t, int Xe) {
   const int Y = t.Y0 + c.y, X = t.X0 + c.x;
   c.tot = A.btot[(size_t)Y * Xe + X];
   c.razc = 1.0f / metric_at<M2>(A.azc, Y, X, Xe);
 }
 
-template <int NTR, bool IMM, bool M2>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) zslab_tendencies_kernel(const Args A) {
+// Floats of shared memory the ring of staged fields takes: kStages float
+// slots; with bfloat16 storage, kStages bfloat16 slots (rows of kSXH) and
+// the one float slot the level is widened into.
+template <class S, int NF>
+__host__ __device__ constexpr int ring_floats() {
+  return std::is_same<S, float>::value ? kStages * NF * kSF
+                                       : kStages * NF * kSFH / 2 + NF * kSF;
+}
+
+template <class S, int NF, int NTR, bool M2>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) * (tile_floats<NF, NTR, M2>() - kStages * NF * kSF + ring_floats<S, NF>());
+}
+
+// Widen the staged bfloat16 slot of a level (columns from -3 - a) into the
+// float slot (columns from -3), over the rows and columns the tile reads.
+template <int NF>
+__device__ __forceinline__ void widen_level(float* dst, const bf16* src, const Tile& t, int a) {
+  const int tid = threadIdx.y * kTX + threadIdx.x;
+  const int rows = t.ny + 6, cols = t.nx + 6;
+  for (int n = tid; n < NF * kSF; n += kThreads) {
+    const int q = n / kSF, r = n - q * kSF;
+    const int y = r / kSX, x = r - y * kSX;
+    if (y < rows && x < cols) dst[n] = __bfloat162float(src[q * kSFH + y * kSXH + x + a]);
+  }
+}
+
+// FUSED: the AB2 update, the wall row of v* and the depth integrals; else
+// the tendencies and the wall row of Gv alone. S: the storage type.
+template <int NTR, bool IMM, bool M2, bool FUSED, class S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    zslab_tendencies_kernel(const Args<S> A) {
   constexpr int NF = 2 + NTR;
+  constexpr bool kF32 = std::is_same<S, float>::value;
+  constexpr int kSXS = kF32 ? kSX : kSXH;  // a staged row of S
+  constexpr int kSlotS = kSXS * kSY;
+  static_assert(FUSED || !IMM, "the unfused form has no integrals to mask");
   extern __shared__ __align__(16) float smem[];
   const bool vec = A.align >= 0;
-  const Tile t(A.Nx, A.Ny, A.hx, A.hy, vec ? A.align : 0);
+  const int a = vec ? A.align : 0;  // the staged rows' alignment
+  // the float layout the stencils read: the float ring's, or the widened
+  // slot's (columns from -3)
+  const Tile t(A.Nx, A.Ny, A.hx, A.hy, kF32 ? a : 0);
   const int Xe = A.Nx + 2 * A.hx, Ye = A.Ny + 2 * A.hy;
   const size_t plane = (size_t)Ye * Xe;
-  float* ring = smem;  // [kStages][NF][kSF]
-  float* mets = ring + kStages * NF * kSF;
+  S* ring = reinterpret_cast<S*>(smem);  // [kStages][NF][kSlotS], then (bf16) [NF][kSF]
+  float* mets = smem + ring_floats<S, NF>();
   float* pvq = mets + metric_floats<M2>();  // [kPY][kPX]
   float* keq = pvq + kPY * kPX;              // [kCY][kCX]
   float* wq = keq + kCY * kCX;
@@ -100,7 +161,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) zslab_tendencies_kernel(
   // the first levels in flight, then the metrics
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < A.Nz)
-      stage_level<NF>(ring + s * NF * kSF, A.stage, (size_t)(s + A.hz) * plane, t, Xe, vec);
+      stage_window<NF, kSXS>(ring + s * NF * kSlotS, A.stage, (size_t)(s + A.hz) * plane, t, Xe,
+                             vec, a);
     cp_async_commit();
   }
   const Metrics<M2> m =
@@ -154,23 +216,33 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) zslab_tendencies_kernel(
     if (own) {
       un1 = A.u(Z + 1, Y, X);
       vn1 = A.v(Z + 1, Y, X);
-      Gu_p = A.Gu_p[o];
-      Gv_p = A.Gv_p[o];
+      if (FUSED) {
+        Gu_p = A.Gu_p[o];
+        Gv_p = A.Gv_p[o];
+      }
 #pragma unroll
       for (int q = 0; q < NTR; ++q) {
         cnext[q] = k + 1 < A.Nz ? A.tr[q](Z + 4, Y, X) : 0.f;
-        Gtr_p[q] = A.Gtr_p[q][o];
+        Gtr_p[q] = FUSED ? A.Gtr_p[q][o] : 0.f;
       }
     }
 
     cp_async_wait<kStages - 2>();
     __syncthreads();  // level k staged; every read of the slot reused next is done
     if (k + kStages - 1 < A.Nz)
-      stage_level<NF>(ring + ((k + kStages - 1) % kStages) * NF * kSF, A.stage,
-                      (size_t)(Z + kStages - 1) * plane, t, Xe, vec);
+      stage_window<NF, kSXS>(ring + ((k + kStages - 1) % kStages) * NF * kSlotS, A.stage,
+                             (size_t)(Z + kStages - 1) * plane, t, Xe, vec, a);
     cp_async_commit();
 
-    const float* slot = ring + (k % kStages) * NF * kSF + t.origin();
+    const float* slot;
+    if constexpr (kF32) {
+      slot = ring + (k % kStages) * NF * kSF + t.origin();
+    } else {
+      float* wide = reinterpret_cast<float*>(ring + kStages * NF * kSlotS);
+      widen_level<NF>(wide, ring + (k % kStages) * NF * kSlotS, t, a);
+      __syncthreads();  // the level widened
+      slot = wide + t.origin();
+    }
     const Win u{slot}, v{slot + kSF};
     // shared quantities of the level
     if (oc.on) column_level<true, M2>(oc, u, v, m, dzc, __fmul_rn(b_o, dzc), keq, wq, pq);
@@ -195,36 +267,37 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) zslab_tendencies_kernel(
         Gc[q] = tracer(fxq + q * kTY * kCX, fyq + q * kCY * kTX, cz[q], w, fz[q], ty, tx,
                        oc.razc, r_dzc, A.eps);
 
-      // quasi-AB2 update: x* = x + dt c1 G + dt c2 G_prev
-      const float u0 = u(ty, tx), v0 = v(ty, tx);
-      const float un = (u0 + A.a * Gu) + A.b_prev * Gu_p;
-      const float vn = ((v0 + A.a * Gv) + A.b_prev * Gv_p) * wall;
       A.Gu[o] = Gu;
       A.Gv[o] = Gv;
-      A.un[o] = un;
-      A.vn[o] = vn;
 #pragma unroll
       for (int q = 0; q < NTR; ++q) {
         A.Gtr[q][o] = Gc[q];
-        A.trn[q][o] = (cz[q][2] + A.a * Gc[q]) + A.b_prev * Gtr_p[q];
+        // quasi-AB2 update: x* = x + dt c1 G + dt c2 G_prev
+        if (FUSED) A.trn[q][o] = (cz[q][2] + A.a * Gc[q]) + A.b_prev * Gtr_p[q];
 #pragma unroll
         for (int r = 0; r < 5; ++r) cz[q][r] = cz[q][r + 1];
         cz[q][5] = cnext[q];
       }
-
-      U0 = U0 + u0 * dzc;
-      V0 = V0 + v0 * dzc;
-      if (IMM) {
-        const float zc = A.zc[Z];
-        Us = Us + (un * (zc > bu ? 1.0f : 0.0f)) * dzc;
-        Vs = Vs + (vn * (zc > bv ? 1.0f : 0.0f)) * dzc;
-      } else {
-        Us = Us + un * dzc;
-        Vs = Vs + vn * dzc;
+      if (FUSED) {
+        const float u0 = u(ty, tx), v0 = v(ty, tx);
+        const float un = (u0 + A.a * Gu) + A.b_prev * Gu_p;
+        const float vn = ((v0 + A.a * Gv) + A.b_prev * Gv_p) * wall;
+        A.un[o] = un;
+        A.vn[o] = vn;
+        U0 = U0 + u0 * dzc;
+        V0 = V0 + v0 * dzc;
+        if (IMM) {
+          const float zc = A.zc[Z];
+          Us = Us + (un * (zc > bu ? 1.0f : 0.0f)) * dzc;
+          Vs = Vs + (vn * (zc > bv ? 1.0f : 0.0f)) * dzc;
+        } else {
+          Us = Us + un * dzc;
+          Vs = Vs + vn * dzc;
+        }
       }
     }
   }
-  if (own) {
+  if (FUSED && own) {
     A.U0[ij] = U0;
     A.V0[ij] = V0;
     A.Us[ij] = Us;
@@ -232,24 +305,77 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) zslab_tendencies_kernel(
   }
 }
 
-template <int NTR, bool IMM, bool M2>
-cudaError_t launch(const Args& A, dim3 grid, dim3 block, cudaStream_t s) {
-  const size_t smem = sizeof(float) * tile_floats<2 + NTR, NTR, M2>();
-  const cudaError_t err = allow_shared(zslab_tendencies_kernel<NTR, IMM, M2>, smem);
+template <int NTR, bool IMM, bool M2, bool FUSED = true, class S = float>
+cudaError_t launch(const Args<S>& A, cudaStream_t s) {
+  const size_t smem = smem_bytes<S, 2 + NTR, NTR, M2>();
+  const cudaError_t err = allow_shared(zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S>, smem);
   if (err != cudaSuccess) return err;
-  zslab_tendencies_kernel<NTR, IMM, M2><<<grid, block, smem, s>>>(A);
+  const dim3 block(kTX, kTY, 1);
+  const dim3 grid((A.Nx + kTX - 1) / kTX, (A.Ny + kTY - 1) / kTY, 1);
+  zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S><<<grid, block, smem, s>>>(A);
   return cudaGetLastError();
 }
 
 // out: registers per thread, shared memory per block (bytes), the tile's
 // columns in x and in y, blocks resident on one SM.
-template <int NTR, bool IMM, bool M2>
+template <int NTR, bool IMM, bool M2, bool FUSED = true, class S = float>
 cudaError_t info(int* out) {
-  const size_t smem = sizeof(float) * tile_floats<2 + NTR, NTR, M2>();
-  return launch_info(zslab_tendencies_kernel<NTR, IMM, M2>, smem, out);
+  return launch_info(zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S>,
+                     smem_bytes<S, 2 + NTR, NTR, M2>(), out);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
+
+// The operands every instance reads; the staged rows' alignment for 16-byte
+// copies of S (8 bfloat16 or 4 floats), or -1 where rows or fields are not
+// 16-byte aligned.
+template <class S>
+Args<S> field_args(const S* u, const S* v, const S* b, const S* const* tr, int ntr,
+                   const float* btot, const float* dxc, const float* dxf, const float* dyc,
+                   const float* dyf, const float* azc, const float* azf, const float* fff,
+                   const float* dzc, const float* dzf, const float* zc, int Nx, int Ny, int Nz,
+                   int hx, int hy, int hz, int wall_v, float eps) {
+  constexpr int kPer = 16 / sizeof(S);
+  const int Xe = Nx + 2 * hx;
+  const size_t plane = (size_t)(Ny + 2 * hy) * Xe;
+  Args<S> A = {};
+  A.u = FieldT<S>{u, Xe, plane};
+  A.v = FieldT<S>{v, Xe, plane};
+  A.b = FieldT<S>{b, Xe, plane};
+  A.stage[0] = u;
+  A.stage[1] = v;
+  bool vec = Xe % kPer == 0 && aligned16(u) && aligned16(v);
+  for (int t = 0; t < kMaxTracers; ++t) {
+    const bool used = t < ntr;
+    A.tr[t] = FieldT<S>{used ? tr[t] : nullptr, Xe, plane};
+    A.stage[2 + t] = used ? tr[t] : nullptr;
+    vec = vec && (!used || aligned16(tr[t]));
+  }
+  A.btot = btot;
+  A.dxc = dxc; A.dxf = dxf; A.dyc = dyc; A.dyf = dyf; A.azc = azc; A.azf = azf; A.fff = fff;
+  A.dzc = dzc; A.dzf = dzf; A.zc = zc;
+  A.Nx = Nx; A.Ny = Ny; A.Nz = Nz; A.hx = hx; A.hy = hy; A.hz = hz;
+  // (X0 - 3) % kPer: i0 is a multiple of 32
+  A.align = vec ? ((hx - 3) % kPer + kPer) % kPer : -1;
+  A.wall_row = wall_v ? 0 : -1;
+  A.eps = eps;
+  return A;
+}
+
+template <class S>
+int launch_unfused(const S* u, const S* v, const S* b, const S* const* tr, const float* btot,
+                   const float* dxc, const float* dxf, const float* dyc, const float* dyf,
+                   const float* azc, const float* azf, const float* fff, const float* dzc,
+                   const float* dzf, float* Gu, float* Gv, float* const* Gtr, int ntr, int Nx,
+                   int Ny, int Nz, int hx, int hy, int hz, int wall_v, float eps, void* stream) {
+  if (ntr != 2 || hx < 3 || hy < 3 || hz < 3) return static_cast<int>(cudaErrorInvalidValue);
+  Args<S> A = field_args<S>(u, v, b, tr, ntr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
+                            nullptr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps);
+  A.Gu = Gu;
+  A.Gv = Gv;
+  for (int t = 0; t < ntr; ++t) A.Gtr[t] = Gtr[t];
+  return static_cast<int>(launch<2, false, false, false, S>(A, static_cast<cudaStream_t>(stream)));
+}
 
 }  // namespace
 
@@ -278,52 +404,63 @@ extern "C" int zslab_tendencies_f32(
   const bool imm = bu != nullptr;
   if (imm && (bv == nullptr || zc == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (metric2d && !imm) return static_cast<int>(cudaErrorInvalidValue);
-  const int Xe = Nx + 2 * hx;
-  const size_t plane = (size_t)(Ny + 2 * hy) * Xe;
-  Args A;
-  A.u = Field{u, Xe, plane};
-  A.v = Field{v, Xe, plane};
-  A.b = Field{b, Xe, plane};
-  A.stage[0] = u;
-  A.stage[1] = v;
-  bool vec = Xe % 4 == 0 && aligned16(u) && aligned16(v);
-  for (int t = 0; t < kMaxTracers; ++t) {
-    const bool used = t < ntr;
-    A.tr[t] = Field{used ? tr[t] : nullptr, Xe, plane};
-    A.stage[2 + t] = used ? tr[t] : nullptr;
-    A.Gtr_p[t] = used ? Gtr_p[t] : nullptr;
-    A.Gtr[t] = used ? Gtr[t] : nullptr;
-    A.trn[t] = used ? trn[t] : nullptr;
-    vec = vec && (!used || aligned16(tr[t]));
+  Args<float> A = field_args<float>(u, v, b, tr, ntr, btot, dxc, dxf, dyc, dyf, azc, azf, fff,
+                                    dzc, dzf, zc, Nx, Ny, Nz, hx, hy, hz, wall_v, eps);
+  for (int t = 0; t < ntr; ++t) {
+    A.Gtr_p[t] = Gtr_p[t];
+    A.Gtr[t] = Gtr[t];
+    A.trn[t] = trn[t];
   }
-  A.btot = btot;
-  A.dxc = dxc; A.dxf = dxf; A.dyc = dyc; A.dyf = dyf; A.azc = azc; A.azf = azf; A.fff = fff;
-  A.dzc = dzc; A.dzf = dzf; A.zc = zc;
   A.bu = bu; A.bv = bv;
   A.Gu_p = Gu_p; A.Gv_p = Gv_p;
   A.Gu = Gu; A.Gv = Gv;
   A.un = un; A.vn = vn;
   A.U0 = U0; A.V0 = V0; A.Us = Us; A.Vs = Vs;
-  A.Nx = Nx; A.Ny = Ny; A.Nz = Nz; A.hx = hx; A.hy = hy; A.hz = hz;
-  A.align = vec ? (hx + 1) % 4 : -1;  // (X0 - 3) % 4: i0 is a multiple of 32
-  A.wall_row = wall_v ? 0 : -1;
-  A.a = a; A.b_prev = b_prev; A.eps = eps;
-  dim3 block(kTX, kTY, 1);
-  dim3 grid((Nx + kTX - 1) / kTX, (Ny + kTY - 1) / kTY, 1);
+  A.a = a; A.b_prev = b_prev;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // [ntr - 2][flat, immersed, tripolar]
-  using Launch = cudaError_t (*)(const Args&, dim3, dim3, cudaStream_t);
+  using Launch = cudaError_t (*)(const Args<float>&, cudaStream_t);
   static const Launch launchers[3][3] = {
       {launch<2, false, false>, launch<2, true, false>, launch<2, true, true>},
       {launch<3, false, false>, launch<3, true, false>, launch<3, true, true>},
       {launch<4, false, false>, launch<4, true, false>, launch<4, true, true>},
   };
-  return static_cast<int>(launchers[ntr - 2][imm ? (metric2d ? 2 : 1) : 0](A, grid, block, s));
+  return static_cast<int>(launchers[ntr - 2][imm ? (metric2d ? 2 : 1) : 0](A, s));
 }
 
-// The launch shape of one instance (ntr, immersed, metric2d), as
-// tendency_tile.cuh's launch_info reports it into out[0..5).
-extern "C" int zslab_tendencies_info(int ntr, int immersed, int metric2d, int* out) {
+// The unfused instances (no AB2 update, no integrals; the wall row of Gv
+// where wall_v): two tracers, lat-lon metric columns. u, v, b and the
+// tracers float32, or bfloat16 in the bf16-storage instance; btot, the
+// metrics and the outputs float32.
+extern "C" int zslab_tendencies_unfused_f32(
+    const float* u, const float* v, const float* b, const float* const* tr, const float* btot,
+    const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
+    const float* azf, const float* fff, const float* dzc, const float* dzf, float* Gu, float* Gv,
+    float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int wall_v,
+    float eps, void* stream) {
+  return launch_unfused<float>(u, v, b, tr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
+                               Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps, stream);
+}
+
+extern "C" int zslab_tendencies_unfused_bf16(
+    const bf16* u, const bf16* v, const bf16* b, const bf16* const* tr, const float* btot,
+    const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
+    const float* azf, const float* fff, const float* dzc, const float* dzf, float* Gu, float* Gv,
+    float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int wall_v,
+    float eps, void* stream) {
+  return launch_unfused<bf16>(u, v, b, tr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
+                              Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps, stream);
+}
+
+// The launch shape of one instance (ntr, immersed, metric2d; form 0 the
+// fused instances, 1 the unfused float32 one, 2 the unfused bf16-storage
+// one), as tendency_tile.cuh's launch_info reports it into out[0..5).
+extern "C" int zslab_tendencies_info(int ntr, int immersed, int metric2d, int form, int* out) {
+  if (form != 0) {
+    if (ntr != 2 || immersed || metric2d) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(form == 1 ? info<2, false, false, false, float>(out)
+                                      : info<2, false, false, false, bf16>(out));
+  }
   if (ntr < 2 || ntr > kMaxTracers || (metric2d && !immersed))
     return static_cast<int>(cudaErrorInvalidValue);
   using Info = cudaError_t (*)(int*);

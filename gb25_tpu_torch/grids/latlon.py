@@ -147,6 +147,19 @@ class LatitudeLongitudeGrid:
         """Storage shape of an interior 3-D field: ``(Nz, Ny, Nx)``."""
         return (self.Nz, self.Ny, self.Nx)
 
+    def cast(self, dtype):
+        """This grid with every floating tensor in ``dtype``, the geometry's
+        too (the JAX package casts the whole grid for a ``compute_dtype``).
+        Built once per dtype and kept in ``cache``, so a captured step does
+        not cast the metrics again; the copy starts with a cache of its own
+        (the parent's holds, among others, its captured loop)."""
+        if dtype == self.dtype:
+            return self
+        key = ("cast", dtype)
+        if key not in self.cache:
+            self.cache[key] = _cast_floating(self, dtype)
+        return self.cache[key]
+
     def interior(self, ext: torch.Tensor) -> torch.Tensor:
         """Crop a halo-extended ``(Z, Y, X)`` tensor to the interior."""
         hx, hy, hz = self.halo
@@ -167,6 +180,21 @@ class LatitudeLongitudeGrid:
     @property
     def z_f_i(self):
         return self.z_f[self.hz : self.hz + self.Nz, 0, 0]
+
+
+def _cast_floating(obj, dtype):
+    """A copy of the dataclass ``obj`` with each floating tensor field, and
+    each dataclass field's, in ``dtype`` (fields with ``init=False``, a
+    cache, start anew)."""
+    def cast(x):
+        if torch.is_tensor(x) and x.is_floating_point():
+            return x.to(dtype)
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return _cast_floating(x, dtype)
+        return x
+
+    return dataclasses.replace(obj, **{f.name: cast(getattr(obj, f.name))
+                                       for f in dataclasses.fields(obj) if f.init})
 
 
 def latitude_longitude_grid(

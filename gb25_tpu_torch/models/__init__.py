@@ -5,8 +5,10 @@ from gb25_tpu_torch.models.baroclinic import (  # noqa: F401
 )
 from gb25_tpu_torch.models.config import (  # noqa: F401
     EARTH_ROTATION_RATE,
+    ExplicitFreeSurface,
     HydrostaticConfig,
     SplitExplicitFreeSurface,
+    VerticalScalarDiffusivity,
 )
 from gb25_tpu_torch.models.coupled import (  # noqa: F401
     CoupledConfig,

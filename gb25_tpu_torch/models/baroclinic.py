@@ -24,15 +24,19 @@ def smooth_step(phi):
     return (1.0 - torch.tanh((torch.abs(phi) - 40.0) / 5.0)) / 2.0
 
 
-def baroclinic_instability_config(kernels="auto", closure=None) -> HydrostaticConfig:
+def baroclinic_instability_config(kernels="auto", closure=None,
+                                  free_surface=None) -> HydrostaticConfig:
     """The flagship configuration; with ``closure`` the tracer set gains
     the closure's ("e" with CATKE, "e" and "eps" with k-epsilon), as in the
-    JAX package."""
-    tracers = ("T", "S") + (() if closure is None else closure.tracer_names)
+    JAX package. ``free_surface``: the split-explicit one with 30 substeps
+    unless given (``ExplicitFreeSurface``). A ``compute_dtype`` is set on
+    the result with ``dataclasses.replace``, as the JAX package's run
+    scripts do."""
+    tracers = ("T", "S") + tuple(getattr(closure, "tracer_names", ()))
     return HydrostaticConfig(
         tracers=tracers,
         eos=TEOS10EquationOfState(),
-        free_surface=SplitExplicitFreeSurface(substeps=30),
+        free_surface=free_surface or SplitExplicitFreeSurface(substeps=30),
         closure=closure,
         kernels=kernels,
     )

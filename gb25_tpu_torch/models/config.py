@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.ops.eos import TEOS10EquationOfState
@@ -12,6 +14,34 @@ from gb25_tpu_torch.ops.eos import TEOS10EquationOfState
 EARTH_ROTATION_RATE = 7.292115e-5  # rad/s
 
 KERNEL_MODES = ("auto", "torch", "pallas")
+
+# compute_dtype -> the dtype the array tendency path computes in; "bf16s"
+# (bf16 storage, f32 arithmetic) runs K1's bf16-storage instance instead.
+# "f32x2" is the JAX package's double-single arithmetic (ops/multifloat.py):
+# the port computes it in native float64, which the H100 has (a deviation,
+# ROADMAP.md section 3).
+ARRAY_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64,
+                        "f32x2": torch.float64}
+COMPUTE_DTYPES = (None, "bf16s", *ARRAY_COMPUTE_DTYPES)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExplicitFreeSurface:
+    """Forward free surface stepped with the model's AB2 step: the
+    barotropic pressure gradient joins the momentum tendencies and
+    G_eta = -div(U, V) the free surface's."""
+
+    gravitational_acceleration: float = 9.80665
+
+
+@dataclasses.dataclass(frozen=True)
+class VerticalScalarDiffusivity:
+    """Constant vertical viscosity ``nu`` and tracer diffusivity ``kappa``
+    (m^2/s), solved vertically implicitly after the barotropic correction
+    (the reference model's own closure)."""
+
+    nu: float = 1.0e-4
+    kappa: float = 1.0e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,26 +79,40 @@ class HydrostaticConfig:
     ``exchange_width``; it dispatches as "auto" does, so on CPU tensors it
     runs the unfused form of the JAX package's "jnp" route.
 
-    ``closure``: None, ``CATKEVerticalDiffusivity`` or
-    ``TKEDissipationVerticalDiffusivity`` (k-epsilon); ``tracers`` is
-    ("T", "S"), plus "e" with CATKE, plus "e", "eps" with k-epsilon. The
-    port carries the flagship schemes only (WENO vector-invariant momentum,
-    WENO-5 tracers, Hollingsworth kinetic energy); the JAX package's other
-    choices come with later slices."""
+    ``closure``: None, ``VerticalScalarDiffusivity``,
+    ``CATKEVerticalDiffusivity`` or ``TKEDissipationVerticalDiffusivity``
+    (k-epsilon); ``tracers`` is ("T", "S"), plus "e" with CATKE, plus "e",
+    "eps" with k-epsilon. ``free_surface``: ``SplitExplicitFreeSurface`` or
+    ``ExplicitFreeSurface``. The port carries the flagship schemes only
+    (WENO vector-invariant momentum, WENO-5 tracers, Hollingsworth kinetic
+    energy); the JAX package's other choices come with later slices.
+
+    ``compute_dtype``: None (the state's precision), "bfloat16", "float64"
+    or "f32x2" (the tendency stage runs the array path on copies of the
+    fields, f and the grid in that dtype, native float64 for "f32x2"), or
+    "bf16s" (K1 reads u, v, the tracers and b rounded to bfloat16 and
+    computes in float32). The state and its update stay in the storage
+    precision, and the AB2 update is unfused. "bf16x2" is not ported
+    (ROADMAP.md section 1 item 14), nor is any ``compute_dtype`` on the
+    "pallas" route (item 11) or with CATKE or k-epsilon (item 12)."""
 
     tracers: tuple = ("T", "S")
     eos: TEOS10EquationOfState = TEOS10EquationOfState()
     coriolis: float = EARTH_ROTATION_RATE  # Omega; 0 disables rotation
-    free_surface: SplitExplicitFreeSurface = SplitExplicitFreeSurface()
+    free_surface: object = SplitExplicitFreeSurface()
     closure: object = None
     chi: float = 0.1  # quasi-AB2 parameter (Euler first step)
     weno_eps: float = 1e-6
     kernels: str = "auto"
+    compute_dtype: str | None = None
 
     def __post_init__(self):
         if self.kernels not in KERNEL_MODES:
             raise ValueError(f"kernels must be one of {KERNEL_MODES}, got {self.kernels!r}")
-        if self.closure is None:
+        if not isinstance(self.free_surface, (SplitExplicitFreeSurface, ExplicitFreeSurface)):
+            raise ValueError(f"unsupported free surface {self.free_surface!r}")
+        self._check_compute_dtype()
+        if self.closure is None or isinstance(self.closure, VerticalScalarDiffusivity):
             allowed = ("T", "S")
         elif isinstance(self.closure, (CATKEVerticalDiffusivity,
                                        TKEDissipationVerticalDiffusivity)):
@@ -79,6 +123,41 @@ class HydrostaticConfig:
             raise ValueError(f"tracers {tuple(self.tracers)} with closure {self.closure!r}: "
                              f"the port runs {allowed}")
 
+    def _check_compute_dtype(self):
+        cd = self.compute_dtype
+        if cd == "bf16x2":
+            raise NotImplementedError("compute_dtype='bf16x2' (paired bfloat16) is not ported: "
+                                      "ROADMAP.md section 1 item 14")
+        if cd not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES} or 'bf16x2', "
+                             f"got {cd!r}")
+        if cd is None:
+            return
+        if self.kernels == "pallas" and cd == "bf16s":
+            raise ValueError("compute_dtype='bf16s' (bf16 storage, f32 compute) is a mode of "
+                             "kernel K1: run it with kernels 'auto' or 'torch'; for the array "
+                             "path use compute_dtype='bfloat16'")
+        if self.kernels == "pallas":
+            raise NotImplementedError(f"compute_dtype={cd!r} on the kernels='pallas' route is "
+                                      "not ported: ROADMAP.md section 1 item 11")
+        if isinstance(self.closure, (CATKEVerticalDiffusivity,
+                                     TKEDissipationVerticalDiffusivity)):
+            raise NotImplementedError(f"compute_dtype={cd!r} with the {type(self.closure).__name__}"
+                                      " closure is not ported: ROADMAP.md section 1 item 12")
+
     @property
     def g(self):
         return self.free_surface.gravitational_acceleration
+
+    @property
+    def fused(self) -> bool:
+        """Whether K1 fuses the AB2 update, the wall row and the depth
+        integrals (the JAX package's rule): with neither a compute_dtype
+        nor the explicit free surface, off the "pallas" route."""
+        return (self.kernels != "pallas" and self.compute_dtype is None
+                and isinstance(self.free_surface, SplitExplicitFreeSurface))
+
+    @property
+    def array_dtype(self):
+        """The torch dtype of the cast array tendency path, or None."""
+        return ARRAY_COMPUTE_DTYPES.get(self.compute_dtype)

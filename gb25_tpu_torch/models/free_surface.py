@@ -20,6 +20,10 @@ re-mirrored, a round-off drift that each exchange resets; serial and
 decomposed blocked runs at the same W agree. The ``kernels="pallas"``
 route runs the blocked solve serially too, as the JAX package does there:
 on a 1x1 tile of its own, whose ghosts come from the boundary conditions.
+
+The explicit free surface (``ExplicitFreeSurface``) has no barotropic
+solve: the step adds ``explicit_pressure_gradient`` to the momentum
+tendencies and steps eta with ``explicit_eta_tendency``.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from gb25_tpu_torch.ops.halos import extend2
+from gb25_tpu_torch.ops.halos import extend2, extend_field_xy
 from gb25_tpu_torch.ops.pallas_barotropic import barotropic_block, barotropic_loop
+from gb25_tpu_torch.ops.stencils import dx_c, dx_f, dy_c, dy_f
 from gb25_tpu_torch.parallel.halo import make_comm
 from gb25_tpu_torch.parallel.mesh import Mesh
 
@@ -70,20 +75,21 @@ def barotropic_substep(cfg, grid, state, u_star, v_star, dt, integrals, comm=Non
     updated as u + dt G_ab, so no G_ab field exists. With ``comm`` (a tile
     of the decomposed path) the solve is blocked (K5).
 
-    On the "pallas" route ``integrals`` is None and ``G_ab`` holds the
-    AB2-combined tendencies (c1 Gu + c2 Gu_prev, c1 Gv + c2 Gv_prev): the
-    integrals and the forcing GU = zint(Gu_ab) are taken here, and the
-    solve is blocked on the route's own 1x1 tile unless ``comm`` is
-    given."""
+    Unfused (the "pallas" route, a ``compute_dtype``) ``integrals`` is None
+    and ``G_ab`` holds the AB2-combined tendencies (c1 Gu + c2 Gu_prev,
+    c1 Gv + c2 Gv_prev): the integrals and the forcing GU = zint(Gu_ab) are
+    taken here. The route decides the solve, as in the JAX package: K2 on
+    the K1 routes, the blocked solve on the "pallas" route's own 1x1 tile
+    unless ``comm`` is given."""
     if integrals is None:
         U0, V0, Us, Vs = (zint(grid, f) for f in (state.u, state.v, u_star, v_star))
         GU, GV = zint(grid, G_ab[0]), zint(grid, G_ab[1])
-        if comm is None:
-            comm = serial_comm(grid)
     else:
         U0, V0, Us, Vs = integrals
         GU = (Us - U0) / dt
         GV = (Vs - V0) / dt
+    if comm is None and cfg.kernels == "pallas":
+        comm = serial_comm(grid)
     if comm is not None:
         eta_b, U_b, V_b, Hu, Hv = _blocked_solve(cfg, grid, state.eta, U0, V0, GU, GV, dt, comm)
         return _finish(eta_b, u_star, v_star, U_b, V_b, Hu, Hv, Us, Vs)
@@ -96,6 +102,29 @@ def barotropic_substep(cfg, grid, state, u_star, v_star, dt, integrals, comm=Non
     eta_b, U_b, V_b = barotropic_loop(cfg, grid, state.eta, U0, V0, GU, GV, Hu, Hv, dt,
                                       mu=mu, mv=mv)
     return _finish(eta_b, u_star, v_star, U_b, V_b, Hu, Hv, Us, Vs)
+
+
+def explicit_pressure_gradient(cfg, grid, eta, comm=None):
+    """The explicit free surface's barotropic pressure gradient, (Ny, Nx)
+    planes added to Gu and Gv at every level: -g dx_f(eta) / dxc and
+    -g dy_f(eta) / dyf on eta extended by the grid's halo."""
+    hx, hy, Nx, Ny = grid.hx, grid.hy, grid.Nx, grid.Ny
+    g = cfg.free_surface.gravitational_acceleration
+    etae = extend_field_xy(grid, eta, "c", comm)[None]
+    gu = -g * dx_f(etae) / grid.dxc
+    gv = -g * dy_f(etae) / grid.dyf
+    return gu[0, hy : hy + Ny, hx : hx + Nx], gv[0, hy : hy + Ny, hx : hx + Nx]
+
+
+def explicit_eta_tendency(grid, ue, ve):
+    """G_eta = -div(U, V) of the depth-integrated extended velocities
+    (``ue``, ``ve``, in their own precision); the interior (Ny, Nx)."""
+    hx, hy, hz, Nx, Ny, Nz = *grid.halo, grid.Nx, grid.Ny, grid.Nz
+    dz = grid.dz_c[hz : hz + Nz]
+    U = (ue[hz : hz + Nz] * dz).sum(dim=0, keepdim=True)
+    V = (ve[hz : hz + Nz] * dz).sum(dim=0, keepdim=True)
+    G = -(dx_c(U * grid.dyc) + dy_c(V * grid.dxf)) / grid.azc
+    return G[0, hy : hy + Ny, hx : hx + Nx]
 
 
 def zint(grid, f):

@@ -1,8 +1,9 @@
 """The hydrostatic free-surface time step (port of
-``gb25_tpu.models.hydrostatic``, with or without a closure (CATKE or
-k-epsilon), immersed bathymetry, surface fluxes and the tripolar north
-fold), on the whole domain or, given a ``parallel.halo.MeshComm``
-(``comm``), on one tile of the decomposed path.
+``gb25_tpu.models.hydrostatic``, with or without a closure (CATKE,
+k-epsilon or a constant vertical diffusivity), immersed bathymetry,
+surface fluxes and the tripolar north fold), on the whole domain or,
+given a ``parallel.halo.MeshComm`` (``comm``), on one tile of the
+decomposed path.
 
 One step, in the fused form the JAX package runs on its kernels
 (``kernels="auto"`` and ``"torch"``):
@@ -28,14 +29,31 @@ One step, in the fused form the JAX package runs on its kernels
      eps with kappa_eps; then e, eps >= 0;
   8. the clock.
 
-The ``kernels="pallas"`` route is the JAX package's unfused form around
-kernel K6: TEOS-10 runs eagerly only for K4 (step 2 without a closure is
-gone); K6 computes the tendencies, TEOS-10 inside, in place of K1 (step
-4); the increments of step 5 touch the tendencies alone; the step then
-forms x* = x + dt (c1 G + c2 G_prev) itself, and the free surface
-integrates u, u* and c1 G + c2 G_prev over depth and runs the blocked
-solve serially (blocks of W substeps in K5 on a 1x1 tile of its own). The
-decomposed form of this route is not ported yet (ROADMAP.md).
+The JAX package fuses the AB2 update into the tendency stage only without
+a ``compute_dtype`` and under the split-explicit free surface
+(``HydrostaticConfig.fused``). Otherwise the stage writes the tendencies
+alone and the step forms x* = x + dt (c1 G + c2 G_prev) itself
+(unfused), through one of three tendency routes:
+  - K1 unfused: ``compute_dtype`` None (the explicit free surface) in
+    float32, or "bf16s" on bfloat16 operands (``pallas_zslab``); the serial
+    free surface is still K2, forced by the depth integral of
+    c1 G + c2 G_prev;
+  - the array path (``step/tendency_array``): "bfloat16", "float64" or
+    "f32x2" (native float64), ``tendency_math`` on copies of the extended
+    fields, f and the grid in that dtype, the tendencies cast back;
+  - the ``kernels="pallas"`` route, the JAX package's unfused form around
+    kernel K6: TEOS-10 runs eagerly only for K4 (step 2 without a closure
+    is gone); K6 computes the tendencies, TEOS-10 inside, in place of K1
+    (step 4); the increments of step 5 touch the tendencies alone; the free
+    surface integrates u, u* and c1 G + c2 G_prev over depth and runs the
+    blocked solve serially (blocks of W substeps in K5 on a 1x1 tile of its
+    own). The decomposed form of this route is not ported yet (ROADMAP.md).
+Under ``ExplicitFreeSurface`` the barotropic pressure gradient -g grad eta
+joins the momentum tendencies, G_eta = -div(U, V) of the extended
+velocities is stored, eta steps with the AB2 coefficients, and step 6 is
+gone. ``VerticalScalarDiffusivity`` solves (u, v) with nu and (T, S) with
+kappa in two constant-kappa K3 launches after step 6. The decomposed path
+runs none of these three choices yet (ROADMAP.md section 1 item 13).
 """
 
 from __future__ import annotations
@@ -50,8 +68,14 @@ from gb25_tpu_torch.grids.immersed import face_bottom_planes, face_masks, interi
 from gb25_tpu_torch.grids.tripolar import north_fold_projection
 from gb25_tpu_torch.parallel.fold import north_fold_projection_dist
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
+from gb25_tpu_torch.models.config import ExplicitFreeSurface, VerticalScalarDiffusivity
 from gb25_tpu_torch.models.device_loop import device_loop, host_loop
-from gb25_tpu_torch.models.free_surface import barotropic_substep
+from gb25_tpu_torch.models.free_surface import (
+    barotropic_substep,
+    explicit_eta_tendency,
+    explicit_pressure_gradient,
+)
+from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.models.state import HydrostaticState, advance_clock
 from gb25_tpu_torch.ops.halos import extend_field
 from gb25_tpu_torch.ops.operators import (
@@ -159,11 +183,13 @@ def _ab2_coeffs(cfg, state, dtype):
 
 
 def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
-    """Halo fill, the closure (K4) and kernel K1 (K6 on the "pallas"
-    route), then the increments after the kernel. Returns (Gu, Gv, Gtr,
-    updated, integrals, diffusivities) with updated = (u*, v*, tracers*)
-    and diffusivities None without a closure; updated and integrals are
-    None on the "pallas" route, whose caller forms the update.
+    """Halo fill, the closure (K4), the tendency stage (K1 fused or
+    unfused, the cast array path, or K6 on the "pallas" route), the
+    explicit free surface's terms, then the increments after the stage.
+    Returns (Gu, Gv, Gtr, updated, integrals, diffusivities, Geta) with
+    updated = (u*, v*, tracers*); updated and integrals are None unless the
+    stage is fused (``cfg.fused``), diffusivities None without CATKE or
+    k-epsilon, Geta None without the explicit free surface.
 
     ``surface_fluxes``: optional dict of (Ny, Nx) kinematic fluxes
     {"u", "v", "T", "S", "e"} (field units times m/s, positive into the
@@ -181,12 +207,14 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
             ue = ue * um_e
             ve = ve * vm_e
             face_bottoms = face_bottom_planes(grid)
-    fused = cfg.kernels != "pallas"
-    if fused:
+    k1 = cfg.kernels != "pallas" and cfg.array_dtype is None  # the K1 routes
+    bf16s = cfg.compute_dtype == "bf16s"
+    be = b_total = None
+    if k1 and not bf16s:
         with record_function("step/teos10"):
             # once per step: K4 and K1 both read it
             be, b_total = column_buoyancy(cfg, grid, tr_e)
-    elif cfg.closure is not None:
+    elif cfg.closure is not None and not isinstance(cfg.closure, VerticalScalarDiffusivity):
         with record_function("step/teos10"):
             be = buoyancy_field(cfg, grid, tr_e)  # K4's alone: K6 evaluates its own
 
@@ -196,29 +224,60 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
             ku, kc, ke, G_e, lam_e = catke_diffusivities_kernel(cfg, grid, ue, ve, be, tr_e["e"])
         diffusivities = {"kappa_u": ku, "kappa_c": kc, "kappa_e": ke, "lam_e": lam_e,
                          "G_e": G_e}
-    elif cfg.closure is not None:  # k-epsilon
+    elif isinstance(cfg.closure, TKEDissipationVerticalDiffusivity):
         with record_function("step/K4_keps"):
             ku, kc, ke, keps, G_e, G_eps = keps_diffusivities_kernel(
                 cfg, grid, ue, ve, be, tr_e["e"], tr_e["eps"])
         diffusivities = {"kappa_u": ku, "kappa_c": kc, "kappa_e": ke, "kappa_eps": keps,
                          "G_e": G_e, "G_eps": G_eps}
 
-    if fused:
+    updated = ints = None
+    wall = owns_south_wall(comm)
+    if cfg.fused:
         with record_function("step/K1_tendencies"):
             Gu, Gv, Gtr, u_new, v_new, tr_new, ints = zslab_tendencies(
                 cfg, grid, ue, ve, tr_e, (state.Gu, state.Gv, state.Gtracers), ab,
-                buoyancy=(be, b_total), face_bottoms=face_bottoms,
-                wall_v=owns_south_wall(comm))
+                buoyancy=(be, b_total), face_bottoms=face_bottoms, wall_v=wall)
         updated = (u_new, v_new, tr_new)
+    elif k1:
+        with record_function("step/K1_tendencies"):
+            Gu, Gv, Gtr = zslab_tendencies(
+                cfg, grid, ue, ve, tr_e, buoyancy=None if bf16s else (be, b_total), wall_v=wall,
+                storage=torch.bfloat16 if bf16s else None)
+    elif cfg.array_dtype is not None:
+        with record_function("step/tendency_array"):
+            Gu, Gv, Gtr = array_tendencies(cfg, grid, ue, ve, tr_e)
     else:
         with record_function("step/K6_tendencies"):
             f_ff = coriolis_ff(grid, cfg.coriolis).to(ue.dtype)
             Gu, Gv, Gtr = pallas_tendencies(cfg, grid, f_ff, ue, ve, tr_e)
-        updated = ints = None
+    Geta = None
+    if isinstance(cfg.free_surface, ExplicitFreeSurface):
+        with record_function("step/explicit_free_surface"):
+            # the barotropic pressure gradient joins the slow tendencies; the
+            # free surface's tendency comes from the extended (storage) fields
+            gu, gv = explicit_pressure_gradient(cfg, grid, state.eta, comm)
+            Gu = Gu + gu
+            Gv = Gv + gv
+            Geta = explicit_eta_tendency(grid, ue, ve)
     with record_function("step/increments"):
         outs = _increments(grid, (Gu, Gv, Gtr), updated, ints, ab[0], diffusivities,
-                           surface_fluxes, owns_south_wall(comm))
-    return (*outs, diffusivities)
+                           surface_fluxes, wall)
+    return (*outs, diffusivities, Geta)
+
+
+def array_tendencies(cfg, grid, ue, ve, tr_e):
+    """The tendency stage in ``cfg.array_dtype`` (the JAX package's
+    precision-lowered array path): ``tendency_math`` on the extended
+    fields, f and the grid cast to that dtype (``grid.cast``, kept per
+    dtype), interior tendencies cast back to the fields' dtype."""
+    cdt, dtype = cfg.array_dtype, ue.dtype
+    grid_c = grid.cast(cdt)
+    f_c = coriolis_ff(grid, cfg.coriolis).to(dtype).to(cdt)
+    Gu_e, Gv_e, Gtr_e = tendency_math(cfg, grid_c, f_c, ue.to(cdt), ve.to(cdt),
+                                      {k: c.to(cdt) for k, c in tr_e.items()})
+    return (grid.interior(Gu_e).to(dtype), grid.interior(Gv_e).to(dtype),
+            {k: grid.interior(g).to(dtype) for k, g in Gtr_e.items()})
 
 
 def _increments(grid, tendencies, updated, ints, dtc1, diffusivities, surface_fluxes, wall=True):
@@ -298,27 +357,33 @@ def premask_state(grid, state):
 
 def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
               premasked=False, comm=None) -> HydrostaticState:
-    """One quasi-AB2 hydrostatic step with the split-explicit free surface
-    and, with a closure, the vertically implicit solves; with ``comm``, of
-    the tile ``grid`` (see ``parallel.sharded``)."""
+    """One quasi-AB2 hydrostatic step with the split-explicit or the
+    explicit free surface and, with a closure, the vertically implicit
+    solves; with ``comm``, of the tile ``grid`` (see ``parallel.sharded``)."""
     if comm is not None and cfg.kernels == "pallas":
         raise NotImplementedError('kernels="pallas" on a tile of the decomposed path: the '
                                   "decomposed K6 route is queued in ROADMAP.md")
+    if comm is not None and (cfg.compute_dtype is not None
+                             or isinstance(cfg.free_surface, ExplicitFreeSurface)
+                             or isinstance(cfg.closure, VerticalScalarDiffusivity)):
+        raise NotImplementedError(
+            "compute_dtype, ExplicitFreeSurface and VerticalScalarDiffusivity on a tile of the "
+            "decomposed path are not ported: ROADMAP.md section 1 item 13")
     if not premasked:
         state = premask_state(grid, state)
     dtype = state.u.dtype
     dt_t = _scalar_type(dtype)(dt)
     c1, c2 = _ab2_coeffs(cfg, state, dtype)
     ab = (float(dt_t * c1), float(dt_t * c2))
-    Gu, Gv, Gtr, updated, ints, diffusivities = compute_tendencies(
+    Gu, Gv, Gtr, updated, ints, diffusivities, Geta = compute_tendencies(
         cfg, grid, state, ab, surface_fluxes, comm)
     wall = owns_south_wall(comm)
     G_ab = None
+    a, b, h = float(c1), float(c2), float(dt_t)
     if updated is None:
         with record_function("step/ab2_update"):
-            # the unfused update of the "pallas" route, in the JAX package's
-            # association: x* = x + dt (c1 G + c2 G_prev)
-            a, b, h = float(c1), float(c2), float(dt_t)
+            # the unfused update, in the JAX package's association:
+            # x* = x + dt (c1 G + c2 G_prev)
             G_ab = (a * Gu + b * state.Gu, a * Gv + b * state.Gv)
             u_star = state.u + h * G_ab[0]
             v_star = state.v + h * G_ab[1]
@@ -327,10 +392,19 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
     else:
         u_star, v_star, tracers = updated
         v_star = mask_v_wall(v_star, wall)
-    blocked = comm is not None or G_ab is not None
-    with record_function("step/K5_barotropic" if blocked else "step/K2_barotropic"):
-        eta, u_new, v_new = barotropic_substep(cfg, grid, state, u_star, v_star, float(dt_t),
-                                               ints, comm, G_ab)
+    if Geta is not None:
+        span = "step/explicit_free_surface"
+    else:
+        blocked = comm is not None or cfg.kernels == "pallas"
+        span = "step/K5_barotropic" if blocked else "step/K2_barotropic"
+    with record_function(span):
+        if Geta is not None:
+            eta = state.eta + h * (a * Geta + b * state.Geta)
+            u_new, v_new = u_star, v_star
+        else:
+            eta, u_new, v_new = barotropic_substep(cfg, grid, state, u_star, v_star, h, ints,
+                                                   comm, G_ab)
+            Geta = state.Geta
         v_new = mask_v_wall(v_new, wall)
         if grid.north_fold:
             with record_function("step/north_fold"):
@@ -346,17 +420,30 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
             u_new = u_new * u_mask
             v_new = v_new * v_mask
 
-    if diffusivities is not None:
+    if isinstance(cfg.closure, VerticalScalarDiffusivity):
+        with record_function("step/K3_implicit"):
+            u_new, v_new, tracers = _scalar_solves(cfg, grid, u_new, v_new, tracers, h)
+    elif diffusivities is not None:
         with record_function("step/K3_implicit"):
             u_new, v_new, tracers = _implicit_solves(cfg, grid, u_new, v_new, tracers,
-                                                     diffusivities, float(dt_t))
+                                                     diffusivities, h)
 
-    t_new, t_lo = advance_clock(state.time, state.time_lo, float(dt_t))
+    t_new, t_lo = advance_clock(state.time, state.time_lo, h)
     return state.replace(
         u=u_new, v=v_new, eta=eta, tracers=tracers,
-        Gu=Gu, Gv=Gv, Gtracers=Gtr,
+        Gu=Gu, Gv=Gv, Geta=Geta, Gtracers=Gtr,
         time=t_new, time_lo=t_lo, iteration=state.iteration + 1,
     )
+
+
+def _scalar_solves(cfg, grid, u, v, tracers, dt):
+    """``VerticalScalarDiffusivity``'s backward-Euler solves: (u, v) with
+    nu, (T, S) with kappa, K3's constant-kappa pair twice."""
+    coef = grid_coefficients(grid, dt)
+    nu, kappa = float(cfg.closure.nu), float(cfg.closure.kappa)
+    u, v = implicit_solve(cfg, (u, v), nu, dt, *coef)
+    T, S = implicit_solve(cfg, (tracers["T"], tracers["S"]), kappa, dt, *coef)
+    return u, v, {**tracers, "T": T, "S": S}
 
 
 def _implicit_solves(cfg, grid, u, v, tracers, d, dt):

@@ -85,11 +85,23 @@ _EOS = (
 )
 
 
+def _const(c, like):
+    """The number ``c`` as ``like``'s dtype rounds it, for a bfloat16 or
+    float16 ``like`` (the JAX package's weak-typed constants): a tensor of
+    those dtypes plus a Python number rounds the number first on the CPU
+    and not on the card, and at bfloat16's ulp of 8 kg/m^3 in rho' that
+    moves b by a whole step (0.077 m/s^2) between the two; ``c`` itself
+    for float32 and float64."""
+    if like.dtype in (torch.bfloat16, torch.float16):
+        return float(torch.tensor(c, dtype=like.dtype))
+    return c
+
+
 def _horner_2d(ss, tt, coeffs_k):
     """sum c_ij ss^i tt^j for one power of zz: Horner in tt of Horner in ss."""
     by_j = {}
     for i, j, c in coeffs_k:
-        by_j.setdefault(j, []).append((i, c))
+        by_j.setdefault(j, []).append((i, _const(c, ss)))
     out = None
     for j in range(max(by_j), -1, -1):
         poly_s = 0.0
@@ -107,7 +119,7 @@ def _horner_2d(ss, tt, coeffs_k):
 def rho_anomaly_teos10(S, T, z):
     """In-situ Boussinesq density anomaly r'(S, T, z) [kg/m^3]
     (polyTEOS10_bsq 'rdot', without the vertical reference profile)."""
-    ss = torch.sqrt((S + _DELTAS) / _SAU)
+    ss = torch.sqrt((S + _const(_DELTAS, S)) / _SAU)
     tt = T / _CTU
     zz = -z / _ZU
     by_k = {}
@@ -123,9 +135,9 @@ def rho_anomaly_teos10(S, T, z):
 def rho_vertical_reference(z):
     """r0(z): the depth-only part of the polyTEOS10_bsq density."""
     zz = -z / _ZU
-    acc = _R0[-1]
+    acc = _const(_R0[-1], zz)
     for c in _R0[-2::-1]:
-        acc = acc * zz + c
+        acc = acc * zz + _const(c, zz)
     return acc * zz
 
 
@@ -139,4 +151,4 @@ class TEOS10EquationOfState:
 
     def buoyancy(self, T, S, z):
         rprime = rho_anomaly_teos10(S, T, z)
-        return -self.g * (rprime - self.rho0) / self.rho0
+        return -self.g * (rprime - _const(self.rho0, rprime)) / self.rho0

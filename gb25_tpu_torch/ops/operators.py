@@ -36,6 +36,18 @@ def kinetic_energy(u, v):
     return (2.0 * third) * Ks + third * Kb
 
 
+def cumsum_z(x):
+    """``torch.cumsum`` along z, summed in float32 for a bfloat16 or
+    float16 ``x`` and rounded once per output. PyTorch's CPU scan sums
+    reduced precision in float32, its CUDA scan in the input's dtype: a
+    bfloat16 running sum rounded at every level loses the hydrostatic
+    pressure (p ~ 300 m^2/s^2, where a bfloat16 ulp is 2), and the
+    "bfloat16" compute mode then parts from float32 on the card alone."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return torch.cumsum(x, dim=0, dtype=torch.float32).to(x.dtype)
+    return torch.cumsum(x, dim=0)
+
+
 def diagnose_w(grid, u, v):
     """Vertical velocity at z faces from continuity, integrated up from
     w = 0 at the sea floor. z ghosts: zero below the bottom, the surface
@@ -43,7 +55,7 @@ def diagnose_w(grid, u, v):
     hz, Nz = grid.hz, grid.Nz
     div = horizontal_divergence(grid, u, v)
     div_int = div[hz : hz + Nz] * grid.dz_c[hz : hz + Nz]
-    wcum = torch.cumsum(div_int, dim=0)
+    wcum = cumsum_z(div_int)
     zero = torch.zeros_like(wcum[:1])
     w_top = -wcum[-1:]
     return torch.cat([zero] * (hz + 1) + [-wcum[:-1]] + [w_top] * hz, dim=0)
@@ -56,7 +68,7 @@ def hydrostatic_pressure(grid, b):
     hz, Nz = grid.hz, grid.Nz
     bdz = b[hz : hz + Nz] * grid.dz_c[hz : hz + Nz]
     total = bdz.sum(dim=0, keepdim=True)
-    p_int = torch.cumsum(bdz, dim=0) - total - 0.5 * bdz
+    p_int = cumsum_z(bdz) - total - 0.5 * bdz
     return torch.cat([p_int[:1]] * hz + [p_int] + [p_int[-1:]] * hz, dim=0)
 
 

@@ -6,6 +6,9 @@ Solves, column by column,
 with lam_k = kappa_k dt / (dz_c[k] dz_f[k]) (0 at the sea floor) and
 mu_k = kappa_{k+1} dt / (dz_c[k] dz_f[k+1]) (0 at the surface), for one or
 two right-hand sides that share kappa (and one forward elimination).
+kappa is a ``(Nz, Ny, Nx)`` field or, for ``VerticalScalarDiffusivity``,
+one Python float (the kernel's constant-kappa instance, an undamped pair,
+reads no kappa field).
 
 ``implicit_solve`` (and ``implicit_diffusion``, which builds the
 coefficients from the profiles first) launches
@@ -31,8 +34,8 @@ MAX_NZ = 128  # the kernel keeps a column's coefficients in shared memory
 
 KERNEL = CudaKernel(
     "implicit_diffusion.cu",
-    {"implicit_diffusion_f32": [_P] * 8 + [ctypes.c_float] + [_I] * 4 + [_P],
-     "implicit_diffusion_info": [_I] * 3 + [ctypes.POINTER(_I)]},
+    {"implicit_diffusion_f32": [_P] * 8 + [ctypes.c_float] * 2 + [_I] * 4 + [_P],
+     "implicit_diffusion_info": [_I] * 4 + [ctypes.POINTER(_I)]},
     extra_flags=("-fmad=false",),
 )
 
@@ -66,9 +69,9 @@ def grid_coefficients(grid, dt):
 
 def implicit_diffusion(cfg, fields, kappa, dt, dz_c, dz_f, damping=None):
     """Solve for each of ``fields`` (a tuple of one or two ``(Nz, Ny, Nx)``
-    tensors) with the face diffusivity ``kappa`` (same shape) and the
-    optional decay rate ``damping``; dz_c, dz_f are interior (Nz, 1, 1)
-    profiles. Returns a tuple of solutions."""
+    tensors) with the face diffusivity ``kappa`` (same shape, or a Python
+    float) and the optional decay rate ``damping``; dz_c, dz_f are interior
+    (Nz, 1, 1) profiles. Returns a tuple of solutions."""
     a_lam, a_mu = vertical_coefficients(dt, dz_c, dz_f)
     return implicit_solve(cfg, fields, kappa, dt, a_lam, a_mu, damping)
 
@@ -87,8 +90,10 @@ def implicit_solve(cfg, fields, kappa, dt, a_lam, a_mu, damping=None):
 def implicit_diffusion_plain(fields, kappa, dt, a_lam, a_mu, damping=None):
     """The plain PyTorch version of K3: the Pallas kernel's recurrence term
     by term (``pallas_tridiag.py:148-170``) as a z loop of plane operations
-    (any dtype, any device)."""
+    (any dtype, any device); ``kappa`` a field or a Python float."""
     Nz = fields[0].shape[0]
+    if isinstance(kappa, float):
+        kappa = [kappa] * Nz  # lam = kappa (dt c_lam) as the kernel rounds it
     zero = torch.zeros_like(fields[0][0])
     cp = torch.empty_like(fields[0])
     dps = [torch.empty_like(f) for f in fields]
@@ -117,17 +122,19 @@ def implicit_diffusion_plain(fields, kappa, dt, a_lam, a_mu, damping=None):
     return tuple(outs)
 
 
-def kernel_info(Nz, nf, damped):
-    """K3's launch shape for nf right-hand sides at Nz levels: registers,
-    shared memory per block, columns a block (``tile``), blocks per SM and
-    the levels its ring of copies holds in flight."""
-    return launch_info(KERNEL, "implicit_diffusion_info", Nz, nf, int(damped),
+def kernel_info(Nz, nf, damped, const_kappa=False):
+    """K3's launch shape for nf right-hand sides at Nz levels (with a
+    constant kappa: the undamped pair): registers, shared memory per block,
+    columns a block (``tile``), blocks per SM and the levels its ring of
+    copies holds in flight."""
+    return launch_info(KERNEL, "implicit_diffusion_info", Nz, nf, int(damped), int(const_kappa),
                        extra=("levels_in_flight",))
 
 
 def implicit_kernel(fields, kappa, dt, a_lam, a_mu, damping=None):
     """K3's launch alone, on coefficients from ``vertical_coefficients``
-    (CUDA float32 tensors)."""
+    (CUDA float32 tensors); ``kappa`` a field or, for an undamped pair, a
+    Python float."""
     dev = fields[0].device
     f32 = torch.float32
     Nz, Ny, Nx = fields[0].shape
@@ -136,7 +143,11 @@ def implicit_kernel(fields, kappa, dt, a_lam, a_mu, damping=None):
     shape = (Nz, Ny, Nx)
     for n, f in enumerate(fields):
         check_tensor(f, f"field{n}", shape, f32, dev)
-    check_tensor(kappa, "kappa", shape, f32, dev)
+    const_kappa = isinstance(kappa, float)
+    if const_kappa and (len(fields) != 2 or damping is not None):
+        raise ValueError("K3's constant-kappa instance solves an undamped pair")
+    if not const_kappa:
+        check_tensor(kappa, "kappa", shape, f32, dev)
     if damping is not None:
         check_tensor(damping, "damping", shape, f32, dev)
     check_tensor(a_lam, "dt_c_lam", (Nz,), f32, dev)
@@ -153,8 +164,10 @@ def implicit_kernel(fields, kappa, dt, a_lam, a_mu, damping=None):
     with torch.cuda.device(dev):
         KERNEL.launch(
             "implicit_diffusion_f32",
-            ptr(fields[0]), ptr(f1), ptr(kappa), ptr(damping), ptr(a_lam), ptr(a_mu),
-            ptr(outs[0]), ptr(o1),
-            float(torch.tensor(dt, dtype=f32)), Nx, Ny, Nz, len(fields), stream,
+            ptr(fields[0]), ptr(f1), None if const_kappa else ptr(kappa), ptr(damping),
+            ptr(a_lam), ptr(a_mu), ptr(outs[0]), ptr(o1),
+            float(torch.tensor(dt, dtype=f32)),
+            float(torch.tensor(kappa if const_kappa else 0.0, dtype=f32)),
+            Nx, Ny, Nz, len(fields), stream,
         )
     return tuple(outs)

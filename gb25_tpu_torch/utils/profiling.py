@@ -4,13 +4,23 @@
     python -m gb25_tpu_torch.utils.profiling
         [--model flagship|climate|tripolar|keps|shallow_water] [--steps 4 --warmup 3]
         [--kernels auto|torch|pallas] [--decomposed local|ring] [--blocks 1 2 4 8 16]
+        [--compute-dtype bf16s|bfloat16|float64|f32x2] [--closure none|vertical_scalar]
+        [--free-surface split_explicit|explicit] [--dt 60]
 
 Profiles at 1536x768x64 on the GPU after a warm-up: the flagship
 baroclinic-instability ocean, the coupled climate model at 1/4 degree on
 the lat-lon islands grid or on the tripolar grid, the flagship with the
 k-epsilon closure (started from e = 1e-5, eps = 1e-8), or the
 shallow-water model of ``bench.py --config atmosphere`` at 1536x768.
-``--kernels pallas`` runs the K6 route (``models.hydrostatic``).
+``--kernels pallas`` runs the K6 route (``models.hydrostatic``). On the
+flagship, ``--compute-dtype``, ``--closure vertical_scalar`` and
+``--free-surface explicit`` take the run scripts' further choices (the
+JAX package's ``utils/args.py``): a precision mode (K1's bf16-storage
+instance, or the cast array path, ``step/tendency_array``), the vertical
+scalar closure (K3's constant-kappa pair) and the explicit free surface
+(K1 unfused, ``step/explicit_free_surface``; run it at ``--dt 5``: the
+quasi-AB2 step damps the fastest gravity wave of the 80-degree rows only
+below ~6 s).
 ``--decomposed`` runs the model on the decomposed path forced onto a 1x1
 mesh (``parallel.sharded``, exchange_width = 30: one block of 30 K5
 substeps a step) in the "local" or the "ring" mode.
@@ -147,7 +157,14 @@ def main():
     p.add_argument("--kernels", default="auto", choices=["auto", "torch", "pallas"])
     p.add_argument("--decomposed", default=None, choices=["local", "ring"])
     p.add_argument("--blocks", type=int, nargs="*", default=None)
+    p.add_argument("--compute-dtype", default=None,
+                   choices=["bf16s", "bfloat16", "float64", "f32x2"])
+    p.add_argument("--closure", default="none", choices=["none", "vertical_scalar"])
+    p.add_argument("--free-surface", default="split_explicit",
+                   choices=["split_explicit", "explicit"])
+    p.add_argument("--dt", type=float, default=60.0)
     args = p.parse_args()
+    dt = args.dt
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
 
@@ -163,7 +180,11 @@ def main():
         sw_time_step,
         time_step,
     )
-    from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
+    from gb25_tpu_torch.models.config import (
+        ExplicitFreeSurface,
+        SplitExplicitFreeSurface,
+        VerticalScalarDiffusivity,
+    )
     from gb25_tpu_torch.models.hydrostatic import premask_state
     from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
     from gb25_tpu_torch.parallel import make_mesh, sharded_coupled_step_fn, sharded_step_fn
@@ -178,36 +199,39 @@ def main():
         cfg, grid, state = shallow_water_model(NX, NY)
         shape = f"{NX}x{NY}"
 
-        step = functools.partial(sw_time_step, cfg, grid, dt=60.0)
+        step = functools.partial(sw_time_step, cfg, grid, dt=dt)
 
         def run(s, n):
-            return sw_loop(cfg, grid, s, 60.0, n)
+            return sw_loop(cfg, grid, s, dt, n)
     elif args.model in ("flagship", "keps"):
         closure = TKEDissipationVerticalDiffusivity() if args.model == "keps" else None
+        if args.closure == "vertical_scalar":
+            closure = VerticalScalarDiffusivity()
+        fs = ExplicitFreeSurface() if args.free_surface == "explicit" else None
         cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, kernels=args.kernels,
-                                                        closure=closure)
-        cfg = blocked(cfg)
+                                                        closure=closure, free_surface=fs)
+        cfg = dataclasses.replace(blocked(cfg), compute_dtype=args.compute_dtype)
 
-        step = functools.partial(time_step, cfg, grid, dt=60.0, premasked=True)
+        step = functools.partial(time_step, cfg, grid, dt=dt, premasked=True)
 
         def run(s, n):
             if args.decomposed:
                 return sharded_step_fn(cfg, grid, make_mesh(), n_inner=n,
-                                       force_comm=args.decomposed)(s, 60.0)
-            return loop(cfg, grid, s, 60.0, n)
+                                       force_comm=args.decomposed)(s, dt)
+            return loop(cfg, grid, s, dt, n)
     else:
         grid_type = "gaussian_islands_tripolar" if args.model == "tripolar" else "gaussian_islands"
         ccfg, grid, atmos, state = data_free_ocean_climate_model(
             resolution=384 / NX, Nz=NZ, kernels=args.kernels, grid_type=grid_type)
         ccfg = dataclasses.replace(ccfg, ocean=blocked(ccfg.ocean))
 
-        step = functools.partial(coupled_time_step, ccfg, grid, atmos, dt=60.0, premasked=True)
+        step = functools.partial(coupled_time_step, ccfg, grid, atmos, dt=dt, premasked=True)
 
         def run(s, n):
             if args.decomposed:
                 return sharded_coupled_step_fn(ccfg, grid, atmos, make_mesh(), n_inner=n,
-                                               force_comm=args.decomposed)(s, 60.0)
-            return coupled_loop(ccfg, grid, atmos, s, 60.0, n)
+                                               force_comm=args.decomposed)(s, dt)
+            return coupled_loop(ccfg, grid, atmos, s, dt, n)
 
     def eager(s, n):  # every step from the host (the decomposed path's run does so itself)
         return run(s, n) if args.decomposed else device_loop.host_loop(step, s, n)
@@ -217,6 +241,11 @@ def main():
     rows, stages, wall_ms, state = step_breakdown(eager, state, args.steps)
     busy = sum(r[1] for r in rows)
     route = f" decomposed 1x1 {args.decomposed}" if args.decomposed else ""
+    if args.model == "flagship":
+        route += "".join(f" {k}={v}" for k, v in (("compute_dtype", args.compute_dtype),
+                                                   ("closure", args.closure),
+                                                   ("free_surface", args.free_surface), ("dt", dt))
+                         if v not in (None, "none", "split_explicit", 60.0))
     print(f"{args.model}{route} {shape} kernels={args.kernels} on "
           f"{torch.cuda.get_device_name(0)}, {args.steps} steps launched from the host: wall "
           f"{wall_ms:.3f} ms/step, device busy {busy:.3f} ms/step ({100 * busy / wall_ms:.1f}%), "

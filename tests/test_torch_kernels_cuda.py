@@ -41,7 +41,19 @@ from the host, bit for bit on every field, the clock and the iteration, at
 128x64x8 on the flagship (both tendency routes), k-epsilon, the climate on
 the islands and the tripolar grid and shallow water, over a call that
 captures and a second call that replays the kept graph; a step that cannot
-be captured makes the loop raise.
+be captured makes the loop raise. K1's unfused instances (float32 and
+bfloat16 storage, the routes under a compute_dtype or the explicit free
+surface) at K1's tolerances on grids its tiles divide and do not (rows not
+16-byte aligned take the value-by-value staging), the bfloat16 instance on
+operands rounded beforehand bit for bit with itself on the raw ones and
+apart from the float32 instance; K3's constant-kappa pair bit for bit with
+the plain version and with the field instance on a constant field; one
+step of each new route (bf16s, the explicit free surface,
+VerticalScalarDiffusivity) at the one-step tolerances against a "torch"
+step with its launches (1 K1 and 1 K2; 1 K1 and no K2; 1 K1, 1 K2 and 2
+K3), the device loop on those routes and on the cast array path
+("bfloat16", "f32x2") bit for bit with the host loop, and the "bfloat16"
+mode within tests/test_precision.py's bounds of float32 over 10 steps.
 """
 
 import dataclasses
@@ -59,7 +71,14 @@ from gb25_tpu_torch import (
     time_step,
 )
 from gb25_tpu_torch.grids.immersed import face_bottom_planes, face_masks
-from gb25_tpu_torch.models import coupled_loop, device_loop, loop, sw_loop
+from gb25_tpu_torch.models import (
+    ExplicitFreeSurface,
+    VerticalScalarDiffusivity,
+    coupled_loop,
+    device_loop,
+    loop,
+    sw_loop,
+)
 from gb25_tpu_torch.models.hydrostatic import premask_state
 from gb25_tpu_torch.models.free_surface import face_depths
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
@@ -805,14 +824,19 @@ def _looped_model(cuda, name):
                 lambda s: coupled_time_step(ccfg, grid, atmos, s, 60.0, premasked=True), grid,
                 state)
     kw = {"flagship": {}, "flagship_k6_route": {"kernels": "pallas"},
-          "keps": {"closure": TKEDissipationVerticalDiffusivity()}}[name]
+          "keps": {"closure": TKEDissipationVerticalDiffusivity()},
+          "vertical_scalar": {"closure": VerticalScalarDiffusivity()},
+          "explicit": {"free_surface": ExplicitFreeSurface()}}.get(name, {})
     cfg, grid, state = baroclinic_instability_model(128, 64, 8, device=cuda, **kw)
+    if name in ("bf16s", "bfloat16", "f32x2"):
+        cfg = dataclasses.replace(cfg, compute_dtype=name)
     return (lambda s, n: loop(cfg, grid, s, 60.0, n),
             lambda s: time_step(cfg, grid, s, 60.0, premasked=True), grid, state)
 
 
 @pytest.mark.parametrize("name", ["flagship", "flagship_k6_route", "keps", "climate", "tripolar",
-                                  "shallow_water"])
+                                  "shallow_water", "bf16s", "bfloat16", "f32x2",
+                                  "vertical_scalar", "explicit"])
 def test_device_loop_matches_host_loop_bitwise(cuda, name):
     """A call from iteration 0 (the Euler step eager, a capture, 2 replays,
     3 steps left over), then a call that replays the kept graph twice,
@@ -870,3 +894,106 @@ def test_device_loop_counts_replayed_launches(cuda):
         assert stats.recorded_launches[kernel] == k
         assert stats.replayed_launches[kernel] == 2 * k
         assert stats.launches(kernel) == 1 + 2 * k + 3
+
+
+@pytest.mark.parametrize("shape", [(128, 32, 8), (100, 20, 10), (37, 5, 6)])
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+def test_k1_unfused_matches_plain(cuda, storage, shape):
+    """K1's unfused instances against their plain versions at K1's
+    tolerances; 100 + 8 and 37 + 8 columns are not multiples of 8, so the
+    bfloat16 instance stages those value by value."""
+    cfg, grid, ue, ve, tr_e, be, b_total, _ = _tile_operands(cuda, "flagship", shape)
+    st = torch.bfloat16 if storage == "bf16" else None
+    before = pallas_zslab.KERNEL.launches
+    got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, buoyancy=(be, b_total),
+                                        storage=st)
+    torch.cuda.synchronize()
+    assert pallas_zslab.KERNEL.launches == before + 1
+    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, be=be, storage=st)
+    _close(got[0], want[0], 2e-4, 1e-9)
+    _close(got[1], want[1], 2e-4, 1e-9)
+    for k in tr_e:
+        _close(got[2][k], want[2][k], 2e-4, 1e-7)
+    assert float(got[1][:, 0, :].abs().max()) == 0.0
+    if st is None:
+        return
+
+    def rt(x):
+        return x.to(torch.bfloat16).float()
+
+    pre = pallas_zslab.zslab_tendencies(cfg, grid, rt(ue), rt(ve),
+                                        {k: rt(c) for k, c in tr_e.items()}, storage=st)
+    f32 = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, buoyancy=(be, b_total))
+    flat = [(got[0], pre[0], f32[0]), (got[1], pre[1], f32[1]),
+            *((got[2][k], pre[2][k], f32[2][k]) for k in tr_e)]
+    assert all(torch.equal(a, b) for a, b, _ in flat)
+    assert max(float((a - c).abs().max()) for a, _, c in flat) > 0.0
+
+
+def test_k1_unfused_refuses_other_instances(cuda):
+    ccfg, grid, atmos, state = data_free_ocean_climate_model(resolution=3.0, Nz=8, device=cuda)
+    ue = extend_field(grid, state.u, "u")
+    ve = extend_field(grid, state.v, "v")
+    tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
+    with pytest.raises(NotImplementedError, match="item 15"):
+        pallas_zslab.zslab_tendencies(ccfg.ocean, grid, ue, ve, tr_e)
+
+
+@pytest.mark.parametrize("Nx", [31, 96, 100])
+@pytest.mark.parametrize("Nz", [1, 7, 64, 128])
+def test_k3_constant_kappa_matches_plain_bitwise(cuda, Nz, Nx):
+    """The constant-kappa pair bit for bit with the plain version on the
+    same float, and with the field instance on a field of that value."""
+    gen = torch.Generator(device=cuda).manual_seed(Nz * 1000 + Nx)
+    shape = (Nz, 6, Nx)
+    fields = tuple(torch.randn(shape, generator=gen, device=cuda) for _ in range(2))
+    dz = torch.linspace(10.0, 200.0, Nz, device=cuda).reshape(-1, 1, 1)
+    a_lam, a_mu = pallas_tridiag.vertical_coefficients(600.0, dz, dz)
+    before = pallas_tridiag.KERNEL.launches
+    got = pallas_tridiag.implicit_kernel(fields, 1e-4, 600.0, a_lam, a_mu)
+    torch.cuda.synchronize()
+    assert pallas_tridiag.KERNEL.launches == before + 1
+    want = pallas_tridiag.implicit_diffusion_plain(fields, 1e-4, 600.0, a_lam, a_mu)
+    field = pallas_tridiag.implicit_kernel(fields, torch.full(shape, 1e-4, device=cuda), 600.0,
+                                           a_lam, a_mu)
+    for g, w, f in zip(got, want, field):
+        assert torch.equal(g, w), float((g - w).abs().max())
+        assert torch.equal(g, f)
+    with pytest.raises(ValueError, match="undamped pair"):
+        pallas_tridiag.implicit_kernel(fields[:1], 1e-4, 600.0, a_lam, a_mu)
+
+
+NEW_ROUTES = {  # the model's keywords, its compute_dtype, launches of K1, K2, K3 a step
+    "bf16s": ({}, "bf16s", [1, 1, 0]),
+    "explicit": ({"free_surface": ExplicitFreeSurface()}, None, [1, 0, 0]),
+    "vertical_scalar": ({"closure": VerticalScalarDiffusivity()}, None, [1, 1, 2]),
+}
+
+
+@pytest.mark.parametrize("name", list(NEW_ROUTES))
+def test_new_route_step_matches_plain_step(cuda, name):
+    kw, mode, launches = NEW_ROUTES[name]
+    cfg, grid, state = baroclinic_instability_model(128, 32, 8, device=cuda, **kw)
+    cfg = dataclasses.replace(cfg, compute_dtype=mode)
+    kernels = (pallas_zslab.KERNEL, pallas_barotropic.KERNEL, pallas_tridiag.KERNEL)
+    before = [k.launches for k in kernels]
+    a = time_step(cfg, grid, state, 60.0)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == launches
+    b = time_step(dataclasses.replace(cfg, kernels="torch"), grid, state, 60.0)
+    for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), (a.Geta, b.Geta),
+                 (a.tracers["T"], b.tracers["T"]), (a.tracers["S"], b.tracers["S"])):
+        _close(x, y, 1e-3, 5e-6)
+
+
+def test_bfloat16_compute_tracks_f32_on_card(cuda):
+    """tests/test_precision.py::test_bf16_compute_tracks_f32 on the card:
+    10 steps at 32x16x6 with compute_dtype="bfloat16" against float32,
+    u within 0.15 of max|u|, T within 0.3 (the array path's z scans sum in
+    float32 on the card as on the CPU, ``operators.cumsum_z``)."""
+    cfg32, grid, state = baroclinic_instability_model(32, 16, 6, device=cuda)
+    s32 = loop(cfg32, grid, state, 60.0, 10)
+    s16 = loop(dataclasses.replace(cfg32, compute_dtype="bfloat16"), grid, state, 60.0, 10)
+    du = float((s16.u - s32.u).abs().max())
+    assert du < 0.15 * max(float(s32.u.abs().max()), 1e-6)
+    assert float((s16.tracers["T"] - s32.tracers["T"]).abs().max()) < 0.3
