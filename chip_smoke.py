@@ -28,8 +28,9 @@ the device loop:
     after the timed loop, bit for bit on every field, the clock and the
     iteration (the run fails otherwise or if no graph was replayed), and
     the host loop's ms/step beside the replayed one.
-The decomposed rows ([20], [21]) run from the host, as the loops do with
-a comm; their counts are the wrappers'.
+The decomposed rows ([20], [21], [31], [33]) run on the forced 1x1 mesh,
+whose exchanges stay on the device, so their loops replay too and are
+held the same way.
 
   1. the card's name and power limit, torch and CUDA versions;
   2. the kernel build (nvcc, sm_90a), its time and each kernel's ptxas
@@ -94,17 +95,26 @@ a comm; their counts are the wrappers'.
      tripolar metric planes and masks and with lat-lon metric columns, bit
      for bit on the whole extended planes (the run fails otherwise), in
      exactly ceil(30 / s) launches (s: the kernel's substeps a launch);
-     its registers, shared memory, tile, blocks per SM and s;
+     its registers, shared memory, tile, blocks per SM and s; its time by
+     the wrapper's calls and, queued behind a sleeping kernel, the device's
+     alone;
   20. the tripolar climate model: 8 steps, then one step kernels vs plain
      (tolerances of [5]), one step "ring" against "local" bit for bit,
      then in each mode 8 warm-up steps and two 64-step loops, the second
-     timed, launch counts per step exactly 1 K1, ceil(30 / s) K5, 0 K2, 3
-     K3, 1 K4; finite fields, land at rest; ms/step beside [13]'s;
+     timed, replayed through one ``sharded_coupled_step_fn`` (its tile
+     grid keeps the graph), launch counts per step exactly 1 K1,
+     ceil(30 / s) K5, 0 K2, 3 K3, 1 K4 with the profiler probe, the device
+     loop against the host loop bit for bit over 16 steps and the host
+     loop's ms/step beside the replayed one; finite fields, land at rest;
+     ms/step beside [13]'s;
   21. the flagship the same way: per step 1 K1, ceil(30 / s) K5, 0 K2;
      beside [5]'s.
   "ring" runs on an NCCL process group of one rank (a ``HashStore``, no
   network); its exchanges are copies of the tile's own strips, "local"
-  fills the ghosts from the boundary conditions.
+  fills the ghosts from the boundary conditions. While "ring" runs, every
+  torch.distributed exchange and collective raises: its replayed loop
+  must call none (``parallel.mesh.post`` also refuses one under a
+  capture).
   the K6 route (kernels="pallas": the one-pass tendency kernel with TEOS-10
   inside, the unfused AB2 update, the blocked free surface serially, W = 4):
   22. K6 (pallas_tendencies) against its plain version, rtol 2e-4, in its
@@ -173,8 +183,40 @@ a comm; their counts are the wrappers'.
      after 8, then 8 + 2x64 steps: per step 1 K1 (the unfused float32
      instance), 0 K2; fields and G_eta finite.
 
+  the decomposed path brought up to the serial path, and
+  compute_dtype="float32":
+  31. the tripolar climate on the K6 route forced onto the 1x1 mesh (W =
+     30): 8 steps, one step against "torch" on the tile at [24]'s
+     tolerances, "ring" against "local" bit for bit, then in "local" 8 +
+     2x64 steps replayed: per step exactly 1 K6, ceil(30 / s) K5, 3 K3, 1
+     K4, 0 K1, 0 K2; the device loop against the host loop; finite
+     fields, land at rest; ms/step beside [24]'s; then K6's tripolar
+     instance against its plain version on the operands of one more tile
+     step (the exchanged extension), bit for bit, timed;
+  32. "float32" on the serial flagship (K1's unfused float32 instance, the
+     AB2 update outside, K2): one step against "torch", 8 + 2x128 steps
+     replayed, per step 1 K1, 1 K2; then a float64 state at 256x128x16
+     under "auto": one step on the card, with no kernel launched (the
+     plain versions, the JAX package's route for a non-float32 state),
+     against the same step on the CPU within 1e-10 of each field's largest
+     value; then "float32" and "bf16s" on that state after 8 steps, one
+     step each against its "torch" step at [5]'s tolerances, with exactly
+     one K1 launch (the unfused instance on float32 copies of the fields
+     and the grid, as the JAX package casts them) and no other kernel;
+  33. the further choices and "float32" on the forced 1x1 flagship: "bf16s",
+     VerticalScalarDiffusivity, ExplicitFreeSurface (dt = 5 s) and
+     "float32", each one step against its "torch" tile step (tolerances of
+     [5]), then 8 + 2x64 steps replayed in "local" with per step 1 K1 (the
+     bf16 instance; the unfused float32 one under the explicit free surface
+     and "float32") and 0 K2, and ceil(30 / s) K5 (0 under the explicit
+     free surface) and 2 K3 (vertical scalar); the device loop against the
+     host loop; then the array modes "bfloat16", "float64" and "f32x2"
+     (768x384x64) one step each on the tile, finite, 0 K1, 0 K2,
+     ceil(30 / s) K5, their distance from the float32 tile step printed.
+
 Every phase raises on failure, and the script then exits non-zero. [30]
-sums up the ms/step of every path. Three lines end the output: a JSON
+sums up the ms/step of every path; it is printed last, after [31]-[33],
+then the script's wall time. Three lines end the output: a JSON
 object with each kernel instance's launches on its main path, error
 against its plain version, times, its bound (the larger of its compulsory
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s) and its library
@@ -185,8 +227,14 @@ constant-kappa entries, from [26]-[29], too), K2's its grid of tiles, cells a ti
 instance and its L2 instance's check and time, K3's its levels in flight
 and K5's its substeps a launch; K5's
 entry also carries its column instance, its launches in "ring" and on the
-decomposed flagship, and under "k6_routes" its launches on each K6 route
-with the checks, times and bounds of [23]'s and [24]'s blocks; each entry
+decomposed flagship, under "k6_routes" its launches on each K6 route
+with the checks, times and bounds of [23]'s and [24]'s blocks, and under
+"tile_routes" its launches on [31]'s and [33]'s tiles, and its device
+time behind a sleeping kernel (``device_ms``); K6's decomposed entry
+([31]) carries the tripolar instance's check and times on the tile's own
+operands; K1's unfused entries their launches under "float32" ([32]), on
+a float64 state under "float32" and "bf16s" ([32]) and on [33]'s tiles;
+each entry
 of a replayed path carries its launches on the device over the run, the
 method that established them and the device loop's eager and replayed
 steps; ``launches`` stays the wrapper's count); then the
@@ -202,7 +250,9 @@ on the same operands.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import subprocess
@@ -784,7 +834,7 @@ def run_main_path(step_n, state, kernels, per_step, steps, probe=True):
     trace inside a graph) the counts stand alone, and the method says so.
     A probe that sees more fails the run; one that sees fewer (lost
     records) is run again, and the run fails if ``PROBE_ATTEMPTS`` probes
-    all see fewer. Without a replay (the decomposed path's host loop) every
+    all see fewer. Without a replay (a loop run from the host) every
     step passes through the wrappers and the profiler must see all of a
     probe's. ``probe=False`` (the cast array path's rows, whose eager
     tendency math launches hundreds of small kernels a step) runs no probe:
@@ -1219,6 +1269,7 @@ def phase_k5(gen):
     tripolar metric planes and masks, then with lat-lon metric columns."""
     from gb25_tpu_torch.models.free_surface import averaging_weights
     from gb25_tpu_torch.ops import pallas_barotropic
+    from gb25_tpu_torch.utils.profiling import queued_device_ms
 
     W = DECOMPOSED_W
     Ye, Xe = NY + 2 * W, NX + 2 * W
@@ -1251,14 +1302,16 @@ def phase_k5(gen):
                 for n, g, w in zip(names, got, want)]
         del got, want
         ms = cuda_time_ms(kernel, reps=10)
+        device_ms = queued_device_ms(kernel, reps=10)
         plain_ms = cuda_time_ms(plain, reps=3)
         b = k5_bound(Ye, Xe, W, metric2d, masked)
         info = pallas_barotropic.block_info(masked, metric2d)
-        print(f"  K5 {label} ({Ye}x{Xe}, {W} substeps in {n_launch} launches): {ms:.3f} ms; "
-              f"plain {plain_ms:.3f} ms; bit for bit; " + launch_line(info, b)
+        print(f"  K5 {label} ({Ye}x{Xe}, {W} substeps in {n_launch} launches): {ms:.3f} ms "
+              f"(queued behind a sleep, the device alone: {device_ms:.3f}); plain "
+              f"{plain_ms:.3f} ms; bit for bit; " + launch_line(info, b)
               + f", {info['substeps']} substeps a launch")
-        out[label] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound": b,
-                      "bitwise": True, "launch": info}
+        out[label] = {"max_abs_err": max(errs), "ms": ms, "device_ms": device_ms,
+                      "plain_ms": plain_ms, "bound": b, "bitwise": True, "launch": info}
         del ops, masks
     return out
 
@@ -1285,65 +1338,117 @@ def k5_per_step(cfg, grid):
     return pallas_barotropic.step_launches(fs.substeps, exchange_width(fs, grid))
 
 
-def decomposed(label, build, state, serial_ms, kernels, per_step, steps, phase):
+@contextlib.contextmanager
+def no_collectives():
+    """Fail on any torch.distributed exchange or collective while the
+    block runs: the forced 1x1 mesh's "ring" sits on an NCCL group of one
+    rank whose exchanges are copies of the tile's own strips, so its
+    replayed loop must call none (``parallel.mesh.post`` also refuses an
+    exchange under a capture)."""
+    names = ("batch_isend_irecv", "isend", "irecv", "send", "recv", "all_gather", "all_reduce",
+             "broadcast")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise AssertionError(f"torch.distributed.{name} called on the forced 1x1 mesh")
+        return call
+
+    for n in names:
+        setattr(dist, n, refuse(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+
+
+def decomposed(label, build, state, serial_ms, kernels, per_step, steps, phase,
+               compare=None, modes=("local", "ring")):
     """A model forced onto the decomposed path on a 1x1 mesh:
-    ``build(mode, n_inner, plain)`` gives the rank's step function. One step
-    of the kernel path against the plain path after ``WARMUP`` steps, "ring"
-    against "local" bit for bit over one step, then each mode's main path
-    (launch counts per step held to ``per_step``), timed."""
+    ``build(mode, plain)`` gives the rank's step function ``fn(state, dt,
+    n=None)``, built once per mode (its tile grid keeps the loop's captured
+    graph; ``fn.step`` is its one step, for the host loop). After
+    ``WARMUP`` steps one step of the kernel path against the plain path
+    (``compare(fn, plain_fn, state)``, by default [5]'s tolerances),
+    "ring" against "local" bit for bit over one step; then for each of
+    ``modes`` the main path (launch counts per step held to ``per_step``,
+    the profiler probe), timed, and the replayed loop against the host loop
+    bit for bit; "ring" with every torch.distributed call
+    refused. Returns each mode's ms/step (replayed, from the host), launch
+    counts, the loop's record and its final state."""
     print(f"[{phase}] decomposed 1x1 {label} (W = {DECOMPOSED_W}): {WARMUP} steps, then one "
-          "step kernels='auto' vs 'torch', and 'ring' vs 'local'")
-    moved = build("local", WARMUP, False)(state, DT)
-    step, plain_step = build("local", None, False), build("local", None, True)
-    phase_step_compare(lambda s: step(s, DT), lambda s: plain_step(s, DT), moved)
-    a, b = build("local", None, False)(moved, DT), build("ring", None, False)(moved, DT)
+          "step against 'torch', and 'ring' vs 'local'")
+    fn = build("local", False)
+    moved = fn(state, DT, WARMUP)
+    plain_fn = build("local", True)
+    if compare is None:
+        phase_step_compare(lambda s: fn(s, DT), lambda s: plain_fn(s, DT), moved)
+    else:
+        compare(fn, plain_fn, moved)
+    with no_collectives():
+        a, b = fn(moved, DT), build("ring", False)(moved, DT)
     fields = {"u": (a.u, b.u), "v": (a.v, b.v), "eta": (a.eta, b.eta),
               **{k: (a.tracers[k], b.tracers[k]) for k in a.tracers}}
     differ = [name for name, (x, y) in fields.items() if not torch.equal(x, y)]
     if differ:
         raise AssertionError(f"'ring' differs from 'local' in {differ}")
     print(f"  'ring' equals 'local' bit for bit over one step ({', '.join(fields)})")
-    del moved, a, b, fields
-    fns = {}
-
-    def step_n(mode):
-        def run(s, n):
-            if (mode, n) not in fns:
-                fns[mode, n] = build(mode, n, False)
-            return fns[mode, n](s, DT)
-        return run
-
+    del fn, plain_fn, moved, a, b, fields
     res = {}
-    for mode in ("local", "ring"):
+    for mode in modes:
         print(f"  mode {mode!r}:")
-        s, elapsed, launches, _, _ = run_main_path(step_n(mode), state, kernels, per_step, steps)
-        res[mode] = {"ms_step": 1e3 * elapsed / steps, "launches": launches, "state": s}
-        fns.clear()
-    print(f"  decomposed 1x1 {label} {NX}x{NY}x{NZ} f32: local {res['local']['ms_step']:.3f}, "
-          f"ring {res['ring']['ms_step']:.3f} ms/step ({WARMUP} + {steps} + {steps} steps, the "
-          f"second {steps} timed); serial route {serial_ms:.3f} ms/step in this call")
+        fn = build(mode, False)
+        step_n = lambda st, n: fn(st, DT, n)  # noqa: E731
+        with no_collectives() if mode == "ring" else contextlib.nullcontext():
+            s, elapsed, launches, peak_gb, rec = run_main_path(step_n, state, kernels, per_step,
+                                                               steps)
+            ms_step = 1e3 * elapsed / steps
+            host_ms = loop_vs_host(f"decomposed 1x1 {label} {mode}", step_n,
+                                   host_steps(functools.partial(fn.step, dt=DT), fn.grid), s,
+                                   ms_step)
+        if rec["replays"] == 0:
+            raise AssertionError(f"decomposed 1x1 {label} {mode}: the loop replayed no graph")
+        res[mode] = {"ms_step": ms_step, "host_ms_step": host_ms, "launches": launches,
+                     "loop": rec, "peak_gb": peak_gb, "state": s}
+        del fn, step_n, s
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  decomposed 1x1 {label} {NX}x{NY}x{NZ} f32, replayed: " + ", ".join(
+        f"{m} {r['ms_step']:.3f} ms/step (from the host {r['host_ms_step']:.3f})"
+        for m, r in res.items()) + f" ({WARMUP} + {steps} + {steps} steps, the second {steps} "
+        f"timed); serial route {serial_ms:.3f} ms/step in this call")
     return res
 
 
-def decomposed_climate(card, serial_ms, phase):
+def tripolar_decomposed_model(kernels="auto"):
     """The bench's climate_quarter_sharded1x1 row: the tripolar climate model
-    at 1/4 degree with exchange_width = 30 on the forced 1x1 mesh."""
+    at 1/4 degree with exchange_width = 30, and ``build(mode, plain)``
+    giving its forced-1x1 step function."""
     from gb25_tpu_torch import data_free_ocean_climate_model
     from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
-    from gb25_tpu_torch.ops import pallas_barotropic, pallas_catke, pallas_tridiag, pallas_zslab
     from gb25_tpu_torch.parallel import make_mesh, sharded_coupled_step_fn
 
     ccfg, grid, atmos, state = data_free_ocean_climate_model(
-        resolution=RESOLUTION, Nz=NZ, device=DEVICE, grid_type="gaussian_islands_tripolar")
+        resolution=RESOLUTION, Nz=NZ, device=DEVICE, grid_type="gaussian_islands_tripolar",
+        kernels=kernels)
     fs = SplitExplicitFreeSurface(exchange_width=DECOMPOSED_W)
     ccfg = dataclasses.replace(ccfg, ocean=dataclasses.replace(ccfg.ocean, free_surface=fs))
     plain = dataclasses.replace(ccfg, ocean=dataclasses.replace(ccfg.ocean, kernels="torch"))
     mesh = make_mesh()
 
-    def build(mode, n_inner, use_plain):
+    def build(mode, use_plain):
         return sharded_coupled_step_fn(plain if use_plain else ccfg, grid, atmos, mesh,
-                                       n_inner=n_inner, force_comm=mode)
+                                       force_comm=mode)
 
+    return ccfg, grid, state, build
+
+
+def decomposed_climate(card, serial_ms, phase):
+    """[20]: the tripolar climate model forced onto the 1x1 mesh."""
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_catke, pallas_tridiag, pallas_zslab
+
+    ccfg, grid, state, build = tripolar_decomposed_model()
     kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
                "K5": pallas_barotropic.BLOCK_KERNEL, "K3": pallas_tridiag.KERNEL,
                "K4": pallas_catke.KERNEL}
@@ -1357,29 +1462,41 @@ def decomposed_climate(card, serial_ms, phase):
     return res
 
 
-def decomposed_flagship(card, serial_ms, phase):
-    """The bench's sharded1x1 row: the flagship with exchange_width = 30 on
-    the forced 1x1 mesh."""
+def flagship_decomposed_model(**choices):
+    """The bench's sharded1x1 row: the flagship with exchange_width = 30
+    (``choices``: the model's further keywords and ``compute_dtype``; the
+    explicit free surface keeps its own), and ``build(mode, plain)`` giving
+    its forced-1x1 step function."""
     from gb25_tpu_torch import baroclinic_instability_model
-    from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
-    from gb25_tpu_torch.ops import pallas_barotropic, pallas_zslab
+    from gb25_tpu_torch.models.config import ExplicitFreeSurface, SplitExplicitFreeSurface
     from gb25_tpu_torch.parallel import make_mesh, sharded_step_fn
 
-    cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE)
-    cfg = dataclasses.replace(cfg, free_surface=SplitExplicitFreeSurface(
-        exchange_width=DECOMPOSED_W))
+    compute_dtype = choices.pop("compute_dtype", None)
+    shape = choices.pop("shape", (NX, NY, NZ))
+    cfg, grid, state = baroclinic_instability_model(*shape, device=DEVICE, **choices)
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    if not isinstance(cfg.free_surface, ExplicitFreeSurface):
+        cfg = dataclasses.replace(cfg, free_surface=SplitExplicitFreeSurface(
+            exchange_width=DECOMPOSED_W))
     plain = dataclasses.replace(cfg, kernels="torch")
     mesh = make_mesh()
 
-    def build(mode, n_inner, use_plain):
-        return sharded_step_fn(plain if use_plain else cfg, grid, mesh, n_inner=n_inner,
-                               force_comm=mode)
+    def build(mode, use_plain):
+        return sharded_step_fn(plain if use_plain else cfg, grid, mesh, force_comm=mode)
 
+    return cfg, grid, state, build
+
+
+def decomposed_flagship(card, serial_ms, phase):
+    """[21]: the flagship forced onto the 1x1 mesh."""
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_zslab
+
+    cfg, grid, state, build = flagship_decomposed_model()
     kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
                "K5": pallas_barotropic.BLOCK_KERNEL}
     per_step = {"K1": 1, "K2": 0, "K5": k5_per_step(cfg, grid)}
-    res = decomposed("flagship", build, state, serial_ms, kernels, per_step, DECOMPOSED_STEPS,
-                     phase)
+    res = decomposed("flagship", build, state, serial_ms, kernels, per_step,
+                     DECOMPOSED_STEPS, phase)
     for mode in res:
         check_state(res[mode].pop("state"), (NZ, NY, NX))
     print(f"  on {card}")
@@ -1433,10 +1550,10 @@ def phase_k6(cfg, grid, ue, ve, tr_e, label):
             "b_bitwise": b_bitwise, "launch": info}
 
 
-def cast_state(state, dtype):
-    """``state`` with every tensor cast to ``dtype``."""
+def cast_state(state, to):
+    """``state`` with every tensor moved to ``to``, a dtype or a device."""
     def cast(x):
-        return {k: v.to(dtype) for k, v in x.items()} if isinstance(x, dict) else x.to(dtype)
+        return {k: v.to(to) for k, v in x.items()} if isinstance(x, dict) else x.to(to)
 
     return state.replace(**{f.name: cast(getattr(state, f.name))
                             for f in dataclasses.fields(state) if f.name != "iteration"})
@@ -2140,6 +2257,206 @@ def further_choices(card, flagship_ms):
     return entries, rows
 
 
+# --------------------------------------------------------------------------
+# the decomposed path brought up to the serial path, and "float32": [31]-[33]
+# --------------------------------------------------------------------------
+
+def decomposed_k6(card, serial_ms):
+    """[31]: the tripolar climate on the K6 route forced onto the 1x1 mesh
+    at W = 30: one step against "torch" on the tile at [24]'s tolerances,
+    "ring" against "local" bit for bit, the main path in "local" (per step
+    1 K6, ceil(30 / s) K5, 3 K3, 1 K4, 0 K1, 0 K2) and the device loop
+    against the host loop; finite fields, land at rest; then K6 against its
+    plain version on the operands of one more tile step, timed."""
+    from gb25_tpu_torch.ops import pallas_catke, pallas_tridiag
+
+    t0 = time.perf_counter()
+    ccfg, grid, state, build = tripolar_decomposed_model(kernels="pallas")
+    kernels = {**k6_kernels(), "K3": pallas_tridiag.KERNEL, "K4": pallas_catke.KERNEL}
+    per_step = {"K6": 1, "K5": k5_per_step(ccfg.ocean, grid), "K1": 0, "K2": 0, "K3": 3, "K4": 1}
+
+    def compare(fn, plain_fn, moved):
+        route_step_compare(ccfg.ocean, fn.grid, lambda s: fn(s, DT), lambda s: plain_fn(s, DT),
+                           moved)
+
+    res = decomposed("tripolar climate, K6 route", build, state, serial_ms, kernels,
+                     per_step, K6_CLIMATE_STEPS, 31, compare=compare, modes=("local",))
+    state = res["local"].pop("state")
+    check_climate_state(state, grid)
+    fn = build("local", False)
+    cfg, tile, ue, ve, tr_e = capture_k6_operands(lambda: fn(state, DT))
+    print("  K6 on the tile's own operands (one more step's exchanged extension):")
+    res["local"]["k6"] = phase_k6(cfg, tile, ue, ve, tr_e, "tripolar tile")
+    res["local"]["k6"]["bound"] = k6_bound(tile, len(tr_e))
+    del fn, state, tile, ue, ve, tr_e
+    res["local"]["wall_s"] = time.perf_counter() - t0
+    print(f"  [31] on {card}: {res['local']['wall_s']:.1f} s; serial K6 route [24] "
+          f"{serial_ms:.3f} ms/step")
+    return res["local"]
+
+
+def capture_k6_operands(run_step):
+    """Run ``run_step()`` with the step's K6 call
+    (``hydrostatic.pallas_tendencies``) wrapped; return its (cfg, grid, ue,
+    ve, tr_e)."""
+    from gb25_tpu_torch.models import hydrostatic
+
+    wrapped = hydrostatic.pallas_tendencies
+    seen = []
+
+    def spy(cfg, grid, f_ff, ue, ve, tr_e, **kw):
+        seen[:] = [(cfg, grid, ue, ve, tr_e)]
+        return wrapped(cfg, grid, f_ff, ue, ve, tr_e, **kw)
+
+    hydrostatic.pallas_tendencies = spy
+    try:
+        run_step()
+    finally:
+        hydrostatic.pallas_tendencies = wrapped
+    return seen[0]
+
+
+def tile_choices(card, serial):
+    """[33]: the further choices and "float32" on the forced 1x1 flagship
+    (W = 30 under the split-explicit free surface): each one step against
+    its "torch" tile step (the tolerances of [5]), then the main path in
+    "local" with its launches per step and the device loop against the host
+    loop; the array modes one step each, finite, against the float32 tile
+    step (distances printed), with their launches."""
+    from gb25_tpu_torch.models import ExplicitFreeSurface, VerticalScalarDiffusivity
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_tridiag, pallas_zslab
+    from gb25_tpu_torch.parallel import make_mesh, sharded_step_fn
+
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
+               "K5": pallas_barotropic.BLOCK_KERNEL, "K3": pallas_tridiag.KERNEL}
+    k5 = pallas_barotropic.step_launches(30, DECOMPOSED_W)
+    rows = {}
+    for name, choice, dt, per_step in (
+            ("bf16s", {"compute_dtype": "bf16s"}, DT, {"K1": 1, "K2": 0, "K5": k5, "K3": 0}),
+            ("vertical_scalar", {"closure": VerticalScalarDiffusivity()}, DT,
+             {"K1": 1, "K2": 0, "K5": k5, "K3": 2}),
+            ("explicit", {"free_surface": ExplicitFreeSurface()}, EXPLICIT_DT,
+             {"K1": 1, "K2": 0, "K5": 0, "K3": 0}),
+            ("float32", {"compute_dtype": "float32"}, DT, {"K1": 1, "K2": 0, "K5": k5, "K3": 0})):
+        t0 = time.perf_counter()
+        cfg, grid, state, build = flagship_decomposed_model(**choice)
+        fn, plain_fn = build("local", False), build("local", True)
+        moved = fn(state, dt, WARMUP)
+        print(f"  {name} (dt = {dt:g} s): one step against its 'torch' tile step after "
+              f"{WARMUP}, then {WARMUP} + 2x{DECOMPOSED_STEPS} steps replayed")
+        phase_step_compare(lambda s: fn(s, dt), lambda s: plain_fn(s, dt), moved)
+        del plain_fn
+        step_n = lambda st, n: fn(st, dt, n)  # noqa: E731
+        s, elapsed, launches, peak_gb, rec = run_main_path(step_n, moved, kernels, per_step,
+                                                           DECOMPOSED_STEPS)
+        check_state(s, (NZ, NY, NX))
+        ms_step = 1e3 * elapsed / DECOMPOSED_STEPS
+        host_ms = loop_vs_host(f"decomposed 1x1 {name}", step_n,
+                               host_steps(functools.partial(fn.step, dt=dt), fn.grid), s,
+                               ms_step)
+        rows[name] = {"ms_step": ms_step, "host_ms_step": host_ms, "launches": launches,
+                      "loop": rec, "peak_gb": peak_gb, "dt": dt,
+                      "wall_s": time.perf_counter() - t0}
+        print(f"  decomposed 1x1 {name} on {card}: {ms_step:.3f} ms/step replayed, "
+              f"{host_ms:.3f} from the host; serial [{serial[name][1]}] "
+              f"{serial[name][0]:.3f} ms/step; {rows[name]['wall_s']:.1f} s")
+        del fn, step_n, s, moved, state, grid
+        gc.collect()
+        torch.cuda.empty_cache()
+    for mode in ("bfloat16", "float64", "f32x2"):
+        t0 = time.perf_counter()
+        shape = F32X2_SHAPE if mode == "f32x2" else (NX, NY, NZ)
+        cfg, grid, state, build = flagship_decomposed_model(compute_dtype=mode, shape=shape)
+        before = {k: kernel.launches for k, kernel in kernels.items()}
+        got = build("local", False)(state, DT)
+        torch.cuda.synchronize()
+        made = {k: kernel.launches - before[k] for k, kernel in kernels.items()}
+        if made != {"K1": 0, "K2": 0, "K5": k5, "K3": 0}:
+            raise AssertionError(f"{mode} on the tile made {made} launches in one step")
+        ref = sharded_step_fn(dataclasses.replace(cfg, compute_dtype=None), grid, make_mesh(),
+                              force_comm="local")(state, DT)
+        precision_distance(f"{mode} on the tile ({'x'.join(map(str, shape))})", got, ref,
+                           bounded=False)
+        rows[mode] = {"launches_one_step": made, "shape": list(shape),
+                      "wall_s": time.perf_counter() - t0}
+        del got, ref, state, grid
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serial_float32(card, flagship_ms):
+    """[32]: compute_dtype="float32" serially (K1's unfused float32 instance,
+    the AB2 update outside, K2): one step against "torch", then 8 + 2x128
+    steps replayed, per step 1 K1 and 1 K2. Then a float64 state at
+    256x128x16 under "auto": one step on the card, which launches no kernel
+    (the JAX package's route for a non-float32 state: the plain versions),
+    against the same step on the CPU within 1e-10 of each field's largest
+    value; "float32" and "bf16s" on that state, one step each against their
+    "torch" step, with exactly one K1 launch."""
+    from gb25_tpu_torch import baroclinic_instability_model, loop, time_step
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_zslab
+    from gb25_tpu_torch.utils.cuda_build import launch_counts
+
+    t0 = time.perf_counter()
+    cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    moved = loop(cfg, grid, state, DT, WARMUP)
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL}
+    row = choice_row("float32", cfg, grid, moved, kernels, {"K1": 1, "K2": 1}, CHOICE_STEPS)
+    print(f"  float32 on {card}: {row['ms_step']:.3f} ms/step against the fused flagship's "
+          f"{flagship_ms:.3f} ([5])")
+    del grid, state, moved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    shape = (256, 128, 16)
+    cfg64, grid_cpu, state_cpu = baroclinic_instability_model(*shape, device="cpu",
+                                                              dtype=torch.float64)
+    _, grid64, _ = baroclinic_instability_model(*shape, device=DEVICE, dtype=torch.float64)
+    before = launch_counts()
+    got = time_step(cfg64, grid64, cast_state(state_cpu, DEVICE), DT)
+    torch.cuda.synchronize()
+    made = {k.source: c - before.get(k, 0) for k, c in launch_counts().items()
+            if c != before.get(k, 0)}
+    if made:
+        raise AssertionError(f"a float64 state under 'auto' launched kernels: {made}")
+    want = time_step(cfg64, grid_cpu, state_cpu, DT)
+    errs = {}
+    for name, (x, y) in {"u": (got.u, want.u), "v": (got.v, want.v), "eta": (got.eta, want.eta),
+                         **{k: (got.tracers[k], want.tracers[k]) for k in got.tracers},
+                         "Gu": (got.Gu, want.Gu), "Gv": (got.Gv, want.Gv)}.items():
+        y = y.to(DEVICE)
+        errs[name] = compare(f"f64 {name}", x, y, 0.0, 1e-10 * float(y.abs().max()))
+    print(f"  float64 state {'x'.join(map(str, shape))} under 'auto' on the card: no kernel "
+          "launched, one step within 1e-10 of each field's largest value of the CPU step")
+    # "float32" and "bf16s" hand K1 float32 copies of a float64 state's fields
+    # and grid: one launch of its unfused instance, K2's plain version; after
+    # WARMUP steps, as from rest Gu is too small for [5]'s atol
+    state64 = loop(cfg64, grid64, cast_state(state_cpu, DEVICE), DT, WARMUP)
+    modes = {}
+    for mode in ("float32", "bf16s"):
+        cfg_m = dataclasses.replace(cfg64, compute_dtype=mode)
+        before = launch_counts()
+        phase_step_compare(lambda st: time_step(cfg_m, grid64, st, DT),
+                           lambda st: time_step(dataclasses.replace(cfg_m, kernels="torch"),
+                                                grid64, st, DT), state64)
+        torch.cuda.synchronize()
+        modes[mode] = {k.source: c - before.get(k, 0) for k, c in launch_counts().items()
+                       if c != before.get(k, 0)}
+        if modes[mode] != {pallas_zslab.KERNEL.source: 1}:
+            raise AssertionError(f"{mode} on a float64 state launched {modes[mode]}, expected "
+                                 "one K1")
+        print(f"  {mode} on the float64 state: one K1 launch (unfused, on float32 copies), "
+              "no other kernel, one step against its 'torch' step at [5]'s tolerances")
+    row.update(wall_s=time.perf_counter() - t0, float64_state={
+        "shape": list(shape), "launches": made, "max_abs_err": errs, "operand_modes": modes})
+    return row
+
+
+T_START = time.perf_counter()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2192,6 +2509,21 @@ def main():
     sw = shallow_water(card)
     torch.cuda.empty_cache()
     choice_entries, choices = further_choices(card, flag["ms_step"])
+    print(f"[31] the K6 route on the decomposed 1x1 tripolar climate")
+    dk6 = decomposed_k6(card, k6_ms["climate_tripolar_k6"]["ms_step"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[32] compute_dtype='float32' on the serial flagship; a float64 state under 'auto'")
+    f32 = serial_float32(card, flag["ms_step"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[33] the further choices and 'float32' on the decomposed 1x1 flagship")
+    tiles = tile_choices(card, {"bf16s": (choices["bf16s"]["ms_step"], 27),
+                                "vertical_scalar": (choices["vertical_scalar"]["ms_step"], 28),
+                                "explicit": (choices["explicit"]["ms_step"], 29),
+                                "float32": (f32["ms_step"], 32)})
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def host(r):
         return "" if r.get("host_ms_step") is None else f", from the host {r['host_ms_step']:.3f}"
@@ -2200,10 +2532,15 @@ def main():
           "host where named): " + "; ".join(
               f"{name} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s){host(r)}, plain "
               f"{r['plain_ms_step']:.3f}" for name, r in summary.items()) + "; " + "; ".join(
-        f"decomposed 1x1 {name} (host loop) local {r['local']['ms_step']:.3f}, ring "
-        f"{r['ring']['ms_step']:.3f}" for name, r in
+        f"decomposed 1x1 {name} local {r['local']['ms_step']:.3f}{host(r['local'])}, ring "
+        f"{r['ring']['ms_step']:.3f}{host(r['ring'])}" for name, r in
         (("climate_tripolar", dclim), ("flagship", dflag))) + "; K6 route: " + "; ".join(
         f"{name} {r['ms_step']:.3f}{host(r)}" for name, r in k6_ms.items())
+          + f"; decomposed 1x1 K6 route climate_tripolar {dk6['ms_step']:.3f}{host(dk6)}; "
+          + "; ".join(f"decomposed 1x1 {name} {r['ms_step']:.3f}{host(r)}"
+                      + (f", dt {r['dt']:g} s" if r["dt"] != DT else "")
+                      for name, r in tiles.items() if "ms_step" in r)
+          + f"; float32 {f32['ms_step']:.3f} ({f32['rate']:.4e} cell-steps/s){host(f32)}"
           + f"; shallow water {sw['ms_step']:.3f} ({sw['rate']:.4e} cell-steps/s), from the host "
           f"{sw['host_ms_step']:.3f} ({sw['host_rate']:.4e} cell-steps/s); " + "; ".join(
               f"{name} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s, {r['steps']} steps"
@@ -2219,11 +2556,32 @@ def main():
         launches_ring=dclim["ring"]["launches"]["K5"],
         launches_flagship_decomposed=dflag["local"]["launches"]["K5"],
         k6_routes=k5_on_k6,
-        bitwise=k5["tripolar"]["bitwise"],
-        columns={k: k5["columns"][k] for k in ("max_abs_err", "ms", "plain_ms", "bitwise")}
+        tile_routes={"climate_tripolar_k6_decomposed": dk6["launches"]["K5"],
+                     **{f"{name}_decomposed": r["launches"]["K5"] for name, r in tiles.items()
+                        if "launches" in r}},
+        bitwise=k5["tripolar"]["bitwise"], device_ms=k5["tripolar"]["device_ms"],
+        columns={k: k5["columns"][k]
+                 for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bitwise")}
         | {"bound_ms": k5["columns"]["bound"][0]})
+    # K6's tripolar instance on the decomposed tile of [31], checked and timed on
+    # the tile's own operands
+    k6_tile = entry("pallas_tendencies_tripolar_decomposed", "tendencies.cu",
+                    "gb25_tpu/ops/pallas_tendency.py:115", "climate_tripolar_k6_decomposed",
+                    dk6["launches"]["K6"], dk6["k6"], dk6["k6"]["bound"])
+    k6_tile.update(bitwise=dk6["k6"]["bitwise"], b_bitwise=dk6["k6"]["b_bitwise"],
+                   **on_device(dk6["loop"], "K6"))
+    # K1's unfused instances on the tiles of [33] and serially under "float32" ([32])
+    choice_entries[0].update(
+        launches_float32=f32["launches"]["K1"],
+        launches_float64_state=f32["float64_state"]["operand_modes"]["float32"],
+        launches_tiles={f"{n}_decomposed": tiles[n]["launches"]["K1"]
+                        for n in ("explicit", "float32")})
+    choice_entries[1].update(
+        launches_tiles={"bf16s_decomposed": tiles["bf16s"]["launches"]["K1"]},
+        launches_float64_state=f32["float64_state"]["operand_modes"]["bf16s"])
+    print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s on {card}")
     print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels
-                      + [k5_entry] + k6_entries + choice_entries}))
+                      + [k5_entry] + k6_entries + [k6_tile] + choice_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

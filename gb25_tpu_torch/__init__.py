@@ -18,8 +18,9 @@ tensors their plain PyTorch versions run instead. The JAX package
     state = sw_loop(cfg, grid, state, 60.0, n)
 
 On the card each loop replays its steps from a captured CUDA graph
-(``models.device_loop``); on the CPU and on the decomposed path it
-launches them step by step from the host.
+(``models.device_loop``), on the decomposed path too where the mesh is the
+one card (the forced 1x1 modes); on the CPU and on a mesh of several
+ranks it launches them step by step from the host.
 """
 
 from gb25_tpu_torch.models import (  # noqa: F401

@@ -16,13 +16,17 @@ EARTH_ROTATION_RATE = 7.292115e-5  # rad/s
 KERNEL_MODES = ("auto", "torch", "pallas")
 
 # compute_dtype -> the dtype the array tendency path computes in; "bf16s"
-# (bf16 storage, f32 arithmetic) runs K1's bf16-storage instance instead.
-# "f32x2" is the JAX package's double-single arithmetic (ops/multifloat.py):
-# the port computes it in native float64, which the H100 has (a deviation,
-# ROADMAP.md section 3).
+# (bf16 storage, f32 arithmetic) runs K1's bf16-storage instance and
+# "float32" K1's unfused float32 instance instead. "f32x2" is the JAX
+# package's double-single arithmetic (ops/multifloat.py): the port computes
+# it in native float64, which the H100 has (a deviation, ROADMAP.md
+# section 3).
 ARRAY_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64,
                         "f32x2": torch.float64}
-COMPUTE_DTYPES = (None, "bf16s", *ARRAY_COMPUTE_DTYPES)
+COMPUTE_DTYPES = (None, "float32", "bf16s", *ARRAY_COMPUTE_DTYPES)
+# what the JAX package's run scripts make of --target-float-type f16, f8E5M2
+# and f8E4M3: it runs them, and they go non-finite within 2 steps
+NONFINITE_COMPUTE_DTYPES = ("float16", "float8_e5m2", "float8_e4m3")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,14 +91,18 @@ class HydrostaticConfig:
     (WENO vector-invariant momentum, WENO-5 tracers, Hollingsworth kinetic
     energy); the JAX package's other choices come with later slices.
 
-    ``compute_dtype``: None (the state's precision), "bfloat16", "float64"
-    or "f32x2" (the tendency stage runs the array path on copies of the
-    fields, f and the grid in that dtype, native float64 for "f32x2"), or
-    "bf16s" (K1 reads u, v, the tracers and b rounded to bfloat16 and
-    computes in float32). The state and its update stay in the storage
-    precision, and the AB2 update is unfused. "bf16x2" is not ported
-    (ROADMAP.md section 1 item 14), nor is any ``compute_dtype`` on the
-    "pallas" route (item 11) or with CATKE or k-epsilon (item 12)."""
+    ``compute_dtype``: None (the state's precision, the fused form),
+    "float32" (K1's unfused float32 instance; on a state of another dtype
+    the stage reads float32 copies of the fields and the grid), "bfloat16",
+    "float64" or "f32x2" (the tendency stage runs the array path on copies
+    of the fields, f and the grid in that dtype, native float64 for
+    "f32x2"), or "bf16s" (K1 reads u, v, the tracers and b rounded to
+    bfloat16 and computes in float32). The state and its update stay in the
+    storage precision, and the AB2 update is unfused. "float16" and the
+    float8 modes are not ported (they go non-finite in the JAX package:
+    ROADMAP.md section 1, "Not to port"), nor is "bf16x2" (item 14), any
+    ``compute_dtype`` on the "pallas" route (item 11) or with CATKE or
+    k-epsilon (item 12)."""
 
     tracers: tuple = ("T", "S")
     eos: TEOS10EquationOfState = TEOS10EquationOfState()
@@ -128,9 +136,12 @@ class HydrostaticConfig:
         if cd == "bf16x2":
             raise NotImplementedError("compute_dtype='bf16x2' (paired bfloat16) is not ported: "
                                       "ROADMAP.md section 1 item 14")
+        if cd in NONFINITE_COMPUTE_DTYPES:
+            raise NotImplementedError(
+                f"compute_dtype={cd!r} is not ported: in the JAX package this mode goes "
+                "non-finite within 2 steps (ROADMAP.md section 1, 'Not to port')")
         if cd not in COMPUTE_DTYPES:
-            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES} or 'bf16x2', "
-                             f"got {cd!r}")
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {cd!r}")
         if cd is None:
             return
         if self.kernels == "pallas" and cd == "bf16s":

@@ -31,7 +31,7 @@ from gb25_tpu_torch.models.atmosphere import data_free_atmosphere
 from gb25_tpu_torch.models.baroclinic import baroclinic_instability_config, smooth_step
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity, surface_tke_flux
 from gb25_tpu_torch.models.config import HydrostaticConfig
-from gb25_tpu_torch.models.device_loop import device_loop, host_loop
+from gb25_tpu_torch.models.device_loop import run_loop
 from gb25_tpu_torch.models.fluxes import (
     Radiation,
     SimilarityTheoryFluxes,
@@ -112,13 +112,12 @@ def coupled_time_step(ccfg: CoupledConfig, grid, atmos, state, dt, premasked=Fal
 def coupled_loop(ccfg: CoupledConfig, grid, atmos, state, dt, n, comm=None):
     """``n`` coupled steps (the immersed mask applied once, before the
     first): on the card replayed from a captured CUDA graph
-    (``device_loop``), on the CPU and with ``comm`` from the host."""
+    (``device_loop``), also with a ``comm`` whose mesh is the one card; on
+    the CPU and with a ``comm`` of several ranks from the host."""
     state = premask_state(grid, state)
     step = functools.partial(coupled_time_step, ccfg, grid, atmos, dt=dt, premasked=True,
                              comm=comm)
-    if comm is not None:
-        return host_loop(step, state, n)
-    return device_loop(step, state, n, grid.cache)
+    return run_loop(step, state, n, comm, grid.cache)
 
 
 def data_free_ocean_climate_model(resolution=2.0, Nz=20, *, device="cuda", dtype=torch.float32,

@@ -28,11 +28,16 @@ state; the function and those arguments are the key of the captured graph
      advanced by n on the host, its clock by the steps on the device.
 
 On a CPU state it is the plain host loop (``host_loop``): the CPU has no
-graphs. The decomposed path (a ``comm``) keeps the host loop on the card
-too: its exchanges are ``torch.distributed`` P2P calls, which gloo cannot
-capture (capturing NCCL or the forced 1x1 mesh's exchanges is queued in
-ROADMAP.md); the callers pass those to ``host_loop``. Nowhere else does the
-loop fall back: a capture that fails raises.
+graphs. On the decomposed path (a ``comm``) the loop is replayed where the
+mesh is the one card (the forced 1x1 "local" and "ring" modes): there every
+exchange is a copy or a fill on the device and no exchange calls
+``torch.distributed`` (``parallel.mesh.post`` raises if one tries under a
+capture). A mesh of several ranks (``spans_ranks``) keeps the host loop:
+its exchanges are ``torch.distributed`` P2P calls, which gloo cannot
+capture (NCCL between cards could be; ROADMAP.md queues that for the first
+4-card cell). Nowhere else does the loop fall back: a capture that fails
+raises. The graph reads the grid's and the comm's cached operands
+(K3's coefficients, the blocked solve's statics), so it keeps them.
 """
 
 from __future__ import annotations
@@ -102,6 +107,21 @@ def plan(n, iteration, block, captured):
     return head, replays, tail
 
 
+def spans_ranks(comm) -> bool:
+    """Whether a step with ``comm`` exchanges with other ranks through
+    ``torch.distributed`` (a mesh of several ranks), which keeps its loop on
+    the host; a 1x1 mesh exchanges on the device alone."""
+    return comm is not None and comm.mesh.size > 1
+
+
+def run_loop(step, state, n, comm, cache):
+    """``n`` steps of ``step`` with the exchange ``comm`` (None serially):
+    from the host where ``comm`` spans ranks, else ``device_loop``."""
+    if spans_ranks(comm):
+        return host_loop(step, state, n)
+    return device_loop(step, state, n, cache)
+
+
 def host_loop(step, state, n):
     """``n`` calls of ``step``, each launched from the host."""
     for _ in range(n):
@@ -151,7 +171,7 @@ class _Captured:
     graph: torch.cuda.CUDAGraph
     static: dict    # field -> tensor: the state the graph reads and writes back
     key: tuple      # what the graph was captured for (``device_loop``)
-    keep: tuple     # the grid's cached operands at capture, which the graph reads
+    keep: tuple     # the grid's and the comm's cached operands at capture, which the graph reads
     recorded: dict  # kernel -> its launches in the graph, which each replay makes
 
 
@@ -187,10 +207,18 @@ def _capture(step, state, block, key, cache):
     STATS.captured_steps += block
     STATS.pool_bytes += torch.cuda.memory_reserved() - reserved
     STATS.recorded_launches.update(recorded)
-    # the graph reads the per-grid operands by address, and a later dt
-    # replaces K3's coefficients in the cache: keep what it held
+    return _Captured(graph, static, key, _kept(step, cache), recorded)
+
+
+def _kept(step, cache):
+    """What a graph of ``step`` reads by address and must keep: the grid's
+    cached operands (a later dt replaces K3's coefficients in the cache)
+    and, on a tile, the comm's (the blocked solve's statics)."""
     keep = tuple(v for name, v in cache.items() if name != _ENTRY)
-    return _Captured(graph, static, key, keep, recorded)
+    comm = step.keywords.get("comm")
+    if comm is not None:
+        keep += tuple(comm.cache.values())
+    return keep
 
 
 def _eager(step, state, n):

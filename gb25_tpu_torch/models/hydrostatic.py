@@ -34,10 +34,13 @@ a ``compute_dtype`` and under the split-explicit free surface
 (``HydrostaticConfig.fused``). Otherwise the stage writes the tendencies
 alone and the step forms x* = x + dt (c1 G + c2 G_prev) itself
 (unfused), through one of three tendency routes:
-  - K1 unfused: ``compute_dtype`` None (the explicit free surface) in
-    float32, or "bf16s" on bfloat16 operands (``pallas_zslab``); the serial
-    free surface is still K2, forced by the depth integral of
-    c1 G + c2 G_prev;
+  - K1 unfused: ``compute_dtype`` None (the explicit free surface) or
+    "float32" in float32, or "bf16s" on bfloat16 operands
+    (``pallas_zslab``); on a state of another dtype "float32" and "bf16s"
+    hand K1 float32 copies of the extended fields and the grid and cast the
+    tendencies back (``k1_operand_dtype``); the serial free surface is
+    still K2, forced by the depth integral of c1 G + c2 G_prev (on a tile,
+    the blocked solve K5);
   - the array path (``step/tendency_array``): "bfloat16", "float64" or
     "f32x2" (native float64), ``tendency_math`` on copies of the extended
     fields, f and the grid in that dtype, the tendencies cast back;
@@ -46,14 +49,23 @@ alone and the step forms x* = x + dt (c1 G + c2 G_prev) itself
     is gone); K6 computes the tendencies, TEOS-10 inside, in place of K1
     (step 4); the increments of step 5 touch the tendencies alone; the free
     surface integrates u, u* and c1 G + c2 G_prev over depth and runs the
-    blocked solve serially (blocks of W substeps in K5 on a 1x1 tile of its
-    own). The decomposed form of this route is not ported yet (ROADMAP.md).
+    blocked solve (blocks of W substeps in K5; serially on a 1x1 tile of its
+    own, on a tile of the decomposed path on the exchanged extension; K6 has
+    no wall logic, so only a tile that owns the south wall masks its row).
 Under ``ExplicitFreeSurface`` the barotropic pressure gradient -g grad eta
 joins the momentum tendencies, G_eta = -div(U, V) of the extended
 velocities is stored, eta steps with the AB2 coefficients, and step 6 is
 gone. ``VerticalScalarDiffusivity`` solves (u, v) with nu and (T, S) with
-kappa in two constant-kappa K3 launches after step 6. The decomposed path
-runs none of these three choices yet (ROADMAP.md section 1 item 13).
+kappa in two constant-kappa K3 launches after step 6. On a tile the
+explicit free surface reads eta's exchanged ghosts, the scalar closure runs
+on the tile's columns as it is, and the cast array path casts the tile's
+grid.
+
+Which kernel a step launches follows its operands' dtype
+(``utils.cuda_build.kernel_route``): float32 operands on the card launch
+them, a float64 or float16 state takes every plain version under "auto"
+(the JAX package's gates send it to the array path), except K1 under
+"float32" and "bf16s", whose operands are the float32 copies.
 """
 
 from __future__ import annotations
@@ -69,7 +81,7 @@ from gb25_tpu_torch.grids.tripolar import north_fold_projection
 from gb25_tpu_torch.parallel.fold import north_fold_projection_dist
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
 from gb25_tpu_torch.models.config import ExplicitFreeSurface, VerticalScalarDiffusivity
-from gb25_tpu_torch.models.device_loop import device_loop, host_loop
+from gb25_tpu_torch.models.device_loop import run_loop
 from gb25_tpu_torch.models.free_surface import (
     barotropic_substep,
     explicit_eta_tendency,
@@ -207,13 +219,23 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
             ue = ue * um_e
             ve = ve * vm_e
             face_bottoms = face_bottom_planes(grid)
-    k1 = cfg.kernels != "pallas" and cfg.array_dtype is None  # the K1 routes
+    cast = cfg.array_dtype
+    k1 = cfg.kernels != "pallas" and cast is None  # the K1 routes
     bf16s = cfg.compute_dtype == "bf16s"
+    dtype = state.u.dtype
+    kdt = k1_operand_dtype(cfg, dtype)
+    grid_k, ue_k, ve_k, tr_k = grid, ue, ve, tr_e  # K1's operands
+    if k1 and kdt is not None:
+        def copy(x):  # bf16s rounds the state itself, as the JAX package does
+            return (x.to(torch.bfloat16) if bf16s else x).to(kdt)
+
+        grid_k, ue_k, ve_k = grid.cast(kdt), copy(ue), copy(ve)
+        tr_k = {k: copy(c) for k, c in tr_e.items()}
     be = b_total = None
     if k1 and not bf16s:
         with record_function("step/teos10"):
             # once per step: K4 and K1 both read it
-            be, b_total = column_buoyancy(cfg, grid, tr_e)
+            be, b_total = column_buoyancy(cfg, grid_k, tr_k)
     elif cfg.closure is not None and not isinstance(cfg.closure, VerticalScalarDiffusivity):
         with record_function("step/teos10"):
             be = buoyancy_field(cfg, grid, tr_e)  # K4's alone: K6 evaluates its own
@@ -242,11 +264,13 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
     elif k1:
         with record_function("step/K1_tendencies"):
             Gu, Gv, Gtr = zslab_tendencies(
-                cfg, grid, ue, ve, tr_e, buoyancy=None if bf16s else (be, b_total), wall_v=wall,
-                storage=torch.bfloat16 if bf16s else None)
-    elif cfg.array_dtype is not None:
+                cfg, grid_k, ue_k, ve_k, tr_k, buoyancy=None if bf16s else (be, b_total),
+                wall_v=wall, storage=torch.bfloat16 if bf16s else None)
+        if kdt is not None:
+            Gu, Gv, Gtr = Gu.to(dtype), Gv.to(dtype), {k: g.to(dtype) for k, g in Gtr.items()}
+    elif cast is not None:
         with record_function("step/tendency_array"):
-            Gu, Gv, Gtr = array_tendencies(cfg, grid, ue, ve, tr_e)
+            Gu, Gv, Gtr = array_tendencies(cfg, grid, ue, ve, tr_e, cast)
     else:
         with record_function("step/K6_tendencies"):
             f_ff = coriolis_ff(grid, cfg.coriolis).to(ue.dtype)
@@ -266,12 +290,26 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
     return (*outs, diffusivities, Geta)
 
 
-def array_tendencies(cfg, grid, ue, ve, tr_e):
-    """The tendency stage in ``cfg.array_dtype`` (the JAX package's
-    precision-lowered array path): ``tendency_math`` on the extended
-    fields, f and the grid cast to that dtype (``grid.cast``, kept per
-    dtype), interior tendencies cast back to the fields' dtype."""
-    cdt, dtype = cfg.array_dtype, ue.dtype
+def k1_operand_dtype(cfg, dtype):
+    """The dtype of the copies K1's unfused instances read for a ``dtype``
+    state, or None (K1 reads the fields themselves): float32 under
+    "float32" and "bf16s" on a state of another dtype. The JAX package casts
+    the fields to float32 for both modes (bf16s rounded to bfloat16 first)
+    and the grid for "float32", so its kernel gate sees float32 operands
+    and runs K1 on them; so does the port (with the grid cast for both: K1
+    reads float32 metrics), where a float64 state's own fields would take
+    the plain versions."""
+    if cfg.compute_dtype in ("float32", "bf16s") and dtype != torch.float32:
+        return torch.float32
+    return None
+
+
+def array_tendencies(cfg, grid, ue, ve, tr_e, cdt):
+    """The tendency stage in ``cdt`` (the JAX package's precision-lowered
+    array path): ``tendency_math`` on the extended fields, f and the grid
+    cast to that dtype (``grid.cast``, kept per dtype; on a tile, the
+    tile's grid), interior tendencies cast back to the fields' dtype."""
+    dtype = ue.dtype
     grid_c = grid.cast(cdt)
     f_c = coriolis_ff(grid, cfg.coriolis).to(dtype).to(cdt)
     Gu_e, Gv_e, Gtr_e = tendency_math(cfg, grid_c, f_c, ue.to(cdt), ve.to(cdt),
@@ -360,15 +398,6 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
     """One quasi-AB2 hydrostatic step with the split-explicit or the
     explicit free surface and, with a closure, the vertically implicit
     solves; with ``comm``, of the tile ``grid`` (see ``parallel.sharded``)."""
-    if comm is not None and cfg.kernels == "pallas":
-        raise NotImplementedError('kernels="pallas" on a tile of the decomposed path: the '
-                                  "decomposed K6 route is queued in ROADMAP.md")
-    if comm is not None and (cfg.compute_dtype is not None
-                             or isinstance(cfg.free_surface, ExplicitFreeSurface)
-                             or isinstance(cfg.closure, VerticalScalarDiffusivity)):
-        raise NotImplementedError(
-            "compute_dtype, ExplicitFreeSurface and VerticalScalarDiffusivity on a tile of the "
-            "decomposed path are not ported: ROADMAP.md section 1 item 13")
     if not premasked:
         state = premask_state(grid, state)
     dtype = state.u.dtype
@@ -464,11 +493,10 @@ def _implicit_solves(cfg, grid, u, v, tracers, d, dt):
 
 def loop(cfg, grid, state, dt, n, comm=None):
     """``n`` time steps (the immersed mask applied once, before the first):
-    on the card replayed from a captured CUDA graph (``device_loop``), on
-    the CPU and on a tile of the decomposed path (``comm``) launched step
-    by step from the host."""
+    on the card replayed from a captured CUDA graph (``device_loop``), also
+    on a tile of the decomposed path whose mesh is the one card
+    (``comm.mesh.size == 1``); on the CPU and on a tile of a mesh of several
+    ranks launched step by step from the host (``host_loop``)."""
     state = premask_state(grid, state)
     step = functools.partial(time_step, cfg, grid, dt=dt, premasked=True, comm=comm)
-    if comm is not None:
-        return host_loop(step, state, n)
-    return device_loop(step, state, n, grid.cache)
+    return run_loop(step, state, n, comm, grid.cache)

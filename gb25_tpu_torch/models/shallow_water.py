@@ -15,7 +15,8 @@ no Pallas kernel in the JAX package: a step is ~80 small torch launches,
 which ``sw_loop`` replays on the card from a captured CUDA graph
 (``models.device_loop``). With a ``comm`` (a tile of the decomposed path,
 ``parallel.sharded.run_decomposed_sw``) the ghosts come from the
-neighbouring tiles and the loop runs from the host.
+neighbouring tiles; the loop runs from the host where the mesh spans
+several ranks.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import torch
 
 from gb25_tpu_torch.grids import simple_latitude_longitude_grid
 from gb25_tpu_torch.models.config import EARTH_ROTATION_RATE
-from gb25_tpu_torch.models.device_loop import device_loop, host_loop
+from gb25_tpu_torch.models.device_loop import run_loop
 from gb25_tpu_torch.models.hydrostatic import (
     _ab2_coeffs,
     _scalar_type,
@@ -132,11 +133,10 @@ def sw_time_step(cfg, grid, state, dt, comm=None) -> ShallowWaterState:
 
 def sw_loop(cfg, grid, state, dt, n, comm=None) -> ShallowWaterState:
     """``n`` steps: on the card replayed from a captured CUDA graph
-    (``device_loop``), on the CPU and with ``comm`` from the host."""
+    (``device_loop``), also with a ``comm`` whose mesh is the one card; on
+    the CPU and with a ``comm`` of several ranks from the host."""
     step = functools.partial(sw_time_step, cfg, grid, dt=dt, comm=comm)
-    if comm is not None:
-        return host_loop(step, state, n)
-    return device_loop(step, state, n, grid.cache)
+    return run_loop(step, state, n, comm, grid.cache)
 
 
 def shallow_water_model(Nx, Ny, *, device="cuda", dtype=torch.float32):

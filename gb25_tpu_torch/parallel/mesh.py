@@ -103,8 +103,15 @@ def make_mesh(shape=None, group=None) -> Mesh:
 
 
 def post(ops):
-    """Post point-to-point operations as one batch and wait for them."""
+    """Post point-to-point operations as one batch and wait for them. Under
+    a CUDA graph capture it raises instead: a graph is replayed only where
+    the mesh is the one card, whose exchanges call no ``torch.distributed``
+    operation (``models.device_loop``), so a call here would be a fault."""
     if ops:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a torch.distributed exchange under a CUDA graph capture: only a "
+                               "mesh of one rank is replayed, and its exchanges stay on the "
+                               "device")
         for work in dist.batch_isend_irecv(ops):
             work.wait()
 

@@ -5,7 +5,13 @@ Each process of a ``torch.distributed`` group holds one tile of the
 around it (``parallel.localize``) and a ``MeshComm`` for its halo
 exchanges. ``sharded_step_fn`` / ``sharded_coupled_step_fn`` return this
 rank's ``fn(state_tile, dt)``, which runs ``n_inner`` steps of the same
-physics code the serial path runs, the comm threaded through.
+physics code the serial path runs, the comm threaded through. A mesh of
+several ranks runs them from the host; where the mesh is the one card the
+loop is replayed from a CUDA graph (``models.device_loop``), which lives in
+the tile grid's cache: ``fn`` builds that grid once, so run the untimed and
+the timed loops through one ``fn`` (``fn(state, dt, n)`` runs another
+count on the same tile; ``fn.step`` is the tile's one step, for a loop
+launched from the host, and ``fn.grid`` the tile's grid).
 
 A 1x1 mesh takes the serial route (``comm=None``: kernel K2, no
 exchanges) unless ``force_comm`` keeps the decomposed program on one
@@ -13,13 +19,15 @@ device, to measure it there: ``"ring"`` runs the exchange structure (each
 exchange a copy of the tile's own strips), ``"local"`` fills the ghosts
 from the boundary conditions with no exchange at all. Both compute what a
 tile of a real decomposition computes: localize, width-W extensions, the
-blocked barotropic solve (K5). ``run_decomposed_sw`` runs the
-shallow-water model the same way.
+blocked barotropic solve (K5); neither calls ``torch.distributed``, so on
+the card their loops are replayed as the serial loops are.
+``run_decomposed_sw`` runs the shallow-water model the same way.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.distributed as dist
@@ -49,36 +57,46 @@ def _tile(grid, mesh, force_comm):
 
 
 def sharded_step_fn(cfg, grid, mesh, n_inner: int | None = None, force_comm=False):
-    """This rank's ``fn(state_tile, dt) -> state_tile``: one step, or
-    ``n_inner`` steps (the immersed mask applied once), of the model on
-    ``grid`` (the global grid) decomposed over ``mesh``."""
-    from gb25_tpu_torch.models.hydrostatic import loop, time_step
+    """This rank's ``fn(state_tile, dt, n=n_inner) -> state_tile``: one
+    step, or ``n`` steps (the immersed mask applied once), of the model on
+    ``grid`` (the global grid) decomposed over ``mesh``. ``fn.step(state,
+    dt=dt)`` is the tile's one step on a premasked state, the step its loop
+    runs, and ``fn.grid`` the tile's grid."""
+    from gb25_tpu_torch.models.hydrostatic import time_step
 
     comm, lgrid = _tile(grid, mesh, force_comm)
-
-    def fn(state, dt):
-        if n_inner is None:
-            return time_step(cfg, lgrid, state, dt, comm=comm)
-        return loop(cfg, lgrid, state, dt, n_inner, comm)
-
-    return fn
+    return _tile_fn(functools.partial(time_step, cfg, lgrid, premasked=True, comm=comm),
+                    lgrid, comm, n_inner)
 
 
 def sharded_coupled_step_fn(ccfg, grid, atmos, mesh, n_inner: int | None = None,
                             force_comm=False):
-    """This rank's coupled ``fn(state_tile, dt) -> state_tile``, the
-    atmosphere sliced to the tile."""
-    from gb25_tpu_torch.models.coupled import coupled_loop, coupled_time_step
+    """This rank's coupled ``fn(state_tile, dt, n=n_inner) ->
+    state_tile``, the atmosphere sliced to the tile; ``fn.step`` and
+    ``fn.grid`` as ``sharded_step_fn``'s."""
+    from gb25_tpu_torch.models.coupled import coupled_time_step
 
     comm, lgrid = _tile(grid, mesh, force_comm)
     if comm is not None:
         atmos = localize_atmosphere(atmos, comm, lgrid.Nx, lgrid.Ny)
+    return _tile_fn(functools.partial(coupled_time_step, ccfg, lgrid, atmos, premasked=True,
+                                      comm=comm), lgrid, comm, n_inner)
 
-    def fn(state, dt):
-        if n_inner is None:
-            return coupled_time_step(ccfg, lgrid, atmos, state, dt, comm=comm)
-        return coupled_loop(ccfg, lgrid, atmos, state, dt, n_inner, comm)
 
+def _tile_fn(step, lgrid, comm, n_inner):
+    """``fn`` of a tile's ``step`` (a partial over all but the state and
+    dt) on its grid ``lgrid``: the immersed mask applied once, then one
+    step or a loop of ``n`` (``models.device_loop.run_loop``)."""
+    from gb25_tpu_torch.models.device_loop import run_loop
+    from gb25_tpu_torch.models.hydrostatic import premask_state
+
+    def fn(state, dt, n=n_inner):
+        state = premask_state(lgrid, state)
+        if n is None:
+            return step(state, dt=dt)
+        return run_loop(functools.partial(step, dt=dt), state, n, comm, lgrid.cache)
+
+    fn.step, fn.grid = step, lgrid
     return fn
 
 

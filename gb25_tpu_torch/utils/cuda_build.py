@@ -25,6 +25,8 @@ import tempfile
 import weakref
 from pathlib import Path
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -133,19 +135,37 @@ def check_tensor(t, name, shape, dtype, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def uses_kernel(cfg, t) -> bool:
-    """The dispatch rule of every kernel: "auto" and "pallas" launch the
-    CUDA kernel for a CUDA tensor and run the plain version for a CPU
-    tensor; "torch" always runs the plain version."""
-    if cfg.kernels == "torch":
+def kernel_route(kernels, device_type, dtype) -> bool:
+    """The dispatch rule of every kernel, from the operand's device and
+    dtype alone: "torch" always runs the plain version; "auto" and "pallas"
+    run it on the CPU and launch the CUDA kernel for a float32 CUDA
+    operand. A CUDA operand of another dtype (a float64 or float16 state)
+    takes the plain version under "auto", as the JAX package's
+    ``*_supported`` gates send a non-float32 ``ue`` to its array path, and
+    raises under "pallas", which names the kernels: the Mosaic lowering
+    would refuse it. (Under "float32" and "bf16s" the step hands K1 float32
+    copies of such a state, as the JAX package casts them:
+    ``models.hydrostatic.k1_operand_dtype``.) The kernel wrappers
+    themselves take float32 only."""
+    if kernels == "torch":
         return False
-    if cfg.kernels not in ("auto", "pallas"):
-        raise ValueError(f"unknown kernels mode {cfg.kernels!r}")
-    if t.is_cuda:
+    if kernels not in ("auto", "pallas"):
+        raise ValueError(f"unknown kernels mode {kernels!r}")
+    if device_type == "cpu":
+        return False
+    if device_type != "cuda":
+        raise ValueError(f"kernels={kernels!r} has no kernel for device {device_type}")
+    if dtype == torch.float32:
         return True
-    if t.device.type != "cpu":
-        raise ValueError(f"kernels={cfg.kernels!r} has no kernel for device {t.device}")
+    if kernels == "pallas":
+        raise NotImplementedError(f'kernels="pallas" on a {dtype} state: the kernels take '
+                                  'float32; kernels="auto" runs their plain versions')
     return False
+
+
+def uses_kernel(cfg, t) -> bool:
+    """``kernel_route`` for the operand ``t`` under ``cfg.kernels``."""
+    return kernel_route(cfg.kernels, t.device.type, t.dtype)
 
 
 def launch_info(kernel, name, *args, extra=()) -> dict:

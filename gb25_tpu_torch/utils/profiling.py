@@ -4,7 +4,8 @@
     python -m gb25_tpu_torch.utils.profiling
         [--model flagship|climate|tripolar|keps|shallow_water] [--steps 4 --warmup 3]
         [--kernels auto|torch|pallas] [--decomposed local|ring] [--blocks 1 2 4 8 16]
-        [--compute-dtype bf16s|bfloat16|float64|f32x2] [--closure none|vertical_scalar]
+        [--compute-dtype float32|bf16s|bfloat16|float64|f32x2]
+        [--closure none|vertical_scalar]
         [--free-surface split_explicit|explicit] [--dt 60]
 
 Profiles at 1536x768x64 on the GPU after a warm-up: the flagship
@@ -23,7 +24,9 @@ quasi-AB2 step damps the fastest gravity wave of the 80-degree rows only
 below ~6 s).
 ``--decomposed`` runs the model on the decomposed path forced onto a 1x1
 mesh (``parallel.sharded``, exchange_width = 30: one block of 30 K5
-substeps a step) in the "local" or the "ring" mode.
+substeps a step) in the "local" or the "ring" mode, on the tile grid and
+exchange of one ``sharded_step_fn`` (the grid keeps the captured graph),
+with every other option.
 
 Two windows. First ``--steps`` steps launched one by one from the host:
 the device time per kernel name, grouped into the hand-written kernels and
@@ -31,11 +34,12 @@ the torch ops around them, each stage's device span (the ``step/*``
 profiler ranges) and the device busy share of the window (summed kernel
 time over wall time; a single stream has no overlap). Then the loop as a
 user runs it, replayed from its captured CUDA graph
-(``models.device_loop``; not on the decomposed path, which runs from the
-host): wall, device busy, idle share, peak device memory and the graph's
-pool. The ranges do not exist inside a replay, so the breakdown by stage
+(``models.device_loop``; the forced 1x1 decomposed path too): wall,
+device busy, idle share, peak device memory and the graph's pool. The ranges do not exist inside a replay, so the breakdown by stage
 comes from the first window. ``--blocks`` times the replayed loop with
 graphs of each block length. Needs a CUDA device; it fails without one.
+``queued_device_ms`` times a call by the device alone (``chip_smoke.py``
+[19], ``solver_variants.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +52,23 @@ import time
 import torch
 
 NX, NY, NZ = 1536, 768, 64  # the flagship grid
+
+
+def queued_device_ms(fn, reps):
+    """Mean device time of ``fn()`` over ``reps`` calls by CUDA events, the
+    calls queued behind a sleeping kernel (~1 ms a call), so that the
+    host's cost of a call (a K5 block of 4 substeps takes less time on the
+    card than its wrapper on the host) does not enter."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e6) * reps)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _device_us(evt, total=False) -> float:
@@ -158,7 +179,7 @@ def main():
     p.add_argument("--decomposed", default=None, choices=["local", "ring"])
     p.add_argument("--blocks", type=int, nargs="*", default=None)
     p.add_argument("--compute-dtype", default=None,
-                   choices=["bf16s", "bfloat16", "float64", "f32x2"])
+                   choices=["float32", "bf16s", "bfloat16", "float64", "f32x2"])
     p.add_argument("--closure", default="none", choices=["none", "vertical_scalar"])
     p.add_argument("--free-surface", default="split_explicit",
                    choices=["split_explicit", "explicit"])
@@ -190,7 +211,7 @@ def main():
     from gb25_tpu_torch.parallel import make_mesh, sharded_coupled_step_fn, sharded_step_fn
 
     def blocked(cfg):
-        if args.decomposed is None:
+        if args.decomposed is None or isinstance(cfg.free_surface, ExplicitFreeSurface):
             return cfg
         return dataclasses.replace(cfg, free_surface=SplitExplicitFreeSurface(exchange_width=30))
 
@@ -211,30 +232,35 @@ def main():
         cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, kernels=args.kernels,
                                                         closure=closure, free_surface=fs)
         cfg = dataclasses.replace(blocked(cfg), compute_dtype=args.compute_dtype)
+        if args.decomposed:
+            fn = sharded_step_fn(cfg, grid, make_mesh(), force_comm=args.decomposed)
+        else:
+            step = functools.partial(time_step, cfg, grid, dt=dt, premasked=True)
 
-        step = functools.partial(time_step, cfg, grid, dt=dt, premasked=True)
-
-        def run(s, n):
-            if args.decomposed:
-                return sharded_step_fn(cfg, grid, make_mesh(), n_inner=n,
-                                       force_comm=args.decomposed)(s, dt)
-            return loop(cfg, grid, s, dt, n)
+            def run(s, n):
+                return loop(cfg, grid, s, dt, n)
     else:
         grid_type = "gaussian_islands_tripolar" if args.model == "tripolar" else "gaussian_islands"
         ccfg, grid, atmos, state = data_free_ocean_climate_model(
             resolution=384 / NX, Nz=NZ, kernels=args.kernels, grid_type=grid_type)
         ccfg = dataclasses.replace(ccfg, ocean=blocked(ccfg.ocean))
+        if args.decomposed:
+            fn = sharded_coupled_step_fn(ccfg, grid, atmos, make_mesh(),
+                                         force_comm=args.decomposed)
+        else:
+            step = functools.partial(coupled_time_step, ccfg, grid, atmos, dt=dt, premasked=True)
 
-        step = functools.partial(coupled_time_step, ccfg, grid, atmos, dt=dt, premasked=True)
+            def run(s, n):
+                return coupled_loop(ccfg, grid, atmos, s, dt, n)
+    if args.decomposed:
+        # one fn: its tile grid keeps the loop's captured graph
+        grid, step = fn.grid, functools.partial(fn.step, dt=dt)
 
         def run(s, n):
-            if args.decomposed:
-                return sharded_coupled_step_fn(ccfg, grid, atmos, make_mesh(), n_inner=n,
-                                               force_comm=args.decomposed)(s, dt)
-            return coupled_loop(ccfg, grid, atmos, s, dt, n)
+            return fn(s, dt, n)
 
-    def eager(s, n):  # every step from the host (the decomposed path's run does so itself)
-        return run(s, n) if args.decomposed else device_loop.host_loop(step, s, n)
+    def eager(s, n):  # every step from the host
+        return device_loop.host_loop(step, s, n)
 
     state = premask_state(grid, run(state, args.warmup))
     torch.cuda.reset_peak_memory_stats()
@@ -263,9 +289,6 @@ def main():
     print("top kernels (device ms/step, launches/step):")
     for name, ms, calls in rows[:25]:
         print(f"  {ms:9.3f}  {calls:6.1f}  {name[:110]}")
-    if args.decomposed:
-        return  # the decomposed path runs from the host: no replayed loop
-
     n = 2 * device_loop.BLOCK_STEPS
     device_loop.STATS.reset()
     state = run(state, n + 1)  # one step from the host, a capture, replays

@@ -59,6 +59,7 @@ import torch
 from gb25_tpu_torch.models.free_surface import averaging_weights
 from gb25_tpu_torch.ops import pallas_barotropic, pallas_tridiag
 from gb25_tpu_torch.utils import cuda_build
+from gb25_tpu_torch.utils.profiling import queued_device_ms
 from tendency_variants import build, variant_sources
 
 NX, NY, NZ = 1536, 768, 64
@@ -215,23 +216,6 @@ def k2_phases(ops_by_label, weights, dtau, g):
     return out
 
 
-def device_ms(fn, reps):
-    """Mean device time of ``fn()`` over ``reps`` calls by CUDA events, the
-    calls queued behind a sleeping kernel so that the host's cost of a call
-    (a K5 block of 4 substeps takes less time on the card than its
-    wrapper on the host) does not enter."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(2e6) * reps)  # ~1 ms a call
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def measure(kname, variants, run, want, info, reps):
     """Time ``run(name)`` with each variant as the module's kernel, in order
     and in reverse order; hold each variant's outputs against ``want``."""
@@ -247,7 +231,7 @@ def measure(kname, variants, run, want, info, reps):
     for order in (list(variants), list(variants)[::-1]):
         for name in order:
             with mock.patch.object(module, attr, variants[name]):
-                res[name]["ms"].append(device_ms(lambda: run(name), reps))
+                res[name]["ms"].append(queued_device_ms(lambda: run(name), reps))
     return res
 
 

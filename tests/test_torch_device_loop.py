@@ -17,7 +17,13 @@
 - the grid's cache keeps one graph: a call with another key frees the kept
   graph (with no garbage collection) before it captures its own; the key
   holds the grid and the atmosphere by weak reference and tells them apart
-  by identity; the step must be a ``functools.partial``.
+  by identity; the step must be a ``functools.partial``;
+- the decomposed path forced onto a 1x1 mesh ("local" and "ring"): the
+  flagship's and the tripolar climate's loops go through ``device_loop``
+  (emulated replays) and equal the host loop bit for bit; the graph keeps
+  the tile's cached blocked-solve statics and is keyed by the comm; a comm
+  whose mesh has several ranks keeps the host loop, and an exchange posted
+  under a capture raises.
 The graphs themselves run on the card: tests/test_torch_kernels_cuda.py.
 """
 
@@ -40,7 +46,10 @@ from gb25_tpu_torch import (
 from gb25_tpu_torch.models import coupled_loop, loop, sw_loop
 from gb25_tpu_torch.models import device_loop as dl
 from gb25_tpu_torch.models.hydrostatic import premask_state
+from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+from gb25_tpu_torch.parallel import Mesh, make_comm, sharded_coupled_step_fn, sharded_step_fn
+from gb25_tpu_torch.parallel import mesh as mesh_mod
 
 DT = 60.0
 K = dl.BLOCK_STEPS
@@ -132,10 +141,13 @@ def _graphs(cache):
 class _EmulatedGraph:
     """On the CPU, what a captured block does on the card: ``block`` steps
     from the static state, the result copied back into it. It holds the
-    step by weak reference, as a CUDA graph holds nothing of it."""
+    step by weak reference, as a CUDA graph holds nothing of it, unless
+    ``strong`` (a loop makes its step anew at each call: a later call
+    replays the graph after the first call's step is gone)."""
 
-    def __init__(self, step, state, static, block):
-        self.step, self.state, self.static, self.block = weakref.ref(step), state, static, block
+    def __init__(self, step, state, static, block, strong=False):
+        self.step = (lambda: step) if strong else weakref.ref(step)
+        self.state, self.static, self.block = state, static, block
 
     def replay(self):
         out = dl._tensors(dl.host_loop(self.step(), dl._with_tensors(self.state, self.static),
@@ -146,13 +158,13 @@ class _EmulatedGraph:
                 self.static[field].copy_(t)
 
 
-def _emulated_capture(step, state, block, key, cache):
+def _emulated_capture(step, state, block, key, cache, strong=False):
     assert not _graphs(cache), "a capture began with another graph kept"
     static = {field: t.clone() for field, t in dl._tensors(state).items()}
     dl.STATS.captures += 1
     dl.STATS.captured_steps += block
-    return dl._Captured(_EmulatedGraph(step, state, static, block), static, key,
-                        tuple(v for k, v in cache.items() if k != dl._ENTRY), {})
+    return dl._Captured(_EmulatedGraph(step, state, static, block, strong), static, key,
+                        dl._kept(step, cache), {})
 
 
 @pytest.fixture
@@ -235,3 +247,81 @@ def test_key_holds_objects_weakly(emulated):
     assert gone() is None
     with pytest.raises(TypeError, match="functools.partial"):
         dl.device_loop(lambda s: s, state, 4, grid.cache, 3)
+
+
+def _forced_1x1(model, mode):
+    """(fn, step, grid, state): the forced 1x1 ``model`` ("flagship" or
+    "tripolar" climate at exchange_width 8: four blocks a step, the bench
+    rows' 30 exceeds the fold's rows at this size), its
+    ``sharded_*_step_fn``, the tile's step (``fn.step``) at DT and the
+    premasked state."""
+    fs = SplitExplicitFreeSurface(exchange_width=8)
+    if model == "flagship":
+        cfg, grid, state = baroclinic_instability_model(32, 16, 4, device="cpu")
+        cfg = dataclasses.replace(cfg, free_surface=fs)
+        fn = sharded_step_fn(cfg, grid, Mesh(1, 1), force_comm=mode)
+    else:
+        ccfg, grid, atmos, state = data_free_ocean_climate_model(
+            resolution=8.0, Nz=4, device="cpu", grid_type="gaussian_islands_tripolar")
+        ccfg = dataclasses.replace(ccfg, ocean=dataclasses.replace(ccfg.ocean, free_surface=fs))
+        fn = sharded_coupled_step_fn(ccfg, grid, atmos, Mesh(1, 1), force_comm=mode)
+    return fn, functools.partial(fn.step, dt=DT), fn.grid, premask_state(fn.grid, state)
+
+
+@pytest.mark.parametrize("mode", ["local", "ring"])
+@pytest.mark.parametrize("model", ["flagship", "tripolar"])
+def test_forced_1x1_loops_replay(model, mode, monkeypatch):
+    """One fn, two calls: the Euler step, a capture, a replay and a step
+    left over; then two replays of the kept graph; equal to the host loop
+    bit for bit. The graph is keyed by the comm (a ``_Ref``) and keeps the
+    blocked solve's statics from the comm's cache."""
+    monkeypatch.setattr(dl, "_on_card", lambda tensors: True)
+    monkeypatch.setattr(dl, "_capture", functools.partial(_emulated_capture, strong=True))
+    fn, step, grid, state = _forced_1x1(model, mode)
+    dl.STATS.reset()
+    a = fn(state, DT, 1 + K + 1)
+    b = fn(a, DT, 2 * K)
+    st = dl.STATS
+    assert (st.captures, st.replays, st.eager_steps) == (1, 3, 2)
+    want_a = dl.host_loop(step, state, 1 + K + 1)
+    _assert_same(a, want_a)
+    _assert_same(b, dl.host_loop(step, want_a, 2 * K))
+    (entry,) = _graphs(grid.cache)
+    keywords = dict(entry.key[0][2])
+    comm = fn.step.keywords["comm"]
+    assert isinstance(keywords["comm"], dl._Ref) and keywords["comm"].ref() is comm
+    statics = list(comm.cache.values())
+    assert statics and all(any(v is k for k in entry.keep) for v in statics)
+    assert all(any(v is k for k in entry.keep) for n, v in grid.cache.items() if n != dl._ENTRY)
+
+
+def test_loops_of_several_ranks_stay_on_the_host(monkeypatch):
+    """``loop``, ``coupled_loop`` and ``sw_loop`` with a comm whose mesh
+    has two ranks run ``host_loop`` (gloo cannot capture), with a 1x1
+    comm ``device_loop``; ``post`` refuses to exchange under a capture."""
+    calls = []
+
+    def record(name):
+        def run(step, state, n, *args):
+            calls.append((name, step.keywords["comm"].mesh.size))
+            return state
+        return run
+
+    monkeypatch.setattr(dl, "host_loop", record("host"))
+    monkeypatch.setattr(dl, "device_loop", record("device"))
+    cfg, grid, state = baroclinic_instability_model(32, 16, 4, device="cpu")
+    ccfg, cgrid, atmos, cstate = data_free_ocean_climate_model(resolution=8.0, Nz=4,
+                                                               device="cpu")
+    swcfg, swgrid, swstate = shallow_water_model(48, 24, device="cpu")
+    for mesh in (Mesh(2, 1), Mesh(1, 1)):
+        loop(cfg, grid, state, DT, 2, make_comm(mesh, grid))
+        coupled_loop(ccfg, cgrid, atmos, cstate, DT, 2, make_comm(mesh, cgrid))
+        sw_loop(swcfg, swgrid, swstate, DT, 2, make_comm(mesh, swgrid))
+    assert calls == [("host", 2)] * 3 + [("device", 1)] * 3
+    assert not dl.spans_ranks(None) and dl.spans_ranks(make_comm(Mesh(2, 1)))
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    with pytest.raises(RuntimeError, match="under a CUDA graph capture"):
+        mesh_mod.post([object()])
+    mesh_mod.post([])  # nothing to post: no exchange, nothing refused

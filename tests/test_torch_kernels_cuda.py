@@ -54,6 +54,13 @@ step with its launches (1 K1 and 1 K2; 1 K1 and no K2; 1 K1, 1 K2 and 2
 K3), the device loop on those routes and on the cast array path
 ("bfloat16", "f32x2") bit for bit with the host loop, and the "bfloat16"
 mode within tests/test_precision.py's bounds of float32 over 10 steps.
+The decomposed path forced onto a 1x1 mesh at W = 30: the flagship's and
+the tripolar climate's loops replayed bit for bit with the host loop in
+"local" and "ring"; one step of the K6 route, "bf16s", "float32",
+VerticalScalarDiffusivity and the explicit free surface on the tile against
+a "torch" step with their launches (K5's ceil(30 / s), no K2). "float32"
+serially: 1 K1 (unfused), 1 K2 a step, replayed bit for bit. A float64
+state under "auto" launches nothing and equals the CPU step within 1e-10.
 """
 
 import dataclasses
@@ -176,11 +183,41 @@ def test_step_matches_plain_step(cuda):
 
 
 def test_auto_on_cuda_raises_for_unsupported_dtype(cuda):
-    """A CUDA tensor under kernels="auto" takes the kernel or raises: a
-    float64 field is refused, never handed to the plain version."""
-    cfg, grid, state = baroclinic_instability_model(32, 16, 4, device=cuda, dtype=torch.float64)
-    with pytest.raises(ValueError, match="dtype"):
-        time_step(cfg, grid, state, 60.0)
+    """A float64 state on the card: "auto" takes every kernel's plain
+    version (the JAX package's route for a non-float32 state), launching
+    nothing, and its step equals the same step on the CPU within 1e-10;
+    "pallas" raises, and so does a kernel handed a float64 operand."""
+    cfg, grid, _ = baroclinic_instability_model(32, 16, 4, device=cuda, dtype=torch.float64)
+    _, grid_cpu, state_cpu = baroclinic_instability_model(32, 16, 4, device="cpu",
+                                                          dtype=torch.float64)
+    # the CPU's state on the card (the initial noise comes from each device's generator)
+    state = state_cpu.replace(**{f.name: _to(getattr(state_cpu, f.name), cuda)
+                                 for f in dataclasses.fields(state_cpu) if f.name != "iteration"})
+    kernels = list(_all_kernels())
+    before = [k.launches for k in kernels]
+    a = time_step(cfg, grid, state, 60.0)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == before
+    b = time_step(cfg, grid_cpu, state_cpu, 60.0)
+    for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), (a.tracers["T"], b.tracers["T"])):
+        _close(x.cpu(), y, 1e-10, 1e-10 * float(y.abs().max()))
+    with pytest.raises(NotImplementedError, match="float32"):
+        time_step(dataclasses.replace(cfg, kernels="pallas"), grid, state, 60.0)
+    ue, ve = extend_field(grid, state.u, "u"), extend_field(grid, state.v, "v")
+    tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
+    be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pallas_zslab.zslab_kernel_unfused(cfg, grid, ue, ve, tr_e, be, b_total)
+
+
+def _to(x, device):
+    return {k: v.to(device) for k, v in x.items()} if isinstance(x, dict) else x.to(device)
+
+
+def _all_kernels():
+    return (pallas_zslab.KERNEL, pallas_barotropic.KERNEL, pallas_barotropic.BLOCK_KERNEL,
+            pallas_tridiag.KERNEL, pallas_catke.KERNEL, pallas_catke.KEPS_KERNEL,
+            pallas_tendency.KERNEL)
 
 
 def _climate_operands(cuda, shape, seed, grid_type="gaussian_islands"):
@@ -823,20 +860,44 @@ def _looped_model(cuda, name):
         return (lambda s, n: coupled_loop(ccfg, grid, atmos, s, 60.0, n),
                 lambda s: coupled_time_step(ccfg, grid, atmos, s, 60.0, premasked=True), grid,
                 state)
+    if name.startswith("forced_"):
+        return _forced_1x1_model(cuda, *name.split("_")[1:])
     kw = {"flagship": {}, "flagship_k6_route": {"kernels": "pallas"},
           "keps": {"closure": TKEDissipationVerticalDiffusivity()},
           "vertical_scalar": {"closure": VerticalScalarDiffusivity()},
           "explicit": {"free_surface": ExplicitFreeSurface()}}.get(name, {})
     cfg, grid, state = baroclinic_instability_model(128, 64, 8, device=cuda, **kw)
-    if name in ("bf16s", "bfloat16", "f32x2"):
+    if name in ("bf16s", "bfloat16", "f32x2", "float32"):
         cfg = dataclasses.replace(cfg, compute_dtype=name)
     return (lambda s, n: loop(cfg, grid, s, 60.0, n),
             lambda s: time_step(cfg, grid, s, 60.0, premasked=True), grid, state)
 
 
+def _forced_1x1_model(cuda, model, mode):
+    """(run_n, step, tile grid, state) of the flagship or the tripolar
+    climate forced onto a 1x1 mesh at W = 30, "local" or "ring": one
+    ``sharded_*_step_fn``, whose tile grid keeps the graph."""
+    from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
+    from gb25_tpu_torch.parallel import make_mesh, sharded_coupled_step_fn, sharded_step_fn
+
+    fs = SplitExplicitFreeSurface(exchange_width=30)
+    if model == "flagship":
+        cfg, grid, state = baroclinic_instability_model(128, 64, 8, device=cuda)
+        cfg = dataclasses.replace(cfg, free_surface=fs)
+        fn = sharded_step_fn(cfg, grid, make_mesh(), force_comm=mode)
+    else:
+        ccfg, grid, atmos, state = data_free_ocean_climate_model(
+            resolution=3.0, Nz=8, device=cuda, grid_type="gaussian_islands_tripolar")
+        ccfg = dataclasses.replace(ccfg, ocean=dataclasses.replace(ccfg.ocean, free_surface=fs))
+        fn = sharded_coupled_step_fn(ccfg, grid, atmos, make_mesh(), force_comm=mode)
+    return lambda s, n: fn(s, 60.0, n), functools.partial(fn.step, dt=60.0), fn.grid, state
+
+
 @pytest.mark.parametrize("name", ["flagship", "flagship_k6_route", "keps", "climate", "tripolar",
-                                  "shallow_water", "bf16s", "bfloat16", "f32x2",
-                                  "vertical_scalar", "explicit"])
+                                  "shallow_water", "bf16s", "bfloat16", "f32x2", "float32",
+                                  "vertical_scalar", "explicit", "forced_flagship_local",
+                                  "forced_flagship_ring", "forced_tripolar_local",
+                                  "forced_tripolar_ring"])
 def test_device_loop_matches_host_loop_bitwise(cuda, name):
     """A call from iteration 0 (the Euler step eager, a capture, 2 replays,
     3 steps left over), then a call that replays the kept graph twice,
@@ -965,6 +1026,7 @@ def test_k3_constant_kappa_matches_plain_bitwise(cuda, Nz, Nx):
 
 NEW_ROUTES = {  # the model's keywords, its compute_dtype, launches of K1, K2, K3 a step
     "bf16s": ({}, "bf16s", [1, 1, 0]),
+    "float32": ({}, "float32", [1, 1, 0]),
     "explicit": ({"free_surface": ExplicitFreeSurface()}, None, [1, 0, 0]),
     "vertical_scalar": ({"closure": VerticalScalarDiffusivity()}, None, [1, 1, 2]),
 }
@@ -997,3 +1059,95 @@ def test_bfloat16_compute_tracks_f32_on_card(cuda):
     du = float((s16.u - s32.u).abs().max())
     assert du < 0.15 * max(float(s32.u.abs().max()), 1e-6)
     assert float((s16.tracers["T"] - s32.tracers["T"]).abs().max()) < 0.3
+
+
+TILE_ROUTES = {  # the model's keywords and compute_dtype; launches of K1, K2, K3, K5, K6 a step
+    "k6_route": ({"kernels": "pallas"}, None, [0, 0, 0, "K5", 1]),
+    "bf16s": ({}, "bf16s", [1, 0, 0, "K5", 0]),
+    "float32": ({}, "float32", [1, 0, 0, "K5", 0]),
+    "vertical_scalar": ({"closure": VerticalScalarDiffusivity()}, None, [1, 0, 2, "K5", 0]),
+    "explicit": ({"free_surface": ExplicitFreeSurface()}, None, [1, 0, 0, 0, 0]),
+}
+
+
+@pytest.mark.parametrize("mode", ["local", "ring"])
+@pytest.mark.parametrize("name", list(TILE_ROUTES))
+def test_tile_route_step_matches_plain_step(cuda, name, mode):
+    """One step of each route on a forced 1x1 tile (W = 30 where the
+    split-explicit free surface runs: one block of K5 launches), after 8
+    steps, against the "torch" step on the same tile, with its launches."""
+    from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
+    from gb25_tpu_torch.parallel import make_mesh, sharded_step_fn
+
+    kw, compute_dtype, launches = TILE_ROUTES[name]
+    cfg, grid, state = baroclinic_instability_model(128, 32, 8, device=cuda, **kw)
+    cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    if name != "explicit":
+        cfg = dataclasses.replace(cfg, free_surface=SplitExplicitFreeSurface(exchange_width=30))
+    launches = [pallas_barotropic.step_launches(30, 30) if n == "K5" else n for n in launches]
+    kernels = (pallas_zslab.KERNEL, pallas_barotropic.KERNEL, pallas_tridiag.KERNEL,
+               pallas_barotropic.BLOCK_KERNEL, pallas_tendency.KERNEL)
+    fn = sharded_step_fn(cfg, grid, make_mesh(), force_comm=mode)
+    state = fn(state, 60.0, 8)  # from rest Gu is too small for the atol
+    before = [k.launches for k in kernels]
+    a = fn(state, 60.0)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == launches
+    plain = dataclasses.replace(cfg, kernels="torch")
+    b = sharded_step_fn(plain, grid, make_mesh(), force_comm=mode)(state, 60.0)
+    _step_close(cfg, grid, state, a, b, route=name == "k6_route")
+
+
+def _step_close(cfg, grid, state, a, b, route=False):
+    """The steps ``a`` (kernels) and ``b`` ("torch") from ``state``: u, v,
+    eta, the tracers and every G at chip_smoke's step tolerances, rtol 1e-3
+    and an atol of 1e-3 of each field's largest value, at most 5e-6, so that
+    each G is held to its own scale. Gu and Gv at least 8 float32 ulps of
+    the largest column total of b dz over the smallest face spacing: K1, K6
+    and their plain versions sum the pressure in other orders
+    (chip_smoke.pressure_ulp_atol's bound, as one number). ``route`` (K6
+    against the "torch" route's K1 and K2): u, v and eta at 1e-3 of their
+    largest value, as chip_smoke.route_step_compare holds them."""
+    hz, Nz = grid.hz, grid.Nz
+    buoy = cfg.eos.buoyancy(state.tracers["T"], state.tracers["S"], grid.z_c[hz : hz + Nz])
+    p = float((buoy * grid.dz_c[hz : hz + Nz]).sum(dim=0).abs().max())
+    spacing = float(torch.minimum(grid.dxc.min(), grid.dyf.min()))
+    floor = {"Gu": 8 * torch.finfo(torch.float32).eps * p / spacing}
+    floor["Gv"] = floor["Gu"]
+
+    def fields(s):
+        return {"u": s.u, "v": s.v, "eta": s.eta, **s.tracers, "Gu": s.Gu, "Gv": s.Gv,
+                "Geta": s.Geta, **{"G" + k: g for k, g in s.Gtracers.items()}}
+
+    fa, fb = fields(a), fields(b)
+    for name, y in fb.items():
+        largest = float(y.abs().max())
+        atol = min(5e-6, 1e-3 * largest)
+        if route and name in ("u", "v", "eta"):
+            atol = 1e-3 * largest
+        torch.testing.assert_close(fa[name], y, rtol=1e-3, atol=max(atol, floor.get(name, 0.0)),
+                                   msg=lambda m, name=name: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("mode", ["float32", "bf16s"])
+def test_float32_operand_modes_on_a_float64_state_launch_k1(cuda, mode):
+    """"float32" and "bf16s" on a float64 state: K1's unfused instance runs
+    on the float32 copies of the fields and the grid (one launch, as the
+    JAX package's kernel gate sees its cast operands), the free surface
+    takes K2's plain version (a float64 state); after 8 steps, one step
+    against the "torch" step of the same mode."""
+    cfg, grid, _ = baroclinic_instability_model(128, 64, 8, device=cuda, dtype=torch.float64)
+    _, _, state = baroclinic_instability_model(128, 64, 8, device="cpu", dtype=torch.float64)
+    state = state.replace(**{f.name: _to(getattr(state, f.name), cuda)
+                             for f in dataclasses.fields(state) if f.name != "iteration"})
+    cfg = dataclasses.replace(cfg, compute_dtype=mode)
+    state = loop(cfg, grid, state, 60.0, 8)  # from rest Gu is too small for the atol
+    kernels = list(_all_kernels())
+    before = [k.launches for k in kernels]
+    a = time_step(cfg, grid, state, 60.0)
+    torch.cuda.synchronize()
+    made = {k.source: k.launches - n for k, n in zip(kernels, before) if k.launches != n}
+    assert made == {pallas_zslab.KERNEL.source: 1}
+    assert a.u.dtype == torch.float64
+    _step_close(cfg, grid, state, a,
+                time_step(dataclasses.replace(cfg, kernels="torch"), grid, state, 60.0))

@@ -63,7 +63,6 @@ from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.ops.halos import extend_field
 from gb25_tpu_torch.ops.operators import coriolis_ff
 from gb25_tpu_torch.ops.pallas_tendency import pallas_tendencies, pallas_tendencies_plain
-from gb25_tpu_torch.parallel import Mesh, sharded_step_fn
 from gb25_tpu_torch.utils.correctness import compare_states
 from gb25_tpu_torch.utils.cuda_build import uses_kernel
 from test_torch_climate import _jax_arrays, _models
@@ -297,10 +296,3 @@ def test_pallas_mode_dispatch():
         uses_kernel(cfg, torch.zeros(2, device="meta"))
     with pytest.raises(ValueError, match="kernels must be one of"):
         HydrostaticConfig(kernels="jnp")
-
-
-def test_pallas_route_on_a_tile_raises():
-    cfg, grid, state = baroclinic_instability_model(16, 8, 4, device="cpu", kernels="pallas")
-    fn = sharded_step_fn(cfg, grid, Mesh(1, 1), force_comm="local")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn(state, DT)

@@ -16,6 +16,9 @@ boundary conditions every substep, as K2 does):
   - "bf16s" against JAX kernels="zslab" with GB25_ZSLAB_INTERPRET=1: atol
     1e-4 of each field's largest value (measured at most 3.9e-5, in GT; u,
     v, eta within 1.3e-6): float32 arithmetic on the same rounded operands;
+  - "float32" (K1's unfused form, the AB2 update outside) against JAX's
+    "float32": atol 1e-4, "bf16s"'s, float32 arithmetic in both packages
+    (measured at most 3.7e-5, in GT);
   - "float64" and "f32x2" against JAX's "float64" and its double-single
     "f32x2" (the port computes "f32x2" in native float64, a deviation
     logged in ROADMAP.md): atol 2e-6 of each field's largest value
@@ -32,8 +35,10 @@ boundary conditions every substep, as K2 does):
     2.9e-9 (ratios at most 1.27).
 Then the port's version of tests/test_precision.py::
 test_bf16_compute_tracks_f32 with its bounds, the routes (the serial K1
-routes under an unfused AB2 run K2, not the blocked solve) and the
-combinations that raise.
+routes under an unfused AB2 run K2, not the blocked solve), the
+combinations that raise ("float16" and the float8 modes, which go
+non-finite in JAX, among them) and the rule that picks a kernel or its
+plain version from the state's dtype.
 """
 
 import dataclasses
@@ -56,7 +61,6 @@ from gb25_tpu_torch.convert import state_from_numpy, state_to_numpy
 from gb25_tpu_torch.grids import simple_latitude_longitude_grid
 from gb25_tpu_torch.models import (
     ExplicitFreeSurface,
-    VerticalScalarDiffusivity,
     baroclinic_instability_config,
     baroclinic_instability_model,
     free_surface,
@@ -64,9 +68,19 @@ from gb25_tpu_torch.models import (
     time_step,
 )
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
+from gb25_tpu_torch.models.config import KERNEL_MODES, NONFINITE_COMPUTE_DTYPES
+from gb25_tpu_torch.models.hydrostatic import k1_operand_dtype
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+from gb25_tpu_torch.ops import (
+    pallas_barotropic,
+    pallas_catke,
+    pallas_tendency,
+    pallas_tridiag,
+    pallas_zslab,
+)
 from gb25_tpu_torch.ops.halos import extend_field
 from gb25_tpu_torch.ops.pallas_zslab import zslab_tendencies, zslab_tendencies_plain
+from gb25_tpu_torch.utils import cuda_build
 
 DT = 60.0
 SHAPE = (32, 16, 8)
@@ -168,7 +182,7 @@ def _jax_steps():
     sj = jax_state(gj, noise_velocity=1e-3)
     steps = {}
     try:
-        for mode in (None, "bfloat16", "float64", "f32x2", "bf16s"):
+        for mode in (None, "float32", "bfloat16", "float64", "f32x2", "bf16s"):
             if mode == "bf16s":
                 mp.setenv("GB25_ZSLAB_INTERPRET", "1")
             kernels = "zslab" if mode == "bf16s" else "jnp"
@@ -187,7 +201,8 @@ def _port_step(state, mode):
     return out
 
 
-@pytest.mark.parametrize("mode,scale", [("bf16s", 1e-4), ("float64", 2e-6), ("f32x2", 2e-6)])
+@pytest.mark.parametrize("mode,scale", [("bf16s", 1e-4), ("float32", 1e-4), ("float64", 2e-6),
+                                        ("f32x2", 2e-6)])
 def test_step_matches_jax_mode(_jax_steps, mode, scale):
     state, steps = _jax_steps
     ref, port = steps[mode], _port_step(state, mode)
@@ -196,6 +211,28 @@ def test_step_matches_jax_mode(_jax_steps, mode, scale):
         want = ref[name].astype(np.float64)
         np.testing.assert_allclose(port[name].astype(np.float64), want, rtol=0,
                                    atol=scale * np.abs(want).max(), err_msg=name)
+
+
+def test_float32_mode_on_a_float64_state_matches_jax(monkeypatch):
+    """"float32" on a float64 state: JAX casts the fields and the grid to
+    float32 for the tendency stage; the port hands K1's unfused float32
+    instance (its plain version here) float32 copies of both. One step at
+    32x16x8 against JAX's, atol 1e-4 of each field's largest value, the
+    float32 mode's bound (measured at most 3.0e-5, in GT); the state stays
+    float64."""
+    monkeypatch.setenv("GB25_BAROTROPIC_BLOCK", "1")
+    gj = jax_grid(*SHAPE, dtype=jnp.float64)
+    sj = jax_state(gj, noise_velocity=1e-3)
+    cfg_j = dataclasses.replace(jax_config(), kernels="jnp", compute_dtype="float32")
+    ref = _arrays(jax.jit(jax_time_step)(cfg_j, gj, sj, DT))
+    gt = simple_latitude_longitude_grid(*SHAPE, device="cpu", dtype=torch.float64)
+    cfg = dataclasses.replace(baroclinic_instability_config(), compute_dtype="float32")
+    port = state_to_numpy(time_step(cfg, gt, state_from_numpy(_arrays(sj), "cpu"), DT))
+    assert list(port) == list(ref) and port["u"].dtype == np.float64
+    for name in ref:
+        want = ref[name].astype(np.float64)
+        np.testing.assert_allclose(port[name], want, rtol=0, atol=1e-4 * np.abs(want).max(),
+                                   err_msg=name)
 
 
 def test_bfloat16_step_matches_jax_within_its_own_distance(_jax_steps):
@@ -226,7 +263,7 @@ def test_bf16_compute_tracks_f32():
         assert torch.isfinite(x).all()
 
 
-@pytest.mark.parametrize("mode", ["bf16s", "float64", "explicit"])
+@pytest.mark.parametrize("mode", ["bf16s", "float32", "float64", "explicit"])
 def test_unfused_k1_routes_run_k2(monkeypatch, mode):
     """Under an unfused AB2 the serial K1 route runs the whole-loop solve
     (K2's plain version here), as the JAX package does, never the blocked
@@ -262,8 +299,12 @@ def test_refused_combinations_raise():
             dataclasses.replace(cfg, kernels="pallas", compute_dtype=mode)
     with pytest.raises(NotImplementedError, match="item 14"):
         dataclasses.replace(cfg, compute_dtype="bf16x2")
+    for mode in NONFINITE_COMPUTE_DTYPES:
+        with pytest.raises(NotImplementedError, match="non-finite.*Not to port"):
+            dataclasses.replace(cfg, compute_dtype=mode)
     with pytest.raises(ValueError, match="compute_dtype"):
-        dataclasses.replace(cfg, compute_dtype="float16")
+        dataclasses.replace(cfg, compute_dtype="float128")
+    assert not dataclasses.replace(cfg, compute_dtype="float32").fused
     for closure in (CATKEVerticalDiffusivity(), TKEDissipationVerticalDiffusivity()):
         with_closure = baroclinic_instability_config(closure=closure)
         for mode in ("bf16s", "bfloat16"):
@@ -271,13 +312,34 @@ def test_refused_combinations_raise():
                 dataclasses.replace(with_closure, compute_dtype=mode)
 
 
-@pytest.mark.parametrize("choice", ["bf16s", "float64", "explicit", "vertical_scalar"])
-def test_new_choices_refuse_a_comm(choice):
-    """A tile of the decomposed path runs none of the new choices."""
-    kw = {"explicit": {"free_surface": ExplicitFreeSurface()},
-          "vertical_scalar": {"closure": VerticalScalarDiffusivity()}}.get(choice, {})
-    cfg, grid, state = baroclinic_instability_model(16, 8, 4, device="cpu", **kw)
-    if not kw:
-        cfg = dataclasses.replace(cfg, compute_dtype=choice)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        time_step(cfg, grid, state, DT, comm=free_surface.serial_comm(grid))
+def test_kernel_route_follows_the_state_dtype():
+    """The one rule every wrapper dispatches by (``kernel_route``, from the
+    device and the dtype alone; no device needed): on a CUDA operand
+    "auto" launches every kernel for a float32 state and takes every plain
+    version for a float64 or float16 state, as the JAX package's gates send
+    a non-float32 ue to its array path; "pallas" refuses such a state; the
+    CPU and "torch" always take the plain versions. "float32" and "bf16s" on
+    a state of another dtype hand K1 float32 copies, which launch it."""
+    for dtype in (torch.float64, torch.float16):
+        assert not cuda_build.kernel_route("auto", "cuda", dtype)
+        with pytest.raises(NotImplementedError, match="float32"):
+            cuda_build.kernel_route("pallas", "cuda", dtype)
+    for kernels in ("auto", "pallas"):
+        assert cuda_build.kernel_route(kernels, "cuda", torch.float32)
+    for kernels in KERNEL_MODES:
+        for dtype in (torch.float32, torch.float64, torch.float16):
+            assert not cuda_build.kernel_route(kernels, "cpu", dtype)
+    assert not cuda_build.kernel_route("torch", "cuda", torch.float64)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        cuda_build.kernel_route("auto", "meta", torch.float32)
+    for module in (pallas_zslab, pallas_barotropic, pallas_tridiag, pallas_catke,
+                   pallas_tendency):
+        assert module.uses_kernel is cuda_build.uses_kernel
+    for mode in ("float32", "bf16s"):
+        cfg = dataclasses.replace(baroclinic_instability_config(), compute_dtype=mode)
+        for dtype in (torch.float64, torch.float16):
+            assert k1_operand_dtype(cfg, dtype) == torch.float32
+        assert k1_operand_dtype(cfg, torch.float32) is None
+    for mode in (None, "bfloat16", "float64", "f32x2"):
+        cfg = dataclasses.replace(baroclinic_instability_config(), compute_dtype=mode)
+        assert k1_operand_dtype(cfg, torch.float64) is None
