@@ -46,7 +46,7 @@ held the same way.
      blocks per SM, the grid of tiles, cells a tile, the instance;
   5. the main path: one step with kernels="auto" against one with
      kernels="torch" (rtol 1e-3; atol 1e-3 of each field's largest value,
-     at most 5e-6), then 8 warm-up steps and two 256-step loops, the
+     at most 5e-6), then 8 warm-up steps and two 128-step loops, the
      second one timed; the launch counts must show one K1 launch and one
      K2 launch per step, and the fields must stay finite;
   6. a few steps of the plain path, timed;
@@ -63,7 +63,7 @@ held the same way.
      as in [4];
   10. the main path: 8 coupled steps from rest, then from there one step
      with kernels="auto" against one with kernels="torch" (tolerances of
-     [5]); then 8 warm-up steps and two 128-step loops, the second one
+     [5]); then 8 warm-up steps and two 64-step loops, the second one
      timed; the launch counts must show per
      step exactly 1 K1, 1 K2, 3 K3 and 1 K4 launch; then the fields must
      be finite with 0 < max|u| < 10 m/s, e >= 0, u and v 0 on the faces of
@@ -75,7 +75,7 @@ held the same way.
      2e-4, and K2's fold instance (masks, the fold's ghost flux above the
      seam row, 2-D planes), bit for bit, as in [4];
   13. the main path as [10]: 8 coupled steps, one step kernels vs plain,
-     8 warm-up steps and two 128-step loops, launch counts per step exactly
+     8 warm-up steps and two 64-step loops, launch counts per step exactly
      1 K1, 1 K2, 3 K3, 1 K4; finite fields, land at rest;
   14. 3 coupled steps of the plain path, timed;
   the flagship with the k-epsilon closure (tracers T, S, e, eps, from
@@ -85,7 +85,7 @@ held the same way.
   17. K3's four solves of a k-epsilon step (u, v; T, S; e; eps, neither
      damped), bit for bit as in [8];
   18. the main path: one step kernels vs plain (tolerances of [5]), 8
-     warm-up steps and two 128-step loops, launch counts per step exactly
+     warm-up steps and two 64-step loops, launch counts per step exactly
      1 K1, 1 K2, 4 K3, 1 k-epsilon K4 and no CATKE K4; then finite
      fields, e >= 0 and eps >= 0; 3 steps of the plain path, timed;
   the decomposed path, forced onto a 1x1 mesh (the bench's decomposed 1x1
@@ -131,7 +131,7 @@ held the same way.
      of 1e-3 of their largest value and Gu, Gv on fluid faces at 8 ulps of
      p over the face's spacing where that is larger: float32 rounding, see
      ``route_step_compare``; u, v, eta, Gu and Gv of both beside the
-     "torch" step in float64), then 8 warm-up steps and two 256-step loops,
+     "torch" step in float64), then 8 warm-up steps and two 128-step loops,
      the second one timed; per step exactly 1 K6, 0 K1, 0 K2 and K5's
      launches of [22]; finite fields; ms/step beside [5]'s; then K5
      against its plain version, bit for bit and in ceil(n / s) launches,
@@ -147,10 +147,10 @@ held the same way.
   25. 8 steps, then one step on the card against the same step on the CPU
      in float64 (tolerances of ``sw_step_vs_f64``: float32 rounding of the
      Bernoulli potential and of the mass flux over a face); 8 warm-up
-     steps and two 256-step loops, the second timed, replayed; finite
+     steps and two 128-step loops, the second timed, replayed; finite
      fields, max|u| between 0.01 and 10 m/s (the geostrophic jet), the
      mass sum(h azc) kept to float32 rounding; the device loop against the
-     host loop bit for bit; the same 8 + 256 + 256 steps launched from the
+     host loop bit for bit; the same 8 + 128 + 128 steps launched from the
      host, timed.
   the serial flagship's further run-script choices (the JAX package's
   utils/args.py), each phase's wall time printed:
@@ -161,7 +161,7 @@ held the same way.
      rounded beforehand bit for bit with itself on the raw ones and apart
      from the float32 one; each timed beside its bound and launch line;
   27. the precision modes: "bf16s" (K1's bf16-storage instance and K2,
-     8 + 2x128 steps), "bfloat16" (the cast array path and K2, 8 + 2x32)
+     8 + 2x64 steps), "bfloat16" (the cast array path and K2, 8 + 2x32)
      and "f32x2" (the float64 array path and K2, at 768x384x64, 8 + 2x32):
      held to float32 by the JAX package's own test of the mode at its size
      (bf16s, f32x2: one step at 32x16x8, every field pointwise within 0.5
@@ -176,7 +176,7 @@ held the same way.
   28. VerticalScalarDiffusivity: K1 (the fused flagship instance) against
      its plain version at rtol 2e-4, K3's constant-kappa pair bit for bit
      on the (u, v) and (T, S) solves of the state after 8 steps, one step
-     against "torch", then 8 + 2x128 steps: per step 1 K1, 1 K2, 2 K3;
+     against "torch", then 8 + 2x64 steps: per step 1 K1, 1 K2, 2 K3;
   29. ExplicitFreeSurface at dt = 5 s (the quasi-AB2 step damps the
      fastest gravity wave of the 80-degree rows below ~6 s; at 10 s u grew
      to non-finite values within 161 steps): one step against "torch"
@@ -194,7 +194,7 @@ held the same way.
      instance against its plain version on the operands of one more tile
      step (the exchanged extension), bit for bit, timed;
   32. "float32" on the serial flagship (K1's unfused float32 instance, the
-     AB2 update outside, K2): one step against "torch", 8 + 2x128 steps
+     AB2 update outside, K2): one step against "torch", 8 + 2x64 steps
      replayed, per step 1 K1, 1 K2; then a float64 state at 256x128x16
      under "auto": one step on the card, with no kernel launched (the
      plain versions, the JAX package's route for a non-float32 state),
@@ -212,10 +212,33 @@ held the same way.
      free surface) and 2 K3 (vertical scalar); the device loop against the
      host loop; then the array modes "bfloat16", "float64" and "f32x2"
      (768x384x64) one step each on the tile, finite, 0 K1, 0 K2,
-     ceil(30 / s) K5, their distance from the float32 tile step printed.
+     ceil(30 / s) K5, their distance from the float32 tile step printed;
+  34. K1's general instances (the schemes read at run time) against their
+     plain versions at K1's tolerances, on the flagship's fields after 8
+     steps: the 19 scheme combinations other than the flagship's
+     (momentum_advection x ke_scheme x tracer_advection) on the flat
+     two-tracer fused instance, the one-tracer b instance (b the linear
+     buoyancy of T and S) fused and unfused float32, and the oracle's
+     schemes on the islands, tripolar and k-epsilon operands; each timed,
+     with its registers, ptxas spills and bound (``k1_bound``);
+  35. K6's general instances bit for bit with the plain version: the 19
+     combinations under TEOS-10, the linear equation of state with the
+     oracle's schemes, the b tracer in one launch and as the split pair;
+     each timed, with its bound (``k6_bound``);
+  36. three main-path rows, each 8 steps, one step against its route's
+     plain path at [5]'s tolerances (for (c) the K6 route with every
+     wrapper's plain version, and in float64 against the "torch"
+     route at 1e-10, ``k6_route_witness``),
+     8 + 2x64 steps replayed (2x32 for (c)) with the launches per step
+     held, the device loop against the host loop over 16 steps, the
+     replayed loop's device busy and idle share under the profiler: (a) the oracle's schemes (centred
+     vector-invariant momentum, standard kinetic energy, centred tracers)
+     with the linear equation of state on the flagship, 1 K1 (general),
+     1 K2; (b) the b-tracer flagship, 1 K1 (one tracer), 1 K2; (c) row (a)
+     on the K6 route, 1 K6 (general), K5's launches at W = 4.
 
 Every phase raises on failure, and the script then exits non-zero. [30]
-sums up the ms/step of every path; it is printed last, after [31]-[33],
+sums up the ms/step of every path; it is printed last, after [31]-[36],
 then the script's wall time. Three lines end the output: a JSON
 object with each kernel instance's launches on its main path, error
 against its plain version, times, its bound (the larger of its compulsory
@@ -234,6 +257,11 @@ time behind a sleeping kernel (``device_ms``); K6's decomposed entry
 ([31]) carries the tripolar instance's check and times on the tile's own
 operands; K1's unfused entries their launches under "float32" ([32]), on
 a float64 state under "float32" and "bf16s" ([32]) and on [33]'s tiles;
+the general instances' entries ([34]-[36]: K1's two-tracer general
+instance on row (a), its one-tracer instance on row (b), K6's general
+instance on row (c)) carry, beside their row's instance, each other scheme
+combination, geometry and mode they were checked in, with its time, bound,
+registers and spills;
 each entry
 of a replayed path carries its launches on the device over the run, the
 method that established them and the device loop's eager and replayed
@@ -266,10 +294,12 @@ REFERENCE_CELL_STEPS_PER_SEC = 768 * 768 * 64 / 0.221  # GB-25 on one Alps GH200
 NX, NY, NZ = 1536, 768, 64
 RESOLUTION = 384 / NX  # the climate model's 1/4 degree: 1536 x 768
 DT = 60.0
-WARMUP, STEPS, PLAIN_STEPS = 8, 256, 3
-CLIMATE_STEPS, CLIMATE_PLAIN_STEPS = 128, 2
+# the timed loops' steps: short enough that the whole script runs in about
+# half its time limit
+WARMUP, STEPS, PLAIN_STEPS = 8, 128, 3
+CLIMATE_STEPS, CLIMATE_PLAIN_STEPS = 64, 2
 K6_CLIMATE_STEPS, K6_KEPS_STEPS = 64, 32
-TRIPOLAR_PLAIN_STEPS, KEPS_STEPS, KEPS_PLAIN_STEPS = 3, 128, 3
+TRIPOLAR_PLAIN_STEPS, KEPS_STEPS, KEPS_PLAIN_STEPS = 3, 64, 3
 DECOMPOSED_W, DECOMPOSED_STEPS = 30, 64  # the bench's decomposed 1x1 rows
 # the further run-script choices ([26]-[29]): steps of each timed loop; the
 # cast array path's rows (eager tendency math, 0.13-0.16 s a step) run
@@ -279,9 +309,9 @@ DECOMPOSED_W, DECOMPOSED_STEPS = 30, 64  # the bench's decomposed 1x1 rows
 # damps a wave of frequency w only while w dt < ~0.55 (chi = 0.1): the
 # fastest discrete wave at the 80-degree rows (dx ~ 4.5 km, dy ~ 23 km)
 # has w ~ 0.089 /s, so dt = 5 s (10 s grew to non-finite u in 161 steps)
-PRECISION_STEPS = {"bf16s": 128, "bfloat16": 32, "f32x2": 32}
+PRECISION_STEPS = {"bf16s": 64, "bfloat16": 32, "f32x2": 32}
 F32X2_SHAPE = (768, 384, 64)
-CHOICE_STEPS, EXPLICIT_STEPS, EXPLICIT_DT = 128, 64, 5.0
+CHOICE_STEPS, EXPLICIT_STEPS, EXPLICIT_DT = 64, 64, 5.0
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -347,31 +377,6 @@ def sizes(grid):
             grid.Nx * grid.Ny * 4, ext_plane)
 
 
-def k1_bound(grid, ntr, immersed):
-    """K1 reads u, v, b and the tracers extended, the column total of b,
-    the previous G of every field, (immersed) two face-bottom planes and
-    (tripolar) the six metrics and f as extended planes; it writes the new
-    G and the updated field of each, and four integral planes. Operations:
-    ~600 per cell for the momentum and two tracers and ~170 per further
-    tracer (a hand count of the source)."""
-    n, ext, plane, ext_plane = sizes(grid)
-    nprog = 2 + ntr
-    nbytes = (3 + ntr) * ext + ext_plane + nprog * n + 2 * nprog * n + 4 * plane
-    nbytes += (2 * plane if immersed else 0) + (7 * ext_plane if grid.north_fold else 0)
-    cells = grid.Nx * grid.Ny * grid.Nz
-    return bound(nbytes, (600 + 170 * (ntr - 2)) * cells)
-
-
-def k1_unfused_bound(grid, value_bytes):
-    """K1's unfused instances read u, v, b and the two tracers extended
-    (``value_bytes`` a value: 4, or 2 stored as bfloat16) and the column
-    total of b, and write the four interior tendencies; ~600 operations
-    per cell (K1's count)."""
-    n, ext, _, ext_plane = sizes(grid)
-    nbytes = 5 * ext * value_bytes // 4 + ext_plane + 4 * n
-    return bound(nbytes, 600 * grid.Nx * grid.Ny * grid.Nz)
-
-
 def k2_bound(grid, substeps, masked):
     """The loop reads eta, U, V, GU, GV, Hu and Hv (two mask planes; on
     the tripolar grid the five metric planes dyc, dxf, dxc, dyf and azc,
@@ -407,17 +412,66 @@ def k4_keps_bound(grid):
     return bound(5 * ext + 6 * n, 50 * grid.Nx * grid.Ny * grid.Nz)
 
 
-def k6_bound(grid, ntr):
-    """K6 reads u, v and the tracers extended and (tripolar) the six
-    metrics and f as extended planes, and writes the interior G of each.
-    Operations per cell: ~600 for the momentum and two tracers and ~170 per
-    further tracer (K1's count), and ~120 for TEOS-10 (48 multiply-add
-    pairs of its Horner scheme, the reduced variables and b) and the
-    column sums (a hand count of the source)."""
+# operations of one reconstruction and its upwind selection, by tracer
+# scheme (a hand count of csrc/tendency_tile.cuh: WENO-5's ~50)
+RECON_OPS = {"weno5": 50, "centered2": 2, "upwind1": 1, "none": 0}
+
+
+def stencil_ops(cfg, ntr):
+    """Operations per cell of K1's stencils under ``cfg``'s schemes (a hand
+    count of the source: 600 for the flagship's with two tracers): 120 for
+    continuity, the pressure sums and gradient, the Coriolis products, the
+    AB2 update and the integrals; the momentum advection (two
+    reconstructions of q, WENO-5's or two operations each, 30 for the
+    corner PV, the Bernoulli gradient and the vertical advection, the
+    kinetic energy's 20 (Hollingsworth) or 8 (standard); none under
+    "none"); per tracer three reconstructions and 15 for the fluxes and
+    their divergence (none under "none")."""
+    ops = 120
+    if cfg.momentum_advection != "none":
+        q = RECON_OPS["weno5"] if cfg.momentum_advection == "weno_vector_invariant" else 2
+        ops += 2 * q + 30 + (20 if cfg.ke_scheme == "hollingsworth" else 8)
+    if cfg.tracer_advection != "none":
+        ops += ntr * (3 * RECON_OPS[cfg.tracer_advection] + 15)
+    return ops
+
+
+def k1_bound(cfg, grid, ntr, immersed, fused=True, value_bytes=4):
+    """K1 with ``ntr`` tracers under ``cfg``: it reads u, v, b and the
+    tracers extended (b once where it is the "b" tracer: the wrapper passes
+    that one tensor as both) and the column total of b. Fused, it reads the
+    previous G of every field, (immersed) two face-bottom planes and
+    (tripolar) the six metrics and f as extended planes, and writes the new
+    G and the updated field of each and four integral planes; unfused (a
+    value of ``value_bytes``: 4, or 2 stored as bfloat16), it writes the
+    interior tendencies. Operations: ``stencil_ops``."""
+    n, ext, plane, ext_plane = sizes(grid)
+    nprog = 2 + ntr
+    nread = 2 + ntr + int("b" not in cfg.tracers)
+    if fused:
+        nbytes = nread * ext + ext_plane + 3 * nprog * n + 4 * plane
+        nbytes += (2 * plane if immersed else 0) + (7 * ext_plane if grid.north_fold else 0)
+    else:
+        nbytes = nread * ext * value_bytes // 4 + ext_plane + nprog * n
+    return bound(nbytes, stencil_ops(cfg, ntr) * grid.Nx * grid.Ny * grid.Nz)
+
+
+def k6_bound(cfg, grid, ntr):
+    """K6 with ``ntr`` tracers under ``cfg``: it reads u, v and the tracers
+    extended and (tripolar) the six metrics and f as extended planes, and
+    writes the interior G of each. Operations: ``stencil_ops`` less the AB2
+    update and integrals K6 does not do (20), plus the buoyancy's (TEOS-10
+    120: 48 multiply-add pairs of its Horner scheme, the reduced variables
+    and b; linear 6; the b tracer 0) and the pre-pass's column sums (10)."""
+    from gb25_tpu_torch.ops.eos import LinearEquationOfState
+
     n, ext, _, ext_plane = sizes(grid)
     nprog = 2 + ntr
     nbytes = nprog * ext + nprog * n + (7 * ext_plane if grid.north_fold else 0)
-    return bound(nbytes, (600 + 170 * (ntr - 2) + 120) * grid.Nx * grid.Ny * grid.Nz)
+    eos_ops = (0 if "b" in cfg.tracers
+               else 6 if isinstance(cfg.eos, LinearEquationOfState) else 120)
+    ops = stencil_ops(cfg, ntr) - 20 + eos_ops + 10
+    return bound(nbytes, ops * grid.Nx * grid.Ny * grid.Nz)
 
 
 def launch_line(info, b):
@@ -484,27 +538,37 @@ def phase_k1(cfg, grid, state, gen):
     info = pallas_zslab.kernel_info(2, False, False)
     print(f"  K1 CUDA kernel alone {ms:.3f} ms; wrapper (TEOS-10 + column total + kernel) "
           f"{wrapper_ms:.3f} ms; plain version alone {plain_ms:.3f} ms; "
-          + launch_line(info, k1_bound(grid, 2, False)))
+          + launch_line(info, k1_bound(cfg, grid, 2, False)))
     return {"max_abs_err": max(errs), "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "launch": info}
 
 
-def check_k1(got, want, ab, grid, names):
+def check_k1(got, want, ab, grid, names, prev=None):
     """Compare K1's outputs with its plain version's; atol: tests/test_zslab.py's
     for the tendencies, the tendencies' tolerance carried through
     x* = x + dt c1 G (and its depth integral) for the updated fields, 2e-4
-    of the largest integral for U0, V0."""
+    of the largest integral for U0, V0. ``prev`` (the previous tendencies,
+    given for the general instances, whose G is 0 under tracer advection
+    "none"): the updated tracers' atol also holds 4 float32 ulps of the
+    largest |dt c2 G_prev|, the rounding of the update's own sum, which the
+    kernel fuses into a multiply-add (where x* cancels to near 0, its
+    relative error is large)."""
     Gu, Gv, Gtr, un, vn, trn, ints = got
     wGu, wGv, wGtr, wun, wvn, wtrn, wints = want
     a = ab[0]
     H = float(grid.dz_c[grid.hz : grid.hz + grid.Nz].sum())
     gmax = {"u": float(wGu.abs().max()), "v": float(wGv.abs().max()),
             **{k: float(wGtr[k].abs().max()) for k in names}}
+    sum_ulps = {k: 0.0 for k in names}
+    if prev is not None:
+        eps = torch.finfo(torch.float32).eps
+        sum_ulps = {k: 4 * eps * abs(ab[1]) * float(prev[2][k].abs().max()) for k in names}
     errs = [compare("Gu", Gu, wGu, 2e-4, 1e-9), compare("Gv", Gv, wGv, 2e-4, 1e-9)]
     errs += [compare("G" + k, Gtr[k], wGtr[k], 2e-4, 1e-7) for k in names]
     errs += [compare("u*", un, wun, 2e-4, a * 2e-4 * gmax["u"]),
              compare("v*", vn, wvn, 2e-4, a * 2e-4 * gmax["v"])]
-    errs += [compare(k + "*", trn[k], wtrn[k], 2e-4, a * 2e-4 * gmax[k]) for k in names]
+    errs += [compare(k + "*", trn[k], wtrn[k], 2e-4, a * 2e-4 * gmax[k] + sum_ulps[k])
+             for k in names]
     atols = [2e-4 * float(wints[0].abs().max()), 2e-4 * float(wints[1].abs().max()),
              2e-4 * float(wints[2].abs().max()) + a * 2e-4 * gmax["u"] * H,
              2e-4 * float(wints[3].abs().max()) + a * 2e-4 * gmax["v"] * H]
@@ -649,7 +713,7 @@ def flagship(card):
           f"GH200), timed second {STEPS}-step loop, replayed; launched from the host "
           f"{host_ms:.3f} ms/step; plain torch {plain_ms_step:.3f} ms/step")
 
-    k1_b, k1_by = k1_bound(grid, 2, False)
+    k1_b, k1_by = k1_bound(cfg, grid, 2, False)
     k2_b, k2_by = k2_bound(grid, substeps, False)
     return [
         {"name": "zslab_tendencies", "route": "cuda",
@@ -769,7 +833,7 @@ def phase_k1_instance(cfg, grid, ue, ve, tr_e, be, b_total, prev, label):
         cfg, grid, ue, ve, tr_e, prev, ab, be, fb), reps=3)
     info = pallas_zslab.kernel_info(len(tr_e), fb is not None, grid.north_fold)
     print(f"  K1 {label} instance alone {ms:.3f} ms; plain {plain_ms:.3f} ms; "
-          + launch_line(info, k1_bound(grid, len(tr_e), fb is not None)))
+          + launch_line(info, k1_bound(cfg, grid, len(tr_e), fb is not None)))
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "launch": info}
 
 
@@ -1100,7 +1164,7 @@ def climate(card, grid_type, first):
     entries += [
         entry("zslab_tendencies" + suffix, "zslab_tendencies.cu",
               "gb25_tpu/ops/pallas_zslab.py:275", path, launches["K1"], k1c,
-              k1_bound(grid, 3, True)),
+              k1_bound(cfg, grid, 3, True)),
         entry("barotropic_loop_fold" if tripolar else "barotropic_loop_masked",
               "barotropic_loop.cu", "gb25_tpu/ops/pallas_barotropic.py:94", path,
               launches["K2"], k2m, k2_bound(grid, substeps, True)),
@@ -1240,7 +1304,7 @@ def keps(card):
                     **on_device(loop_rec, "K3"))
     return [
         entry("zslab_tendencies_keps", "zslab_tendencies.cu", "gb25_tpu/ops/pallas_zslab.py:275",
-              path, launches["K1"], k1, k1_bound(grid, 4, False)) | on_device(loop_rec, "K1"),
+              path, launches["K1"], k1, k1_bound(cfg, grid, 4, False)) | on_device(loop_rec, "K1"),
         k3_entry,
         entry("keps_diffusivities", "keps_diffusivities.cu", "gb25_tpu/ops/pallas_catke.py:228",
               path, launches["K4_keps"], k4, k4_keps_bound(grid)) | on_device(loop_rec, "K4_keps"),
@@ -1545,7 +1609,7 @@ def phase_k6(cfg, grid, ue, ve, tr_e, label):
     print(f"  K6 {label} instance alone {ms:.3f} ms; plain {plain_ms:.3f} ms; bit for bit with "
           f"the plain version: outputs {bitwise}, TEOS-10 b {b_bitwise} (max abs err "
           f"{b_err:.3e}); split pair equals the single launch; "
-          + launch_line(info, k6_bound(grid, len(tr_e))))
+          + launch_line(info, k6_bound(cfg, grid, len(tr_e))))
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bitwise": bitwise,
             "b_bitwise": b_bitwise, "launch": info}
 
@@ -1716,7 +1780,7 @@ def k6_keps_route(card, serial_ms):
     ms_step = 1e3 * elapsed / K6_KEPS_STEPS
     print(f"  k-epsilon flagship, K6 route, on {card}: {ms_step:.3f} ms/step (timed second "
           f"{K6_KEPS_STEPS}-step loop, replayed); K1 route [18] {serial_ms:.3f} ms/step")
-    return res, launches, ms_step, k6_bound(grid, 4), None, loop_rec, None
+    return res, launches, ms_step, k6_bound(cfg, grid, 4), None, loop_rec, None
 
 
 def flagship_k6_model():
@@ -1741,13 +1805,13 @@ def k6_instances():
     ue = extend_field(grid, state.u, "u")
     ve = extend_field(grid, state.v, "v")
     tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
-    flag = phase_k6(cfg, grid, ue, ve, tr_e, "flagship"), k6_bound(grid, 2)
+    flag = phase_k6(cfg, grid, ue, ve, tr_e, "flagship"), k6_bound(cfg, grid, 2)
     del cfg, grid, state, ue, ve, tr_e
     torch.cuda.empty_cache()
     ccfg, grid, _, state = tripolar_k6_model()
     ue, ve, tr_e = climate_operands(ccfg.ocean, grid, state,
                                     torch.Generator(device=DEVICE).manual_seed(4321))[:3]
-    trip = phase_k6(ccfg.ocean, grid, ue, ve, tr_e, "tripolar"), k6_bound(grid, 3)
+    trip = phase_k6(ccfg.ocean, grid, ue, ve, tr_e, "tripolar"), k6_bound(ccfg.ocean, grid, 3)
     return flag, trip
 
 
@@ -1996,7 +2060,7 @@ def phase_k1_unfused(cfg, grid, state):
         plain_ms = cuda_time_ms(lambda: z.zslab_tendencies_plain(
             cfg, grid, ue, ve, tr_e, be=be, storage=storage), reps=3)
         info = z.kernel_info(2, False, False, form)
-        b = k1_unfused_bound(grid, 2 if storage is not None else 4)
+        b = k1_bound(cfg, grid, 2, False, False, 2 if storage is not None else 4)
         print(f"  K1 {form} instance alone {ms:.3f} ms; plain {plain_ms:.3f} ms; "
               + launch_line(info, b))
         out[form] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "launch": info,
@@ -2287,7 +2351,7 @@ def decomposed_k6(card, serial_ms):
     cfg, tile, ue, ve, tr_e = capture_k6_operands(lambda: fn(state, DT))
     print("  K6 on the tile's own operands (one more step's exchanged extension):")
     res["local"]["k6"] = phase_k6(cfg, tile, ue, ve, tr_e, "tripolar tile")
-    res["local"]["k6"]["bound"] = k6_bound(tile, len(tr_e))
+    res["local"]["k6"]["bound"] = k6_bound(cfg, tile, len(tr_e))
     del fn, state, tile, ue, ve, tr_e
     res["local"]["wall_s"] = time.perf_counter() - t0
     print(f"  [31] on {card}: {res['local']['wall_s']:.1f} s; serial K6 route [24] "
@@ -2454,6 +2518,484 @@ def serial_float32(card, flagship_ms):
     return row
 
 
+# --------------------------------------------------------------------------
+# the JAX package's other schemes, the linear equation of state and the b
+# tracer: K1's and K6's general instances, [34]-[36]
+# --------------------------------------------------------------------------
+
+# (momentum_advection, ke_scheme, tracer_advection): the 20 combinations
+# the config accepts, the flagship's first (it runs the compiled instances)
+SCHEME_COMBOS = [(mom, ke, tr) for mom, ke in (("weno_vector_invariant", "hollingsworth"),
+                                               ("weno_vector_invariant", "standard"),
+                                               ("vector_invariant", "hollingsworth"),
+                                               ("vector_invariant", "standard"),
+                                               ("none", "hollingsworth"))
+                 for tr in ("weno5", "centered2", "upwind1", "none")]
+ORACLE_SCHEMES = ("vector_invariant", "standard", "centered2")
+SCHEME_STEPS, SCHEME_K6_STEPS = 64, 32  # [36]'s timed loops: rows (a), (b); row (c)
+
+
+def combo_name(combo):
+    return "-".join(combo)
+
+
+def with_schemes(cfg, combo, **kw):
+    mom, ke, tr = combo
+    return dataclasses.replace(cfg, momentum_advection=mom, ke_scheme=ke, tracer_advection=tr,
+                               **kw)
+
+
+def ptxas_report(kernel):
+    """Each entry function of ``kernel``'s build log: (mangled name,
+    registers, spill stores, spill loads) from ``nvcc -Xptxas -v``."""
+    import re
+
+    out, name, spills = [], None, (0, 0)
+    for line in kernel.build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return out
+
+
+def spills_of(kernel, key):
+    """(spill stores, spill loads) of the instance whose mangled name holds
+    ``key``, or None where the build log does not show it (a cached
+    build)."""
+    for name, _, stores, loads in ptxas_report(kernel):
+        if key in name:
+            return [stores, loads]
+    return None
+
+
+def k1_key(ntr, immersed, metric2d, fused=True, bf16=False, general=True):
+    return (f"zslab_tendencies_kernelILi{ntr}ELb{int(immersed)}ELb{int(metric2d)}ELb{int(fused)}"
+            f"E{'13__nv_bfloat16' if bf16 else 'f'}Lb{int(general)}EE")
+
+
+def k6_key(ntr, mode, metric2d, general=True):
+    return f"tendency_stage_kernelILi{ntr}ELi{mode}ELb{int(metric2d)}ELb{int(general)}EE"
+
+
+def k1_general_case(label, cfg, grid, ue, ve, tr_e, be, b_total, prev, fused=True):
+    """One general K1 instance against its plain version at K1's
+    tolerances (fused: ``check_k1``; unfused: the tendencies and the wall
+    row), the kernel alone and the plain version timed, its launch shape,
+    spills and bound."""
+    from gb25_tpu_torch.grids.immersed import face_bottom_planes
+    from gb25_tpu_torch.ops import pallas_zslab as z
+
+    ntr = len(tr_e)
+    fb = face_bottom_planes(grid) if grid.immersed and fused else None
+    ab = (float(torch.tensor(DT * 1.6, dtype=torch.float32)),
+          float(torch.tensor(DT * -0.6, dtype=torch.float32)))
+    before = z.KERNEL.launches
+    if fused:
+        got = z.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab, buoyancy=(be, b_total),
+                                 face_bottoms=fb)
+        want = z.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be, fb)
+        torch.cuda.synchronize()
+        errs = check_k1(got, want, ab, grid, tuple(tr_e), prev)
+
+        def run():
+            return z.zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, fb)
+
+        def run_plain():
+            return z.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be, fb)
+    else:
+        got = z.zslab_tendencies(cfg, grid, ue, ve, tr_e, buoyancy=(be, b_total))
+        want = z.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, be=be)
+        torch.cuda.synchronize()
+        errs = [compare("Gu", got[0], want[0], 2e-4, 1e-9),
+                compare("Gv", got[1], want[1], 2e-4, 1e-9)]
+        errs += [compare("G" + k, got[2][k], want[2][k], 2e-4, 1e-7) for k in tr_e]
+        if float(got[1][:, 0, :].abs().max()) != 0.0:
+            raise AssertionError(f"K1 {label} left Gv nonzero on the south wall row")
+
+        def run():
+            return z.zslab_kernel_unfused(cfg, grid, ue, ve, tr_e, be, b_total)
+
+        def run_plain():
+            return z.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, be=be)
+    if z.KERNEL.launches != before + 1:
+        raise AssertionError(f"K1 {label}: {z.KERNEL.launches - before} launches, expected 1")
+    if cfg.tracer_advection == "none" and any(got[2][k].any() for k in tr_e):
+        raise AssertionError(f"K1 {label}: a tracer tendency is not 0 under 'none'")
+    del got, want
+    ms = cuda_time_ms(run, reps=10)
+    plain_ms = cuda_time_ms(run_plain, reps=2)
+    info = z.kernel_info(ntr, fb is not None, grid.north_fold, "fused" if fused else "unfused",
+                         general=True)
+    b = k1_bound(cfg, grid, ntr, fb is not None, fused)
+    spills = spills_of(z.KERNEL, k1_key(ntr, fb is not None, grid.north_fold, fused))
+    print(f"  K1 general {label}: alone {ms:.3f} ms; plain {plain_ms:.3f} ms; spills (stores, "
+          f"loads) {spills}; " + launch_line(info, b))
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "launch": info, "spills": spills}
+
+
+def linear_b(tr_e):
+    """The b tracer's operands: b, the linear buoyancy of T and S."""
+    from gb25_tpu_torch.ops.eos import LinearEquationOfState
+
+    return {"b": LinearEquationOfState().buoyancy(tr_e["T"], tr_e["S"], None).contiguous()}
+
+
+def k1_general_instances():
+    """[34]: K1's general instances against their plain versions at
+    1536x768x64: the 19 combinations other than the flagship's on the
+    flat two-tracer fused instance (the flagship's is [3]'s compiled
+    instance), on the flagship's fields after 8 steps; the one-tracer b
+    instance fused and unfused float32; one general instance on the
+    islands (3 tracers, immersed), tripolar (3, 2-D metrics) and k-epsilon
+    (4) operands with the oracle's schemes."""
+    from gb25_tpu_torch import baroclinic_instability_model, data_free_ocean_climate_model, loop
+    from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+    from gb25_tpu_torch.ops import pallas_zslab as z
+    from gb25_tpu_torch.ops.halos import extend_field
+
+    cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE)
+    state = loop(cfg, grid, state, DT, WARMUP)
+    gen = torch.Generator(device=DEVICE).manual_seed(2468)
+
+    def noise(shape_grid):
+        return 1e-7 * torch.randn(shape_grid.shape, generator=gen, device=DEVICE)
+
+    def prev_of(g, names):
+        Gv_p = noise(g)
+        Gv_p[:, 0, :] = 0.0
+        return (noise(g), Gv_p, {k: noise(g) for k in names})
+
+    ue = extend_field(grid, state.u, "u")
+    ve = extend_field(grid, state.v, "v")
+    tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
+    be, b_total = z.column_buoyancy(cfg, grid, tr_e)
+    prev = prev_of(grid, tr_e)
+    combos = {}
+    for combo in SCHEME_COMBOS[1:]:
+        combos[combo_name(combo)] = k1_general_case(
+            combo_name(combo), with_schemes(cfg, combo), grid, ue, ve, tr_e, be, b_total, prev)
+    out = {"schemes": combos}
+    cfg_b = dataclasses.replace(cfg, tracers=("b",))
+    tr_b = linear_b(tr_e)
+    be_b, bt_b = z.column_buoyancy(cfg_b, grid, tr_b)
+    if be_b is not tr_b["b"]:
+        raise AssertionError("the b tracer's buoyancy is not the tracer itself")
+    prev_b = prev_of(grid, tr_b)
+    out["b_tracer"] = k1_general_case("b tracer (one tracer, fused)", cfg_b, grid, ue, ve, tr_b,
+                                      be_b, bt_b, prev_b)
+    out["b_tracer_unfused"] = k1_general_case("b tracer (one tracer, unfused float32)", cfg_b,
+                                              grid, ue, ve, tr_b, be_b, bt_b, None, fused=False)
+    del ue, ve, tr_e, be, b_total, prev, tr_b, be_b, bt_b, prev_b, state, grid
+    torch.cuda.empty_cache()
+    geometries = {}
+    for grid_type in ("gaussian_islands", "gaussian_islands_tripolar"):
+        ccfg, grid, _, state = data_free_ocean_climate_model(resolution=RESOLUTION, Nz=NZ,
+                                                             device=DEVICE, grid_type=grid_type)
+        ue, ve, tr_e, be, b_total, prev = climate_operands(
+            ccfg.ocean, grid, state, torch.Generator(device=DEVICE).manual_seed(1357))
+        label = "tripolar" if grid.north_fold else "islands"
+        geometries[label] = k1_general_case(f"{label} ({combo_name(ORACLE_SCHEMES)})",
+                                            with_schemes(ccfg.ocean, ORACLE_SCHEMES), grid, ue,
+                                            ve, tr_e, be, b_total, prev)
+        del ccfg, grid, state, ue, ve, tr_e, be, b_total, prev
+        torch.cuda.empty_cache()
+    kcfg, grid, state = baroclinic_instability_model(
+        NX, NY, NZ, device=DEVICE, closure=TKEDissipationVerticalDiffusivity())
+    ue, ve, tr_e = keps_operands(grid, state, torch.Generator(device=DEVICE).manual_seed(97531))
+    be, b_total = z.column_buoyancy(kcfg, grid, tr_e)
+    geometries["four_tracers"] = k1_general_case(
+        f"k-epsilon four tracers ({combo_name(ORACLE_SCHEMES)})",
+        with_schemes(kcfg, ORACLE_SCHEMES), grid, ue, ve, tr_e, be, b_total,
+        prev_of(grid, tr_e))
+    out["geometries"] = geometries
+    return out
+
+
+def k6_general_case(label, cfg, grid, ue, ve, tr_e, split=False):
+    """One general K6 instance (with ``split`` its momentum and tracer
+    launches) bit for bit with the plain version, the kernel alone and the
+    plain version timed, its launch shape, spills and bound."""
+    from gb25_tpu_torch.ops import pallas_tendency as k6
+    from gb25_tpu_torch.ops.operators import coriolis_ff
+
+    f_ff = coriolis_ff(grid, cfg.coriolis).to(torch.float32)
+    pallas = dataclasses.replace(cfg, kernels="pallas")
+    args = (pallas, grid, f_ff, ue, ve, tr_e)
+    before = k6.KERNEL.launches
+    got = k6.pallas_tendencies(*args, split=split)
+    want = k6.pallas_tendencies_plain(*args)
+    torch.cuda.synchronize()
+    if k6.KERNEL.launches != before + 1 + int(split):
+        raise AssertionError(f"K6 {label}: {k6.KERNEL.launches - before} launches")
+    pairs = [("Gu", got[0], want[0]), ("Gv", got[1], want[1])]
+    pairs += [("G" + k, got[2][k], want[2][k]) for k in tr_e]
+    errs = [compare(n, g, w, 0.0, 0.0) for n, g, w in pairs]
+    del got, want
+
+    def run():
+        if split:
+            return k6.tendency_kernel(*args, "momentum"), k6.tendency_kernel(*args, "tracers")
+        return k6.tendency_kernel(*args)
+
+    ms = cuda_time_ms(run, reps=10)
+    plain_ms = cuda_time_ms(lambda: k6.pallas_tendencies_plain(*args), reps=2)
+    ntr = len(tr_e)
+    info = k6.kernel_info(ntr, "all", grid.north_fold, general=True)
+    b = k6_bound(cfg, grid, ntr)
+    spills = spills_of(k6.KERNEL, k6_key(ntr, 0, grid.north_fold))
+    launch = info
+    if split:
+        nb = 1 if "b" in tr_e else 2
+        launch = {"momentum": k6.kernel_info(nb, "momentum", grid.north_fold, general=True),
+                  "tracers": k6.kernel_info(ntr, "tracers", grid.north_fold, general=True)}
+        spills = [spills_of(k6.KERNEL, k6_key(nb, 1, grid.north_fold)),
+                  spills_of(k6.KERNEL, k6_key(ntr, 2, grid.north_fold))]
+    print(f"  K6 general {label}{' (split pair)' if split else ''}: bit for bit; alone "
+          f"{ms:.3f} ms; plain {plain_ms:.3f} ms; spills (stores, loads) {spills}; "
+          + launch_line(launch["momentum"] if split else launch, b))
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "bitwise": True, "launch": launch, "spills": spills}
+
+
+def k6_general_instances():
+    """[35]: K6's general instances bit for bit with the plain version at
+    1536x768x64 on the flagship's fields after 8 steps: the 19 combinations
+    other than the flagship's under TEOS-10 (the flagship's is [22]'s
+    compiled instance), the linear equation of state with the oracle's
+    schemes, and the b tracer, in one launch and as the split pair (whose
+    momentum launch stages b alone)."""
+    from gb25_tpu_torch import baroclinic_instability_model, loop
+    from gb25_tpu_torch.ops.eos import LinearEquationOfState
+    from gb25_tpu_torch.ops.halos import extend_field
+
+    cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE)
+    state = loop(cfg, grid, state, DT, WARMUP)
+    ue = extend_field(grid, state.u, "u")
+    ve = extend_field(grid, state.v, "v")
+    tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
+    out = {"schemes": {combo_name(c): k6_general_case(combo_name(c), with_schemes(cfg, c), grid,
+                                                      ue, ve, tr_e)
+                       for c in SCHEME_COMBOS[1:]}}
+    out["linear"] = k6_general_case(f"linear EOS ({combo_name(ORACLE_SCHEMES)})",
+                                    with_schemes(cfg, ORACLE_SCHEMES,
+                                                 eos=LinearEquationOfState()),
+                                    grid, ue, ve, tr_e)
+    cfg_b = dataclasses.replace(cfg, tracers=("b",))
+    tr_b = linear_b(tr_e)
+    out["b_tracer"] = k6_general_case("b tracer", cfg_b, grid, ue, ve, tr_b)
+    out["b_tracer_split"] = k6_general_case("b tracer", cfg_b, grid, ue, ve, tr_b, split=True)
+    return out
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every wrapper takes its plain version, on the card too: a step run
+    inside is its route's plain path (on the K6 route K6's and K5's plain
+    versions, where kernels="torch" would take the K1 route)."""
+    from gb25_tpu_torch.ops import (
+        pallas_barotropic,
+        pallas_catke,
+        pallas_tendency,
+        pallas_tridiag,
+        pallas_zslab,
+    )
+
+    mods = (pallas_barotropic, pallas_catke, pallas_tendency, pallas_tridiag, pallas_zslab)
+    saved = [m.uses_kernel for m in mods]
+    for m in mods:
+        m.uses_kernel = lambda cfg, t: False
+    try:
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.uses_kernel = f
+
+
+def k6_route_witness(cfg, grid, state):
+    """[36] (c)'s K6 route against the "torch" route (K1's plain version,
+    K2). In float32 the two part in u, v and eta by rounding that the
+    barotropic forcing amplifies (``route_step_compare``); under (c)'s
+    schemes by more than [23]'s 1e-3 of the largest eta at one element.
+    So the routes are held to each other in float64 from ``state``, the
+    K6 route through its wrappers' plain versions (``plain_versions``), at
+    1e-10 of each field's largest value: the same arithmetic. Printed: each
+    float32 route's distance from the float64 "torch" step, and the eta
+    element where the float32 routes part most, with its three values."""
+    from gb25_tpu_torch import baroclinic_instability_model, time_step
+
+    cfg_torch = dataclasses.replace(cfg, kernels="torch")
+    a, b = time_step(cfg, grid, state, DT), time_step(cfg_torch, grid, state, DT)
+    grid64 = baroclinic_instability_model(grid.Nx, grid.Ny, grid.Nz, device=DEVICE,
+                                          dtype=torch.float64)[1]
+    s64 = cast_state(state, torch.float64)
+    c = time_step(cfg_torch, grid64, s64, DT)
+    with plain_versions():
+        d = time_step(cfg, grid64, s64, DT)
+    del grid64, s64
+    for name in ("u", "v", "eta", "Gu", "Gv"):
+        x, y, z = (getattr(a, name).double(), getattr(b, name).double(), getattr(c, name))
+        print(f"  {name}: K6 route against 'torch' route {float((x - y).abs().max()):.3e}; "
+              f"against the float64 step (max {float(z.abs().max()):.4e}): K6 route "
+              f"{float((x - z).abs().max()):.3e}, 'torch' route {float((y - z).abs().max()):.3e}")
+    x, y, z = a.eta.double(), b.eta.double(), c.eta
+    i = int((x - y).abs().argmax())
+    idx = tuple(int(j) for j in torch.unravel_index(torch.tensor(i), x.shape))
+    print(f"  eta where the routes part most {idx}: K6 route {float(x.flatten()[i]):.9e}, "
+          f"'torch' route {float(y.flatten()[i]):.9e}, float64 {float(z.flatten()[i]):.9e}")
+    del a, b, x, y, z
+    print("  float64: the K6 route's plain path against the 'torch' step")
+    pairs = {n: (getattr(d, n), getattr(c, n)) for n in ("u", "v", "eta", "Gu", "Gv")}
+    pairs |= {k: (d.tracers[k], c.tracers[k]) for k in c.tracers}
+    pairs |= {"G" + k: (d.Gtracers[k], c.Gtracers[k]) for k in c.Gtracers}
+    for name, (x, y) in pairs.items():
+        compare("f64 " + name, x, y, 0.0, 1e-10 * float(y.abs().max()))
+    del c, d, pairs
+    torch.cuda.empty_cache()
+
+
+def scheme_row(card, label, cfg, grid, state, kernels, per_step, steps):
+    """One of [36]'s rows: 8 float32 steps, one step against its route's
+    plain path at [5]'s tolerances (the K1 route's is kernels="torch"; the
+    K6 route's its wrappers' plain versions, ``plain_versions``, and
+    ``k6_route_witness``), the main
+    path (``run_main_path``: 8 warm-up steps and two ``steps``-step loops
+    replayed), the fields finite, the device loop against the host loop
+    bit for bit over 16 steps, and the replayed loop's device busy and idle
+    share over 32 steps under the profiler."""
+    from gb25_tpu_torch import loop, time_step
+    from gb25_tpu_torch.utils.profiling import replayed_line
+
+    t0 = time.perf_counter()
+    moved = loop(cfg, grid, state, DT, WARMUP)
+    cfg_plain = dataclasses.replace(cfg, kernels="torch")
+    step = lambda s: time_step(cfg, grid, s, DT)  # noqa: E731
+
+    def plain_step(s):
+        if cfg.kernels != "pallas":
+            return time_step(cfg_plain, grid, s, DT)
+        with plain_versions():
+            return time_step(cfg, grid, s, DT)
+
+    phase_step_compare(step, plain_step, moved)
+    if cfg.kernels == "pallas":
+        k6_route_witness(cfg, grid, moved)
+    step_n = lambda st, n: loop(cfg, grid, st, DT, n)  # noqa: E731
+    s, elapsed, launches, peak_gb, rec = run_main_path(step_n, moved, kernels, per_step, steps)
+    umax = check_state(s, grid.shape)
+    ms_step = 1e3 * elapsed / steps
+    host_ms = loop_vs_host(label, step_n, host_steps(
+        lambda st: time_step(cfg, grid, st, DT, premasked=True), grid), s, ms_step)
+    wall, busy, _, _, s = replayed_line(step_n, s, 2 * 16)
+    idle = 1.0 - busy / wall
+    rate = grid.Nx * grid.Ny * grid.Nz * steps / elapsed
+    print(f"  {label} {grid.Nx}x{grid.Ny}x{grid.Nz} f32 on {card}: {ms_step:.3f} ms/step "
+          f"({rate:.4e} cell-steps/s, timed second {steps}-step loop, replayed); launched from "
+          f"the host {host_ms:.3f} ms/step; replayed under the profiler: wall {wall:.3f}, device "
+          f"busy {busy:.3f} ms/step, idle {100 * idle:.1f}%; max|u| {umax:.4f} m/s; peak "
+          f"device memory {peak_gb:.2f} GB, graph pool {rec['pool_gb']:.2f} GB; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"ms_step": ms_step, "rate": rate, "host_ms_step": host_ms, "steps": steps,
+            "launches": launches, "loop": rec, "peak_gb": peak_gb, "busy_ms": busy,
+            "profiled_wall_ms": wall, "idle": idle}
+
+
+def scheme_rows(card):
+    """[36]: (a) the oracle's schemes (centred vector-invariant momentum,
+    standard kinetic energy, centred tracers) with the linear equation of
+    state on the flagship under the split-explicit free surface: K1's
+    general fused instance and K2; (b) the b-tracer flagship, b the linear
+    buoyancy of its analytic T and S, the WENO schemes: K1's one-tracer
+    instance and K2; (c) row (a) on the K6 route: K6's general instance
+    with the linear equation of state, K5 at W = 4."""
+    from gb25_tpu_torch import baroclinic_instability_model
+    from gb25_tpu_torch.models import buoyancy_tracer_state
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_zslab
+    from gb25_tpu_torch.ops.eos import LinearEquationOfState
+
+    k1_kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL}
+    rows = {}
+    for name, kernels in (("oracle_schemes", "auto"), ("oracle_schemes_k6", "pallas")):
+        mom, ke, tr = ORACLE_SCHEMES
+        cfg, grid, state = baroclinic_instability_model(
+            NX, NY, NZ, device=DEVICE, kernels=kernels, momentum_advection=mom,
+            tracer_advection=tr, eos=LinearEquationOfState())
+        cfg = dataclasses.replace(cfg, ke_scheme=ke)
+        if kernels == "auto":
+            print(f"  (a) the oracle's schemes with the linear EOS: {WARMUP} steps, one against "
+                  f"'torch', {WARMUP} + 2x{SCHEME_STEPS} steps replayed")
+            rows[name] = scheme_row(card, "oracle schemes", cfg, grid, state, k1_kernels,
+                                    {"K1": 1, "K2": 1}, SCHEME_STEPS)
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE)
+            cfg = dataclasses.replace(cfg, tracers=("b",))
+            print(f"  (b) the b-tracer flagship: {WARMUP} steps, one against 'torch', "
+                  f"{WARMUP} + 2x{SCHEME_STEPS} steps replayed")
+            rows["b_tracer"] = scheme_row(card, "b tracer", cfg, grid,
+                                          buoyancy_tracer_state(state, grid), k1_kernels,
+                                          {"K1": 1, "K2": 1}, SCHEME_STEPS)
+        else:
+            print(f"  (c) row (a) on the K6 route: {WARMUP} steps, one against its plain path, "
+                  f"{WARMUP} + 2x{SCHEME_K6_STEPS} steps replayed")
+            per_step = {"K6": 1, "K5": k5_per_step(cfg, grid), "K1": 0, "K2": 0}
+            rows[name] = scheme_row(card, "oracle schemes, K6 route", cfg, grid, state,
+                                    k6_kernels(), per_step, SCHEME_K6_STEPS)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def scheme_phases(card, flagship_ms):
+    """[34]-[36]; returns the new kernel entries and [36]'s rows."""
+    t0 = time.perf_counter()
+    print(f"[34] K1's general instances vs plain at {NX}x{NY}x{NZ}")
+    k1g = k1_general_instances()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  [34] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    print(f"[35] K6's general instances vs plain at {NX}x{NY}x{NZ}, bit for bit")
+    k6g = k6_general_instances()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  [35] {time.perf_counter() - t0:.1f} s")
+    print("[36] the schemes' main paths")
+    rows = scheme_rows(card)
+    print("  ms/step beside the flagship's " + f"{flagship_ms:.3f} ([5]): " + "; ".join(
+        f"{name} {r['ms_step']:.3f} (idle {100 * r['idle']:.1f}%)" for name, r in rows.items()))
+
+    def scheme_entry(name, source, replaces, path, kernel, res, subs):
+        row = rows[path]
+        e = entry(name, source, replaces, path, row["launches"][kernel], res,
+                  (res["bound_ms"], res["bound_by"]))
+        return e | {"spills": res["spills"]} | on_device(row["loop"], kernel) | subs
+
+    k1_src, k1_tpu = "zslab_tendencies.cu", "gb25_tpu/ops/pallas_zslab.py:275"
+    oracle = k1g["schemes"][combo_name(ORACLE_SCHEMES)]
+    entries = [
+        scheme_entry("zslab_tendencies_general", k1_src, k1_tpu, "oracle_schemes", "K1", oracle,
+                     {"schemes": k1g["schemes"], "geometries": k1g["geometries"]}),
+        scheme_entry("zslab_tendencies_one_tracer", k1_src, k1_tpu, "b_tracer", "K1",
+                     k1g["b_tracer"], {"unfused": k1g["b_tracer_unfused"]}),
+        scheme_entry("pallas_tendencies_general", "tendencies.cu",
+                     "gb25_tpu/ops/pallas_tendency.py:115", "oracle_schemes_k6", "K6",
+                     k6g["linear"], {"schemes": k6g["schemes"], "b_tracer": k6g["b_tracer"],
+                                     "b_tracer_split": k6g["b_tracer_split"],
+                                     "bitwise": True}),
+    ]
+    return entries, rows
+
+
 T_START = time.perf_counter()
 
 
@@ -2524,6 +3066,9 @@ def main():
                                 "float32": (f32["ms_step"], 32)})
     gc.collect()
     torch.cuda.empty_cache()
+    scheme_entries, schemes = scheme_phases(card, flag["ms_step"])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def host(r):
         return "" if r.get("host_ms_step") is None else f", from the host {r['host_ms_step']:.3f}"
@@ -2546,7 +3091,9 @@ def main():
               f"{name} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s, {r['steps']} steps"
               f"{', ' + 'x'.join(map(str, r['shape'])) if r['shape'] != [NX, NY, NZ] else ''}"
               f"{', dt %g s' % r['dt'] if r['dt'] != DT else ''}){host(r)}"
-              for name, r in choices.items()))
+              for name, r in choices.items()) + "; " + "; ".join(
+              f"{name} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s, {r['steps']} steps, idle "
+              f"{100 * r['idle']:.1f}%){host(r)}" for name, r in schemes.items()))
 
     k5_entry = entry("barotropic_block", "barotropic_block.cu",
                      "gb25_tpu/ops/pallas_barotropic.py:349", "climate_tripolar_decomposed",
@@ -2581,7 +3128,8 @@ def main():
         launches_float64_state=f32["float64_state"]["operand_modes"]["bf16s"])
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s on {card}")
     print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels
-                      + [k5_entry] + k6_entries + [k6_tile] + choice_entries}))
+                      + [k5_entry] + k6_entries + [k6_tile] + choice_entries
+                      + scheme_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

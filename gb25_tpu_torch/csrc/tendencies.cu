@@ -1,7 +1,10 @@
 // The whole tendency stage of the hydrostatic step in one kernel: continuity
 // w, TEOS-10 buoyancy, hydrostatic pressure, WENO vector-invariant momentum
 // and WENO-5 tracer advection, from the halo-extended u, v and tracers to
-// the interior Gu, Gv and one G per tracer. Nothing else: the AB2 update,
+// the interior Gu, Gv and one G per tracer; or, in its general instances,
+// any of the config's schemes (tendency_tile.cuh) with the buoyancy from
+// TEOS-10, from the linear equation of state or from the b tracer itself
+// (one to four tracers). Nothing else: the AB2 update,
 // the depth integrals, the closure's sources, the surface fluxes and the
 // masks are the caller's (the "pallas" route of models/hydrostatic.py).
 //
@@ -10,7 +13,12 @@
 // tracers T, S (the flagship), T, S, e (the climate) and T, S, e, eps
 // (k-epsilon); the metrics and f as y profiles or, on the tripolar grid, as
 // (y, x) planes (the Pallas kernel's metric_spec, :173-184); split = false
-// (one launch) or true (a momentum launch, then a tracer launch).
+// (one launch) or true (a momentum launch, then a tracer launch). Each
+// instance has a general variant that reads the schemes and the buoyancy's
+// source from its arguments (the Pallas kernel runs tendency_math with the
+// config's schemes and cfg.eos inside, :105-108, 217-225); the general
+// variants add one tracer (b) and, for the b tracer, a momentum launch
+// that stages b alone.
 //
 // What bounds it on an H100: device memory, nearly level with the float32
 // rate. At 1536x768x64 the flagship instance reads four extended fields (u,
@@ -44,6 +52,9 @@
 // float, and each division by a constant a product with the float
 // reciprocal (the wrapper passes the reciprocals, rounded as torch rounds
 // them). The column sums are sequential, as the plain version's cumsum.
+// The linear equation of state is written the same way, g (alpha (T - T0)
+// - beta (S - S0)), its five constants rounded once to float; the b tracer
+// is read as it is.
 //
 // The inputs arrive halo-filled (the fold rows included) and, on immersed
 // grids, with u and v masked on solid faces: like the Pallas kernel, K6 has
@@ -71,10 +82,17 @@ struct Args {
   float* Gtr[kMaxTracers];
   int Nx, Ny, Nz, hx, hy, hz;
   int align;   // staged column -3 - align is 16-byte aligned; -1: 4-byte copies
-  int iT, iS;  // T and S among the staged fields after u and v
+  int iT, iS;  // T and S among the staged fields after u and v (b twice in b mode)
   float eps;                                              // WENO epsilon
   float inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0;  // TEOS-10 scalars
+  float lin_g, lin_alpha, lin_T0, lin_beta, lin_S0;       // the linear equation's
+  Schemes sch;  // the advection and kinetic-energy schemes (general instances)
+  int eos;      // kEosTeos10, kEosLinear or kEosTracer (general instances)
 };
+
+// Where b comes from: TEOS-10 of T and S, the linear equation of state of
+// T and S, or the b tracer (staged and read as T, and as S).
+enum { kEosTeos10 = 0, kEosLinear = 1, kEosTracer = 2 };
 
 // The polyTEOS10_bsq anomaly coefficient of ss^i tt^j zz^k as kEos[k][j][i]
 // (ops/eos.py::_EOS): at zz^k, tt runs to kDeg[k] and ss to kDeg[k] - j,
@@ -140,17 +158,27 @@ __device__ __forceinline__ float teos10_buoyancy(const Args& A, float T, float S
   return (A.neg_g * (r - A.rho0)) * A.inv_rho0;
 }
 
-// The fields a launch stages: u, v and the tracers; for the momentum
-// launch u, v and T, S.
-template <int NTR, int MODE>
-__host__ __device__ constexpr int staged_fields() {
-  return MODE == kMomentum ? 4 : 2 + NTR;
+// b = g (alpha (T - T0) - beta (S - S0)) (ops/eos.py::LinearEquationOfState),
+// each operation rounded on its own.
+__device__ __forceinline__ float linear_buoyancy(const Args& A, float T, float S) {
+  return A.lin_g * (A.lin_alpha * (T - A.lin_T0) - A.lin_beta * (S - A.lin_S0));
 }
 
-// Shared memory of a launch in bytes.
+// The buoyancy of a cell: TEOS-10 in the flagship's instances; in the
+// general ones A.eos's (in b mode T holds b).
+template <bool GEN>
+__device__ __forceinline__ float buoyancy(const Args& A, float T, float S, float z) {
+  if (GEN && A.eos == kEosTracer) return T;
+  if (GEN && A.eos == kEosLinear) return linear_buoyancy(A, T, S);
+  return teos10_buoyancy(A, T, S, z);
+}
+
+// Shared memory of a launch in bytes. A launch stages 2 + NTR fields: u, v
+// and the tracers; for the momentum launch u, v and its NTR buoyancy fields
+// (T and S, or b).
 template <int NTR, int MODE, bool M2>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * tile_floats<staged_fields<NTR, MODE>(), MODE == kMomentum ? 0 : NTR, M2>();
+  return sizeof(float) * tile_floats<2 + NTR, MODE == kMomentum ? 0 : NTR, M2>();
 }
 
 template <bool M2>
@@ -158,21 +186,25 @@ __device__ __forceinline__ void start_column(Column& c, const Args& A, const Til
   c.razc = 1.0f / metric_at<M2>(A.azc, t.Y0 + c.y, t.X0 + c.x, Xe);
 }
 
-// The column total of b dz, TEOS-10 down the column from device memory,
-// summed up from the floor.
+// The column total of b dz, b down the column from device memory, summed up
+// from the floor.
+template <bool GEN>
 __device__ __forceinline__ float column_total(const Args& A, int Y, int X) {
   float tot = 0.0f;
   for (int k = 0; k < A.Nz; ++k) {
     const int Z = k + A.hz;
-    tot = tot + teos10_buoyancy(A, A.T(Z, Y, X), A.S(Z, Y, X), A.zc[Z]) * A.dzc[Z];
+    tot = tot + buoyancy<GEN>(A, A.T(Z, Y, X), A.S(Z, Y, X), A.zc[Z]) * A.dzc[Z];
   }
   return tot;
 }
 
-template <int NTR, int MODE, bool M2>
+// GEN: the general instance (A.sch, A.eos); else the flagship's schemes
+// and TEOS-10.
+template <int NTR, int MODE, bool M2, bool GEN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) tendency_stage_kernel(const Args A) {
   constexpr bool kMom = MODE != kTracers, kTrc = MODE != kMomentum;
-  constexpr int NF = staged_fields<NTR, MODE>();
+  const Schemes sch = GEN ? A.sch : kFlagship;
+  constexpr int NF = 2 + NTR;  // staged fields
   constexpr int NT = kTrc ? NTR : 0;  // tracers this launch advects
   extern __shared__ __align__(16) float smem[];
   const bool vec = A.align >= 0;
@@ -205,8 +237,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) tendency_stage_kernel(co
   if (ac.on) start_column<M2>(ac, A, t, Xe);
 
   if (kMom) {
-    if (oc.on) oc.tot = column_total(A, t.Y0 + oc.y, t.X0 + oc.x);
-    if (ac.on) ac.tot = column_total(A, t.Y0 + ac.y, t.X0 + ac.x);
+    if (oc.on) oc.tot = column_total<GEN>(A, t.Y0 + oc.y, t.X0 + oc.x);
+    if (ac.on) ac.tot = column_total<GEN>(A, t.Y0 + ac.y, t.X0 + ac.x);
   }
 
   // this thread's column
@@ -257,33 +289,37 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) tendency_stage_kernel(co
     if (kMom) {
       const Win T{slot + (2 + A.iT) * kSF}, S{slot + (2 + A.iS) * kSF};
       auto level = [&](Column& c) {
-        const float bdz = teos10_buoyancy(A, T(c.y, c.x), S(c.y, c.x), A.zc[Z]) * dzc;
-        column_level<true, M2>(c, u, v, m, dzc, bdz, keq, wq, pq);
+        const float bdz = buoyancy<GEN>(A, T(c.y, c.x), S(c.y, c.x), A.zc[Z]) * dzc;
+        column_level<true, M2>(c, u, v, m, dzc, bdz, keq, wq, pq, sch);
       };
       if (oc.on) level(oc);
       if (ac.on) level(ac);
-      corner_pv<M2>(u, v, m, t, pvq);
+      if (sch.mom != kMomNone) corner_pv<M2>(u, v, m, t, pvq);
     } else if (oc.on) {
-      column_level<false, M2>(oc, u, v, m, dzc, 0.f, keq, wq, pq);
+      column_level<false, M2>(oc, u, v, m, dzc, 0.f, keq, wq, pq, sch);
     }
+    if (sch.tr != kTrNone) {
 #pragma unroll
-    for (int q = 0; q < NT; ++q)
-      tracer_faces<M2>(Win{slot + (2 + q) * kSF}, u, v, m, t, A.eps, fxq + q * kTY * kCX,
-                       fyq + q * kCY * kTX);
+      for (int q = 0; q < NT; ++q)
+        tracer_faces<M2>(Win{slot + (2 + q) * kSF}, u, v, m, t, A.eps, sch.tr,
+                         fxq + q * kTY * kCX, fyq + q * kCY * kTX);
+    }
     __syncthreads();
 
     if (own) {
       const size_t o = (size_t)k * plane_i + ij;
       float Gu = 0.f, Gv = 0.f, Gc[NT > 0 ? NT : 1];
       if (kMom)
-        momentum(u, v, pvq, keq, wq, pq, ty, tx, r_dxc, r_dyf, un1, vn1, 1.0f / A.dzf[Z + 1],
-                 A.eps, xu, xv, Gu, Gv);
+        momentum<M2>(u, v, m, pvq, keq, wq, pq, ty, tx, r_dxc, r_dyf, un1, vn1,
+                     1.0f / A.dzf[Z + 1], A.eps, sch, xu, xv, Gu, Gv);
       const float w = wq[centre(ty, tx)];
       const float r_dzc = 1.0f / dzc;
 #pragma unroll
       for (int q = 0; q < NT; ++q) {
-        Gc[q] = tracer(fxq + q * kTY * kCX, fyq + q * kCY * kTX, cz[q], w, fz[q], ty, tx,
-                       oc.razc, r_dzc, A.eps);
+        Gc[q] = sch.tr == kTrNone
+                    ? 0.0f
+                    : tracer(fxq + q * kTY * kCX, fyq + q * kCY * kTX, cz[q], w, fz[q], ty, tx,
+                             oc.razc, r_dzc, A.eps, sch.tr);
 #pragma unroll
         for (int r = 0; r < 5; ++r) cz[q][r] = cz[q][r + 1];
         cz[q][5] = cnext[q];
@@ -298,12 +334,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) tendency_stage_kernel(co
   }
 }
 
-template <int NTR, int MODE, bool M2>
+template <int NTR, int MODE, bool M2, bool GEN = false>
 cudaError_t launch(const Args& A, dim3 grid, dim3 block, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<NTR, MODE, M2>();
-  const cudaError_t err = allow_shared(tendency_stage_kernel<NTR, MODE, M2>, smem);
+  const cudaError_t err = allow_shared(tendency_stage_kernel<NTR, MODE, M2, GEN>, smem);
   if (err != cudaSuccess) return err;
-  tendency_stage_kernel<NTR, MODE, M2><<<grid, block, smem, s>>>(A);
+  tendency_stage_kernel<NTR, MODE, M2, GEN><<<grid, block, smem, s>>>(A);
   return cudaGetLastError();
 }
 
@@ -324,9 +360,10 @@ Args eos_args(float inv_sau, float inv_ctu, float inv_zu, float neg_g, float rho
   return A;
 }
 
-template <int NTR, int MODE, bool M2>
+template <int NTR, int MODE, bool M2, bool GEN = false>
 cudaError_t info(int* out) {
-  return launch_info(tendency_stage_kernel<NTR, MODE, M2>, smem_bytes<NTR, MODE, M2>(), out);
+  return launch_info(tendency_stage_kernel<NTR, MODE, M2, GEN>, smem_bytes<NTR, MODE, M2>(),
+                     out);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
@@ -337,28 +374,71 @@ extern "C" const char* gb25_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// u, v, T, S and the ntr tracers tr[0..ntr) (2 to 4; the pointer arrays
+// Every instance, by [general][mode][n - 1][metric2d]: n is the tracer
+// count, and for the momentum launch the count of its buoyancy fields (2:
+// T and S; 1: b); the flagship's instances have no one-tracer form.
+#define GB25_K6_TABLE(F)                                                               \
+  {{{{nullptr, nullptr},                                                               \
+     {F<2, kAll, false>, F<2, kAll, true>},                                            \
+     {F<3, kAll, false>, F<3, kAll, true>},                                            \
+     {F<4, kAll, false>, F<4, kAll, true>}},                                           \
+    {{nullptr, nullptr},                                                               \
+     {F<2, kMomentum, false>, F<2, kMomentum, true>},                                  \
+     {nullptr, nullptr},                                                               \
+     {nullptr, nullptr}},                                                              \
+    {{nullptr, nullptr},                                                               \
+     {F<2, kTracers, false>, F<2, kTracers, true>},                                    \
+     {F<3, kTracers, false>, F<3, kTracers, true>},                                    \
+     {F<4, kTracers, false>, F<4, kTracers, true>}}},                                  \
+   {{{F<1, kAll, false, true>, F<1, kAll, true, true>},                                \
+     {F<2, kAll, false, true>, F<2, kAll, true, true>},                                \
+     {F<3, kAll, false, true>, F<3, kAll, true, true>},                                \
+     {F<4, kAll, false, true>, F<4, kAll, true, true>}},                               \
+    {{F<1, kMomentum, false, true>, F<1, kMomentum, true, true>},                      \
+     {F<2, kMomentum, false, true>, F<2, kMomentum, true, true>},                      \
+     {nullptr, nullptr},                                                               \
+     {nullptr, nullptr}},                                                              \
+    {{F<1, kTracers, false, true>, F<1, kTracers, true, true>},                        \
+     {F<2, kTracers, false, true>, F<2, kTracers, true, true>},                        \
+     {F<3, kTracers, false, true>, F<3, kTracers, true, true>},                        \
+     {F<4, kTracers, false, true>, F<4, kTracers, true, true>}}}}
+
+// u, v, T, S and the ntr tracers tr[0..ntr) (1 to 4; the pointer arrays
 // hold kMaxTracers entries, the unused ones null) are extended (Nz+2hz,
-// Ny+2hy, Nx+2hx); T and S are also among tr. metric2d: the six metrics and
-// fff are (Ny+2hy, Nx+2hx) planes (the tripolar grid), else (Ny+2hy)
-// profiles. mode: 0 every output, 1 Gu and Gv only (Gtr may be null), 2 the
-// tracers' G only (Gu, Gv may be null). The TEOS-10 scalars: 1 / SAU,
-// 1 / CTU, 1 / ZU, -g, rho0 and 1 / rho0 as float32.
+// Ny+2hy, Nx+2hx); T and S are also among tr (in b mode T and S are both
+// the b tracer). metric2d: the six metrics and fff are (Ny+2hy, Nx+2hx)
+// planes (the tripolar grid), else (Ny+2hy) profiles. mode: 0 every output,
+// 1 Gu and Gv only (Gtr may be null), 2 the tracers' G only (Gu, Gv may be
+// null). The TEOS-10 scalars: 1 / SAU, 1 / CTU, 1 / ZU, -g, rho0 and
+// 1 / rho0 as float32; the linear equation's g, alpha, T0, beta, S0 as
+// float32. mom, ke, trs: the scheme codes of tendency_tile.cuh; eos: where
+// b comes from (kEosTeos10, kEosLinear, kEosTracer). The flagship's
+// schemes under TEOS-10 with two to four tracers launch the instances
+// compiled for them, anything else the general instances.
 extern "C" int tendencies_f32(
     const float* u, const float* v, const float* T, const float* S, const float* const* tr,
     const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
     const float* azf, const float* fff, const float* dzc, const float* dzf, const float* zc,
     float* Gu, float* Gv, float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy,
     int hz, int metric2d, int mode, float eps, float inv_sau, float inv_ctu, float inv_zu,
-    float neg_g, float rho0, float inv_rho0, void* stream) {
-  if (ntr < 2 || ntr > kMaxTracers || mode < kAll || mode > kTracers || hx < 3 || hy < 3 ||
-      hz < 3)
+    float neg_g, float rho0, float inv_rho0, float lin_g, float lin_alpha, float lin_T0,
+    float lin_beta, float lin_S0, int mom, int ke, int trs, int eos, void* stream) {
+  if (ntr < 1 || ntr > kMaxTracers || mode < kAll || mode > kTracers || hx < 3 || hy < 3 ||
+      hz < 3 || mom < kMomWenoVI || mom > kMomNone || ke < kKeHollingsworth ||
+      ke > kKeStandard || trs < kTrWeno5 || trs > kTrNone || eos < kEosTeos10 ||
+      eos > kEosTracer)
     return static_cast<int>(cudaErrorInvalidValue);
   if (mode != kTracers && (Gu == nullptr || Gv == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool btracer = eos == kEosTracer;
+  if (btracer && T != S) return static_cast<int>(cudaErrorInvalidValue);
   const int Xe = Nx + 2 * hx;
   const size_t plane = (size_t)(Ny + 2 * hy) * Xe;
   Args A = eos_args(inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0);
+  A.lin_g = lin_g; A.lin_alpha = lin_alpha; A.lin_T0 = lin_T0;
+  A.lin_beta = lin_beta; A.lin_S0 = lin_S0;
+  A.sch = Schemes{mom, ke, trs};
+  A.eos = eos;
   A.u = Field{u, Xe, plane};
   A.v = Field{v, Xe, plane};
   A.T = Field{T, Xe, plane};
@@ -374,14 +454,15 @@ extern "C" int tendencies_f32(
     if (used && tr[t] == S) A.iS = t;
   }
   if (A.iT < 0 || A.iS < 0) return static_cast<int>(cudaErrorInvalidValue);
-  // the staged fields: u, v, then the tracers, or for the momentum launch T, S
+  // the staged fields: u, v, then the tracers, or for the momentum launch
+  // T, S (b alone in b mode)
   const float* staged[2 + kMaxTracers] = {u, v};
   int nstaged = 2;
   if (mode == kMomentum) {
     staged[nstaged++] = T;
-    staged[nstaged++] = S;
+    if (!btracer) staged[nstaged++] = S;
     A.iT = 0;
-    A.iS = 1;
+    A.iS = btracer ? 0 : 1;
   } else {
     for (int t = 0; t < ntr; ++t) staged[nstaged++] = tr[t];
   }
@@ -399,40 +480,23 @@ extern "C" int tendencies_f32(
   dim3 block(kTX, kTY, 1);
   dim3 grid((Nx + kTX - 1) / kTX, (Ny + kTY - 1) / kTY, 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // [mode][ntr - 2][metric2d]; the momentum launch reads no tracer but T, S
+  const bool gen = eos != kEosTeos10 || !is_flagship(A.sch, ntr);
+  const int n = mode == kMomentum ? nstaged - 2 : ntr;
   using Launch = cudaError_t (*)(const Args&, dim3, dim3, cudaStream_t);
-  static const Launch launchers[3][3][2] = {
-      {{launch<2, kAll, false>, launch<2, kAll, true>},
-       {launch<3, kAll, false>, launch<3, kAll, true>},
-       {launch<4, kAll, false>, launch<4, kAll, true>}},
-      {{launch<2, kMomentum, false>, launch<2, kMomentum, true>},
-       {launch<2, kMomentum, false>, launch<2, kMomentum, true>},
-       {launch<2, kMomentum, false>, launch<2, kMomentum, true>}},
-      {{launch<2, kTracers, false>, launch<2, kTracers, true>},
-       {launch<3, kTracers, false>, launch<3, kTracers, true>},
-       {launch<4, kTracers, false>, launch<4, kTracers, true>}},
-  };
-  return static_cast<int>(launchers[mode][ntr - 2][metric2d ? 1 : 0](A, grid, block, s));
+  static const Launch launchers[2][3][4][2] = GB25_K6_TABLE(launch);
+  return static_cast<int>(launchers[gen][mode][n - 1][metric2d ? 1 : 0](A, grid, block, s));
 }
 
-// The launch shape of one instance (ntr, mode, metric2d), as
-// tendency_tile.cuh's launch_info reports it into out[0..5).
-extern "C" int tendencies_info(int ntr, int mode, int metric2d, int* out) {
-  if (ntr < 2 || ntr > kMaxTracers || mode < kAll || mode > kTracers)
+// The launch shape of one instance (ntr, mode, metric2d, general; the
+// momentum launch's ntr counts its buoyancy fields), as tendency_tile.cuh's
+// launch_info reports it into out[0..5).
+extern "C" int tendencies_info(int ntr, int mode, int metric2d, int general, int* out) {
+  if (ntr < 1 || ntr > kMaxTracers || mode < kAll || mode > kTracers ||
+      (mode == kMomentum && ntr > 2) || (ntr == 1 && !general))
     return static_cast<int>(cudaErrorInvalidValue);
   using Info = cudaError_t (*)(int*);
-  static const Info infos[3][3][2] = {
-      {{info<2, kAll, false>, info<2, kAll, true>},
-       {info<3, kAll, false>, info<3, kAll, true>},
-       {info<4, kAll, false>, info<4, kAll, true>}},
-      {{info<2, kMomentum, false>, info<2, kMomentum, true>},
-       {info<2, kMomentum, false>, info<2, kMomentum, true>},
-       {info<2, kMomentum, false>, info<2, kMomentum, true>}},
-      {{info<2, kTracers, false>, info<2, kTracers, true>},
-       {info<3, kTracers, false>, info<3, kTracers, true>},
-       {info<4, kTracers, false>, info<4, kTracers, true>}},
-  };
-  return static_cast<int>(infos[mode][ntr - 2][metric2d ? 1 : 0](out));
+  static const Info infos[2][3][4][2] = GB25_K6_TABLE(info);
+  return static_cast<int>(infos[general ? 1 : 0][mode][ntr - 1][metric2d ? 1 : 0](out));
 }
 
 // b = teos10_buoyancy(T, S, z) over n cells (the check's entry, not the

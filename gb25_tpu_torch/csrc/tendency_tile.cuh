@@ -12,8 +12,14 @@
 // Each stencil keeps the expression and rounding order of the array path
 // of the JAX package (ops/operators.py, models/hydrostatic.py) as the
 // port's plain versions evaluate it; a reciprocal of a metric is taken
-// once (the same float either way). The WENO-5 upwind test is strict
-// (vel > 0).
+// once (the same float either way). The WENO-5 and first-order upwind
+// tests are strict (vel > 0).
+//
+// The advection and kinetic-energy schemes (models/config.py) arrive as a
+// Schemes value: the flagship's instances pass the constant kFlagship, so
+// every scheme branch folds away at compile time and their code is that of
+// the flagship alone; the general instances read the codes from the launch
+// arguments, the same for every thread, so the branches are uniform.
 //
 // Coordinates: (y, x) are relative to the tile's first interior cell;
 // extended index Y = Y0 + y, X = X0 + x.
@@ -52,6 +58,24 @@ constexpr int kApron = kTX + kTY;  // the south row and the west column of centr
 constexpr int kMetrics = 6;        // dxc, dxf, dyc, dyf, 1 / azf, f
 enum { kDXC, kDXF, kDYC, kDYF, kRAZF, kFFF };
 static_assert(kSX % 4 == 0 && kSXH % 8 == 0, "staged rows are whole 16-byte copies");
+
+// Scheme codes, in the order of models/config.py's MOMENTUM_ADVECTION,
+// KE_SCHEMES and TRACER_ADVECTION.
+enum { kMomWenoVI = 0, kMomVI = 1, kMomNone = 2 };
+enum { kKeHollingsworth = 0, kKeStandard = 1 };
+enum { kTrWeno5 = 0, kTrCentered2 = 1, kTrUpwind1 = 2, kTrNone = 3 };
+
+struct Schemes {
+  int mom, ke, tr;
+};
+constexpr Schemes kFlagship = {kMomWenoVI, kKeHollingsworth, kTrWeno5};
+
+// Whether a launch takes the compiled (flagship) instance: the flagship's
+// schemes with two or more tracers (one tracer has no compiled instance).
+inline bool is_flagship(const Schemes& sch, int ntr) {
+  return ntr >= 2 && sch.mom == kFlagship.mom && sch.ke == kFlagship.ke &&
+         sch.tr == kFlagship.tr;
+}
 static_assert(2 * kApron <= kThreads, "apron columns and apron faces need their own threads");
 
 // A value of device memory as float (bfloat16 widens exactly).
@@ -253,6 +277,15 @@ __device__ __forceinline__ float weno_upwind(const float s[6], float vel, float 
                     : weno5(s[5], s[4], s[3], s[2], s[1], eps);
 }
 
+// A tracer's reconstruction at the face between s[2] and s[3] of six
+// samples ordered along the axis, with the face velocity vel: WENO-5,
+// centred 0.5 (a + a[i - 1]) or the donor cell (ops/weno.py).
+__device__ __forceinline__ float reconstruct(const float s[6], float vel, float eps, int tr) {
+  if (tr == kTrCentered2) return 0.5f * (s[3] + s[2]);
+  if (tr == kTrUpwind1) return vel > 0.0f ? s[2] : s[3];
+  return weno_upwind(s, vel, eps);
+}
+
 // q = f + zeta at the corner (y, x).
 template <bool M2>
 __device__ __forceinline__ float pv(const Win& u, const Win& v, const Metrics<M2>& m, int y,
@@ -263,11 +296,13 @@ __device__ __forceinline__ float pv(const Win& u, const Win& v, const Metrics<M2
   return m.fff(y, x) + zeta;
 }
 
-// Hollingsworth-corrected kinetic energy at the centre (y, x).
-__device__ __forceinline__ float kinetic(const Win& u, const Win& v, int y, int x) {
+// Kinetic energy at the centre (y, x): the plain C-grid form (ke =
+// kKeStandard) or Hollingsworth-corrected.
+__device__ __forceinline__ float kinetic(const Win& u, const Win& v, int y, int x, int ke) {
   float u0 = u(y, x), u1 = u(y, x + 1);
   float v0 = v(y, x), v1 = v(y + 1, x);
   float Ks = 0.5f * (0.5f * (u1 * u1 + u0 * u0) + 0.5f * (v1 * v1 + v0 * v0));
+  if (ke == kKeStandard) return Ks;
   float ub0 = 0.5f * (u(y + 1, x) + u(y - 1, x));
   float ub1 = 0.5f * (u(y + 1, x + 1) + u(y - 1, x + 1));
   float vb0 = 0.5f * (v(y, x + 1) + v(y, x - 1));
@@ -289,22 +324,22 @@ __device__ __forceinline__ float divergence(const Win& u, const Win& v, const Me
 // Tracer flux through the x face (y, xf) and through the y face (yf, x).
 template <bool M2>
 __device__ __forceinline__ float xface_flux(const Win& c, const Win& u, const Metrics<M2>& m,
-                                            int y, int xf, float eps) {
+                                            int y, int xf, float eps, int tr) {
   float s[6];
 #pragma unroll
   for (int r = 0; r < 6; ++r) s[r] = c(y, xf - 3 + r);
   const float vel = u(y, xf);
-  return (vel * m.dyc(y, xf)) * weno_upwind(s, vel, eps);
+  return (vel * m.dyc(y, xf)) * reconstruct(s, vel, eps, tr);
 }
 
 template <bool M2>
 __device__ __forceinline__ float yface_flux(const Win& c, const Win& v, const Metrics<M2>& m,
-                                            int yf, int x, float eps) {
+                                            int yf, int x, float eps, int tr) {
   float s[6];
 #pragma unroll
   for (int r = 0; r < 6; ++r) s[r] = c(yf - 3 + r, x);
   const float vel = v(yf, x);
-  return (vel * m.dxf(yf, x)) * weno_upwind(s, vel, eps);
+  return (vel * m.dxf(yf, x)) * reconstruct(s, vel, eps, tr);
 }
 
 // A column whose vertical sums the block carries: its own column for each
@@ -336,19 +371,21 @@ __device__ __forceinline__ Column apron_column(const Tile& t) {
 }
 
 // One level of a column: w at the top face (continuity) into wq and, with
-// MOM, the kinetic energy into keq and p = csum - total - b dz / 2 into pq.
+// MOM, the kinetic energy into keq (none without momentum advection) and
+// p = csum - total - b dz / 2 into pq.
 // The sums are rounded term by term (no fused multiply-add), as a cumsum
 // of the products rounds them: p ~ 500 m^2/s^2 against horizontal
 // differences far smaller, so one ulp of p shows in the pressure gradient.
 template <bool MOM, bool M2>
 __device__ __forceinline__ void column_level(Column& c, const Win& u, const Win& v,
                                              const Metrics<M2>& m, float dzc, float bdz,
-                                             float* keq, float* wq, float* pq) {
+                                             float* keq, float* wq, float* pq,
+                                             const Schemes& sch) {
   const int ci = centre(c.y, c.x);
   c.sw = __fadd_rn(c.sw, __fmul_rn(divergence<M2>(u, v, m, c.y, c.x, c.razc), dzc));
   wq[ci] = -c.sw;
   if (MOM) {
-    keq[ci] = kinetic(u, v, c.y, c.x);
+    if (sch.mom != kMomNone) keq[ci] = kinetic(u, v, c.y, c.x, sch.ke);
     c.cs = __fadd_rn(c.cs, bdz);
     pq[ci] = __fsub_rn(__fsub_rn(c.cs, c.tot), __fmul_rn(0.5f, bdz));
   }
@@ -371,54 +408,72 @@ __device__ __forceinline__ void corner_pv(const Win& u, const Win& v, const Metr
 template <bool M2>
 __device__ __forceinline__ void tracer_faces(const Win& c, const Win& u, const Win& v,
                                              const Metrics<M2>& m, const Tile& t, float eps,
-                                             float* fx, float* fy) {
+                                             int tr, float* fx, float* fy) {
   const int tx = threadIdx.x, ty = threadIdx.y;
   if (tx < t.nx && ty < t.ny) {
-    fx[xface(ty, tx)] = xface_flux<M2>(c, u, m, ty, tx, eps);
-    fy[yface(ty, tx)] = yface_flux<M2>(c, v, m, ty, tx, eps);
+    fx[xface(ty, tx)] = xface_flux<M2>(c, u, m, ty, tx, eps, tr);
+    fy[yface(ty, tx)] = yface_flux<M2>(c, v, m, ty, tx, eps, tr);
   }
   const int b = kThreads - 1 - (ty * kTX + tx);
   if (b < kTX) {
-    if (b < t.nx) fy[yface(t.ny, b)] = yface_flux<M2>(c, v, m, t.ny, b, eps);
+    if (b < t.nx) fy[yface(t.ny, b)] = yface_flux<M2>(c, v, m, t.ny, b, eps, tr);
   } else if (b < kApron) {
-    if (b - kTX < t.ny) fx[xface(b - kTX, t.nx)] = xface_flux<M2>(c, u, m, b - kTX, t.nx, eps);
+    if (b - kTX < t.ny)
+      fx[xface(b - kTX, t.nx)] = xface_flux<M2>(c, u, m, b - kTX, t.nx, eps, tr);
   }
 }
 
 // The momentum tendencies (Gu, Gv) of the cell (y, x) from the shared
-// corner PV, kinetic energy, w and p: the upwinded vorticity flux, the
-// Bernoulli gradient, the vertical advection centred between the carried
-// bottom-face terms (xu, xv, updated to the top face) and the pressure
-// gradient. un1, vn1: u and v one level up; r_dzf1 = 1 / dz_f there.
-__device__ __forceinline__ void momentum(const Win& u, const Win& v, const float* pvq,
-                                         const float* keq, const float* wq, const float* pq,
-                                         int y, int x, float r_dxc, float r_dyf, float un1,
-                                         float vn1, float r_dzf1, float eps, float& xu,
-                                         float& xv, float& Gu, float& Gv) {
-  float s[6];
+// corner PV, kinetic energy, w and p: the vorticity flux (q upwinded by
+// WENO-5, or interpolated under kMomVI), the Bernoulli gradient, the
+// vertical advection centred between the carried bottom-face terms (xu,
+// xv, updated to the top face) and the pressure gradient. un1, vn1: u and
+// v one level up; r_dzf1 = 1 / dz_f there. Under kMomNone q is f at the
+// corners, interpolated, and neither the kinetic energy nor w is read
+// (the caller stages no corner PV).
+template <bool M2>
+__device__ __forceinline__ void momentum(const Win& u, const Win& v, const Metrics<M2>& m,
+                                         const float* pvq, const float* keq, const float* wq,
+                                         const float* pq, int y, int x, float r_dxc,
+                                         float r_dyf, float un1, float vn1, float r_dzf1,
+                                         float eps, const Schemes& sch, float& xu, float& xv,
+                                         float& Gu, float& Gv) {
+  const bool advect = sch.mom != kMomNone;
+  auto vbar_at = [&] {
+    return 0.5f * (0.5f * (v(y + 1, x) + v(y + 1, x - 1)) + 0.5f * (v(y, x) + v(y, x - 1)));
+  };
+  auto ubar_at = [&] {
+    return 0.5f * (0.5f * (u(y, x + 1) + u(y - 1, x + 1)) + 0.5f * (u(y, x) + u(y - 1, x)));
+  };
+  if (advect) {
+    float s[6];
 #pragma unroll
-  for (int r = 0; r < 6; ++r) s[r] = pvq[corner(y - 2 + r, x)];
-  const float vbar =
-      0.5f * (0.5f * (v(y + 1, x) + v(y + 1, x - 1)) + 0.5f * (v(y, x) + v(y, x - 1)));
-  Gu = weno_upwind(s, vbar, eps) * vbar;
+    for (int r = 0; r < 6; ++r) s[r] = pvq[corner(y - 2 + r, x)];
+    const float vbar = vbar_at();
+    Gu = (sch.mom == kMomWenoVI ? weno_upwind(s, vbar, eps) : 0.5f * (s[3] + s[2])) * vbar;
 #pragma unroll
-  for (int r = 0; r < 6; ++r) s[r] = pvq[corner(y, x - 2 + r)];
-  const float ubar =
-      0.5f * (0.5f * (u(y, x + 1) + u(y - 1, x + 1)) + 0.5f * (u(y, x) + u(y - 1, x)));
-  Gv = -weno_upwind(s, ubar, eps) * ubar;
+    for (int r = 0; r < 6; ++r) s[r] = pvq[corner(y, x - 2 + r)];
+    const float ubar = ubar_at();
+    Gv = -(sch.mom == kMomWenoVI ? weno_upwind(s, ubar, eps) : 0.5f * (s[3] + s[2])) * ubar;
+  } else {
+    Gu = 0.5f * (m.fff(y + 1, x) + m.fff(y, x)) * vbar_at();
+    Gv = -(0.5f * (m.fff(y, x + 1) + m.fff(y, x))) * ubar_at();
+  }
 
   const int c = centre(y, x), cw = centre(y, x - 1), cs = centre(y - 1, x);
-  const float K = keq[c];
-  Gu = Gu - (K - keq[cw]) * r_dxc;
-  Gv = Gv - (K - keq[cs]) * r_dyf;
+  if (advect) {
+    const float K = keq[c];
+    Gu = Gu - (K - keq[cw]) * r_dxc;
+    Gv = Gv - (K - keq[cs]) * r_dyf;
 
-  const float w_c1 = wq[c];
-  const float xu1 = 0.5f * (w_c1 + wq[cw]) * ((un1 - u(y, x)) * r_dzf1);
-  const float xv1 = 0.5f * (w_c1 + wq[cs]) * ((vn1 - v(y, x)) * r_dzf1);
-  Gu = Gu - 0.5f * (xu1 + xu);
-  Gv = Gv - 0.5f * (xv1 + xv);
-  xu = xu1;
-  xv = xv1;
+    const float w_c1 = wq[c];
+    const float xu1 = 0.5f * (w_c1 + wq[cw]) * ((un1 - u(y, x)) * r_dzf1);
+    const float xv1 = 0.5f * (w_c1 + wq[cs]) * ((vn1 - v(y, x)) * r_dzf1);
+    Gu = Gu - 0.5f * (xu1 + xu);
+    Gv = Gv - 0.5f * (xv1 + xv);
+    xu = xu1;
+    xv = xv1;
+  }
 
   const float p_c = pq[c];
   Gu = Gu - (p_c - pq[cw]) * r_dxc;
@@ -451,14 +506,14 @@ cudaError_t launch_info(Kernel kernel, size_t smem, int* out) {
   return err;
 }
 
-// A tracer's tendency at the cell (y, x): the flux-form WENO-5 divergence
-// of its shared face fluxes and its vertical flux, reconstructed from the
-// column's six levels cz = c(Z - 2 .. Z + 3) at the top face (w) and
-// carried from the level below (fz, updated to the top face).
+// A tracer's tendency at the cell (y, x): the flux-form divergence of its
+// shared face fluxes and its vertical flux, reconstructed in the scheme tr
+// from the column's six levels cz = c(Z - 2 .. Z + 3) at the top face (w)
+// and carried from the level below (fz, updated to the top face).
 __device__ __forceinline__ float tracer(const float* fx, const float* fy, const float cz[6],
                                         float w, float& fz, int y, int x, float r_azc,
-                                        float r_dzc, float eps) {
-  const float fz1 = w * weno_upwind(cz, w, eps);
+                                        float r_dzc, float eps, int tr) {
+  const float fz1 = w * reconstruct(cz, w, eps, tr);
   const float h = -((fx[xface(y, x + 1)] - fx[xface(y, x)]) +
                     (fy[yface(y + 1, x)] - fy[yface(y, x)])) *
                   r_azc;

@@ -15,7 +15,14 @@
 // instance (storage_dtype=bfloat16, :296-310, 384-391): u, v, the tracers
 // and b are read as bfloat16 and widened to float32 (the Pallas kernel's
 // window upcast, :626-631); every operation and the column total of b dz
-// stay float32, and the tendencies are written in float32.
+// stay float32, and the tendencies are written in float32. Each of these
+// runs the flagship's schemes (WENO vector-invariant momentum, WENO-5
+// tracers, Hollingsworth kinetic energy) compiled in; each has a general
+// variant that reads the schemes from its arguments (the JAX kernel runs
+// every scheme of the config, :249-254), and the general variants add one
+// tracer (the b-tracer configuration, whose b the JAX kernel reads from
+// the tracer, :200-201): fused on flat, immersed and tripolar grids,
+// unfused float32 and bfloat16.
 //
 // What bounds it on an H100: device memory. Per step the flagship instance
 // reads five extended fields (u, v, T, S, b) and four previous tendencies
@@ -40,7 +47,8 @@
 // terms; a six-level register ring per tracer for the vertical WENO-5
 // (one new load a level); the AB2 update, the wall row and the depth
 // integrals of u, v, u*, v*. b and its column total come from device
-// memory (the caller's TEOS-10). The tracer count (2 to 4), the immersed
+// memory (the caller's equation of state, or the b tracer itself). The
+// tracer count (1 to 4), the general schemes, the immersed
 // integrals, the 2-D metrics, the fused epilogue (AB2 update, wall row of
 // v*, integrals) and the storage type of the streamed fields are template
 // parameters. The bfloat16 instance stages each level by 16-byte copies of
@@ -94,6 +102,7 @@ struct Args {
   int align;             // staged column -3 - align is 16-byte aligned; -1: value by value
   int wall_row;          // 0: row 0 is the south wall; -1: no wall row on this tile
   float a, b_prev, eps;  // dt*c1, dt*c2, WENO epsilon
+  Schemes sch;           // the advection and kinetic-energy schemes (general instances)
 };
 
 // A carried column's column total of b dz and 1 / azc.
@@ -132,8 +141,9 @@ __device__ __forceinline__ void widen_level(float* dst, const bf16* src, const T
 }
 
 // FUSED: the AB2 update, the wall row of v* and the depth integrals; else
-// the tendencies and the wall row of Gv alone. S: the storage type.
-template <int NTR, bool IMM, bool M2, bool FUSED, class S>
+// the tendencies and the wall row of Gv alone. S: the storage type. GEN:
+// the general instance, whose schemes are A.sch; else the flagship's.
+template <int NTR, bool IMM, bool M2, bool FUSED, class S, bool GEN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     zslab_tendencies_kernel(const Args<S> A) {
   constexpr int NF = 2 + NTR;
@@ -141,6 +151,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   constexpr int kSXS = kF32 ? kSX : kSXH;  // a staged row of S
   constexpr int kSlotS = kSXS * kSY;
   static_assert(FUSED || !IMM, "the unfused form has no integrals to mask");
+  const Schemes sch = GEN ? A.sch : kFlagship;
   extern __shared__ __align__(16) float smem[];
   const bool vec = A.align >= 0;
   const int a = vec ? A.align : 0;  // the staged rows' alignment
@@ -245,27 +256,33 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     const Win u{slot}, v{slot + kSF};
     // shared quantities of the level
-    if (oc.on) column_level<true, M2>(oc, u, v, m, dzc, __fmul_rn(b_o, dzc), keq, wq, pq);
-    if (ac.on) column_level<true, M2>(ac, u, v, m, dzc, __fmul_rn(b_a, dzc), keq, wq, pq);
-    corner_pv<M2>(u, v, m, t, pvq);
+    if (oc.on)
+      column_level<true, M2>(oc, u, v, m, dzc, __fmul_rn(b_o, dzc), keq, wq, pq, sch);
+    if (ac.on)
+      column_level<true, M2>(ac, u, v, m, dzc, __fmul_rn(b_a, dzc), keq, wq, pq, sch);
+    if (sch.mom != kMomNone) corner_pv<M2>(u, v, m, t, pvq);
+    if (sch.tr != kTrNone) {
 #pragma unroll
-    for (int q = 0; q < NTR; ++q)
-      tracer_faces<M2>(Win{slot + (2 + q) * kSF}, u, v, m, t, A.eps, fxq + q * kTY * kCX,
-                       fyq + q * kCY * kTX);
+      for (int q = 0; q < NTR; ++q)
+        tracer_faces<M2>(Win{slot + (2 + q) * kSF}, u, v, m, t, A.eps, sch.tr,
+                         fxq + q * kTY * kCX, fyq + q * kCY * kTX);
+    }
     __syncthreads();
 
     if (own) {
       float Gu, Gv;
-      momentum(u, v, pvq, keq, wq, pq, ty, tx, r_dxc, r_dyf, un1, vn1, 1.0f / A.dzf[Z + 1],
-               A.eps, xu, xv, Gu, Gv);
+      momentum<M2>(u, v, m, pvq, keq, wq, pq, ty, tx, r_dxc, r_dyf, un1, vn1,
+                   1.0f / A.dzf[Z + 1], A.eps, sch, xu, xv, Gu, Gv);
       Gv = Gv * wall;
       const float w = wq[centre(ty, tx)];
       const float r_dzc = 1.0f / dzc;
       float Gc[NTR];
 #pragma unroll
       for (int q = 0; q < NTR; ++q)
-        Gc[q] = tracer(fxq + q * kTY * kCX, fyq + q * kCY * kTX, cz[q], w, fz[q], ty, tx,
-                       oc.razc, r_dzc, A.eps);
+        Gc[q] = sch.tr == kTrNone
+                    ? 0.0f
+                    : tracer(fxq + q * kTY * kCX, fyq + q * kCY * kTX, cz[q], w, fz[q], ty, tx,
+                             oc.razc, r_dzc, A.eps, sch.tr);
 
       A.Gu[o] = Gu;
       A.Gv[o] = Gv;
@@ -305,23 +322,29 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-template <int NTR, bool IMM, bool M2, bool FUSED = true, class S = float>
+template <int NTR, bool IMM, bool M2, bool FUSED = true, class S = float, bool GEN = false>
 cudaError_t launch(const Args<S>& A, cudaStream_t s) {
   const size_t smem = smem_bytes<S, 2 + NTR, NTR, M2>();
-  const cudaError_t err = allow_shared(zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S>, smem);
+  const cudaError_t err =
+      allow_shared(zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S, GEN>, smem);
   if (err != cudaSuccess) return err;
   const dim3 block(kTX, kTY, 1);
   const dim3 grid((A.Nx + kTX - 1) / kTX, (A.Ny + kTY - 1) / kTY, 1);
-  zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S><<<grid, block, smem, s>>>(A);
+  zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S, GEN><<<grid, block, smem, s>>>(A);
   return cudaGetLastError();
 }
 
 // out: registers per thread, shared memory per block (bytes), the tile's
 // columns in x and in y, blocks resident on one SM.
-template <int NTR, bool IMM, bool M2, bool FUSED = true, class S = float>
+template <int NTR, bool IMM, bool M2, bool FUSED = true, class S = float, bool GEN = false>
 cudaError_t info(int* out) {
-  return launch_info(zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S>,
+  return launch_info(zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S, GEN>,
                      smem_bytes<S, 2 + NTR, NTR, M2>(), out);
+}
+
+bool valid(int mom, int ke, int tr) {
+  return mom >= kMomWenoVI && mom <= kMomNone && ke >= kKeHollingsworth && ke <= kKeStandard &&
+         tr >= kTrWeno5 && tr <= kTrNone;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
@@ -367,14 +390,20 @@ int launch_unfused(const S* u, const S* v, const S* b, const S* const* tr, const
                    const float* dxc, const float* dxf, const float* dyc, const float* dyf,
                    const float* azc, const float* azf, const float* fff, const float* dzc,
                    const float* dzf, float* Gu, float* Gv, float* const* Gtr, int ntr, int Nx,
-                   int Ny, int Nz, int hx, int hy, int hz, int wall_v, float eps, void* stream) {
-  if (ntr != 2 || hx < 3 || hy < 3 || hz < 3) return static_cast<int>(cudaErrorInvalidValue);
+                   int Ny, int Nz, int hx, int hy, int hz, int wall_v, float eps, int mom, int ke,
+                   int trs, void* stream) {
+  if (ntr < 1 || ntr > 2 || hx < 3 || hy < 3 || hz < 3 || !valid(mom, ke, trs))
+    return static_cast<int>(cudaErrorInvalidValue);
   Args<S> A = field_args<S>(u, v, b, tr, ntr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
                             nullptr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps);
   A.Gu = Gu;
   A.Gv = Gv;
   for (int t = 0; t < ntr; ++t) A.Gtr[t] = Gtr[t];
-  return static_cast<int>(launch<2, false, false, false, S>(A, static_cast<cudaStream_t>(stream)));
+  A.sch = Schemes{mom, ke, trs};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_flagship(A.sch, ntr)) return static_cast<int>(launch<2, false, false, false, S>(A, s));
+  return static_cast<int>(ntr == 1 ? launch<1, false, false, false, S, true>(A, s)
+                                   : launch<2, false, false, false, S, true>(A, s));
 }
 
 }  // namespace
@@ -383,8 +412,12 @@ extern "C" const char* gb25_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// ntr tracers (2 to 4) in tr[0..ntr); the pointer arrays hold kMaxTracers
-// entries, the unused ones null. bu and bv are null unless the grid is
+// ntr tracers (1 to 4) in tr[0..ntr); the pointer arrays hold kMaxTracers
+// entries, the unused ones null. In the b-tracer configuration b and tr[0]
+// are the same field: both are only read. mom, ke and trs: the scheme
+// codes of tendency_tile.cuh; the flagship's (all 0) with two to four
+// tracers launch the instances compiled for them, any other the general
+// instances. bu and bv are null unless the grid is
 // immersed; then zc (the extended z_c profile) is read too. metric2d: the
 // six metrics and fff are (Ny+2hy, Nx+2hx) planes (the tripolar grid,
 // which is always immersed). wall_v: local row 0 is the south wall (serially,
@@ -398,8 +431,8 @@ extern "C" int zslab_tendencies_f32(
     const float* const* Gtr_p, float* Gu, float* Gv, float* const* Gtr, float* un, float* vn,
     float* const* trn, float* U0, float* V0, float* Us, float* Vs, int ntr, int Nx, int Ny,
     int Nz, int hx, int hy, int hz, int metric2d, int wall_v, float a, float b_prev, float eps,
-    void* stream) {
-  if (ntr < 2 || ntr > kMaxTracers || hx < 3 || hy < 3 || hz < 3)
+    int mom, int ke, int trs, void* stream) {
+  if (ntr < 1 || ntr > kMaxTracers || hx < 3 || hy < 3 || hz < 3 || !valid(mom, ke, trs))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool imm = bu != nullptr;
   if (imm && (bv == nullptr || zc == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
@@ -417,29 +450,41 @@ extern "C" int zslab_tendencies_f32(
   A.un = un; A.vn = vn;
   A.U0 = U0; A.V0 = V0; A.Us = Us; A.Vs = Vs;
   A.a = a; A.b_prev = b_prev;
+  A.sch = Schemes{mom, ke, trs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // [ntr - 2][flat, immersed, tripolar]
+  // [general][ntr - 1][flat, immersed, tripolar]; no flagship instance of one tracer
   using Launch = cudaError_t (*)(const Args<float>&, cudaStream_t);
-  static const Launch launchers[3][3] = {
-      {launch<2, false, false>, launch<2, true, false>, launch<2, true, true>},
-      {launch<3, false, false>, launch<3, true, false>, launch<3, true, true>},
-      {launch<4, false, false>, launch<4, true, false>, launch<4, true, true>},
+  static const Launch launchers[2][4][3] = {
+      {{nullptr, nullptr, nullptr},
+       {launch<2, false, false>, launch<2, true, false>, launch<2, true, true>},
+       {launch<3, false, false>, launch<3, true, false>, launch<3, true, true>},
+       {launch<4, false, false>, launch<4, true, false>, launch<4, true, true>}},
+      {{launch<1, false, false, true, float, true>, launch<1, true, false, true, float, true>,
+        launch<1, true, true, true, float, true>},
+       {launch<2, false, false, true, float, true>, launch<2, true, false, true, float, true>,
+        launch<2, true, true, true, float, true>},
+       {launch<3, false, false, true, float, true>, launch<3, true, false, true, float, true>,
+        launch<3, true, true, true, float, true>},
+       {launch<4, false, false, true, float, true>, launch<4, true, false, true, float, true>,
+        launch<4, true, true, true, float, true>}},
   };
-  return static_cast<int>(launchers[ntr - 2][imm ? (metric2d ? 2 : 1) : 0](A, s));
+  const int geometry = imm ? (metric2d ? 2 : 1) : 0;
+  return static_cast<int>(launchers[!is_flagship(A.sch, ntr)][ntr - 1][geometry](A, s));
 }
 
 // The unfused instances (no AB2 update, no integrals; the wall row of Gv
-// where wall_v): two tracers, lat-lon metric columns. u, v, b and the
-// tracers float32, or bfloat16 in the bf16-storage instance; btot, the
-// metrics and the outputs float32.
+// where wall_v): one or two tracers, lat-lon metric columns. u, v, b and
+// the tracers float32, or bfloat16 in the bf16-storage instance; btot, the
+// metrics and the outputs float32. The schemes as zslab_tendencies_f32's.
 extern "C" int zslab_tendencies_unfused_f32(
     const float* u, const float* v, const float* b, const float* const* tr, const float* btot,
     const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
     const float* azf, const float* fff, const float* dzc, const float* dzf, float* Gu, float* Gv,
     float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int wall_v,
-    float eps, void* stream) {
+    float eps, int mom, int ke, int trs, void* stream) {
   return launch_unfused<float>(u, v, b, tr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
-                               Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps, stream);
+                               Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps, mom, ke,
+                               trs, stream);
 }
 
 extern "C" int zslab_tendencies_unfused_bf16(
@@ -447,27 +492,46 @@ extern "C" int zslab_tendencies_unfused_bf16(
     const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
     const float* azf, const float* fff, const float* dzc, const float* dzf, float* Gu, float* Gv,
     float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int wall_v,
-    float eps, void* stream) {
+    float eps, int mom, int ke, int trs, void* stream) {
   return launch_unfused<bf16>(u, v, b, tr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
-                              Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps, stream);
+                              Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps, mom, ke,
+                              trs, stream);
 }
 
 // The launch shape of one instance (ntr, immersed, metric2d; form 0 the
 // fused instances, 1 the unfused float32 one, 2 the unfused bf16-storage
-// one), as tendency_tile.cuh's launch_info reports it into out[0..5).
-extern "C" int zslab_tendencies_info(int ntr, int immersed, int metric2d, int form, int* out) {
-  if (form != 0) {
-    if (ntr != 2 || immersed || metric2d) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(form == 1 ? info<2, false, false, false, float>(out)
-                                      : info<2, false, false, false, bf16>(out));
-  }
-  if (ntr < 2 || ntr > kMaxTracers || (metric2d && !immersed))
-    return static_cast<int>(cudaErrorInvalidValue);
+// one; general: the general instance), as tendency_tile.cuh's launch_info
+// reports it into out[0..5).
+extern "C" int zslab_tendencies_info(int ntr, int immersed, int metric2d, int form, int general,
+                                     int* out) {
   using Info = cudaError_t (*)(int*);
-  static const Info infos[3][3] = {
-      {info<2, false, false>, info<2, true, false>, info<2, true, true>},
-      {info<3, false, false>, info<3, true, false>, info<3, true, true>},
-      {info<4, false, false>, info<4, true, false>, info<4, true, true>},
+  if (form != 0) {
+    if (ntr < 1 || ntr > 2 || immersed || metric2d || (ntr == 1 && !general))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // [form - 1][general][ntr - 1]
+    static const Info unfused[2][2][2] = {
+        {{nullptr, info<2, false, false, false, float>},
+         {info<1, false, false, false, float, true>, info<2, false, false, false, float, true>}},
+        {{nullptr, info<2, false, false, false, bf16>},
+         {info<1, false, false, false, bf16, true>, info<2, false, false, false, bf16, true>}},
+    };
+    return static_cast<int>(unfused[form - 1][general ? 1 : 0][ntr - 1](out));
+  }
+  if (ntr < 1 || ntr > kMaxTracers || (metric2d && !immersed) || (ntr == 1 && !general))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const Info infos[2][4][3] = {
+      {{nullptr, nullptr, nullptr},
+       {info<2, false, false>, info<2, true, false>, info<2, true, true>},
+       {info<3, false, false>, info<3, true, false>, info<3, true, true>},
+       {info<4, false, false>, info<4, true, false>, info<4, true, true>}},
+      {{info<1, false, false, true, float, true>, info<1, true, false, true, float, true>,
+        info<1, true, true, true, float, true>},
+       {info<2, false, false, true, float, true>, info<2, true, false, true, float, true>,
+        info<2, true, true, true, float, true>},
+       {info<3, false, false, true, float, true>, info<3, true, false, true, float, true>,
+        info<3, true, true, true, float, true>},
+       {info<4, false, false, true, float, true>, info<4, true, false, true, float, true>,
+        info<4, true, true, true, float, true>}},
   };
-  return static_cast<int>(infos[ntr - 2][immersed ? (metric2d ? 2 : 1) : 0](out));
+  return static_cast<int>(infos[general ? 1 : 0][ntr - 1][immersed ? (metric2d ? 2 : 1) : 0](out));
 }

@@ -2,6 +2,7 @@ from gb25_tpu_torch.models.baroclinic import (  # noqa: F401
     baroclinic_instability_config,
     baroclinic_instability_model,
     baroclinic_instability_state,
+    buoyancy_tracer_state,
 )
 from gb25_tpu_torch.models.config import (  # noqa: F401
     EARTH_ROTATION_RATE,

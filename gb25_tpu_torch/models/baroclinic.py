@@ -16,7 +16,7 @@ from gb25_tpu_torch.grids import simple_latitude_longitude_grid
 from gb25_tpu_torch.models.config import HydrostaticConfig, SplitExplicitFreeSurface
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.models.state import HydrostaticState, initial_state
-from gb25_tpu_torch.ops.eos import TEOS10EquationOfState
+from gb25_tpu_torch.ops.eos import LinearEquationOfState, TEOS10EquationOfState
 
 
 def smooth_step(phi):
@@ -24,18 +24,23 @@ def smooth_step(phi):
     return (1.0 - torch.tanh((torch.abs(phi) - 40.0) / 5.0)) / 2.0
 
 
-def baroclinic_instability_config(kernels="auto", closure=None,
-                                  free_surface=None) -> HydrostaticConfig:
+def baroclinic_instability_config(kernels="auto", closure=None, free_surface=None,
+                                  momentum_advection="weno_vector_invariant",
+                                  tracer_advection="weno5", eos=None) -> HydrostaticConfig:
     """The flagship configuration; with ``closure`` the tracer set gains
     the closure's ("e" with CATKE, "e" and "eps" with k-epsilon), as in the
     JAX package. ``free_surface``: the split-explicit one with 30 substeps
-    unless given (``ExplicitFreeSurface``). A ``compute_dtype`` is set on
-    the result with ``dataclasses.replace``, as the JAX package's run
-    scripts do."""
+    unless given (``ExplicitFreeSurface``); ``eos``: TEOS-10 unless given
+    (``LinearEquationOfState``); the advection schemes as
+    ``HydrostaticConfig`` names them. A ``compute_dtype``, a ``ke_scheme``
+    or the b tracer is set on the result with ``dataclasses.replace``, as
+    the JAX package's run scripts and tests do."""
     tracers = ("T", "S") + tuple(getattr(closure, "tracer_names", ()))
     return HydrostaticConfig(
         tracers=tracers,
-        eos=TEOS10EquationOfState(),
+        momentum_advection=momentum_advection,
+        tracer_advection=tracer_advection,
+        eos=eos or TEOS10EquationOfState(),
         free_surface=free_surface or SplitExplicitFreeSurface(substeps=30),
         closure=closure,
         kernels=kernels,
@@ -70,11 +75,25 @@ def baroclinic_instability_state(grid, noise_velocity=1e-3, seed=42,
     return state.replace(u=u, v=v, tracers={"T": T, "S": S, **closure})
 
 
+def buoyancy_tracer_state(state, grid, eos=None):
+    """``state`` with its T and S replaced by the b tracer, b = ``eos``'s
+    buoyancy of them (the linear equation of state unless given: the
+    flagship's analytic T and S are then stably stratified), placed first
+    as the buoyancy-tracer config orders it; its previous G of b is 0."""
+    eos = eos or LinearEquationOfState()
+    hz, Nz = grid.hz, grid.Nz
+    tr = dict(state.tracers)
+    b = eos.buoyancy(tr.pop("T"), tr.pop("S"), grid.z_c[hz : hz + Nz]).contiguous()
+    G = {k: g for k, g in state.Gtracers.items() if k not in ("T", "S")}
+    return state.replace(tracers={"b": b, **tr}, Gtracers={"b": torch.zeros_like(b), **G})
+
+
 def baroclinic_instability_model(Nx, Ny, Nz, *, device="cuda", halo=(4, 4, 4), dtype=torch.float32,
                                  **config_kw):
-    """Grid, config and initial state of the flagship benchmark on ``device``.
-    With the k-epsilon closure the state starts from e = 1e-5, eps = 1e-8
-    (the JAX package's k-epsilon kernel tests' state)."""
+    """Grid, config and initial state of the flagship benchmark on ``device``;
+    ``config_kw`` goes to ``baroclinic_instability_config``. With the
+    k-epsilon closure the state starts from e = 1e-5, eps = 1e-8 (the JAX
+    package's k-epsilon kernel tests' state)."""
     grid = simple_latitude_longitude_grid(Nx, Ny, Nz, device=device, halo=halo, dtype=dtype)
     cfg = baroclinic_instability_config(**config_kw)
     state = baroclinic_instability_state(grid, tracers=cfg.tracers)

@@ -9,11 +9,17 @@ import torch
 
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
-from gb25_tpu_torch.ops.eos import TEOS10EquationOfState
+from gb25_tpu_torch.ops.eos import LinearEquationOfState, TEOS10EquationOfState
 
 EARTH_ROTATION_RATE = 7.292115e-5  # rad/s
 
 KERNEL_MODES = ("auto", "torch", "pallas")
+MOMENTUM_ADVECTION = ("weno_vector_invariant", "vector_invariant", "none")
+TRACER_ADVECTION = ("weno5", "centered2", "upwind1", "none")
+KE_SCHEMES = ("hollingsworth", "standard")
+# the tracers that carry the buoyancy: T and S through the equation of
+# state, or b itself (the reference's BuoyancyTracer)
+BUOYANCY_TRACERS = (("T", "S"), ("b",))
 
 # compute_dtype -> the dtype the array tendency path computes in; "bf16s"
 # (bf16 storage, f32 arithmetic) runs K1's bf16-storage instance and
@@ -85,11 +91,19 @@ class HydrostaticConfig:
 
     ``closure``: None, ``VerticalScalarDiffusivity``,
     ``CATKEVerticalDiffusivity`` or ``TKEDissipationVerticalDiffusivity``
-    (k-epsilon); ``tracers`` is ("T", "S"), plus "e" with CATKE, plus "e",
-    "eps" with k-epsilon. ``free_surface``: ``SplitExplicitFreeSurface`` or
-    ``ExplicitFreeSurface``. The port carries the flagship schemes only
-    (WENO vector-invariant momentum, WENO-5 tracers, Hollingsworth kinetic
-    energy); the JAX package's other choices come with later slices.
+    (k-epsilon); ``tracers`` is ("T", "S") with the equation of state
+    ``eos`` (TEOS-10 or linear), or ("b",), the buoyancy itself, then "e"
+    with CATKE, "e", "eps" with k-epsilon (the reference picks the tracers
+    from the buoyancy's type). ``free_surface``: ``SplitExplicitFreeSurface``
+    or ``ExplicitFreeSurface``. ``momentum_advection``: WENO
+    vector-invariant (the flagship's), the centred vector-invariant form,
+    or "none" (q = f, no kinetic energy, no vertical advection: Coriolis
+    and the pressure gradient alone); ``tracer_advection``: WENO-5, the
+    second-order centred or first-order upwind flux, or "none" (G = 0);
+    ``ke_scheme``: the Hollingsworth-corrected kinetic energy or the plain
+    C-grid ("standard") one. Each K1 and K6 instance has a variant that
+    reads these choices at run time; the flagship's schemes keep their
+    instances compiled for them.
 
     ``compute_dtype``: None (the state's precision, the fused form),
     "float32" (K1's unfused float32 instance; on a state of another dtype
@@ -105,12 +119,15 @@ class HydrostaticConfig:
     k-epsilon (item 12)."""
 
     tracers: tuple = ("T", "S")
-    eos: TEOS10EquationOfState = TEOS10EquationOfState()
+    momentum_advection: str = "weno_vector_invariant"
+    tracer_advection: str = "weno5"
+    eos: object = TEOS10EquationOfState()
     coriolis: float = EARTH_ROTATION_RATE  # Omega; 0 disables rotation
     free_surface: object = SplitExplicitFreeSurface()
     closure: object = None
     chi: float = 0.1  # quasi-AB2 parameter (Euler first step)
     weno_eps: float = 1e-6
+    ke_scheme: str = "hollingsworth"
     kernels: str = "auto"
     compute_dtype: str | None = None
 
@@ -120,16 +137,25 @@ class HydrostaticConfig:
         if not isinstance(self.free_surface, (SplitExplicitFreeSurface, ExplicitFreeSurface)):
             raise ValueError(f"unsupported free surface {self.free_surface!r}")
         self._check_compute_dtype()
+        for name, value, allowed in (("momentum_advection", self.momentum_advection,
+                                      MOMENTUM_ADVECTION),
+                                     ("tracer_advection", self.tracer_advection, TRACER_ADVECTION),
+                                     ("ke_scheme", self.ke_scheme, KE_SCHEMES)):
+            if value not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
+        if not isinstance(self.eos, (TEOS10EquationOfState, LinearEquationOfState)):
+            raise ValueError(f"unsupported equation of state {self.eos!r}")
         if self.closure is None or isinstance(self.closure, VerticalScalarDiffusivity):
-            allowed = ("T", "S")
+            extra = ()
         elif isinstance(self.closure, (CATKEVerticalDiffusivity,
                                        TKEDissipationVerticalDiffusivity)):
-            allowed = ("T", "S", *self.closure.tracer_names)
+            extra = self.closure.tracer_names
         else:
             raise ValueError(f"unsupported closure {self.closure!r}")
-        if tuple(self.tracers) != allowed:
+        allowed = [(*b, *extra) for b in BUOYANCY_TRACERS]
+        if tuple(self.tracers) not in allowed:
             raise ValueError(f"tracers {tuple(self.tracers)} with closure {self.closure!r}: "
-                             f"the port runs {allowed}")
+                             f"the port runs one of {allowed}")
 
     def _check_compute_dtype(self):
         cd = self.compute_dtype
@@ -167,6 +193,14 @@ class HydrostaticConfig:
         nor the explicit free surface, off the "pallas" route."""
         return (self.kernels != "pallas" and self.compute_dtype is None
                 and isinstance(self.free_surface, SplitExplicitFreeSurface))
+
+    @property
+    def scheme_codes(self) -> tuple:
+        """The schemes as the kernels' codes (csrc/tendency_tile.cuh): the
+        index of each in MOMENTUM_ADVECTION, KE_SCHEMES and
+        TRACER_ADVECTION."""
+        return (MOMENTUM_ADVECTION.index(self.momentum_advection),
+                KE_SCHEMES.index(self.ke_scheme), TRACER_ADVECTION.index(self.tracer_advection))
 
     @property
     def array_dtype(self):

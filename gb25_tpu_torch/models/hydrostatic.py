@@ -10,13 +10,16 @@ One step, in the fused form the JAX package runs on its kernels
   1. halo fill of u, v and the tracers (the fold rows on the tripolar
      grid; on a tile, exchanged with the neighbours); on immersed grids the
      extended velocities are masked on solid faces;
-  2. TEOS-10 buoyancy and its column total (torch ops), once per step;
+  2. the buoyancy (the equation of state, TEOS-10 or linear, of T and S,
+     or the b tracer itself) and its column total (torch ops), once per
+     step;
   3. with a closure, kernel K4: CATKE's diffusivities, TKE source and
      dissipation rate, or k-epsilon's diffusivities and the sources of e
      and eps, from the same extended fields;
-  4. kernel K1: continuity w, hydrostatic pressure, WENO vector-invariant
-     momentum and WENO-5 tracer tendencies, the quasi-AB2 update, the
-     south-wall row and the depth integrals;
+  4. kernel K1: continuity w, hydrostatic pressure, vector-invariant
+     momentum and flux-form tracer tendencies in the configured schemes
+     (WENO by default), the quasi-AB2 update, the south-wall row and the
+     depth integrals;
   5. the increments after the kernel, each also folded into the fused
      update as dt c1 inc: the closure's sources, the surface fluxes into
      the top cell, the immersed re-mask, the wall row;
@@ -25,8 +28,8 @@ One step, in the fused form the JAX package runs on its kernels
      then the barotropic correction, on the tripolar grid the seam-row
      projection, and the immersed re-mask;
   7. with a closure, kernel K3 once per diffusivity: (u, v) with kappa_u,
-     (T, S) with kappa_c, e with kappa_e (and CATKE's dissipation rate),
-     eps with kappa_eps; then e, eps >= 0;
+     (T, S) or b with kappa_c, e with kappa_e (and CATKE's dissipation
+     rate), eps with kappa_eps; then e, eps >= 0;
   8. the clock.
 
 The JAX package fuses the AB2 update into the tendency stage only without
@@ -45,8 +48,9 @@ alone and the step forms x* = x + dt (c1 G + c2 G_prev) itself
     "f32x2" (native float64), ``tendency_math`` on copies of the extended
     fields, f and the grid in that dtype, the tendencies cast back;
   - the ``kernels="pallas"`` route, the JAX package's unfused form around
-    kernel K6: TEOS-10 runs eagerly only for K4 (step 2 without a closure
-    is gone); K6 computes the tendencies, TEOS-10 inside, in place of K1
+    kernel K6: the buoyancy runs eagerly only for K4 (step 2 without a
+    closure is gone); K6 computes the tendencies, the buoyancy inside, in
+    place of K1
     (step 4); the increments of step 5 touch the tendencies alone; the free
     surface integrates u, u* and c1 G + c2 G_prev over depth and runs the
     blocked solve (blocks of W substeps in K5; serially on a 1x1 tile of its
@@ -56,7 +60,8 @@ Under ``ExplicitFreeSurface`` the barotropic pressure gradient -g grad eta
 joins the momentum tendencies, G_eta = -div(U, V) of the extended
 velocities is stored, eta steps with the AB2 coefficients, and step 6 is
 gone. ``VerticalScalarDiffusivity`` solves (u, v) with nu and (T, S) with
-kappa in two constant-kappa K3 launches after step 6. On a tile the
+kappa in two constant-kappa K3 launches after step 6 (b alone: one K3
+launch with kappa as a field). On a tile the
 explicit free surface reads eta's exchanged ghosts, the scalar closure runs
 on the tile's columns as it is, and the cast array path casts the tile's
 grid.
@@ -102,7 +107,7 @@ from gb25_tpu_torch.ops.pallas_tendency import pallas_tendencies
 from gb25_tpu_torch.ops.pallas_tridiag import grid_coefficients, implicit_solve
 from gb25_tpu_torch.ops.pallas_zslab import column_buoyancy, zslab_tendencies
 from gb25_tpu_torch.ops.stencils import dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f, iz_c
-from gb25_tpu_torch.ops.weno import weno5_upwind
+from gb25_tpu_torch.ops.weno import centered2, upwind1, weno5_upwind
 
 
 def owns_south_wall(comm) -> bool:
@@ -122,8 +127,17 @@ def mask_v_wall(v, wall=True):
 
 
 def buoyancy_field(cfg, grid, tr_e):
-    """Buoyancy on extended tensors from the configured EOS."""
+    """Buoyancy on extended tensors: the b tracer itself where the state
+    carries one, else the configured equation of state of T and S."""
+    if "b" in tr_e:
+        return tr_e["b"]
     return cfg.eos.buoyancy(tr_e["T"], tr_e["S"], grid.z_c)
+
+
+def plain_tracers(tracers):
+    """The tracers that the closures diffuse with kappa_c: all but e and
+    eps, in the state's order."""
+    return tuple(k for k in tracers if k not in ("e", "eps"))
 
 
 def tendency_math(cfg, grid, f_ff, ue, ve, tr_e, be=None):
@@ -138,26 +152,35 @@ def tendency_math(cfg, grid, f_ff, ue, ve, tr_e, be=None):
 
 
 def momentum_tendency_math(cfg, grid, f_ff, ue, ve, we, pe):
-    """Upwinded vector-invariant momentum tendencies plus the hydrostatic
-    pressure gradient."""
+    """Vector-invariant momentum tendencies plus the hydrostatic pressure
+    gradient: the vorticity flux q (v, -u) with q = f + zeta upwinded by
+    WENO ("weno_vector_invariant") or interpolated ("vector_invariant"),
+    the Bernoulli gradient and the vertical advection; under "none" q = f
+    interpolated, and no kinetic energy and no vertical advection."""
     eps = cfg.weno_eps
-    q = f_ff + vertical_vorticity(grid, ue, ve)
+    advect = cfg.momentum_advection != "none"
+    q = f_ff + vertical_vorticity(grid, ue, ve) if advect else f_ff
     vbar_fc = iy_c(ix_f(ve))  # v at u-points (f, c)
     ubar_cf = ix_c(iy_f(ue))  # u at v-points (c, f)
-    q_u = weno5_upwind(q, vbar_fc, "y", align="center", eps=eps)
-    q_v = weno5_upwind(q, ubar_cf, "x", align="center", eps=eps)
+    if cfg.momentum_advection == "weno_vector_invariant":
+        q_u = weno5_upwind(q, vbar_fc, "y", align="center", eps=eps)
+        q_v = weno5_upwind(q, ubar_cf, "x", align="center", eps=eps)
+    else:
+        q_u = iy_c(q)
+        q_v = ix_c(q)
     Gu = q_u * vbar_fc
     Gv = -q_v * ubar_cf
 
     r_dxc = 1.0 / grid.dxc
     r_dyf = 1.0 / grid.dyf
-    K = kinetic_energy(ue, ve)
-    Gu = Gu - dx_f(K) * r_dxc
-    Gv = Gv - dy_f(K) * r_dyf
-    # vertical advection in advective form, -w du/dz at velocity points
-    r_dz_f = 1.0 / grid.dz_f
-    Gu = Gu - iz_c(ix_f(we) * (dz_f(ue) * r_dz_f))
-    Gv = Gv - iz_c(iy_f(we) * (dz_f(ve) * r_dz_f))
+    if advect:
+        K = kinetic_energy(ue, ve, cfg.ke_scheme)
+        Gu = Gu - dx_f(K) * r_dxc
+        Gv = Gv - dy_f(K) * r_dyf
+        # vertical advection in advective form, -w du/dz at velocity points
+        r_dz_f = 1.0 / grid.dz_f
+        Gu = Gu - iz_c(ix_f(we) * (dz_f(ue) * r_dz_f))
+        Gv = Gv - iz_c(iy_f(we) * (dz_f(ve) * r_dz_f))
 
     Gu = Gu - dx_f(pe) * r_dxc
     Gv = Gv - dy_f(pe) * r_dyf
@@ -165,15 +188,26 @@ def momentum_tendency_math(cfg, grid, f_ff, ue, ve, we, pe):
 
 
 def tracer_tendency_math(cfg, grid, ue, ve, we, tr_e):
-    """Flux-form WENO-5 tracer advection tendencies."""
+    """Flux-form tracer advection tendencies in the configured scheme
+    (WENO-5, centred second order or first-order upwind); 0 under
+    "none"."""
     eps = cfg.weno_eps
+    scheme = cfg.tracer_advection
     r_azc = 1.0 / grid.azc
     r_dz_c = 1.0 / grid.dz_c
     Gtr = {}
     for name, ce in tr_e.items():
-        cx = weno5_upwind(ce, ue, "x", eps=eps)
-        cy = weno5_upwind(ce, ve, "y", eps=eps)
-        cz = weno5_upwind(ce, we, "z", eps=eps)
+        if scheme == "none":
+            Gtr[name] = torch.zeros_like(ce)
+            continue
+        if scheme == "weno5":
+            cx = weno5_upwind(ce, ue, "x", eps=eps)
+            cy = weno5_upwind(ce, ve, "y", eps=eps)
+            cz = weno5_upwind(ce, we, "z", eps=eps)
+        elif scheme == "centered2":
+            cx, cy, cz = centered2(ce, "x"), centered2(ce, "y"), centered2(ce, "z")
+        else:
+            cx, cy, cz = upwind1(ce, ue, "x"), upwind1(ce, ve, "y"), upwind1(ce, we, "z")
         Gc = -(dx_c(ue * grid.dyc * cx) + dy_c(ve * grid.dxf * cy)) * r_azc
         Gtr[name] = Gc - dz_c(we * cz) * r_dz_c
     return Gtr
@@ -467,22 +501,28 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
 
 def _scalar_solves(cfg, grid, u, v, tracers, dt):
     """``VerticalScalarDiffusivity``'s backward-Euler solves: (u, v) with
-    nu, (T, S) with kappa, K3's constant-kappa pair twice."""
+    nu, (T, S) with kappa, K3's constant-kappa pair twice; a lone b tracer
+    with kappa as a field (K3's constant-kappa instance solves a pair)."""
     coef = grid_coefficients(grid, dt)
     nu, kappa = float(cfg.closure.nu), float(cfg.closure.kappa)
     u, v = implicit_solve(cfg, (u, v), nu, dt, *coef)
-    T, S = implicit_solve(cfg, (tracers["T"], tracers["S"]), kappa, dt, *coef)
-    return u, v, {**tracers, "T": T, "S": S}
+    names = plain_tracers(tracers)
+    fields = tuple(tracers[k] for k in names)
+    if len(fields) == 1:
+        kappa = torch.full_like(fields[0], kappa)
+    solved = implicit_solve(cfg, fields, kappa, dt, *coef)
+    return u, v, {**tracers, **dict(zip(names, solved))}
 
 
 def _implicit_solves(cfg, grid, u, v, tracers, d, dt):
     """Backward-Euler vertical diffusion with the closure's diffusivities:
-    (u, v) with kappa_u, (T, S) with kappa_c, e with kappa_e (and CATKE's
-    dissipation rate lam_e), eps with kappa_eps; then e, eps >= 0."""
+    (u, v) with kappa_u, (T, S) or b with kappa_c, e with kappa_e (and
+    CATKE's dissipation rate lam_e), eps with kappa_eps; then e, eps >= 0."""
     coef = grid_coefficients(grid, dt)
     u, v = implicit_solve(cfg, (u, v), d["kappa_u"], dt, *coef)
-    T, S = implicit_solve(cfg, (tracers["T"], tracers["S"]), d["kappa_c"], dt, *coef)
-    out = {**tracers, "T": T, "S": S}
+    names = plain_tracers(tracers)
+    solved = implicit_solve(cfg, tuple(tracers[k] for k in names), d["kappa_c"], dt, *coef)
+    out = {**tracers, **dict(zip(names, solved))}
     for name in ("e", "eps"):
         if name in tracers:
             (x,) = implicit_solve(cfg, (tracers[name],), d["kappa_" + name], dt, *coef,

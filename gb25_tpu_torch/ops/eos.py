@@ -1,4 +1,5 @@
-"""TEOS-10 seawater equation of state (port of ``gb25_tpu.ops.eos``).
+"""Seawater equations of state (port of ``gb25_tpu.ops.eos``): TEOS-10
+and the linear one.
 
 The 55-term Boussinesq polynomial ``polyTEOS10_bsq`` (Roquet, Madec,
 McDougall & Barker 2015, Ocean Modelling), evaluated with reduced
@@ -152,3 +153,21 @@ class TEOS10EquationOfState:
     def buoyancy(self, T, S, z):
         rprime = rho_anomaly_teos10(S, T, z)
         return -self.g * (rprime - _const(self.rho0, rprime)) / self.rho0
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearEquationOfState:
+    """b = g (alpha (T - T0) - beta (S - S0)), in that operation order; each
+    constant rounded as ``_const`` rounds it for the fields' dtype."""
+
+    alpha: float = 1.67e-4
+    beta: float = 7.80e-4
+    T0: float = 10.0
+    S0: float = 35.0
+    g: float = 9.80665
+
+    def buoyancy(self, T, S, z):
+        def c(x):
+            return _const(x, T)
+
+        return c(self.g) * (c(self.alpha) * (T - c(self.T0)) - c(self.beta) * (S - c(self.S0)))

@@ -24,11 +24,13 @@ def vertical_vorticity(grid, u, v):
     return (dx_f(v * grid.dyf) - dy_f(u * grid.dxc)) * (1.0 / grid.azf)
 
 
-def kinetic_energy(u, v):
-    """K at cell centers, Hollingsworth-corrected (the JAX package's
-    default): 2/3 of the plain C-grid K plus 1/3 of the K of the transverse
-    two-point averages."""
+def kinetic_energy(u, v, scheme="hollingsworth"):
+    """K at cell centers: "standard", the plain C-grid K; "hollingsworth"
+    (the JAX package's default), 2/3 of the plain K plus 1/3 of the K of
+    the transverse two-point averages."""
     Ks = 0.5 * (ix_c(u * u) + iy_c(v * v))
+    if scheme == "standard":
+        return Ks
     ubar = 0.5 * (sp(u, "y") + sm(u, "y"))
     vbar = 0.5 * (sp(v, "x") + sm(v, "x"))
     Kb = 0.5 * (ix_c(ubar * ubar) + iy_c(vbar * vbar))

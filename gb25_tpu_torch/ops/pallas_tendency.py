@@ -1,11 +1,16 @@
-"""The tendency stage in one pass, TEOS-10 inside: kernel K6 (port of
+"""The tendency stage in one pass, the buoyancy inside: kernel K6 (port of
 ``gb25_tpu.ops.pallas_tendency.pallas_tendencies``).
 
-From the halo-extended ``(Z, Y, X)`` u, v and two to four tracers (T, S
-and, with CATKE, e; with k-epsilon, e and eps) it computes continuity w,
-the TEOS-10 buoyancy, the hydrostatic pressure, the WENO vector-invariant
-momentum tendencies and the WENO-5 tracer tendencies, and returns the
-interior ``(Gu, Gv, {tracer: G})``. b, p and w stay inside the kernel. On
+From the halo-extended ``(Z, Y, X)`` u, v and one to four tracers (T, S
+or b and, with CATKE, e; with k-epsilon, e and eps) it computes continuity
+w, the buoyancy (TEOS-10 or the linear equation of state of T and S, or
+the b tracer itself), the hydrostatic pressure, the vector-invariant
+momentum tendencies and the flux-form tracer tendencies in the configured
+schemes, and returns the interior ``(Gu, Gv, {tracer: G})``. b, p and w
+stay inside the kernel. The flagship's schemes under TEOS-10 with two to
+four tracers launch the instances compiled for them, anything else the
+general instances (the scheme codes and the buoyancy's mode read at run
+time); every instance is bit for bit with ``pallas_tendencies_plain``. On
 the tripolar grid the metrics and f are 2-D planes. ``split=True`` runs the
 same stage as two launches, momentum then tracers, each recomputing w.
 The inputs come halo-filled and immersed-masked: K6 has no fold, mask or
@@ -31,7 +36,7 @@ import ctypes
 import numpy as np
 import torch
 
-from gb25_tpu_torch.ops.eos import _CTU, _SAU, _ZU
+from gb25_tpu_torch.ops.eos import _CTU, _SAU, _ZU, LinearEquationOfState, TEOS10EquationOfState
 from gb25_tpu_torch.ops.operators import diagnose_w
 from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, launch_info, uses_kernel
 
@@ -45,8 +50,9 @@ _MODES = {"all": 0, "momentum": 1, "tracers": 2}
 
 KERNEL = CudaKernel(
     "tendencies.cu",
-    {"tendencies_f32": [_P] * 4 + [_PP] + [_P] * 12 + [_PP] + [_I] * 9 + [_F] * 7 + [_P],
-     "tendencies_info": [_I] * 3 + [ctypes.POINTER(_I)]},
+    {"tendencies_f32": [_P] * 4 + [_PP] + [_P] * 12 + [_PP] + [_I] * 9 + [_F] * 12 + [_I] * 4
+     + [_P],
+     "tendencies_info": [_I] * 4 + [ctypes.POINTER(_I)]},
     extra_flags=("-fmad=false",),
 )
 # the same library's TEOS-10 entry, for checks only (its own launch count)
@@ -57,21 +63,46 @@ EOS_KERNEL = CudaKernel(
 )
 
 
+# where K6 takes b from (csrc/tendencies.cu)
+EOS_TEOS10, EOS_LINEAR, EOS_TRACER = 0, 1, 2
+
+
 def eos_scalars(eos):
     """TEOS-10's scalars as torch applies them to a CUDA float32 tensor
     (ops/eos.py): a division by a Python number is a product with the
     float32 reciprocal of its float32 rounding. Returns (1 / SAU, 1 / CTU,
-    1 / ZU, -g, rho0, 1 / rho0) as Python floats."""
+    1 / ZU, -g, rho0, 1 / rho0) as Python floats (those of the default
+    TEOS-10 for another equation of state: the kernel reads them only
+    under TEOS-10)."""
+    if not isinstance(eos, TEOS10EquationOfState):
+        eos = TEOS10EquationOfState()
     f, one = np.float32, np.float32(1.0)
     return tuple(float(x) for x in (one / f(_SAU), one / f(_CTU), one / f(_ZU), f(-eos.g),
                                     f(eos.rho0), one / f(eos.rho0)))
 
 
+def linear_scalars(eos):
+    """The linear equation of state's g, alpha, T0, beta and S0 rounded to
+    float32, as torch rounds a Python number for a float32 tensor (zeros
+    for another equation of state)."""
+    if not isinstance(eos, LinearEquationOfState):
+        return (0.0,) * 5
+    return tuple(float(np.float32(x)) for x in (eos.g, eos.alpha, eos.T0, eos.beta, eos.S0))
+
+
+def eos_mode(cfg, tr_e):
+    """Where K6 takes b from: the b tracer, or the configured equation of
+    state of T and S."""
+    if "b" in tr_e:
+        return EOS_TRACER
+    return EOS_LINEAR if isinstance(cfg.eos, LinearEquationOfState) else EOS_TEOS10
+
+
 def pallas_tendencies(cfg, grid, f_ff, ue, ve, tr_e, split=False):
     """Interior (Gu, Gv, {tracer: G}) from the extended (Nz+2hz, Ny+2hy,
-    Nx+2hx) ue, ve and tracers ``tr_e`` ({"T", "S"}, plus "e" with CATKE,
-    plus "e", "eps" with k-epsilon); ``f_ff``: the Coriolis parameter at
-    corners, ``operators.coriolis_ff``."""
+    Nx+2hx) ue, ve and tracers ``tr_e`` ({"T", "S"} or {"b"}, plus "e"
+    with CATKE, plus "e", "eps" with k-epsilon); ``f_ff``: the Coriolis
+    parameter at corners, ``operators.coriolis_ff``."""
     if not uses_kernel(cfg, ue):
         return pallas_tendencies_plain(cfg, grid, f_ff, ue, ve, tr_e, split)
     if split:
@@ -127,8 +158,11 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
     if min(hx, hy, hz) < 3:
         raise ValueError(f"K6 needs halos >= 3 (WENO-5 radius), got {grid.halo}")
     names = list(tr_e)
-    if not 2 <= len(names) <= _MAX_TRACERS or not {"T", "S"} <= set(names):
-        raise ValueError(f"K6 advects T, S and at most {_MAX_TRACERS - 2} more tracers, got {names}")
+    mode = eos_mode(cfg, tr_e)
+    buoyant = ("b",) if mode == EOS_TRACER else ("T", "S")
+    if not 1 <= len(names) <= _MAX_TRACERS or not set(buoyant) <= set(names):
+        raise ValueError(f"K6 advects T and S, or b, and at most {_MAX_TRACERS} tracers in all, "
+                         f"got {names}")
     ext = (Nz + 2 * hz, Ny + 2 * hy, Nx + 2 * hx)
     for name, t in (("ue", ue), ("ve", ve), *tr_e.items()):
         check_tensor(t, name, ext, f32, dev)
@@ -160,12 +194,14 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
     with torch.cuda.device(dev):
         KERNEL.launch(
             "tendencies_f32",
-            ue.data_ptr(), ve.data_ptr(), tr_e["T"].data_ptr(), tr_e["S"].data_ptr(),
-            ptrs(tr_e.values()), *[t.data_ptr() for t in prof + zprof],
+            ue.data_ptr(), ve.data_ptr(), tr_e[buoyant[0]].data_ptr(),
+            tr_e[buoyant[-1]].data_ptr(), ptrs(tr_e.values()),
+            *[t.data_ptr() for t in prof + zprof],
             None if Gu is None else Gu.data_ptr(), None if Gv is None else Gv.data_ptr(),
             ptrs(Gtr.values()) if Gtr else None,
             len(names), Nx, Ny, Nz, hx, hy, hz, int(grid.north_fold), _MODES[which],
-            float(cfg.weno_eps), *eos_scalars(cfg.eos), stream,
+            float(cfg.weno_eps), *eos_scalars(cfg.eos), *linear_scalars(cfg.eos),
+            *cfg.scheme_codes, mode, stream,
         )
     if which == "momentum":
         return Gu, Gv
@@ -174,10 +210,12 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
     return Gu, Gv, Gtr
 
 
-def kernel_info(ntr, which, metric2d):
+def kernel_info(ntr, which, metric2d, general=False):
     """One instance's launch shape on the current CUDA device (see
-    ``pallas_zslab.kernel_info``)."""
-    return launch_info(KERNEL, "tendencies_info", ntr, _MODES[which], int(metric2d))
+    ``pallas_zslab.kernel_info``); for ``which="momentum"`` ``ntr`` counts
+    the launch's buoyancy fields (2: T and S; 1: b)."""
+    return launch_info(KERNEL, "tendencies_info", ntr, _MODES[which], int(metric2d),
+                       int(general))
 
 
 def teos10_kernel(eos, T, S, z_c):

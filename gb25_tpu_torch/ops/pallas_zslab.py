@@ -3,28 +3,34 @@
 ``wall_v`` and ``integrals=True``), or unfused (no ``ab2``, no integrals),
 with float32 or bfloat16 storage of the streamed fields.
 
-From the halo-extended ``(Z, Y, X)`` u, v and two to four tracers (T, S
-and, with CATKE, e; with k-epsilon, e and eps) it computes the momentum and
-tracer tendencies, the
+From the halo-extended ``(Z, Y, X)`` u, v and one to four tracers (T, S or
+b and, with CATKE, e; with k-epsilon, e and eps) it computes the momentum
+and tracer tendencies in the configured schemes, the
 updated fields x* = x + dt c1 G + dt c2 G_prev with the south-wall row of
 Gv and v* zeroed (``wall_v``: serially, and on the south-most tiles of the
 decomposed path; elsewhere local row 0 is an interior row), and the depth
 integrals of u, v, u*, v*. On immersed
 grids the u*, v* integrals count fluid faces only (``face_bottoms``). On
-the tripolar grid the metrics and f are 2-D planes. The TEOS-10 buoyancy and its column total are torch ops outside the kernel, as
-in the JAX package; a caller that needs b elsewhere too (the CATKE
-closure) computes it once and passes it in.
+the tripolar grid the metrics and f are 2-D planes. The buoyancy (the
+equation of state of T and S, or the b tracer) and its column total are
+torch ops outside the kernel, as in the JAX package; a caller that needs b
+elsewhere too (the CATKE closure) computes it once and passes it in.
+The flagship's schemes with two to four tracers launch the instances
+compiled for them; other schemes and one tracer the general instances,
+which read the scheme codes (``HydrostaticConfig.scheme_codes``) at run
+time.
 
 Unfused (``ab=None``), the stage writes the tendencies and zeroes the
 wall row of Gv, nothing else: the step's route under a ``compute_dtype``
 or the explicit free surface, which applies the AB2 update itself. With
 ``storage=torch.bfloat16`` (``compute_dtype="bf16s"``) u, v and the tracers
-are rounded to bfloat16, b is TEOS-10 in float32 of the rounded T and S,
-rounded to bfloat16, and its column total is summed in float32
-(``bf16_operands``); the arithmetic stays float32, as the JAX kernel's
-bf16-storage mode widens its windows. Its CUDA instances cover two tracers
-on lat-lon metric columns (the flagship's); other unfused combinations run
-on the CPU only (ROADMAP.md section 1 item 15).
+are rounded to bfloat16, b is the equation of state in float32 of the
+rounded T and S, rounded to bfloat16 (or the rounded b tracer), and its
+column total is summed in float32 (``bf16_operands``); the arithmetic
+stays float32, as the JAX kernel's bf16-storage mode widens its windows.
+Its CUDA instances cover one and two tracers on lat-lon metric columns;
+other unfused combinations run on the CPU only (ROADMAP.md section 1 item
+15).
 
 ``zslab_tendencies`` launches the CUDA kernel (``csrc/zslab_tendencies.cu``)
 for CUDA tensors under ``kernels="auto"`` and runs ``zslab_tendencies_plain``
@@ -48,23 +54,26 @@ _MAX_TRACERS = 4
 _PTRS = ctypes.c_void_p * _MAX_TRACERS  # one pointer per tracer slot, unused slots null
 _PP = ctypes.POINTER(ctypes.c_void_p)
 
-_UNFUSED = [_P] * 3 + [_PP] + [_P] * 10 + [_P] * 2 + [_PP] + [_I] * 8 + [_F] + [_P]
+_UNFUSED = [_P] * 3 + [_PP] + [_P] * 10 + [_P] * 2 + [_PP] + [_I] * 8 + [_F] + [_I] * 3 + [_P]
 KERNEL = CudaKernel(
     "zslab_tendencies.cu",
     {"zslab_tendencies_f32": [_P] * 3 + [_PP] + [_P] * 15 + [_PP] + [_P] * 2 + [_PP]
-     + [_P] * 2 + [_PP] + [_P] * 4 + [_I] * 9 + [_F] * 3 + [_P],
+     + [_P] * 2 + [_PP] + [_P] * 4 + [_I] * 9 + [_F] * 3 + [_I] * 3 + [_P],
      "zslab_tendencies_unfused_f32": _UNFUSED,
      "zslab_tendencies_unfused_bf16": _UNFUSED,
-     "zslab_tendencies_info": [_I] * 4 + [ctypes.POINTER(_I)]},
+     "zslab_tendencies_info": [_I] * 5 + [ctypes.POINTER(_I)]},
 )
 FORMS = ("fused", "unfused", "unfused_bf16")  # the instances' forms, in the kernel's numbering
 
 
 def column_buoyancy(cfg, grid, tr_e):
-    """Extended TEOS-10 buoyancy ``be`` and its column total of b dz
+    """Extended buoyancy ``be`` (``hydrostatic.buoyancy_field``: the b
+    tracer itself, or the equation of state) and its column total of b dz
     ``(Ny+2hy, Nx+2hx)``, the two buoyancy operands of K1."""
+    from gb25_tpu_torch.models.hydrostatic import buoyancy_field
+
     hz, Nz = grid.hz, grid.Nz
-    be = cfg.eos.buoyancy(tr_e["T"], tr_e["S"], grid.z_c).contiguous()
+    be = buoyancy_field(cfg, grid, tr_e).contiguous()
     b_total = (be[hz : hz + Nz] * grid.dz_c[hz : hz + Nz]).sum(dim=0).contiguous()
     return be, b_total
 
@@ -72,14 +81,18 @@ def column_buoyancy(cfg, grid, tr_e):
 def bf16_operands(cfg, grid, ue, ve, tr_e):
     """The bf16-storage operands of K1 (the JAX package's raw path,
     ``gb25_tpu/ops/pallas_zslab.py:187-213``): u, v and the tracers rounded
-    to bfloat16; b, TEOS-10 in float32 of the rounded T and S, rounded to
-    bfloat16; its column total of float32(b) dz in float32. Returns
-    (ub, vb, {tracer: bfloat16}, bb, b_total)."""
+    to bfloat16; b, the rounded b tracer or the equation of state in
+    float32 of the rounded T and S, rounded to bfloat16; its column total
+    of float32(b) dz in float32. Returns (ub, vb, {tracer: bfloat16}, bb,
+    b_total)."""
     hz, Nz = grid.hz, grid.Nz
     bf = torch.bfloat16
     ub, vb = ue.to(bf).contiguous(), ve.to(bf).contiguous()
     trb = {k: c.to(bf).contiguous() for k, c in tr_e.items()}
-    bb = cfg.eos.buoyancy(trb["T"].float(), trb["S"].float(), grid.z_c).to(bf).contiguous()
+    if "b" in trb:
+        bb = trb["b"]
+    else:
+        bb = cfg.eos.buoyancy(trb["T"].float(), trb["S"].float(), grid.z_c).to(bf).contiguous()
     b_total = (bb[hz : hz + Nz].float() * grid.dz_c[hz : hz + Nz]).sum(dim=0).contiguous()
     return ub, vb, trb, bb, b_total
 
@@ -90,7 +103,8 @@ def zslab_tendencies(cfg, grid, ue, ve, tr_e, prev=None, ab=None, buoyancy=None,
     with ``ab=None``, the tendencies alone.
 
     ue, ve, tr_e: extended (Nz+2hz, Ny+2hy, Nx+2hx) u, v and tracers
-    ({"T", "S"}, plus "e" with CATKE, plus "e", "eps" with k-epsilon).
+    ({"T", "S"} or {"b"}, plus "e" with CATKE, plus "e", "eps" with
+    k-epsilon).
     prev: (Gu, Gv, {tracer: G}) previous tendencies, interior (Nz, Ny, Nx).
     ab: (dt c1, dt c2) as Python floats.
     buoyancy: optional (be, b_total) from ``column_buoyancy``.
@@ -178,8 +192,8 @@ def zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms=No
     if min(hx, hy, hz) < 3:
         raise ValueError(f"K1 needs halos >= 3 (WENO-5 radius), got {grid.halo}")
     names = list(tr_e)
-    if not 2 <= len(names) <= _MAX_TRACERS:
-        raise ValueError(f"K1 advects 2 to {_MAX_TRACERS} tracers, got {names}")
+    if not 1 <= len(names) <= _MAX_TRACERS:
+        raise ValueError(f"K1 advects 1 to {_MAX_TRACERS} tracers, got {names}")
     if grid.north_fold and face_bottoms is None:
         raise ValueError("K1 on the tripolar grid needs its face bottoms (it is immersed)")
     ext = (Nz + 2 * hz, Ny + 2 * hy, Nx + 2 * hx)
@@ -223,7 +237,7 @@ def zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab, face_bottoms=No
             u_new.data_ptr(), v_new.data_ptr(), ptrs(tr_new.values()),
             *[t.data_ptr() for t in ints],
             len(names), Nx, Ny, Nz, hx, hy, hz, int(grid.north_fold), int(wall_v),
-            float(ab[0]), float(ab[1]), float(cfg.weno_eps), stream,
+            float(ab[0]), float(ab[1]), float(cfg.weno_eps), *cfg.scheme_codes, stream,
         )
     return Gu, Gv, Gtr, u_new, v_new, tr_new, tuple(ints)
 
@@ -250,16 +264,16 @@ def _metric_profiles(cfg, grid, dev):
 def zslab_kernel_unfused(cfg, grid, ue, ve, tr_e, be, b_total, wall_v=True):
     """Launch an unfused instance alone on CUDA tensors: u, v, b and the
     tracers float32 (the float32 instance) or bfloat16 (the bf16-storage
-    instance, on ``bf16_operands``), ``b_total`` float32. Two tracers on
-    lat-lon metric columns; returns (Gu, Gv, Gtr) in float32."""
+    instance, on ``bf16_operands``), ``b_total`` float32. One or two
+    tracers on lat-lon metric columns; returns (Gu, Gv, Gtr) in float32."""
     dev = ue.device
     f32 = torch.float32
     hx, hy, hz = grid.halo
     Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
     names = list(tr_e)
-    if len(names) != 2 or grid.north_fold:
+    if len(names) > 2 or grid.north_fold:
         raise NotImplementedError(
-            f"K1's unfused instances run two tracers on lat-lon metric columns, got {names}"
+            f"K1's unfused instances run one or two tracers on lat-lon metric columns, got {names}"
             f"{' on the tripolar grid' if grid.north_fold else ''}: the other unfused instances "
             "are queued in ROADMAP.md section 1 item 15")
     if min(hx, hy, hz) < 3:
@@ -284,14 +298,16 @@ def zslab_kernel_unfused(cfg, grid, ue, ve, tr_e, be, b_total, wall_v=True):
             _PTRS(*[t.data_ptr() for t in tr_e.values()]), b_total.data_ptr(),
             *[t.data_ptr() for t in prof + zprof[:2]],
             Gu.data_ptr(), Gv.data_ptr(), _PTRS(*[t.data_ptr() for t in Gtr.values()]),
-            len(names), Nx, Ny, Nz, hx, hy, hz, int(wall_v), float(cfg.weno_eps), stream,
+            len(names), Nx, Ny, Nz, hx, hy, hz, int(wall_v), float(cfg.weno_eps),
+            *cfg.scheme_codes, stream,
         )
     return Gu, Gv, Gtr
 
 
-def kernel_info(ntr, immersed, metric2d, form="fused"):
+def kernel_info(ntr, immersed, metric2d, form="fused", general=False):
     """One instance's launch shape on the current CUDA device: registers
     per thread, shared memory per block (bytes), the tile (x, y) and the
-    blocks one SM holds. ``form``: one of ``FORMS``."""
+    blocks one SM holds. ``form``: one of ``FORMS``; ``general``: the
+    general instance (other schemes, or one tracer)."""
     return launch_info(KERNEL, "zslab_tendencies_info", ntr, int(immersed), int(metric2d),
-                       FORMS.index(form))
+                       FORMS.index(form), int(general))

@@ -1,6 +1,7 @@
 """WENO-5 (Jiang & Shu) upwind reconstruction on halo-extended tensors
 (port of ``gb25_tpu.ops.weno``, the factored division-free form that the
-JAX package uses by default).
+JAX package uses by default), and the second-order centred and first-order
+upwind reconstructions of its other tracer schemes.
 
 Two alignments cover the staggered grid:
   - ``align="face"``  : reconstruct at face ``i`` (between cells i-1 and i)
@@ -74,3 +75,23 @@ def weno5_upwind(a, vel, axis: str, align: str = "face", eps: float = 1e-6):
     p1 = torch.where(pos, at(1), at(0))
     p2 = torch.where(pos, at(2), at(-1))
     return _weno5_from_shifts(m2, m1, s0, p1, p2, eps)
+
+
+def centered2(a, axis: str, align: str = "face"):
+    """Second-order centred reconstruction, with ``weno5_upwind``'s
+    alignments: 0.5 (a + a[i - 1]) at faces, 0.5 (a + a[i + 1]) at
+    centres."""
+    if align == "face":
+        return 0.5 * (a + sm(a, axis))
+    return 0.5 * (a + sp(a, axis))
+
+
+def upwind1(a, vel, axis: str, align: str = "face"):
+    """First-order upwind (donor cell) reconstruction: the value below the
+    point where ``vel > 0`` (strict, as ``weno5_upwind``), else the value
+    above."""
+    if align == "face":
+        below, above = sm(a, axis), a
+    else:
+        below, above = a, sp(a, axis)
+    return torch.where(vel > 0.0, below, above)

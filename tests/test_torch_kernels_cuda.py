@@ -89,6 +89,9 @@ from gb25_tpu_torch.models import (
 from gb25_tpu_torch.models.hydrostatic import premask_state
 from gb25_tpu_torch.models.free_surface import face_depths
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+from gb25_tpu_torch.models.baroclinic import buoyancy_tracer_state
+from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
+from gb25_tpu_torch.ops.eos import LinearEquationOfState
 from gb25_tpu_torch.ops import (
     pallas_barotropic,
     pallas_catke,
@@ -862,6 +865,10 @@ def _looped_model(cuda, name):
                 state)
     if name.startswith("forced_"):
         return _forced_1x1_model(cuda, *name.split("_")[1:])
+    if name in SCHEME_ROWS:
+        cfg, grid, state = _scheme_row_model(cuda, name, (128, 64, 8))
+        return (lambda s, n: loop(cfg, grid, s, 60.0, n),
+                lambda s: time_step(cfg, grid, s, 60.0, premasked=True), grid, state)
     kw = {"flagship": {}, "flagship_k6_route": {"kernels": "pallas"},
           "keps": {"closure": TKEDissipationVerticalDiffusivity()},
           "vertical_scalar": {"closure": VerticalScalarDiffusivity()},
@@ -897,7 +904,8 @@ def _forced_1x1_model(cuda, model, mode):
                                   "shallow_water", "bf16s", "bfloat16", "f32x2", "float32",
                                   "vertical_scalar", "explicit", "forced_flagship_local",
                                   "forced_flagship_ring", "forced_tripolar_local",
-                                  "forced_tripolar_ring"])
+                                  "forced_tripolar_ring", "oracle_schemes", "b_tracer",
+                                  "oracle_schemes_k6"])
 def test_device_loop_matches_host_loop_bitwise(cuda, name):
     """A call from iteration 0 (the Euler step eager, a capture, 2 replays,
     3 steps left over), then a call that replays the kept graph twice,
@@ -1109,7 +1117,8 @@ def _step_close(cfg, grid, state, a, b, route=False):
     against the "torch" route's K1 and K2): u, v and eta at 1e-3 of their
     largest value, as chip_smoke.route_step_compare holds them."""
     hz, Nz = grid.hz, grid.Nz
-    buoy = cfg.eos.buoyancy(state.tracers["T"], state.tracers["S"], grid.z_c[hz : hz + Nz])
+    buoy = (state.tracers["b"] if "b" in state.tracers else
+            cfg.eos.buoyancy(state.tracers["T"], state.tracers["S"], grid.z_c[hz : hz + Nz]))
     p = float((buoy * grid.dz_c[hz : hz + Nz]).sum(dim=0).abs().max())
     spacing = float(torch.minimum(grid.dxc.min(), grid.dyf.min()))
     floor = {"Gu": 8 * torch.finfo(torch.float32).eps * p / spacing}
@@ -1151,3 +1160,231 @@ def test_float32_operand_modes_on_a_float64_state_launch_k1(cuda, mode):
     assert a.u.dtype == torch.float64
     _step_close(cfg, grid, state, a,
                 time_step(dataclasses.replace(cfg, kernels="torch"), grid, state, 60.0))
+
+
+# --------------------------------------------------------------------------
+# the JAX package's other schemes, the linear equation of state and the b
+# tracer: K1's and K6's general instances
+# --------------------------------------------------------------------------
+
+SCHEME_COMBOS = {f"{mom}-{ke}-{tr}": (mom, ke, tr)
+                 for mom, ke in (("weno_vector_invariant", "hollingsworth"),
+                                 ("weno_vector_invariant", "standard"),
+                                 ("vector_invariant", "hollingsworth"),
+                                 ("vector_invariant", "standard"), ("none", "hollingsworth"))
+                 for tr in ("weno5", "centered2", "upwind1", "none")}
+GENERAL_COMBOS = [c for c in SCHEME_COMBOS
+                  if c != "weno_vector_invariant-hollingsworth-weno5"]
+GEOMETRIES = {"flat": "flagship", "immersed": "gaussian_islands",
+              "tripolar": "gaussian_islands_tripolar"}
+# the rows of chip_smoke [36]: the oracle's schemes with the linear equation
+# of state on the K1 route and the K6 route, and the b-tracer flagship
+SCHEME_ROWS = ("oracle_schemes", "b_tracer", "oracle_schemes_k6")
+
+
+def _schemes(cfg, combo, eos=None):
+    mom, ke, tr = SCHEME_COMBOS[combo]
+    return dataclasses.replace(cfg, momentum_advection=mom, ke_scheme=ke, tracer_advection=tr,
+                               eos=eos or cfg.eos)
+
+
+def _b_operands(cfg, grid, tr_e, keep=()):
+    """The b-tracer operands: b, the linear buoyancy of the extended T and
+    S, first, then the tracers ``keep``; its column total."""
+    b = LinearEquationOfState().buoyancy(tr_e["T"], tr_e["S"], None).contiguous()
+    tr_b = {"b": b, **{k: tr_e[k] for k in keep}}
+    # b alone: without the closure, whose tracers it would need
+    cfg = dataclasses.replace(cfg, tracers=("b", *keep), closure=cfg.closure if keep else None)
+    be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_b)
+    assert be is b
+    return cfg, tr_b, be, b_total
+
+
+def _general_operands(cuda, geometry, btracer=False):
+    cfg, grid, ue, ve, tr_e, be, b_total, noise = _tile_operands(
+        cuda, GEOMETRIES[geometry], (128, 64, 8))
+    if btracer:
+        cfg, tr_e, be, b_total = _b_operands(cfg, grid, tr_e)
+    return cfg, grid, ue, ve, tr_e, be, b_total, noise
+
+
+def _check_k1_fused(cfg, grid, ue, ve, tr_e, be, b_total, noise, general=True):
+    prev = (noise(1e-7), noise(1e-7), {k: noise(1e-7) for k in tr_e})
+    prev[1][:, 0, :] = 0.0
+    ab = (96.0, -36.0)
+    fb = face_bottom_planes(grid) if grid.immersed else None
+    before = pallas_zslab.KERNEL.launches
+    got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab,
+                                        buoyancy=(be, b_total), face_bottoms=fb)
+    torch.cuda.synchronize()
+    assert pallas_zslab.KERNEL.launches == before + 1
+    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be, fb)
+    _close(got[0], want[0], 2e-4, 1e-9)
+    _close(got[1], want[1], 2e-4, 1e-9)
+    for k in tr_e:
+        _close(got[2][k], want[2][k], 2e-4, 1e-7)
+        # 4 float32 ulps of the largest |dt c2 G_prev|: the update's own
+        # rounding, where x* cancels to near 0 and G is 0 ("none")
+        sum_ulps = 4 * torch.finfo(torch.float32).eps * abs(ab[1]) * float(prev[2][k].abs().max())
+        _close(got[5][k], want[5][k], 2e-4,
+               ab[0] * 2e-4 * float(want[2][k].abs().max()) + sum_ulps)
+        if cfg.tracer_advection == "none":
+            assert not got[2][k].any()
+    for g, w, G in ((got[3], want[3], want[0]), (got[4], want[4], want[1])):
+        _close(g, w, 2e-4, ab[0] * 2e-4 * float(G.abs().max()))
+    for g, w in zip(got[6], want[6]):
+        _close(g, w, 2e-4, 2e-4 * float(w.abs().max()) + 1e-6)
+    assert float(got[4][:, 0, :].abs().max()) == 0.0
+    info = pallas_zslab.kernel_info(len(tr_e), grid.immersed, grid.north_fold, general=general)
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+@pytest.mark.parametrize("combo", GENERAL_COMBOS)
+def test_k1_general_matches_plain(cuda, combo, geometry):
+    """K1's general fused instances (2, 3 tracers: flat, immersed,
+    tripolar) at K1's tolerances, every scheme combination."""
+    cfg, grid, ue, ve, tr_e, be, b_total, noise = _general_operands(cuda, geometry)
+    _check_k1_fused(_schemes(cfg, combo), grid, ue, ve, tr_e, be, b_total, noise)
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_k1_one_tracer_matches_plain(cuda, geometry):
+    cfg, grid, ue, ve, tr_e, be, b_total, noise = _general_operands(cuda, geometry, True)
+    assert list(tr_e) == ["b"]
+    _check_k1_fused(cfg, grid, ue, ve, tr_e, be, b_total, noise)
+
+
+def test_k1_four_tracers_general_matches_plain(cuda):
+    cfg, grid, ue, ve, tr_e, be, b_total, noise = _keps_operands(cuda, (128, 64, 8), 13)
+    _check_k1_fused(_schemes(cfg, "vector_invariant-standard-centered2"), grid, ue, ve, tr_e,
+                    be, b_total, noise)
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("combo", [*GENERAL_COMBOS, "b_tracer"])
+def test_k1_general_unfused_matches_plain(cuda, combo, storage):
+    """K1's general unfused instances (float32 and bfloat16 storage) at
+    K1's tolerances: every scheme combination with two tracers, and the
+    one-tracer b instance."""
+    cfg, grid, ue, ve, tr_e, be, b_total, _ = _general_operands(cuda, "flat", combo == "b_tracer")
+    if combo != "b_tracer":
+        cfg = _schemes(cfg, combo)
+    st = torch.bfloat16 if storage == "bf16" else None
+    before = pallas_zslab.KERNEL.launches
+    got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, buoyancy=(be, b_total),
+                                        storage=st)
+    torch.cuda.synchronize()
+    assert pallas_zslab.KERNEL.launches == before + 1
+    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, be=be, storage=st)
+    _close(got[0], want[0], 2e-4, 1e-9)
+    _close(got[1], want[1], 2e-4, 1e-9)
+    for k in tr_e:
+        _close(got[2][k], want[2][k], 2e-4, 1e-7)
+    assert float(got[1][:, 0, :].abs().max()) == 0.0
+    form = "unfused" if st is None else "unfused_bf16"
+    assert pallas_zslab.kernel_info(len(tr_e), False, False, form, general=True)["registers"] > 0
+
+
+def test_k1_unfused_still_refuses_three_tracers(cuda):
+    cfg, grid, ue, ve, tr_e, be, b_total, _ = _general_operands(cuda, "immersed")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        pallas_zslab.zslab_tendencies(_schemes(cfg, "none-hollingsworth-upwind1"), grid, ue, ve,
+                                      tr_e)
+
+
+def _check_k6_bitwise(cfg, grid, ue, ve, tr_e):
+    f_ff = coriolis_ff(grid, cfg.coriolis).to(torch.float32)
+    pallas = dataclasses.replace(cfg, kernels="pallas")
+    before = pallas_tendency.KERNEL.launches
+    got = pallas_tendency.pallas_tendencies(pallas, grid, f_ff, ue, ve, tr_e)
+    split = pallas_tendency.pallas_tendencies(pallas, grid, f_ff, ue, ve, tr_e, split=True)
+    torch.cuda.synchronize()
+    assert pallas_tendency.KERNEL.launches == before + 3
+    want = pallas_tendency.pallas_tendencies_plain(cfg, grid, f_ff, ue, ve, tr_e)
+    for out in (got, split):
+        assert list(out[2]) == list(tr_e)
+        for g, w in ((out[0], want[0]), (out[1], want[1]),
+                     *((out[2][k], want[2][k]) for k in tr_e)):
+            assert torch.isfinite(w).all()
+            assert torch.equal(g, w), float((g - w).abs().max())
+
+
+@pytest.mark.parametrize("combo", GENERAL_COMBOS)
+def test_k6_general_matches_plain_bitwise(cuda, combo):
+    """K6's general instances under TEOS-10, single and split, bit for bit
+    with the plain version, every scheme combination."""
+    cfg, grid, ue, ve, tr_e = _general_operands(cuda, "flat")[:5]
+    _check_k6_bitwise(_schemes(cfg, combo), grid, ue, ve, tr_e)
+
+
+@pytest.mark.parametrize("case", ["linear", "b_tracer", "linear_tripolar", "b_e_tripolar",
+                                  "b_e_eps"])
+def test_k6_eos_modes_match_plain_bitwise(cuda, case):
+    """K6's buoyancy modes: the linear equation of state (the oracle's
+    schemes; on the tripolar grid's three tracers) and the b tracer (one
+    tracer; with e on the tripolar grid; with e and eps), single and split
+    (the split momentum launch stages b alone), bit for bit."""
+    linear = LinearEquationOfState()
+    if case == "b_e_eps":
+        cfg, grid, ue, ve, tr_e = _keps_operands(cuda, (128, 64, 8), 13)[:5]
+        cfg, tr_e, _, _ = _b_operands(cfg, grid, tr_e, keep=("e", "eps"))
+    else:
+        geometry = "tripolar" if case.endswith("tripolar") else "flat"
+        cfg, grid, ue, ve, tr_e = _general_operands(cuda, geometry)[:5]
+        if case.startswith("b"):
+            cfg, tr_e, _, _ = _b_operands(cfg, grid, tr_e,
+                                          keep=("e",) if case == "b_e_tripolar" else ())
+    if case.startswith("linear"):
+        cfg = _schemes(cfg, "vector_invariant-standard-centered2", linear)
+    _check_k6_bitwise(cfg, grid, ue, ve, tr_e)
+
+
+def _scheme_row_model(cuda, name, shape):
+    """The config, grid and state of one of chip_smoke [36]'s rows."""
+    if name == "b_tracer":
+        cfg, grid, state = baroclinic_instability_model(*shape, device=cuda)
+        cfg = dataclasses.replace(cfg, tracers=("b",))
+        return cfg, grid, buoyancy_tracer_state(state, grid)
+    kernels = "pallas" if name == "oracle_schemes_k6" else "auto"
+    cfg, grid, state = baroclinic_instability_model(
+        *shape, device=cuda, kernels=kernels, momentum_advection="vector_invariant",
+        tracer_advection="centered2", eos=LinearEquationOfState())
+    return dataclasses.replace(cfg, ke_scheme="standard"), grid, state
+
+
+SCHEME_ROUTES = {  # launches of K1, K2, K6 and K5 a step ("K5": the blocked solve's)
+    "oracle_schemes": [1, 1, 0, 0],
+    "b_tracer": [1, 1, 0, 0],
+    "oracle_schemes_k6": [0, 0, 1, "K5"],
+    "b_tracer_explicit": [1, 0, 0, 0],
+    "b_catke": [1, 1, 0, 0],
+}
+
+
+@pytest.mark.parametrize("name", list(SCHEME_ROUTES))
+def test_scheme_route_step_matches_plain_step(cuda, name):
+    """One step of each new route after 8 steps, against the "torch" step,
+    with one K1 (or K6) launch: the rows of chip_smoke [36], the b tracer
+    under the explicit free surface (K1's unfused one-tracer instance) and
+    ("b", "e") with CATKE."""
+    if name in SCHEME_ROWS:
+        cfg, grid, state = _scheme_row_model(cuda, name, (128, 32, 8))
+    else:
+        kw = ({"free_surface": ExplicitFreeSurface()} if name == "b_tracer_explicit"
+              else {"closure": CATKEVerticalDiffusivity()})
+        cfg, grid, state = baroclinic_instability_model(128, 32, 8, device=cuda, **kw)
+        cfg = dataclasses.replace(cfg, tracers=("b", *cfg.tracers[2:]))
+        state = buoyancy_tracer_state(state, grid)
+    dt = 5.0 if name == "b_tracer_explicit" else 60.0
+    launches = [_k6_route_k5_launches(cfg, grid) if n == "K5" else n
+                for n in SCHEME_ROUTES[name]]
+    state = loop(cfg, grid, state, dt, 8)  # from rest Gu is too small for the atol
+    kernels = (pallas_zslab.KERNEL, pallas_barotropic.KERNEL, pallas_tendency.KERNEL,
+               pallas_barotropic.BLOCK_KERNEL)
+    before = [k.launches for k in kernels]
+    a = time_step(cfg, grid, state, dt)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == launches
+    b = time_step(dataclasses.replace(cfg, kernels="torch"), grid, state, dt)
+    _step_close(cfg, grid, state, a, b, route=name == "oracle_schemes_k6")
