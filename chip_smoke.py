@@ -46,7 +46,7 @@ held the same way.
      blocks per SM, the grid of tiles, cells a tile, the instance;
   5. the main path: one step with kernels="auto" against one with
      kernels="torch" (rtol 1e-3; atol 1e-3 of each field's largest value,
-     at most 5e-6), then 8 warm-up steps and two 128-step loops, the
+     at most 5e-6), then 8 warm-up steps and two 64-step loops, the
      second one timed; the launch counts must show one K1 launch and one
      K2 launch per step, and the fields must stay finite;
   6. a few steps of the plain path, timed;
@@ -63,7 +63,7 @@ held the same way.
      as in [4];
   10. the main path: 8 coupled steps from rest, then from there one step
      with kernels="auto" against one with kernels="torch" (tolerances of
-     [5]); then 8 warm-up steps and two 64-step loops, the second one
+     [5]); then 8 warm-up steps and two 32-step loops, the second one
      timed; the launch counts must show per
      step exactly 1 K1, 1 K2, 3 K3 and 1 K4 launch; then the fields must
      be finite with 0 < max|u| < 10 m/s, e >= 0, u and v 0 on the faces of
@@ -75,7 +75,7 @@ held the same way.
      2e-4, and K2's fold instance (masks, the fold's ghost flux above the
      seam row, 2-D planes), bit for bit, as in [4];
   13. the main path as [10]: 8 coupled steps, one step kernels vs plain,
-     8 warm-up steps and two 64-step loops, launch counts per step exactly
+     8 warm-up steps and two 32-step loops, launch counts per step exactly
      1 K1, 1 K2, 3 K3, 1 K4; finite fields, land at rest;
   14. 3 coupled steps of the plain path, timed;
   the flagship with the k-epsilon closure (tracers T, S, e, eps, from
@@ -85,7 +85,7 @@ held the same way.
   17. K3's four solves of a k-epsilon step (u, v; T, S; e; eps, neither
      damped), bit for bit as in [8];
   18. the main path: one step kernels vs plain (tolerances of [5]), 8
-     warm-up steps and two 64-step loops, launch counts per step exactly
+     warm-up steps and two 32-step loops, launch counts per step exactly
      1 K1, 1 K2, 4 K3, 1 k-epsilon K4 and no CATKE K4; then finite
      fields, e >= 0 and eps >= 0; 3 steps of the plain path, timed;
   the decomposed path, forced onto a 1x1 mesh (the bench's decomposed 1x1
@@ -100,7 +100,7 @@ held the same way.
      alone;
   20. the tripolar climate model: 8 steps, then one step kernels vs plain
      (tolerances of [5]), one step "ring" against "local" bit for bit,
-     then in each mode 8 warm-up steps and two 64-step loops, the second
+     then in each mode 8 warm-up steps and two 32-step loops, the second
      timed, replayed through one ``sharded_coupled_step_fn`` (its tile
      grid keeps the graph), launch counts per step exactly 1 K1,
      ceil(30 / s) K5, 0 K2, 3 K3, 1 K4 with the profiler probe, the device
@@ -131,7 +131,7 @@ held the same way.
      of 1e-3 of their largest value and Gu, Gv on fluid faces at 8 ulps of
      p over the face's spacing where that is larger: float32 rounding, see
      ``route_step_compare``; u, v, eta, Gu and Gv of both beside the
-     "torch" step in float64), then 8 warm-up steps and two 128-step loops,
+     "torch" step in float64), then 8 warm-up steps and two 64-step loops,
      the second one timed; per step exactly 1 K6, 0 K1, 0 K2 and K5's
      launches of [22]; finite fields; ms/step beside [5]'s; then K5
      against its plain version, bit for bit and in ceil(n / s) launches,
@@ -139,7 +139,7 @@ held the same way.
      block (2), both timed;
   24. the tripolar climate on the K6 route: 8 coupled steps, one step
      against "torch" and float64 (as in [23]), 8 warm-up steps and two
-     64-step loops, the second timed; per step exactly 1 K6, 3 K3, 1 K4, 0
+     32-step loops, the second timed; per step exactly 1 K6, 3 K3, 1 K4, 0
      K1, 0 K2 and K5's launches of [22]; finite fields, land at rest;
      ms/step beside [13]'s;
      K5 on one more step's first and last blocks (metric planes, masks);
@@ -147,10 +147,10 @@ held the same way.
   25. 8 steps, then one step on the card against the same step on the CPU
      in float64 (tolerances of ``sw_step_vs_f64``: float32 rounding of the
      Bernoulli potential and of the mass flux over a face); 8 warm-up
-     steps and two 128-step loops, the second timed, replayed; finite
+     steps and two 64-step loops, the second timed, replayed; finite
      fields, max|u| between 0.01 and 10 m/s (the geostrophic jet), the
      mass sum(h azc) kept to float32 rounding; the device loop against the
-     host loop bit for bit; the same 8 + 128 + 128 steps launched from the
+     host loop bit for bit; the same 8 + 64 + 64 steps launched from the
      host, timed.
   the serial flagship's further run-script choices (the JAX package's
   utils/args.py), each phase's wall time printed:
@@ -161,7 +161,7 @@ held the same way.
      rounded beforehand bit for bit with itself on the raw ones and apart
      from the float32 one; each timed beside its bound and launch line;
   27. the precision modes: "bf16s" (K1's bf16-storage instance and K2,
-     8 + 2x64 steps), "bfloat16" (the cast array path and K2, 8 + 2x32)
+     8 + 2x32 steps), "bfloat16" (the cast array path and K2, 8 + 2x32)
      and "f32x2" (the float64 array path and K2, at 768x384x64, 8 + 2x32):
      held to float32 by the JAX package's own test of the mode at its size
      (bf16s, f32x2: one step at 32x16x8, every field pointwise within 0.5
@@ -176,11 +176,11 @@ held the same way.
   28. VerticalScalarDiffusivity: K1 (the fused flagship instance) against
      its plain version at rtol 2e-4, K3's constant-kappa pair bit for bit
      on the (u, v) and (T, S) solves of the state after 8 steps, one step
-     against "torch", then 8 + 2x64 steps: per step 1 K1, 1 K2, 2 K3;
+     against "torch", then 8 + 2x32 steps: per step 1 K1, 1 K2, 2 K3;
   29. ExplicitFreeSurface at dt = 5 s (the quasi-AB2 step damps the
      fastest gravity wave of the 80-degree rows below ~6 s; at 10 s u grew
      to non-finite values within 161 steps): one step against "torch"
-     after 8, then 8 + 2x64 steps: per step 1 K1 (the unfused float32
+     after 8, then 8 + 2x32 steps: per step 1 K1 (the unfused float32
      instance), 0 K2; fields and G_eta finite.
 
   the decomposed path brought up to the serial path, and
@@ -188,13 +188,13 @@ held the same way.
   31. the tripolar climate on the K6 route forced onto the 1x1 mesh (W =
      30): 8 steps, one step against "torch" on the tile at [24]'s
      tolerances, "ring" against "local" bit for bit, then in "local" 8 +
-     2x64 steps replayed: per step exactly 1 K6, ceil(30 / s) K5, 3 K3, 1
+     2x32 steps replayed: per step exactly 1 K6, ceil(30 / s) K5, 3 K3, 1
      K4, 0 K1, 0 K2; the device loop against the host loop; finite
      fields, land at rest; ms/step beside [24]'s; then K6's tripolar
      instance against its plain version on the operands of one more tile
      step (the exchanged extension), bit for bit, timed;
   32. "float32" on the serial flagship (K1's unfused float32 instance, the
-     AB2 update outside, K2): one step against "torch", 8 + 2x64 steps
+     AB2 update outside, K2): one step against "torch", 8 + 2x32 steps
      replayed, per step 1 K1, 1 K2; then a float64 state at 256x128x16
      under "auto": one step on the card, with no kernel launched (the
      plain versions, the JAX package's route for a non-float32 state),
@@ -206,7 +206,7 @@ held the same way.
   33. the further choices and "float32" on the forced 1x1 flagship: "bf16s",
      VerticalScalarDiffusivity, ExplicitFreeSurface (dt = 5 s) and
      "float32", each one step against its "torch" tile step (tolerances of
-     [5]), then 8 + 2x64 steps replayed in "local" with per step 1 K1 (the
+     [5]), then 8 + 2x32 steps replayed in "local" with per step 1 K1 (the
      bf16 instance; the unfused float32 one under the explicit free surface
      and "float32") and 0 K2, and ceil(30 / s) K5 (0 under the explicit
      free surface) and 2 K3 (vertical scalar); the device loop against the
@@ -229,16 +229,48 @@ held the same way.
      plain path at [5]'s tolerances (for (c) the K6 route with every
      wrapper's plain version, and in float64 against the "torch"
      route at 1e-10, ``k6_route_witness``),
-     8 + 2x64 steps replayed (2x32 for (c)) with the launches per step
+     8 + 2x32 steps replayed with the launches per step
      held, the device loop against the host loop over 16 steps, the
      replayed loop's device busy and idle share under the profiler: (a) the oracle's schemes (centred
      vector-invariant momentum, standard kinetic energy, centred tracers)
      with the linear equation of state on the flagship, 1 K1 (general),
      1 K2; (b) the b-tracer flagship, 1 K1 (one tracer), 1 K2; (c) row (a)
      on the K6 route, 1 K6 (general), K5's launches at W = 4.
+  every compute_dtype on every route and closure:
+  37. every unfused K1 instance against its plain version at K1's
+     tolerances, one launch each, the wall row 0: float32 and bf16
+     storage, one to four tracers (b; T, S; T, S, e; T, S, e, eps) on the
+     k-epsilon flagship's lat-lon operands and on the tripolar climate's
+     planes, the flagship's schemes compiled in (two tracers or more) and
+     the general instance (the oracle's schemes); each timed beside its
+     plain version (one call) and its bound (``k1_bound``, unfused, 2-byte
+     values in bf16 storage), with its registers, shared memory, blocks
+     per SM and ptxas spills;
+  38. K6's bfloat16 instances (one to four tracers, columns and planes) on
+     those operands, f and the grid cast to bfloat16: one launch each,
+     bfloat16 outputs bit for bit with the plain twin (float32 on the
+     widened operands, each output rounded once; the run fails
+     otherwise), timed beside the twin and ``k6_bound`` with 2-byte
+     values, with the same launch line;
+  39. rows (d)-(j), each 8 steps, one step against its route's plain path
+     (every wrapper's plain version) at [5]'s tolerances, its distance
+     from the float32 step printed, not bounded (as [27]), then 8 + 2x32
+     steps replayed with the launches per step held and the profiler
+     probe, finite fields (land at rest on the climate), the device loop
+     against the host loop bit for bit over 16 steps: (d) the tripolar
+     climate under "bf16s" (1 K1, bf16 storage, 3 tracers on planes; 1
+     K2, 3 K3, 1 K4); (e) the same under "float32" (K1's unfused float32
+     instance); (f) the k-epsilon flagship under "float32" (1 K1, four
+     tracers; 1 K2, 4 K3, 1 k-epsilon K4); (g) the flagship on the K6
+     route under "bfloat16" (1 K6, the bfloat16 instance; K5's launches
+     at W = 4); (h) the tripolar climate on the K6 route under "bfloat16"
+     (1 K6, K5, 3 K3, 1 K4); (i) the tripolar climate under the explicit
+     free surface at dt = 5 s (1 K1 unfused float32, no K2, 3 K3, 1 K4);
+     (j) row (d) on the forced 1x1 tile, "local", W = 30 (1 K1,
+     ceil(30 / s) K5, no K2, 3 K3, 1 K4).
 
 Every phase raises on failure, and the script then exits non-zero. [30]
-sums up the ms/step of every path; it is printed last, after [31]-[36],
+sums up the ms/step of every path; it is printed last, after [31]-[39],
 then the script's wall time. Three lines end the output: a JSON
 object with each kernel instance's launches on its main path, error
 against its plain version, times, its bound (the larger of its compulsory
@@ -261,7 +293,11 @@ the general instances' entries ([34]-[36]: K1's two-tracer general
 instance on row (a), its one-tracer instance on row (b), K6's general
 instance on row (c)) carry, beside their row's instance, each other scheme
 combination, geometry and mode they were checked in, with its time, bound,
-registers and spills;
+registers and spills; [37]-[39]'s entries (K1's unfused float32 instance on
+row (e), its bf16-storage instance on row (d), K6's bfloat16 instance on
+row (h), each the tripolar three-tracer instance) carry every instance
+[37] or [38] checked under "instances" and their launches on the other
+rows ((f), (i); (j); (g));
 each entry
 of a replayed path carries its launches on the device over the run, the
 method that established them and the device loop's eager and replayed
@@ -295,12 +331,12 @@ NX, NY, NZ = 1536, 768, 64
 RESOLUTION = 384 / NX  # the climate model's 1/4 degree: 1536 x 768
 DT = 60.0
 # the timed loops' steps: short enough that the whole script runs in about
-# half its time limit
-WARMUP, STEPS, PLAIN_STEPS = 8, 128, 3
-CLIMATE_STEPS, CLIMATE_PLAIN_STEPS = 64, 2
-K6_CLIMATE_STEPS, K6_KEPS_STEPS = 64, 32
-TRIPOLAR_PLAIN_STEPS, KEPS_STEPS, KEPS_PLAIN_STEPS = 3, 64, 3
-DECOMPOSED_W, DECOMPOSED_STEPS = 30, 64  # the bench's decomposed 1x1 rows
+# half its time limit (halved again when [37]-[39] came)
+WARMUP, STEPS, PLAIN_STEPS = 8, 64, 3
+CLIMATE_STEPS, CLIMATE_PLAIN_STEPS = 32, 2
+K6_CLIMATE_STEPS, K6_KEPS_STEPS = 32, 32
+TRIPOLAR_PLAIN_STEPS, KEPS_STEPS, KEPS_PLAIN_STEPS = 3, 32, 3
+DECOMPOSED_W, DECOMPOSED_STEPS = 30, 32  # the bench's decomposed 1x1 rows
 # the further run-script choices ([26]-[29]): steps of each timed loop; the
 # cast array path's rows (eager tendency math, 0.13-0.16 s a step) run
 # fewer, two blocks of the replayed graph, the f32x2 row at half width as
@@ -309,9 +345,9 @@ DECOMPOSED_W, DECOMPOSED_STEPS = 30, 64  # the bench's decomposed 1x1 rows
 # damps a wave of frequency w only while w dt < ~0.55 (chi = 0.1): the
 # fastest discrete wave at the 80-degree rows (dx ~ 4.5 km, dy ~ 23 km)
 # has w ~ 0.089 /s, so dt = 5 s (10 s grew to non-finite u in 161 steps)
-PRECISION_STEPS = {"bf16s": 64, "bfloat16": 32, "f32x2": 32}
+PRECISION_STEPS = {"bf16s": 32, "bfloat16": 32, "f32x2": 32}
 F32X2_SHAPE = (768, 384, 64)
-CHOICE_STEPS, EXPLICIT_STEPS, EXPLICIT_DT = 64, 64, 5.0
+CHOICE_STEPS, EXPLICIT_STEPS, EXPLICIT_DT = 32, 32, 5.0
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
@@ -444,22 +480,26 @@ def k1_bound(cfg, grid, ntr, immersed, fused=True, value_bytes=4):
     (tripolar) the six metrics and f as extended planes, and writes the new
     G and the updated field of each and four integral planes; unfused (a
     value of ``value_bytes``: 4, or 2 stored as bfloat16), it writes the
-    interior tendencies. Operations: ``stencil_ops``."""
+    interior tendencies (and reads the tripolar planes too). Operations:
+    ``stencil_ops``."""
     n, ext, plane, ext_plane = sizes(grid)
     nprog = 2 + ntr
     nread = 2 + ntr + int("b" not in cfg.tracers)
     if fused:
         nbytes = nread * ext + ext_plane + 3 * nprog * n + 4 * plane
-        nbytes += (2 * plane if immersed else 0) + (7 * ext_plane if grid.north_fold else 0)
+        nbytes += 2 * plane if immersed else 0
     else:
         nbytes = nread * ext * value_bytes // 4 + ext_plane + nprog * n
+    nbytes += 7 * ext_plane if grid.north_fold else 0
     return bound(nbytes, stencil_ops(cfg, ntr) * grid.Nx * grid.Ny * grid.Nz)
 
 
-def k6_bound(cfg, grid, ntr):
+def k6_bound(cfg, grid, ntr, value_bytes=4):
     """K6 with ``ntr`` tracers under ``cfg``: it reads u, v and the tracers
-    extended and (tripolar) the six metrics and f as extended planes, and
-    writes the interior G of each. Operations: ``stencil_ops`` less the AB2
+    extended (a value of ``value_bytes``: 4, or 2 in the bfloat16
+    instances, which also write bfloat16) and (tripolar) the six metrics
+    and f as extended planes, and writes the interior G of each.
+    Operations: ``stencil_ops`` less the AB2
     update and integrals K6 does not do (20), plus the buoyancy's (TEOS-10
     120: 48 multiply-add pairs of its Horner scheme, the reduced variables
     and b; linear 6; the b tracer 0) and the pre-pass's column sums (10)."""
@@ -467,7 +507,8 @@ def k6_bound(cfg, grid, ntr):
 
     n, ext, _, ext_plane = sizes(grid)
     nprog = 2 + ntr
-    nbytes = nprog * ext + nprog * n + (7 * ext_plane if grid.north_fold else 0)
+    nbytes = (nprog * ext + nprog * n) * value_bytes // 4
+    nbytes += 7 * ext_plane if grid.north_fold else 0
     eos_ops = (0 if "b" in cfg.tracers
                else 6 if isinstance(cfg.eos, LinearEquationOfState) else 120)
     ops = stencil_ops(cfg, ntr) - 20 + eos_ops + 10
@@ -2451,7 +2492,7 @@ def tile_choices(card, serial):
 
 def serial_float32(card, flagship_ms):
     """[32]: compute_dtype="float32" serially (K1's unfused float32 instance,
-    the AB2 update outside, K2): one step against "torch", then 8 + 2x128
+    the AB2 update outside, K2): one step against "torch", then 8 + 2x32
     steps replayed, per step 1 K1 and 1 K2. Then a float64 state at
     256x128x16 under "auto": one step on the card, which launches no kernel
     (the JAX package's route for a non-float32 state: the plain versions),
@@ -2532,7 +2573,7 @@ SCHEME_COMBOS = [(mom, ke, tr) for mom, ke in (("weno_vector_invariant", "hollin
                                                ("none", "hollingsworth"))
                  for tr in ("weno5", "centered2", "upwind1", "none")]
 ORACLE_SCHEMES = ("vector_invariant", "standard", "centered2")
-SCHEME_STEPS, SCHEME_K6_STEPS = 64, 32  # [36]'s timed loops: rows (a), (b); row (c)
+SCHEME_STEPS, SCHEME_K6_STEPS = 32, 32  # [36]'s timed loops: rows (a), (b); row (c)
 
 
 def combo_name(combo):
@@ -2582,8 +2623,9 @@ def k1_key(ntr, immersed, metric2d, fused=True, bf16=False, general=True):
             f"E{'13__nv_bfloat16' if bf16 else 'f'}Lb{int(general)}EE")
 
 
-def k6_key(ntr, mode, metric2d, general=True):
-    return f"tendency_stage_kernelILi{ntr}ELi{mode}ELb{int(metric2d)}ELb{int(general)}EE"
+def k6_key(ntr, mode, metric2d, general=True, bf16=False):
+    return (f"tendency_stage_kernelILi{ntr}ELi{mode}ELb{int(metric2d)}ELb{int(general)}"
+            f"E{'13__nv_bfloat16' if bf16 else 'f'}EE")
 
 
 def k1_general_case(label, cfg, grid, ue, ve, tr_e, be, b_total, prev, fused=True):
@@ -2813,7 +2855,7 @@ def plain_versions():
     mods = (pallas_barotropic, pallas_catke, pallas_tendency, pallas_tridiag, pallas_zslab)
     saved = [m.uses_kernel for m in mods]
     for m in mods:
-        m.uses_kernel = lambda cfg, t: False
+        m.uses_kernel = lambda *args: False
     try:
         yield
     finally:
@@ -2996,6 +3038,324 @@ def scheme_phases(card, flagship_ms):
     return entries, rows
 
 
+# --------------------------------------------------------------------------
+# every compute_dtype on every route and closure: [37]-[39]
+# --------------------------------------------------------------------------
+
+PRECISION_ROW_STEPS = 32  # [39]'s timed loops: 8 + 32 + 32 steps, as [36] (c)
+
+
+def precision_fields(geometry):
+    """[37]/[38]'s operands at 1536x768x64: (config, grid, extended u, v
+    and T, S, e, eps) of the k-epsilon flagship's lat-lon grid (``flat``)
+    or the tripolar climate's (eps added)."""
+    from gb25_tpu_torch import baroclinic_instability_model, data_free_ocean_climate_model
+    from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+    from gb25_tpu_torch.ops.halos import extend_field
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8080)
+    if geometry == "flat":
+        cfg, grid, state = baroclinic_instability_model(
+            NX, NY, NZ, device=DEVICE, closure=TKEDissipationVerticalDiffusivity())
+        ue, ve, tr_all = keps_operands(grid, state, gen)
+    else:
+        ccfg, grid, _, state = data_free_ocean_climate_model(
+            resolution=RESOLUTION, Nz=NZ, device=DEVICE, grid_type="gaussian_islands_tripolar")
+        cfg = ccfg.ocean
+        ue, ve, tr_all, _, _, _ = climate_operands(cfg, grid, state, gen)
+        eps = 1e-8 * (1.0 + torch.rand(grid.shape, generator=gen, device=DEVICE))
+        tr_all["eps"] = extend_field(grid, eps, "c")
+    return cfg, grid, ue, ve, tr_all
+
+
+def with_tracers(cfg, tr_all, ntr):
+    """``ntr`` of ``precision_fields``' tracers, b alone (1, the linear
+    buoyancy of T and S), T and S (2), T, S, e (3), T, S, e, eps (4), with
+    the config that advects them."""
+    from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
+    from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+
+    if ntr == 1:
+        return dataclasses.replace(cfg, tracers=("b",), closure=None), linear_b(tr_all)
+    names = ("T", "S", "e", "eps")[:ntr]
+    closure = {2: None, 3: CATKEVerticalDiffusivity(),
+               4: TKEDissipationVerticalDiffusivity()}[ntr]
+    return (dataclasses.replace(cfg, tracers=names, closure=closure),
+            {k: tr_all[k] for k in names})
+
+
+def k1_unfused_case(label, cfg, grid, ue, ve, tr_e, storage, general):
+    """One unfused K1 instance against its plain version at K1's
+    tolerances (one launch, the wall row 0), the kernel alone timed (10
+    launches) and its plain version (one call), its launch shape, spills
+    and bound."""
+    from gb25_tpu_torch.ops import pallas_zslab as z
+
+    be, b_total = z.column_buoyancy(cfg, grid, tr_e)
+    before = z.KERNEL.launches
+    got = z.zslab_tendencies(cfg, grid, ue, ve, tr_e, buoyancy=(be, b_total), storage=storage)
+    want = z.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, be=be, storage=storage)
+    torch.cuda.synchronize()
+    if z.KERNEL.launches != before + 1:
+        raise AssertionError(f"K1 {label}: {z.KERNEL.launches - before} launches, expected 1")
+    errs = [compare("Gu", got[0], want[0], 2e-4, 1e-9), compare("Gv", got[1], want[1], 2e-4, 1e-9)]
+    errs += [compare("G" + k, got[2][k], want[2][k], 2e-4, 1e-7) for k in tr_e]
+    if float(got[1][:, 0, :].abs().max()) != 0.0:
+        raise AssertionError(f"K1 {label} left Gv nonzero on the south wall row")
+    del got, want
+    ops = ((ue, ve, tr_e, be, b_total) if storage is None
+           else z.bf16_operands(cfg, grid, ue, ve, tr_e))
+    ms = cuda_time_ms(lambda: z.zslab_kernel_unfused(cfg, grid, *ops), reps=10)
+    plain_ms = cuda_time_ms(lambda: z.zslab_tendencies_plain(
+        cfg, grid, ue, ve, tr_e, be=be, storage=storage), reps=1, warmup=0)
+    del ops
+    ntr, bf16 = len(tr_e), storage is not None
+    form = "unfused_bf16" if bf16 else "unfused"
+    info = z.kernel_info(ntr, False, grid.north_fold, form, general=general)
+    b = k1_bound(cfg, grid, ntr, False, False, 2 if bf16 else 4)
+    spills = spills_of(z.KERNEL, k1_key(ntr, False, grid.north_fold, False, bf16, general))
+    print(f"  K1 {label}: alone {ms:.3f} ms; plain {plain_ms:.3f} ms; spills (stores, loads) "
+          f"{spills}; " + launch_line(info, b))
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "launch": info, "spills": spills}
+
+
+def k6_bf16_case(label, cfg, grid, ue, ve, tr_e):
+    """One K6 bfloat16 instance on ``ue``, ``ve``, ``tr_e``, f and the grid
+    cast to bfloat16: one launch, bfloat16 outputs bit for bit with the
+    plain twin (float32 on the widened operands, rounded once); the kernel
+    alone and the twin timed, launch shape, spills and bound (2-byte
+    values)."""
+    from gb25_tpu_torch.ops import pallas_tendency as k6
+    from gb25_tpu_torch.ops.operators import coriolis_ff
+
+    bf = torch.bfloat16
+    args = (dataclasses.replace(cfg, kernels="pallas"), grid.cast(bf),
+            coriolis_ff(grid, cfg.coriolis).to(bf), ue.to(bf), ve.to(bf),
+            {k: c.to(bf) for k, c in tr_e.items()})
+    before = k6.KERNEL.launches
+    got = k6.pallas_tendencies(*args)
+    want = k6.pallas_tendencies_plain(*args)
+    torch.cuda.synchronize()
+    if k6.KERNEL.launches != before + 1:
+        raise AssertionError(f"K6 {label}: {k6.KERNEL.launches - before} launches")
+    pairs = [("Gu", got[0], want[0]), ("Gv", got[1], want[1])]
+    pairs += [("G" + k, got[2][k], want[2][k]) for k in tr_e]
+    if any(g.dtype != bf for _, g, _ in pairs):
+        raise AssertionError(f"K6 {label}: outputs not bfloat16")
+    errs = [compare(n, g, w, 0.0, 0.0) for n, g, w in pairs]
+    del got, want, pairs
+    ms = cuda_time_ms(lambda: k6.tendency_kernel(*args), reps=10)
+    plain_ms = cuda_time_ms(lambda: k6.pallas_tendencies_plain(*args), reps=1, warmup=0)
+    ntr = len(tr_e)
+    info = k6.kernel_info(ntr, "all", grid.north_fold, general=True, dtype=bf)
+    b = k6_bound(cfg, grid, ntr, value_bytes=2)
+    spills = spills_of(k6.KERNEL, k6_key(ntr, 0, grid.north_fold, bf16=True))
+    print(f"  K6 {label}: bit for bit; alone {ms:.3f} ms; plain {plain_ms:.3f} ms; spills "
+          f"(stores, loads) {spills}; " + launch_line(info, b))
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "bitwise": True, "launch": info, "spills": spills}
+
+
+def precision_instances():
+    """[37] and [38] at 1536x768x64, on each geometry's operands (built
+    once; ``precision_fields``), for one to four tracers
+    (``with_tracers``): [37] every unfused K1 instance, float32 and bf16
+    storage, the flagship's schemes compiled in (two tracers or more) and
+    the general instance (the oracle's schemes); [38] K6's bfloat16
+    instance."""
+    k1u, k6b = {}, {}
+    for geometry in ("flat", "tripolar"):
+        cfg_all, grid, ue, ve, tr_all = precision_fields(geometry)
+        for ntr in (1, 2, 3, 4):
+            cfg, tr_e = with_tracers(cfg_all, tr_all, ntr)
+            s = "s" if ntr > 1 else ""
+            for general in (False, True) if ntr > 1 else (True,):
+                c = with_schemes(cfg, ORACLE_SCHEMES) if general else cfg
+                for storage in (None, torch.bfloat16):
+                    label = (f"unfused {'bf16' if storage is not None else 'f32'} {geometry} "
+                             f"{ntr} tracer{s} {'general' if general else 'flagship'}")
+                    k1u[label] = k1_unfused_case(label, c, grid, ue, ve, tr_e, storage, general)
+            label = f"bf16 {geometry} {ntr} tracer{s}"
+            k6b[label] = k6_bf16_case(label, cfg, grid, ue, ve, tr_e)
+            gc.collect()
+            torch.cuda.empty_cache()
+        del cfg_all, grid, ue, ve, tr_all
+        gc.collect()
+        torch.cuda.empty_cache()
+    return k1u, k6b
+
+
+def precision_model(row, tripolar):
+    """A [39] row's step functions at 1536x768x64: (grid, state,
+    step(s), step_n(s, n), host_n(s, n), the float32 step or None, the
+    ocean's config, the per-step launches, the kernels to count, dt).
+    ``tripolar``: the tripolar climate's (config, grid, atmosphere, state),
+    built once for its rows (the grid keeps one captured graph: a row with
+    another step frees the last row's)."""
+    from gb25_tpu_torch import (
+        baroclinic_instability_model,
+        coupled_loop,
+        coupled_time_step,
+        loop,
+        time_step,
+    )
+    from gb25_tpu_torch.models import ExplicitFreeSurface
+    from gb25_tpu_torch.models.config import SplitExplicitFreeSurface
+    from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+    from gb25_tpu_torch.ops import pallas_catke, pallas_tridiag
+    from gb25_tpu_torch.parallel import make_mesh, sharded_coupled_step_fn
+
+    model, mode, kernels_mode = {
+        "d": ("tripolar", "bf16s", "auto"), "e": ("tripolar", "float32", "auto"),
+        "f": ("keps", "float32", "auto"), "g": ("flagship", "bfloat16", "pallas"),
+        "h": ("tripolar", "bfloat16", "pallas"), "i": ("tripolar", None, "auto"),
+        "j": ("tripolar", "bf16s", "auto")}[row]
+    dt = EXPLICIT_DT if row == "i" else DT
+    kernels = {**k6_kernels(), "K3": pallas_tridiag.KERNEL}
+    if model == "tripolar":
+        ccfg, grid, atmos, state = tripolar
+        ocean = dataclasses.replace(ccfg.ocean, compute_dtype=mode, kernels=kernels_mode)
+        if row == "i":
+            ocean = dataclasses.replace(ocean, free_surface=ExplicitFreeSurface())
+        if row == "j":
+            ocean = dataclasses.replace(
+                ocean, free_surface=SplitExplicitFreeSurface(exchange_width=DECOMPOSED_W))
+        ccfg = dataclasses.replace(ccfg, ocean=ocean)
+        f32 = dataclasses.replace(ccfg, ocean=dataclasses.replace(ocean, compute_dtype=None))
+        kernels["K4"] = pallas_catke.KERNEL
+        n3 = 3
+        if row == "j":
+            fn = sharded_coupled_step_fn(ccfg, grid, atmos, make_mesh(), force_comm="local")
+            step, step_n = (lambda s: fn(s, dt)), (lambda s, n: fn(s, dt, n))
+            host_n = host_steps(functools.partial(fn.step, dt=dt), fn.grid)
+            step32 = None
+        else:
+            step = functools.partial(coupled_time_step, ccfg, grid, atmos, dt=dt)
+
+            def step_n(s, n):
+                return coupled_loop(ccfg, grid, atmos, s, dt, n)
+
+            host_n = host_steps(functools.partial(coupled_time_step, ccfg, grid, atmos, dt=dt,
+                                                  premasked=True), grid)
+            step32 = functools.partial(coupled_time_step, f32, grid, atmos, dt=dt)
+    else:
+        closure = TKEDissipationVerticalDiffusivity() if model == "keps" else None
+        cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE,
+                                                        kernels=kernels_mode, closure=closure)
+        ocean = dataclasses.replace(cfg, compute_dtype=mode)
+        step = functools.partial(time_step, ocean, grid, dt=dt)
+
+        def step_n(s, n):
+            return loop(ocean, grid, s, dt, n)
+
+        host_n = host_steps(functools.partial(time_step, ocean, grid, dt=dt, premasked=True),
+                            grid)
+        step32 = functools.partial(time_step, cfg, grid, dt=dt)
+        n3 = 4 if closure else 0
+        if closure:
+            kernels["K4_keps"] = pallas_catke.KEPS_KERNEL
+    k6 = kernels_mode == "pallas"
+    explicit = row == "i"
+    per_step = {"K6": int(k6), "K1": int(not k6), "K2": int(not k6 and not explicit and row != "j"),
+                "K5": k5_per_step(ocean, grid) if k6 or row == "j" else 0, "K3": n3}
+    per_step |= {name: 1 for name in ("K4", "K4_keps") if name in kernels}
+    return grid, state, step, step_n, host_n, step32, ocean, per_step, kernels, dt
+
+
+def precision_row(card, row, label, tripolar):
+    """One of [39]'s rows: 8 steps; one step against its route's plain
+    path (every wrapper's plain version, ``plain_versions``) at [5]'s
+    tolerances; its distance from the float32 step printed (not bounded,
+    as [27]'s); the main path (8 + 32 + 32 steps replayed, the launches per
+    step held, the profiler probe); the fields finite (land at rest on the
+    climate); the device loop against the host loop over 16 steps."""
+    t0 = time.perf_counter()
+    grid, state, step, step_n, host_n, step32, ocean, per_step, kernels, dt = precision_model(
+        row, tripolar)
+    moved = step_n(state, WARMUP)
+    print(f"  ({row}) {label}: {WARMUP} steps, one against its plain path, then {WARMUP} + "
+          f"2x{PRECISION_ROW_STEPS} steps replayed; per step {per_step}")
+
+    def plain_step(s):
+        with plain_versions():
+            return step(s)
+
+    phase_step_compare(step, plain_step, moved)
+    if step32 is not None and ocean.compute_dtype is not None:
+        precision_distance(f"({row}) {ocean.compute_dtype}", step(moved), step32(moved),
+                           bounded=False)
+    s, elapsed, launches, peak_gb, rec = run_main_path(step_n, moved, kernels, per_step,
+                                                       PRECISION_ROW_STEPS)
+    umax = check_climate_state(s, grid) if "e" in s.tracers and grid.immersed else check_state(
+        s, (NZ, NY, NX))
+    ms_step = 1e3 * elapsed / PRECISION_ROW_STEPS
+    host_ms = loop_vs_host(f"({row}) {label}", step_n, host_n, s, ms_step)
+    rate = NX * NY * NZ * PRECISION_ROW_STEPS / elapsed
+    wall_s = time.perf_counter() - t0
+    print(f"  ({row}) {label} {NX}x{NY}x{NZ} f32 state on {card}: {ms_step:.3f} ms/step "
+          f"({rate:.4e} cell-steps/s, timed second {PRECISION_ROW_STEPS}-step loop, replayed); "
+          f"from the host {host_ms:.3f} ms/step; max|u| {umax:.4f} m/s; peak device memory "
+          f"{peak_gb:.2f} GB, graph pool {rec['pool_gb']:.2f} GB; {wall_s:.1f} s")
+    return {"ms_step": ms_step, "rate": rate, "host_ms_step": host_ms,
+            "steps": PRECISION_ROW_STEPS, "launches": launches, "loop": rec, "peak_gb": peak_gb,
+            "dt": dt, "wall_s": wall_s}
+
+
+PRECISION_ROWS = {
+    "d": "climate tripolar bf16s", "e": "climate tripolar float32", "f": "k-epsilon float32",
+    "g": "flagship K6 route bfloat16", "h": "climate tripolar K6 route bfloat16",
+    "i": f"climate tripolar explicit free surface dt {EXPLICIT_DT:g} s",
+    "j": "climate tripolar bf16s, decomposed 1x1 local",
+}
+
+
+def precision_phases(card):
+    """[37]-[39]; returns the new kernel entries and [39]'s rows."""
+    t0 = time.perf_counter()
+    print(f"[37], [38] at {NX}x{NY}x{NZ}, one to four tracers, columns and tripolar planes: "
+          "K1's unfused instances (float32 and bf16 storage) vs plain; K6's bfloat16 "
+          "instances vs plain, bit for bit")
+    k1u, k6b = precision_instances()
+    print(f"  [37], [38] {time.perf_counter() - t0:.1f} s")
+    from gb25_tpu_torch import data_free_ocean_climate_model
+
+    print("[39] every compute_dtype on every route and closure: rows (d)-(j)")
+    tripolar = data_free_ocean_climate_model(resolution=RESOLUTION, Nz=NZ, device=DEVICE,
+                                             grid_type="gaussian_islands_tripolar")
+    rows = {}
+    for row, label in PRECISION_ROWS.items():
+        rows[row] = precision_row(card, row, label, tripolar)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del tripolar
+
+    def row_entry(name, source, replaces, row, kernel, res, subs):
+        r = rows[row]
+        e = entry(name, source, replaces, f"precision_{row}", r["launches"][kernel], res,
+                  (res["bound_ms"], res["bound_by"]))
+        return e | {"spills": res["spills"]} | on_device(r["loop"], kernel) | subs
+
+    k1_src, k1_tpu = "zslab_tendencies.cu", "gb25_tpu/ops/pallas_zslab.py:275"
+    f32 = {k: v for k, v in k1u.items() if "f32" in k}
+    bf16 = {k: v for k, v in k1u.items() if "bf16" in k}
+    other = {f"launches_{r}": rows[r]["launches"]["K1"] for r in ("f", "i")}
+    entries = [
+        row_entry("zslab_tendencies_unfused_tracers", k1_src, k1_tpu, "e", "K1",
+                  f32["unfused f32 tripolar 3 tracers flagship"],
+                  {"instances": f32, **other}),
+        row_entry("zslab_tendencies_bf16_storage_tracers", k1_src, k1_tpu, "d", "K1",
+                  bf16["unfused bf16 tripolar 3 tracers flagship"],
+                  {"instances": bf16, "launches_j": rows["j"]["launches"]["K1"]}),
+        row_entry("pallas_tendencies_bf16", "tendencies.cu",
+                  "gb25_tpu/ops/pallas_tendency.py:115", "h", "K6",
+                  k6b["bf16 tripolar 3 tracers"],
+                  {"instances": k6b, "launches_g": rows["g"]["launches"]["K6"],
+                   "bitwise": True}),
+    ]
+    return entries, rows
+
+
 T_START = time.perf_counter()
 
 
@@ -3069,6 +3429,9 @@ def main():
     scheme_entries, schemes = scheme_phases(card, flag["ms_step"])
     gc.collect()
     torch.cuda.empty_cache()
+    precision_entries, precision = precision_phases(card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def host(r):
         return "" if r.get("host_ms_step") is None else f", from the host {r['host_ms_step']:.3f}"
@@ -3093,7 +3456,9 @@ def main():
               f"{', dt %g s' % r['dt'] if r['dt'] != DT else ''}){host(r)}"
               for name, r in choices.items()) + "; " + "; ".join(
               f"{name} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s, {r['steps']} steps, idle "
-              f"{100 * r['idle']:.1f}%){host(r)}" for name, r in schemes.items()))
+              f"{100 * r['idle']:.1f}%){host(r)}" for name, r in schemes.items()) + "; " + "; ".join(
+              f"({row}) {PRECISION_ROWS[row]} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s, "
+              f"{r['steps']} steps){host(r)}" for row, r in precision.items()))
 
     k5_entry = entry("barotropic_block", "barotropic_block.cu",
                      "gb25_tpu/ops/pallas_barotropic.py:349", "climate_tripolar_decomposed",
@@ -3129,7 +3494,7 @@ def main():
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s on {card}")
     print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels
                       + [k5_entry] + k6_entries + [k6_tile] + choice_entries
-                      + scheme_entries}))
+                      + scheme_entries + precision_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

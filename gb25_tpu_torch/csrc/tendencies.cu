@@ -60,28 +60,34 @@
 // grids, with u and v masked on solid faces: like the Pallas kernel, K6 has
 // no fold, no mask and no wall logic. The outputs are fresh buffers.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
+#include <type_traits>
 
 #include "tendency_tile.cuh"
 
 namespace {
 
 constexpr int kMaxTracers = 4;
+using bf16 = __nv_bfloat16;
 
 enum Mode { kAll = 0, kMomentum = 1, kTracers = 2 };
 
-struct Args {
-  const float* stage[2 + kMaxTracers];  // the staged fields: u, v, then the tracers or T, S
-  Field u, v, T, S;
-  Field tr[kMaxTracers];
+// S: the type of the fields and of the outputs (float, or bfloat16 in the
+// bfloat16 instances); the metrics and profiles are float.
+template <class S>
+struct ArgsT {
+  const S* stage[2 + kMaxTracers];  // the staged fields: u, v, then the tracers or T, S
+  FieldT<S> u, v, T, S_;
+  FieldT<S> tr[kMaxTracers];
   // (Ny+2hy) y profiles, or (Ny+2hy, Nx+2hx) planes on the tripolar grid
   const float *dxc, *dxf, *dyc, *dyf, *azc, *azf, *fff;
   const float *dzc, *dzf, *zc;  // (Nz+2hz) z profiles
-  float *Gu, *Gv;               // (Nz, Ny, Nx)
-  float* Gtr[kMaxTracers];
+  S *Gu, *Gv;                   // (Nz, Ny, Nx)
+  S* Gtr[kMaxTracers];
   int Nx, Ny, Nz, hx, hy, hz;
-  int align;   // staged column -3 - align is 16-byte aligned; -1: 4-byte copies
+  int align;   // staged column -3 - align is 16-byte aligned; -1: value by value
   int iT, iS;  // T and S among the staged fields after u and v (b twice in b mode)
   float eps;                                              // WENO epsilon
   float inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0;  // TEOS-10 scalars
@@ -89,6 +95,11 @@ struct Args {
   Schemes sch;  // the advection and kinetic-energy schemes (general instances)
   int eos;      // kEosTeos10, kEosLinear or kEosTracer (general instances)
 };
+using Args = ArgsT<float>;
+
+// An output value in its storage type: float, or rounded to bfloat16.
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 // Where b comes from: TEOS-10 of T and S, the linear equation of state of
 // T and S, or the b tracer (staged and read as T, and as S).
@@ -147,7 +158,8 @@ __device__ __forceinline__ float eos_horner2d(float ss, float tt) {
 
 // b = -g (rho' - rho0) / rho0 from the TEOS-10 anomaly rho'(S, T, z)
 // (ops/eos.py::TEOS10EquationOfState.buoyancy).
-__device__ __forceinline__ float teos10_buoyancy(const Args& A, float T, float S, float z) {
+template <class A_>
+__device__ __forceinline__ float teos10_buoyancy(const A_& A, float T, float S, float z) {
   const float ss = sqrtf((S + 32.0f) * A.inv_sau);
   const float tt = T * A.inv_ctu;
   const float zz = (-z) * A.inv_zu;
@@ -160,14 +172,15 @@ __device__ __forceinline__ float teos10_buoyancy(const Args& A, float T, float S
 
 // b = g (alpha (T - T0) - beta (S - S0)) (ops/eos.py::LinearEquationOfState),
 // each operation rounded on its own.
-__device__ __forceinline__ float linear_buoyancy(const Args& A, float T, float S) {
+template <class A_>
+__device__ __forceinline__ float linear_buoyancy(const A_& A, float T, float S) {
   return A.lin_g * (A.lin_alpha * (T - A.lin_T0) - A.lin_beta * (S - A.lin_S0));
 }
 
 // The buoyancy of a cell: TEOS-10 in the flagship's instances; in the
 // general ones A.eos's (in b mode T holds b).
-template <bool GEN>
-__device__ __forceinline__ float buoyancy(const Args& A, float T, float S, float z) {
+template <bool GEN, class A_>
+__device__ __forceinline__ float buoyancy(const A_& A, float T, float S, float z) {
   if (GEN && A.eos == kEosTracer) return T;
   if (GEN && A.eos == kEosLinear) return linear_buoyancy(A, T, S);
   return teos10_buoyancy(A, T, S, z);
@@ -175,44 +188,56 @@ __device__ __forceinline__ float buoyancy(const Args& A, float T, float S, float
 
 // Shared memory of a launch in bytes. A launch stages 2 + NTR fields: u, v
 // and the tracers; for the momentum launch u, v and its NTR buoyancy fields
-// (T and S, or b).
-template <int NTR, int MODE, bool M2>
+// (T and S, or b). With bfloat16 fields the ring holds bfloat16 slots and
+// the float slot each level is widened into (tendency_tile.cuh).
+template <int NTR, int MODE, bool M2, class S = float>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * tile_floats<2 + NTR, MODE == kMomentum ? 0 : NTR, M2>();
+  constexpr int NF = 2 + NTR;
+  return sizeof(float) * (tile_floats<NF, MODE == kMomentum ? 0 : NTR, M2>() -
+                          kStages * NF * kSF + ring_floats<S, NF>());
 }
 
-template <bool M2>
-__device__ __forceinline__ void start_column(Column& c, const Args& A, const Tile& t, int Xe) {
+template <bool M2, class A_>
+__device__ __forceinline__ void start_column(Column& c, const A_& A, const Tile& t, int Xe) {
   c.razc = 1.0f / metric_at<M2>(A.azc, t.Y0 + c.y, t.X0 + c.x, Xe);
 }
 
 // The column total of b dz, b down the column from device memory, summed up
 // from the floor.
-template <bool GEN>
-__device__ __forceinline__ float column_total(const Args& A, int Y, int X) {
+template <bool GEN, class A_>
+__device__ __forceinline__ float column_total(const A_& A, int Y, int X) {
   float tot = 0.0f;
   for (int k = 0; k < A.Nz; ++k) {
     const int Z = k + A.hz;
-    tot = tot + buoyancy<GEN>(A, A.T(Z, Y, X), A.S(Z, Y, X), A.zc[Z]) * A.dzc[Z];
+    tot = tot + buoyancy<GEN>(A, A.T(Z, Y, X), A.S_(Z, Y, X), A.zc[Z]) * A.dzc[Z];
   }
   return tot;
 }
 
 // GEN: the general instance (A.sch, A.eos); else the flagship's schemes
-// and TEOS-10.
-template <int NTR, int MODE, bool M2, bool GEN>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) tendency_stage_kernel(const Args A) {
+// and TEOS-10. S: the fields' and outputs' type; bfloat16 fields are
+// staged as bfloat16 and each level widened once into a float slot, as in
+// K1's bf16-storage instance, and every operation is float.
+template <int NTR, int MODE, bool M2, bool GEN, class S = float>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    tendency_stage_kernel(const ArgsT<S> A) {
   constexpr bool kMom = MODE != kTracers, kTrc = MODE != kMomentum;
   const Schemes sch = GEN ? A.sch : kFlagship;
   constexpr int NF = 2 + NTR;  // staged fields
   constexpr int NT = kTrc ? NTR : 0;  // tracers this launch advects
+  constexpr bool kF32 = std::is_same<S, float>::value;
+  constexpr int kSXS = kF32 ? kSX : kSXH;  // a staged row of S
+  constexpr int kSlotS = kSXS * kSY;
   extern __shared__ __align__(16) float smem[];
   const bool vec = A.align >= 0;
-  const Tile t(A.Nx, A.Ny, A.hx, A.hy, vec ? A.align : 0);
+  const int a = vec ? A.align : 0;  // the staged rows' alignment
+  // the float layout the stencils read: the float ring's, or the widened
+  // slot's (columns from -3)
+  const Tile t(A.Nx, A.Ny, A.hx, A.hy, kF32 ? a : 0);
   const int Xe = A.Nx + 2 * A.hx, Ye = A.Ny + 2 * A.hy;
   const size_t plane = (size_t)Ye * Xe;
-  float* ring = smem;  // [kStages][NF][kSF]
-  float* mets = ring + kStages * NF * kSF;
+  S* ring = reinterpret_cast<S*>(smem);  // [kStages][NF][kSlotS], then (bf16) [NF][kSF]
+  float* mets = smem + ring_floats<S, NF>();
   float* pvq = mets + metric_floats<M2>();  // [kPY][kPX]
   float* keq = pvq + kPY * kPX;              // [kCY][kCX]
   float* wq = keq + kCY * kCX;
@@ -222,7 +247,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) tendency_stage_kernel(co
 
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < A.Nz)
-      stage_level<NF>(ring + s * NF * kSF, A.stage, (size_t)(s + A.hz) * plane, t, Xe, vec);
+      stage_window<NF, kSXS>(ring + s * NF * kSlotS, A.stage, (size_t)(s + A.hz) * plane, t, Xe,
+                             vec, a);
     cp_async_commit();
   }
   const Metrics<M2> m =
@@ -279,17 +305,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) tendency_stage_kernel(co
     cp_async_wait<kStages - 2>();
     __syncthreads();  // level k staged; every read of the slot reused next is done
     if (k + kStages - 1 < A.Nz)
-      stage_level<NF>(ring + ((k + kStages - 1) % kStages) * NF * kSF, A.stage,
-                      (size_t)(Z + kStages - 1) * plane, t, Xe, vec);
+      stage_window<NF, kSXS>(ring + ((k + kStages - 1) % kStages) * NF * kSlotS, A.stage,
+                             (size_t)(Z + kStages - 1) * plane, t, Xe, vec, a);
     cp_async_commit();
 
-    const float* slot = ring + (k % kStages) * NF * kSF + t.origin();
+    const float* slot;
+    if constexpr (kF32) {
+      slot = ring + (k % kStages) * NF * kSF + t.origin();
+    } else {
+      float* wide = reinterpret_cast<float*>(ring + kStages * NF * kSlotS);
+      widen_level<NF>(wide, ring + (k % kStages) * NF * kSlotS, t, a);
+      __syncthreads();  // the level widened
+      slot = wide + t.origin();
+    }
     const Win u{slot}, v{slot + kSF};
     // shared quantities of the level
     if (kMom) {
-      const Win T{slot + (2 + A.iT) * kSF}, S{slot + (2 + A.iS) * kSF};
+      const Win Tw{slot + (2 + A.iT) * kSF}, Sw{slot + (2 + A.iS) * kSF};
       auto level = [&](Column& c) {
-        const float bdz = buoyancy<GEN>(A, T(c.y, c.x), S(c.y, c.x), A.zc[Z]) * dzc;
+        const float bdz = buoyancy<GEN>(A, Tw(c.y, c.x), Sw(c.y, c.x), A.zc[Z]) * dzc;
         column_level<true, M2>(c, u, v, m, dzc, bdz, keq, wq, pq, sch);
       };
       if (oc.on) level(oc);
@@ -325,21 +359,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) tendency_stage_kernel(co
         cz[q][5] = cnext[q];
       }
       if (kMom) {
-        A.Gu[o] = Gu;
-        A.Gv[o] = Gv;
+        store(A.Gu + o, Gu);
+        store(A.Gv + o, Gv);
       }
 #pragma unroll
-      for (int q = 0; q < NT; ++q) A.Gtr[q][o] = Gc[q];
+      for (int q = 0; q < NT; ++q) store(A.Gtr[q] + o, Gc[q]);
     }
   }
 }
 
-template <int NTR, int MODE, bool M2, bool GEN = false>
-cudaError_t launch(const Args& A, dim3 grid, dim3 block, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<NTR, MODE, M2>();
-  const cudaError_t err = allow_shared(tendency_stage_kernel<NTR, MODE, M2, GEN>, smem);
+template <int NTR, int MODE, bool M2, bool GEN = false, class S = float>
+cudaError_t launch(const ArgsT<S>& A, dim3 grid, dim3 block, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<NTR, MODE, M2, S>();
+  const cudaError_t err = allow_shared(tendency_stage_kernel<NTR, MODE, M2, GEN, S>, smem);
   if (err != cudaSuccess) return err;
-  tendency_stage_kernel<NTR, MODE, M2, GEN><<<grid, block, smem, s>>>(A);
+  tendency_stage_kernel<NTR, MODE, M2, GEN, S><<<grid, block, smem, s>>>(A);
   return cudaGetLastError();
 }
 
@@ -360,10 +394,10 @@ Args eos_args(float inv_sau, float inv_ctu, float inv_zu, float neg_g, float rho
   return A;
 }
 
-template <int NTR, int MODE, bool M2, bool GEN = false>
+template <int NTR, int MODE, bool M2, bool GEN = false, class S = float>
 cudaError_t info(int* out) {
-  return launch_info(tendency_stage_kernel<NTR, MODE, M2, GEN>, smem_bytes<NTR, MODE, M2>(),
-                     out);
+  return launch_info(tendency_stage_kernel<NTR, MODE, M2, GEN, S>,
+                     smem_bytes<NTR, MODE, M2, S>(), out);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
@@ -403,6 +437,103 @@ extern "C" const char* gb25_cuda_error_string(int err) {
      {F<3, kTracers, false, true>, F<3, kTracers, true, true>},                        \
      {F<4, kTracers, false, true>, F<4, kTracers, true, true>}}}}
 
+namespace {
+
+// Every bfloat16 instance, by [ntr - 1][metric2d]: the general variant of
+// the one-launch form (mode 0).
+#define GB25_K6_BF16_TABLE(F)                                                          \
+  {{F<1, kAll, false, true, bf16>, F<1, kAll, true, true, bf16>},                      \
+   {F<2, kAll, false, true, bf16>, F<2, kAll, true, true, bf16>},                      \
+   {F<3, kAll, false, true, bf16>, F<3, kAll, true, true, bf16>},                      \
+   {F<4, kAll, false, true, bf16>, F<4, kAll, true, true, bf16>}}
+
+// The entry points' common body: check the arguments, fill ArgsT<S> and
+// launch the instance.
+template <class S>
+int launch_stage(const S* u, const S* v, const S* T, const S* S_, const S* const* tr,
+                 const float* dxc, const float* dxf, const float* dyc, const float* dyf,
+                 const float* azc, const float* azf, const float* fff, const float* dzc,
+                 const float* dzf, const float* zc, S* Gu, S* Gv, S* const* Gtr, int ntr,
+                 int Nx, int Ny, int Nz, int hx, int hy, int hz, int metric2d, int mode,
+                 float eps, float inv_sau, float inv_ctu, float inv_zu, float neg_g, float rho0,
+                 float inv_rho0, float lin_g, float lin_alpha, float lin_T0, float lin_beta,
+                 float lin_S0, int mom, int ke, int trs, int eos, void* stream) {
+  constexpr bool kF32 = std::is_same<S, float>::value;
+  if (ntr < 1 || ntr > kMaxTracers || mode < kAll || mode > kTracers || hx < 3 || hy < 3 ||
+      hz < 3 || mom < kMomWenoVI || mom > kMomNone || ke < kKeHollingsworth ||
+      ke > kKeStandard || trs < kTrWeno5 || trs > kTrNone || eos < kEosTeos10 ||
+      eos > kEosTracer || (!kF32 && mode != kAll))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mode != kTracers && (Gu == nullptr || Gv == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool btracer = eos == kEosTracer;
+  if (btracer && T != S_) return static_cast<int>(cudaErrorInvalidValue);
+  const int Xe = Nx + 2 * hx;
+  const size_t plane = (size_t)(Ny + 2 * hy) * Xe;
+  ArgsT<S> A = {};
+  A.inv_sau = inv_sau; A.inv_ctu = inv_ctu; A.inv_zu = inv_zu;
+  A.neg_g = neg_g; A.rho0 = rho0; A.inv_rho0 = inv_rho0;
+  A.lin_g = lin_g; A.lin_alpha = lin_alpha; A.lin_T0 = lin_T0;
+  A.lin_beta = lin_beta; A.lin_S0 = lin_S0;
+  A.sch = Schemes{mom, ke, trs};
+  A.eos = eos;
+  A.u = FieldT<S>{u, Xe, plane};
+  A.v = FieldT<S>{v, Xe, plane};
+  A.T = FieldT<S>{T, Xe, plane};
+  A.S_ = FieldT<S>{S_, Xe, plane};
+  A.iT = A.iS = -1;
+  for (int t = 0; t < kMaxTracers; ++t) {
+    const bool used = t < ntr;
+    A.tr[t] = FieldT<S>{used ? tr[t] : nullptr, Xe, plane};
+    A.Gtr[t] = used && mode != kMomentum ? Gtr[t] : nullptr;
+    if (used && mode != kMomentum && A.Gtr[t] == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (used && tr[t] == T) A.iT = t;
+    if (used && tr[t] == S_) A.iS = t;
+  }
+  if (A.iT < 0 || A.iS < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // the staged fields: u, v, then the tracers, or for the momentum launch
+  // T, S (b alone in b mode)
+  const S* staged[2 + kMaxTracers] = {u, v};
+  int nstaged = 2;
+  if (mode == kMomentum) {
+    staged[nstaged++] = T;
+    if (!btracer) staged[nstaged++] = S_;
+    A.iT = 0;
+    A.iS = btracer ? 0 : 1;
+  } else {
+    for (int t = 0; t < ntr; ++t) staged[nstaged++] = tr[t];
+  }
+  constexpr int kPer = 16 / sizeof(S);  // values a 16-byte copy carries
+  bool vec = Xe % kPer == 0;
+  for (int f = 0; f < 2 + kMaxTracers; ++f) {
+    A.stage[f] = f < nstaged ? staged[f] : nullptr;
+    vec = vec && (f >= nstaged || aligned16(staged[f]));
+  }
+  A.dxc = dxc; A.dxf = dxf; A.dyc = dyc; A.dyf = dyf; A.azc = azc; A.azf = azf; A.fff = fff;
+  A.dzc = dzc; A.dzf = dzf; A.zc = zc;
+  A.Gu = Gu; A.Gv = Gv;
+  A.Nx = Nx; A.Ny = Ny; A.Nz = Nz; A.hx = hx; A.hy = hy; A.hz = hz;
+  // (X0 - 3) % kPer: i0 is a multiple of 32
+  A.align = vec ? ((hx - 3) % kPer + kPer) % kPer : -1;
+  A.eps = eps;
+  dim3 block(kTX, kTY, 1);
+  dim3 grid((Nx + kTX - 1) / kTX, (Ny + kTY - 1) / kTY, 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using Launch = cudaError_t (*)(const ArgsT<S>&, dim3, dim3, cudaStream_t);
+  if constexpr (kF32) {
+    const bool gen = eos != kEosTeos10 || !is_flagship(A.sch, ntr);
+    const int n = mode == kMomentum ? nstaged - 2 : ntr;
+    static const Launch launchers[2][3][4][2] = GB25_K6_TABLE(launch);
+    return static_cast<int>(launchers[gen][mode][n - 1][metric2d ? 1 : 0](A, grid, block, s));
+  } else {
+    static const Launch launchers[4][2] = GB25_K6_BF16_TABLE(launch);
+    return static_cast<int>(launchers[ntr - 1][metric2d ? 1 : 0](A, grid, block, s));
+  }
+}
+
+}  // namespace
+
 // u, v, T, S and the ntr tracers tr[0..ntr) (1 to 4; the pointer arrays
 // hold kMaxTracers entries, the unused ones null) are extended (Nz+2hz,
 // Ny+2hy, Nx+2hx); T and S are also among tr (in b mode T and S are both
@@ -423,68 +554,38 @@ extern "C" int tendencies_f32(
     int hz, int metric2d, int mode, float eps, float inv_sau, float inv_ctu, float inv_zu,
     float neg_g, float rho0, float inv_rho0, float lin_g, float lin_alpha, float lin_T0,
     float lin_beta, float lin_S0, int mom, int ke, int trs, int eos, void* stream) {
-  if (ntr < 1 || ntr > kMaxTracers || mode < kAll || mode > kTracers || hx < 3 || hy < 3 ||
-      hz < 3 || mom < kMomWenoVI || mom > kMomNone || ke < kKeHollingsworth ||
-      ke > kKeStandard || trs < kTrWeno5 || trs > kTrNone || eos < kEosTeos10 ||
-      eos > kEosTracer)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (mode != kTracers && (Gu == nullptr || Gv == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool btracer = eos == kEosTracer;
-  if (btracer && T != S) return static_cast<int>(cudaErrorInvalidValue);
-  const int Xe = Nx + 2 * hx;
-  const size_t plane = (size_t)(Ny + 2 * hy) * Xe;
-  Args A = eos_args(inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0);
-  A.lin_g = lin_g; A.lin_alpha = lin_alpha; A.lin_T0 = lin_T0;
-  A.lin_beta = lin_beta; A.lin_S0 = lin_S0;
-  A.sch = Schemes{mom, ke, trs};
-  A.eos = eos;
-  A.u = Field{u, Xe, plane};
-  A.v = Field{v, Xe, plane};
-  A.T = Field{T, Xe, plane};
-  A.S = Field{S, Xe, plane};
-  A.iT = A.iS = -1;
-  for (int t = 0; t < kMaxTracers; ++t) {
-    const bool used = t < ntr;
-    A.tr[t] = Field{used ? tr[t] : nullptr, Xe, plane};
-    A.Gtr[t] = used && mode != kMomentum ? Gtr[t] : nullptr;
-    if (used && mode != kMomentum && A.Gtr[t] == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (used && tr[t] == T) A.iT = t;
-    if (used && tr[t] == S) A.iS = t;
-  }
-  if (A.iT < 0 || A.iS < 0) return static_cast<int>(cudaErrorInvalidValue);
-  // the staged fields: u, v, then the tracers, or for the momentum launch
-  // T, S (b alone in b mode)
-  const float* staged[2 + kMaxTracers] = {u, v};
-  int nstaged = 2;
-  if (mode == kMomentum) {
-    staged[nstaged++] = T;
-    if (!btracer) staged[nstaged++] = S;
-    A.iT = 0;
-    A.iS = btracer ? 0 : 1;
-  } else {
-    for (int t = 0; t < ntr; ++t) staged[nstaged++] = tr[t];
-  }
-  bool vec = Xe % 4 == 0;
-  for (int f = 0; f < 2 + kMaxTracers; ++f) {
-    A.stage[f] = f < nstaged ? staged[f] : nullptr;
-    vec = vec && (f >= nstaged || aligned16(staged[f]));
-  }
-  A.dxc = dxc; A.dxf = dxf; A.dyc = dyc; A.dyf = dyf; A.azc = azc; A.azf = azf; A.fff = fff;
-  A.dzc = dzc; A.dzf = dzf; A.zc = zc;
-  A.Gu = Gu; A.Gv = Gv;
-  A.Nx = Nx; A.Ny = Ny; A.Nz = Nz; A.hx = hx; A.hy = hy; A.hz = hz;
-  A.align = vec ? (hx + 1) % 4 : -1;  // (X0 - 3) % 4: i0 is a multiple of 32
-  A.eps = eps;
-  dim3 block(kTX, kTY, 1);
-  dim3 grid((Nx + kTX - 1) / kTX, (Ny + kTY - 1) / kTY, 1);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool gen = eos != kEosTeos10 || !is_flagship(A.sch, ntr);
-  const int n = mode == kMomentum ? nstaged - 2 : ntr;
-  using Launch = cudaError_t (*)(const Args&, dim3, dim3, cudaStream_t);
-  static const Launch launchers[2][3][4][2] = GB25_K6_TABLE(launch);
-  return static_cast<int>(launchers[gen][mode][n - 1][metric2d ? 1 : 0](A, grid, block, s));
+  return launch_stage<float>(u, v, T, S, tr, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf, zc,
+                             Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, metric2d, mode, eps,
+                             inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0, lin_g, lin_alpha,
+                             lin_T0, lin_beta, lin_S0, mom, ke, trs, eos, stream);
+}
+
+// The bfloat16 instances (the "pallas" route under compute_dtype="bfloat16"):
+// u, v, T, S, the tracers and the outputs bfloat16, the metrics, f and the
+// profiles float (the widened bfloat16 grid); every operation float32, each
+// output rounded to bfloat16 once. mode 0 only; the schemes and eos read at
+// run time (general instances). Arguments as tendencies_f32's.
+extern "C" int tendencies_bf16(
+    const bf16* u, const bf16* v, const bf16* T, const bf16* S, const bf16* const* tr,
+    const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
+    const float* azf, const float* fff, const float* dzc, const float* dzf, const float* zc,
+    bf16* Gu, bf16* Gv, bf16* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy,
+    int hz, int metric2d, int mode, float eps, float inv_sau, float inv_ctu, float inv_zu,
+    float neg_g, float rho0, float inv_rho0, float lin_g, float lin_alpha, float lin_T0,
+    float lin_beta, float lin_S0, int mom, int ke, int trs, int eos, void* stream) {
+  return launch_stage<bf16>(u, v, T, S, tr, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf, zc,
+                            Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, metric2d, mode, eps,
+                            inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0, lin_g, lin_alpha,
+                            lin_T0, lin_beta, lin_S0, mom, ke, trs, eos, stream);
+}
+
+// The launch shape of one bfloat16 instance (ntr, metric2d), as
+// tendencies_info's.
+extern "C" int tendencies_bf16_info(int ntr, int metric2d, int* out) {
+  if (ntr < 1 || ntr > kMaxTracers) return static_cast<int>(cudaErrorInvalidValue);
+  using Info = cudaError_t (*)(int*);
+  static const Info infos[4][2] = GB25_K6_BF16_TABLE(info);
+  return static_cast<int>(infos[ntr - 1][metric2d ? 1 : 0](out));
 }
 
 // The launch shape of one instance (ntr, mode, metric2d, general; the

@@ -29,6 +29,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstddef>
+#include <type_traits>
 
 #include "cp_async.cuh"
 
@@ -142,6 +143,28 @@ template <int NF, int NTR, bool M2>
 __host__ __device__ constexpr int tile_floats() {
   return kStages * NF * kSF + metric_floats<M2>() + kPY * kPX + 3 * kCY * kCX +
          NTR * (kTY * kCX + kCY * kTX);
+}
+
+// Floats of shared memory the ring of staged fields takes: kStages float
+// slots; with bfloat16 storage, kStages bfloat16 slots (rows of kSXH) and
+// the one float slot the level is widened into.
+template <class S, int NF>
+__host__ __device__ constexpr int ring_floats() {
+  return std::is_same<S, float>::value ? kStages * NF * kSF
+                                       : kStages * NF * kSFH / 2 + NF * kSF;
+}
+
+// Widen the staged bfloat16 slot of a level (columns from -3 - a) into the
+// float slot (columns from -3), over the rows and columns the tile reads.
+template <int NF>
+__device__ __forceinline__ void widen_level(float* dst, const __nv_bfloat16* src, const Tile& t, int a) {
+  const int tid = threadIdx.y * kTX + threadIdx.x;
+  const int rows = t.ny + 6, cols = t.nx + 6;
+  for (int n = tid; n < NF * kSF; n += kThreads) {
+    const int q = n / kSF, r = n - q * kSF;
+    const int y = r / kSX, x = r - y * kSX;
+    if (y < rows && x < cols) dst[n] = __bfloat162float(src[q * kSFH + y * kSXH + x + a]);
+  }
 }
 
 // Index of the corner (y, x), of the centre (y, x), of the x face (y, xf)

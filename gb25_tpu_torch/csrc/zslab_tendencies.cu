@@ -10,9 +10,12 @@
 // planes: the JAX kernel's metric_spec 2-D branch, :555-564) and the
 // k-epsilon instance (tracers T, S, e, eps). Unfused (no ab2, no
 // integrals: the step's route under a compute_dtype or the explicit free
-// surface, gb25_tpu/models/hydrostatic.py:876-904), with tracers T, S and
-// lat-lon metric columns: the float32 instance and the bfloat16-storage
-// instance (storage_dtype=bfloat16, :296-310, 384-391): u, v, the tracers
+// surface, gb25_tpu/models/hydrostatic.py:876-904), with two to four
+// tracers (T, S; T, S, e; T, S, e, eps) and the metrics as lat-lon
+// columns or tripolar planes: the float32 instances and the
+// bfloat16-storage instances (storage_dtype=bfloat16, :296-310, 384-391;
+// the unfused form has no immersed variant, as the face bottoms matter
+// only to the fused integrals): u, v, the tracers
 // and b are read as bfloat16 and widened to float32 (the Pallas kernel's
 // window upcast, :626-631); every operation and the column total of b dz
 // stay float32, and the tendencies are written in float32. Each of these
@@ -113,31 +116,9 @@ __device__ __forceinline__ void start_column(Column& c, const A_& A, const Tile&
   c.razc = 1.0f / metric_at<M2>(A.azc, Y, X, Xe);
 }
 
-// Floats of shared memory the ring of staged fields takes: kStages float
-// slots; with bfloat16 storage, kStages bfloat16 slots (rows of kSXH) and
-// the one float slot the level is widened into.
-template <class S, int NF>
-__host__ __device__ constexpr int ring_floats() {
-  return std::is_same<S, float>::value ? kStages * NF * kSF
-                                       : kStages * NF * kSFH / 2 + NF * kSF;
-}
-
 template <class S, int NF, int NTR, bool M2>
 __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(float) * (tile_floats<NF, NTR, M2>() - kStages * NF * kSF + ring_floats<S, NF>());
-}
-
-// Widen the staged bfloat16 slot of a level (columns from -3 - a) into the
-// float slot (columns from -3), over the rows and columns the tile reads.
-template <int NF>
-__device__ __forceinline__ void widen_level(float* dst, const bf16* src, const Tile& t, int a) {
-  const int tid = threadIdx.y * kTX + threadIdx.x;
-  const int rows = t.ny + 6, cols = t.nx + 6;
-  for (int n = tid; n < NF * kSF; n += kThreads) {
-    const int q = n / kSF, r = n - q * kSF;
-    const int y = r / kSX, x = r - y * kSX;
-    if (y < rows && x < cols) dst[n] = __bfloat162float(src[q * kSFH + y * kSXH + x + a]);
-  }
 }
 
 // FUSED: the AB2 update, the wall row of v* and the depth integrals; else
@@ -385,14 +366,26 @@ Args<S> field_args(const S* u, const S* v, const S* b, const S* const* tr, int n
   return A;
 }
 
+// Every unfused instance of storage type S, by [general][ntr - 1][metric2d]
+// (the flagship's instances have no one-tracer form).
+#define GB25_K1_UNFUSED_TABLE(F, S)                                                      \
+  {{{nullptr, nullptr},                                                                  \
+    {F<2, false, false, false, S>, F<2, false, true, false, S>},                         \
+    {F<3, false, false, false, S>, F<3, false, true, false, S>},                         \
+    {F<4, false, false, false, S>, F<4, false, true, false, S>}},                        \
+   {{F<1, false, false, false, S, true>, F<1, false, true, false, S, true>},             \
+    {F<2, false, false, false, S, true>, F<2, false, true, false, S, true>},             \
+    {F<3, false, false, false, S, true>, F<3, false, true, false, S, true>},             \
+    {F<4, false, false, false, S, true>, F<4, false, true, false, S, true>}}}
+
 template <class S>
 int launch_unfused(const S* u, const S* v, const S* b, const S* const* tr, const float* btot,
                    const float* dxc, const float* dxf, const float* dyc, const float* dyf,
                    const float* azc, const float* azf, const float* fff, const float* dzc,
                    const float* dzf, float* Gu, float* Gv, float* const* Gtr, int ntr, int Nx,
-                   int Ny, int Nz, int hx, int hy, int hz, int wall_v, float eps, int mom, int ke,
-                   int trs, void* stream) {
-  if (ntr < 1 || ntr > 2 || hx < 3 || hy < 3 || hz < 3 || !valid(mom, ke, trs))
+                   int Ny, int Nz, int hx, int hy, int hz, int metric2d, int wall_v, float eps,
+                   int mom, int ke, int trs, void* stream) {
+  if (ntr < 1 || ntr > kMaxTracers || hx < 3 || hy < 3 || hz < 3 || !valid(mom, ke, trs))
     return static_cast<int>(cudaErrorInvalidValue);
   Args<S> A = field_args<S>(u, v, b, tr, ntr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
                             nullptr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps);
@@ -401,9 +394,10 @@ int launch_unfused(const S* u, const S* v, const S* b, const S* const* tr, const
   for (int t = 0; t < ntr; ++t) A.Gtr[t] = Gtr[t];
   A.sch = Schemes{mom, ke, trs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_flagship(A.sch, ntr)) return static_cast<int>(launch<2, false, false, false, S>(A, s));
-  return static_cast<int>(ntr == 1 ? launch<1, false, false, false, S, true>(A, s)
-                                   : launch<2, false, false, false, S, true>(A, s));
+  using Launch = cudaError_t (*)(const Args<S>&, cudaStream_t);
+  static const Launch launchers[2][4][2] = GB25_K1_UNFUSED_TABLE(launch, S);
+  return static_cast<int>(
+      launchers[!is_flagship(A.sch, ntr)][ntr - 1][metric2d ? 1 : 0](A, s));
 }
 
 }  // namespace
@@ -473,29 +467,32 @@ extern "C" int zslab_tendencies_f32(
 }
 
 // The unfused instances (no AB2 update, no integrals; the wall row of Gv
-// where wall_v): one or two tracers, lat-lon metric columns. u, v, b and
-// the tracers float32, or bfloat16 in the bf16-storage instance; btot, the
-// metrics and the outputs float32. The schemes as zslab_tendencies_f32's.
+// where wall_v): one to four tracers, the metrics as y profiles or, with
+// metric2d, as (Ny+2hy, Nx+2hx) planes (the tripolar grid; no immersed
+// variant: only the fused integrals read the face bottoms). u, v, b and
+// the tracers float32, or bfloat16 in the bf16-storage instances; btot,
+// the metrics and the outputs float32. The schemes as
+// zslab_tendencies_f32's.
 extern "C" int zslab_tendencies_unfused_f32(
     const float* u, const float* v, const float* b, const float* const* tr, const float* btot,
     const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
     const float* azf, const float* fff, const float* dzc, const float* dzf, float* Gu, float* Gv,
-    float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int wall_v,
-    float eps, int mom, int ke, int trs, void* stream) {
+    float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int metric2d,
+    int wall_v, float eps, int mom, int ke, int trs, void* stream) {
   return launch_unfused<float>(u, v, b, tr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
-                               Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps, mom, ke,
-                               trs, stream);
+                               Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, metric2d, wall_v, eps,
+                               mom, ke, trs, stream);
 }
 
 extern "C" int zslab_tendencies_unfused_bf16(
     const bf16* u, const bf16* v, const bf16* b, const bf16* const* tr, const float* btot,
     const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
     const float* azf, const float* fff, const float* dzc, const float* dzf, float* Gu, float* Gv,
-    float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int wall_v,
-    float eps, int mom, int ke, int trs, void* stream) {
+    float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int metric2d,
+    int wall_v, float eps, int mom, int ke, int trs, void* stream) {
   return launch_unfused<bf16>(u, v, b, tr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
-                              Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps, mom, ke,
-                              trs, stream);
+                              Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, metric2d, wall_v, eps,
+                              mom, ke, trs, stream);
 }
 
 // The launch shape of one instance (ntr, immersed, metric2d; form 0 the
@@ -506,16 +503,12 @@ extern "C" int zslab_tendencies_info(int ntr, int immersed, int metric2d, int fo
                                      int* out) {
   using Info = cudaError_t (*)(int*);
   if (form != 0) {
-    if (ntr < 1 || ntr > 2 || immersed || metric2d || (ntr == 1 && !general))
+    if (form > 2 || ntr < 1 || ntr > kMaxTracers || immersed || (ntr == 1 && !general))
       return static_cast<int>(cudaErrorInvalidValue);
-    // [form - 1][general][ntr - 1]
-    static const Info unfused[2][2][2] = {
-        {{nullptr, info<2, false, false, false, float>},
-         {info<1, false, false, false, float, true>, info<2, false, false, false, float, true>}},
-        {{nullptr, info<2, false, false, false, bf16>},
-         {info<1, false, false, false, bf16, true>, info<2, false, false, false, bf16, true>}},
-    };
-    return static_cast<int>(unfused[form - 1][general ? 1 : 0][ntr - 1](out));
+    static const Info f32[2][4][2] = GB25_K1_UNFUSED_TABLE(info, float);
+    static const Info h16[2][4][2] = GB25_K1_UNFUSED_TABLE(info, bf16);
+    return static_cast<int>(
+        (form == 1 ? f32 : h16)[general ? 1 : 0][ntr - 1][metric2d ? 1 : 0](out));
   }
   if (ntr < 1 || ntr > kMaxTracers || (metric2d && !immersed) || (ntr == 1 && !general))
     return static_cast<int>(cudaErrorInvalidValue);

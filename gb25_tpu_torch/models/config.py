@@ -26,9 +26,13 @@ BUOYANCY_TRACERS = (("T", "S"), ("b",))
 # "float32" K1's unfused float32 instance instead. "f32x2" is the JAX
 # package's double-single arithmetic (ops/multifloat.py): the port computes
 # it in native float64, which the H100 has (a deviation, ROADMAP.md
-# section 3).
+# section 3). On the "pallas" route "float32" and "bfloat16" run K6 on
+# copies in that dtype (``K6_COMPUTE_DTYPES``); "float64" and "f32x2" run
+# the array path (the JAX package's K6 in float64 runs in interpret mode
+# only: a deviation, ROADMAP.md section 3).
 ARRAY_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64,
                         "f32x2": torch.float64}
+K6_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 COMPUTE_DTYPES = (None, "float32", "bf16s", *ARRAY_COMPUTE_DTYPES)
 # what the JAX package's run scripts make of --target-float-type f16, f8E5M2
 # and f8E4M3: it runs them, and they go non-finite within 2 steps
@@ -111,12 +115,16 @@ class HydrostaticConfig:
     "float64" or "f32x2" (the tendency stage runs the array path on copies
     of the fields, f and the grid in that dtype, native float64 for
     "f32x2"), or "bf16s" (K1 reads u, v, the tracers and b rounded to
-    bfloat16 and computes in float32). The state and its update stay in the
-    storage precision, and the AB2 update is unfused. "float16" and the
-    float8 modes are not ported (they go non-finite in the JAX package:
-    ROADMAP.md section 1, "Not to port"), nor is "bf16x2" (item 14), any
-    ``compute_dtype`` on the "pallas" route (item 11) or with CATKE or
-    k-epsilon (item 12)."""
+    bfloat16 and computes in float32). On the "pallas" route "float32" and
+    "bfloat16" run K6 on copies of the fields, f and the grid in that dtype
+    (K6's bfloat16 instance computes in float32 and rounds its outputs to
+    bfloat16), "float64" and "f32x2" the array path, and "bf16s" is refused,
+    as in the JAX package. The state and its update stay in the storage
+    precision, and the AB2 update is unfused; a closure's diffusivities (K4)
+    read the state-precision fields and their own buoyancy, as the JAX
+    package's closure does. "float16" and the float8 modes are not ported
+    (they go non-finite in the JAX package: ROADMAP.md section 1, "Not to
+    port"), nor is "bf16x2" (item 14)."""
 
     tracers: tuple = ("T", "S")
     momentum_advection: str = "weno_vector_invariant"
@@ -174,13 +182,6 @@ class HydrostaticConfig:
             raise ValueError("compute_dtype='bf16s' (bf16 storage, f32 compute) is a mode of "
                              "kernel K1: run it with kernels 'auto' or 'torch'; for the array "
                              "path use compute_dtype='bfloat16'")
-        if self.kernels == "pallas":
-            raise NotImplementedError(f"compute_dtype={cd!r} on the kernels='pallas' route is "
-                                      "not ported: ROADMAP.md section 1 item 11")
-        if isinstance(self.closure, (CATKEVerticalDiffusivity,
-                                     TKEDissipationVerticalDiffusivity)):
-            raise NotImplementedError(f"compute_dtype={cd!r} with the {type(self.closure).__name__}"
-                                      " closure is not ported: ROADMAP.md section 1 item 12")
 
     @property
     def g(self):
@@ -204,5 +205,8 @@ class HydrostaticConfig:
 
     @property
     def array_dtype(self):
-        """The torch dtype of the cast array tendency path, or None."""
+        """The torch dtype of the cast array tendency path, or None (K1, or
+        K6 on the "pallas" route)."""
+        if self.kernels == "pallas" and self.compute_dtype in K6_COMPUTE_DTYPES:
+            return None
         return ARRAY_COMPUTE_DTYPES.get(self.compute_dtype)

@@ -48,9 +48,11 @@ alone and the step forms x* = x + dt (c1 G + c2 G_prev) itself
     "f32x2" (native float64), ``tendency_math`` on copies of the extended
     fields, f and the grid in that dtype, the tendencies cast back;
   - the ``kernels="pallas"`` route, the JAX package's unfused form around
-    kernel K6: the buoyancy runs eagerly only for K4 (step 2 without a
-    closure is gone); K6 computes the tendencies, the buoyancy inside, in
-    place of K1
+    kernel K6 (under "float32" on a state of another dtype, or
+    "bfloat16", on copies of the fields, f and the grid in that dtype:
+    ``k6_operand_dtype``; "float64" and "f32x2" take the array path): the
+    buoyancy runs eagerly only for K4 (step 2 without a closure is gone);
+    K6 computes the tendencies, the buoyancy inside, in place of K1
     (step 4); the increments of step 5 touch the tendencies alone; the free
     surface integrates u, u* and c1 G + c2 G_prev over depth and runs the
     blocked solve (blocks of W substeps in K5; serially on a 1x1 tile of its
@@ -66,11 +68,17 @@ explicit free surface reads eta's exchanged ghosts, the scalar closure runs
 on the tile's columns as it is, and the cast array path casts the tile's
 grid.
 
+Under a ``compute_dtype`` the closure (K4) reads the state-precision
+fields and a buoyancy of its own, as the JAX package's closure does: on a
+float64 state under "float32" K1's float32 b would move N^2 by an ulp of
+float32, which can flip its sign.
+
 Which kernel a step launches follows its operands' dtype
 (``utils.cuda_build.kernel_route``): float32 operands on the card launch
 them, a float64 or float16 state takes every plain version under "auto"
 (the JAX package's gates send it to the array path), except K1 under
-"float32" and "bf16s", whose operands are the float32 copies.
+"float32" and "bf16s", whose operands are the float32 copies; K6 also
+launches on bfloat16 copies.
 """
 
 from __future__ import annotations
@@ -85,7 +93,11 @@ from gb25_tpu_torch.grids.immersed import face_bottom_planes, face_masks, interi
 from gb25_tpu_torch.grids.tripolar import north_fold_projection
 from gb25_tpu_torch.parallel.fold import north_fold_projection_dist
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
-from gb25_tpu_torch.models.config import ExplicitFreeSurface, VerticalScalarDiffusivity
+from gb25_tpu_torch.models.config import (
+    K6_COMPUTE_DTYPES,
+    ExplicitFreeSurface,
+    VerticalScalarDiffusivity,
+)
 from gb25_tpu_torch.models.device_loop import run_loop
 from gb25_tpu_torch.models.free_surface import (
     barotropic_substep,
@@ -257,33 +269,37 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
     k1 = cfg.kernels != "pallas" and cast is None  # the K1 routes
     bf16s = cfg.compute_dtype == "bf16s"
     dtype = state.u.dtype
-    kdt = k1_operand_dtype(cfg, dtype)
-    grid_k, ue_k, ve_k, tr_k = grid, ue, ve, tr_e  # K1's operands
-    if k1 and kdt is not None:
+    kdt = (k1_operand_dtype if k1 else k6_operand_dtype)(cfg, dtype)
+    grid_k, ue_k, ve_k, tr_k = grid, ue, ve, tr_e  # the tendency kernel's operands
+    if kdt is not None:
         def copy(x):  # bf16s rounds the state itself, as the JAX package does
             return (x.to(torch.bfloat16) if bf16s else x).to(kdt)
 
         grid_k, ue_k, ve_k = grid.cast(kdt), copy(ue), copy(ve)
         tr_k = {k: copy(c) for k, c in tr_e.items()}
-    be = b_total = None
+    be = b_total = None  # K1's buoyancy operands
     if k1 and not bf16s:
         with record_function("step/teos10"):
-            # once per step: K4 and K1 both read it
             be, b_total = column_buoyancy(cfg, grid_k, tr_k)
-    elif cfg.closure is not None and not isinstance(cfg.closure, VerticalScalarDiffusivity):
-        with record_function("step/teos10"):
-            be = buoyancy_field(cfg, grid, tr_e)  # K4's alone: K6 evaluates its own
+    be_c = None  # the closure's: of the state-precision fields, as in the JAX package
+    if isinstance(cfg.closure, (CATKEVerticalDiffusivity, TKEDissipationVerticalDiffusivity)):
+        if be is not None and grid_k is grid:
+            be_c = be  # once per step: K4 and K1 both read it
+        else:
+            with record_function("step/teos10"):
+                be_c = buoyancy_field(cfg, grid, tr_e)  # K4's alone
 
     diffusivities = None
     if isinstance(cfg.closure, CATKEVerticalDiffusivity):
         with record_function("step/K4_catke"):
-            ku, kc, ke, G_e, lam_e = catke_diffusivities_kernel(cfg, grid, ue, ve, be, tr_e["e"])
+            ku, kc, ke, G_e, lam_e = catke_diffusivities_kernel(cfg, grid, ue, ve, be_c,
+                                                                tr_e["e"])
         diffusivities = {"kappa_u": ku, "kappa_c": kc, "kappa_e": ke, "lam_e": lam_e,
                          "G_e": G_e}
     elif isinstance(cfg.closure, TKEDissipationVerticalDiffusivity):
         with record_function("step/K4_keps"):
             ku, kc, ke, keps, G_e, G_eps = keps_diffusivities_kernel(
-                cfg, grid, ue, ve, be, tr_e["e"], tr_e["eps"])
+                cfg, grid, ue, ve, be_c, tr_e["e"], tr_e["eps"])
         diffusivities = {"kappa_u": ku, "kappa_c": kc, "kappa_e": ke, "kappa_eps": keps,
                          "G_e": G_e, "G_eps": G_eps}
 
@@ -307,8 +323,10 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
             Gu, Gv, Gtr = array_tendencies(cfg, grid, ue, ve, tr_e, cast)
     else:
         with record_function("step/K6_tendencies"):
-            f_ff = coriolis_ff(grid, cfg.coriolis).to(ue.dtype)
-            Gu, Gv, Gtr = pallas_tendencies(cfg, grid, f_ff, ue, ve, tr_e)
+            f_ff = coriolis_ff(grid, cfg.coriolis).to(dtype).to(ue_k.dtype)
+            Gu, Gv, Gtr = pallas_tendencies(cfg, grid_k, f_ff, ue_k, ve_k, tr_k)
+        if kdt is not None:
+            Gu, Gv, Gtr = Gu.to(dtype), Gv.to(dtype), {k: g.to(dtype) for k, g in Gtr.items()}
     Geta = None
     if isinstance(cfg.free_surface, ExplicitFreeSurface):
         with record_function("step/explicit_free_surface"):
@@ -336,6 +354,17 @@ def k1_operand_dtype(cfg, dtype):
     if cfg.compute_dtype in ("float32", "bf16s") and dtype != torch.float32:
         return torch.float32
     return None
+
+
+def k6_operand_dtype(cfg, dtype):
+    """The dtype of the copies K6 reads on the "pallas" route for a
+    ``dtype`` state, or None (K6 reads the fields themselves): float32
+    under "float32" on a state of another dtype, bfloat16 under
+    "bfloat16" (K6's bfloat16 instance). The JAX package casts the
+    fields, f and the grid to the compute dtype and hands them to its
+    kernel; so does the port."""
+    cdt = K6_COMPUTE_DTYPES.get(cfg.compute_dtype)
+    return cdt if cdt is not None and cdt != dtype else None
 
 
 def array_tendencies(cfg, grid, ue, ve, tr_e, cdt):

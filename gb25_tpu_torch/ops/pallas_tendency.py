@@ -13,6 +13,12 @@ general instances (the scheme codes and the buoyancy's mode read at run
 time); every instance is bit for bit with ``pallas_tendencies_plain``. On
 the tripolar grid the metrics and f are 2-D planes. ``split=True`` runs the
 same stage as two launches, momentum then tracers, each recomputing w.
+On bfloat16 operands (the fields, f and the grid cast to bfloat16, as the
+JAX package hands them to its kernel under ``compute_dtype="bfloat16"``)
+the bfloat16 instances (general, one launch) widen them and the grid to
+float32, compute in float32 and round each output to bfloat16 once; the
+JAX kernel rounds every operation in bfloat16 (a deviation, ROADMAP.md
+section 3).
 The inputs come halo-filled and immersed-masked: K6 has no fold, mask or
 wall logic, and no AB2 update (the ``kernels="pallas"`` route of
 ``models.hydrostatic`` applies those).
@@ -48,13 +54,18 @@ _PTRS = ctypes.c_void_p * _MAX_TRACERS  # one pointer per tracer slot, unused sl
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _MODES = {"all": 0, "momentum": 1, "tracers": 2}
 
+_STAGE = [_P] * 4 + [_PP] + [_P] * 12 + [_PP] + [_I] * 9 + [_F] * 12 + [_I] * 4 + [_P]
 KERNEL = CudaKernel(
     "tendencies.cu",
-    {"tendencies_f32": [_P] * 4 + [_PP] + [_P] * 12 + [_PP] + [_I] * 9 + [_F] * 12 + [_I] * 4
-     + [_P],
-     "tendencies_info": [_I] * 4 + [ctypes.POINTER(_I)]},
+    {"tendencies_f32": _STAGE,
+     "tendencies_bf16": _STAGE,
+     "tendencies_info": [_I] * 4 + [ctypes.POINTER(_I)],
+     "tendencies_bf16_info": [_I] * 2 + [ctypes.POINTER(_I)]},
     extra_flags=("-fmad=false",),
 )
+# the operand dtypes K6 has instances for: float32, and bfloat16 (the
+# "pallas" route under compute_dtype="bfloat16")
+DTYPES = (torch.float32, torch.bfloat16)
 # the same library's TEOS-10 entry, for checks only (its own launch count)
 EOS_KERNEL = CudaKernel(
     "tendencies.cu",
@@ -103,7 +114,7 @@ def pallas_tendencies(cfg, grid, f_ff, ue, ve, tr_e, split=False):
     Nx+2hx) ue, ve and tracers ``tr_e`` ({"T", "S"} or {"b"}, plus "e"
     with CATKE, plus "e", "eps" with k-epsilon); ``f_ff``: the Coriolis
     parameter at corners, ``operators.coriolis_ff``."""
-    if not uses_kernel(cfg, ue):
+    if not uses_kernel(cfg, ue, DTYPES):
         return pallas_tendencies_plain(cfg, grid, f_ff, ue, ve, tr_e, split)
     if split:
         Gu, Gv = tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, "momentum")
@@ -115,12 +126,22 @@ def pallas_tendencies_plain(cfg, grid, f_ff, ue, ve, tr_e, split=False):
     """The plain PyTorch version of K6 (any dtype, any device): the
     port's ``tendency_math`` on the extended tensors, cut to the interior,
     with the hydrostatic pressure of ``sequential_pressure``; with
-    ``split``, the tracer half recomputes w, as the JAX kernel's does."""
+    ``split``, the tracer half recomputes w, as the JAX kernel's does. On
+    bfloat16 operands the twin of the bfloat16 instances: the float32
+    version on the widened operands and grid (``grid.cast``, kept in the
+    grid's cache), each output rounded to bfloat16."""
     from gb25_tpu_torch.models.hydrostatic import (
         buoyancy_field,
         momentum_tendency_math,
         tracer_tendency_math,
     )
+
+    if ue.dtype == torch.bfloat16:
+        bf = torch.bfloat16
+        Gu, Gv, Gtr = pallas_tendencies_plain(
+            cfg, grid.cast(torch.float32), f_ff.float(), ue.float(), ve.float(),
+            {k: c.float() for k, c in tr_e.items()}, split)
+        return Gu.to(bf), Gv.to(bf), {k: g.to(bf) for k, g in Gtr.items()}
 
     we = diagnose_w(grid, ue, ve)
     pe = sequential_pressure(grid, buoyancy_field(cfg, grid, tr_e))
@@ -148,11 +169,20 @@ def sequential_pressure(grid, be):
 
 
 def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
-    """Launch the CUDA kernel alone on f32 CUDA tensors. ``which``: "all"
+    """Launch the CUDA kernel alone on float32 CUDA tensors, or on bfloat16
+    ones (the bfloat16 instances, ``which="all"`` only; the grid and f are
+    widened to float32 and the outputs are bfloat16). ``which``: "all"
     returns (Gu, Gv, {tracer: G}), "momentum" (Gu, Gv), "tracers"
     {tracer: G}."""
     dev = ue.device
     f32 = torch.float32
+    dtype = ue.dtype
+    if dtype not in DTYPES:
+        raise ValueError(f"K6 reads float32 or bfloat16 fields, got {dtype}")
+    if dtype == torch.bfloat16 and which != "all":
+        raise ValueError("K6's bfloat16 instances compute the whole stage in one launch")
+    if grid.dtype == torch.bfloat16:  # the bfloat16 grid's metrics, widened
+        grid, f_ff = grid.cast(f32), f_ff.float()
     hx, hy, hz = grid.halo
     Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
     if min(hx, hy, hz) < 3:
@@ -165,7 +195,7 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
                          f"got {names}")
     ext = (Nz + 2 * hz, Ny + 2 * hy, Nx + 2 * hx)
     for name, t in (("ue", ue), ("ve", ve), *tr_e.items()):
-        check_tensor(t, name, ext, f32, dev)
+        check_tensor(t, name, ext, dtype, dev)
 
     # y profiles, or (Y, X) planes flattened on the tripolar grid
     prof = [m.reshape(-1).contiguous() for m in
@@ -178,7 +208,7 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
         check_tensor(t, name, (ext[0],), f32, dev)
 
     def new3():
-        return torch.empty((Nz, Ny, Nx), dtype=f32, device=dev)
+        return torch.empty((Nz, Ny, Nx), dtype=dtype, device=dev)
 
     Gu = Gv = None
     Gtr = {}
@@ -193,7 +223,7 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         KERNEL.launch(
-            "tendencies_f32",
+            "tendencies_f32" if dtype == f32 else "tendencies_bf16",
             ue.data_ptr(), ve.data_ptr(), tr_e[buoyant[0]].data_ptr(),
             tr_e[buoyant[-1]].data_ptr(), ptrs(tr_e.values()),
             *[t.data_ptr() for t in prof + zprof],
@@ -210,10 +240,15 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
     return Gu, Gv, Gtr
 
 
-def kernel_info(ntr, which, metric2d, general=False):
+def kernel_info(ntr, which, metric2d, general=False, dtype=torch.float32):
     """One instance's launch shape on the current CUDA device (see
     ``pallas_zslab.kernel_info``); for ``which="momentum"`` ``ntr`` counts
-    the launch's buoyancy fields (2: T and S; 1: b)."""
+    the launch's buoyancy fields (2: T and S; 1: b). ``dtype=bfloat16``:
+    the bfloat16 instance (general, ``which="all"``)."""
+    if dtype == torch.bfloat16:
+        if which != "all" or not general:
+            raise ValueError("K6's bfloat16 instances are general and one launch")
+        return launch_info(KERNEL, "tendencies_bf16_info", ntr, int(metric2d))
     return launch_info(KERNEL, "tendencies_info", ntr, _MODES[which], int(metric2d),
                        int(general))
 

@@ -28,9 +28,8 @@ are rounded to bfloat16, b is the equation of state in float32 of the
 rounded T and S, rounded to bfloat16 (or the rounded b tracer), and its
 column total is summed in float32 (``bf16_operands``); the arithmetic
 stays float32, as the JAX kernel's bf16-storage mode widens its windows.
-Its CUDA instances cover one and two tracers on lat-lon metric columns;
-other unfused combinations run on the CPU only (ROADMAP.md section 1 item
-15).
+The unfused instances, float32 and bf16-storage, take one to four tracers
+on lat-lon metric columns or on the tripolar grid's planes.
 
 ``zslab_tendencies`` launches the CUDA kernel (``csrc/zslab_tendencies.cu``)
 for CUDA tensors under ``kernels="auto"`` and runs ``zslab_tendencies_plain``
@@ -54,7 +53,7 @@ _MAX_TRACERS = 4
 _PTRS = ctypes.c_void_p * _MAX_TRACERS  # one pointer per tracer slot, unused slots null
 _PP = ctypes.POINTER(ctypes.c_void_p)
 
-_UNFUSED = [_P] * 3 + [_PP] + [_P] * 10 + [_P] * 2 + [_PP] + [_I] * 8 + [_F] + [_I] * 3 + [_P]
+_UNFUSED = [_P] * 3 + [_PP] + [_P] * 10 + [_P] * 2 + [_PP] + [_I] * 9 + [_F] + [_I] * 3 + [_P]
 KERNEL = CudaKernel(
     "zslab_tendencies.cu",
     {"zslab_tendencies_f32": [_P] * 3 + [_PP] + [_P] * 15 + [_PP] + [_P] * 2 + [_PP]
@@ -263,19 +262,17 @@ def _metric_profiles(cfg, grid, dev):
 
 def zslab_kernel_unfused(cfg, grid, ue, ve, tr_e, be, b_total, wall_v=True):
     """Launch an unfused instance alone on CUDA tensors: u, v, b and the
-    tracers float32 (the float32 instance) or bfloat16 (the bf16-storage
-    instance, on ``bf16_operands``), ``b_total`` float32. One or two
-    tracers on lat-lon metric columns; returns (Gu, Gv, Gtr) in float32."""
+    tracers float32 (the float32 instances) or bfloat16 (the bf16-storage
+    instances, on ``bf16_operands``), ``b_total`` float32. One to four
+    tracers, the metrics as columns or (tripolar) planes; returns (Gu, Gv,
+    Gtr) in float32."""
     dev = ue.device
     f32 = torch.float32
     hx, hy, hz = grid.halo
     Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
     names = list(tr_e)
-    if len(names) > 2 or grid.north_fold:
-        raise NotImplementedError(
-            f"K1's unfused instances run one or two tracers on lat-lon metric columns, got {names}"
-            f"{' on the tripolar grid' if grid.north_fold else ''}: the other unfused instances "
-            "are queued in ROADMAP.md section 1 item 15")
+    if not 1 <= len(names) <= _MAX_TRACERS:
+        raise ValueError(f"K1 advects 1 to {_MAX_TRACERS} tracers, got {names}")
     if min(hx, hy, hz) < 3:
         raise ValueError(f"K1 needs halos >= 3 (WENO-5 radius), got {grid.halo}")
     dtype = ue.dtype
@@ -298,8 +295,8 @@ def zslab_kernel_unfused(cfg, grid, ue, ve, tr_e, be, b_total, wall_v=True):
             _PTRS(*[t.data_ptr() for t in tr_e.values()]), b_total.data_ptr(),
             *[t.data_ptr() for t in prof + zprof[:2]],
             Gu.data_ptr(), Gv.data_ptr(), _PTRS(*[t.data_ptr() for t in Gtr.values()]),
-            len(names), Nx, Ny, Nz, hx, hy, hz, int(wall_v), float(cfg.weno_eps),
-            *cfg.scheme_codes, stream,
+            len(names), Nx, Ny, Nz, hx, hy, hz, int(grid.north_fold), int(wall_v),
+            float(cfg.weno_eps), *cfg.scheme_codes, stream,
         )
     return Gu, Gv, Gtr
 
@@ -307,7 +304,8 @@ def zslab_kernel_unfused(cfg, grid, ue, ve, tr_e, be, b_total, wall_v=True):
 def kernel_info(ntr, immersed, metric2d, form="fused", general=False):
     """One instance's launch shape on the current CUDA device: registers
     per thread, shared memory per block (bytes), the tile (x, y) and the
-    blocks one SM holds. ``form``: one of ``FORMS``; ``general``: the
-    general instance (other schemes, or one tracer)."""
+    blocks one SM holds. ``form``: one of ``FORMS`` (the unfused forms
+    have no immersed instance); ``general``: the general instance (other
+    schemes, or one tracer)."""
     return launch_info(KERNEL, "zslab_tendencies_info", ntr, int(immersed), int(metric2d),
                        FORMS.index(form), int(general))

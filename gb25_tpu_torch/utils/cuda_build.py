@@ -135,18 +135,20 @@ def check_tensor(t, name, shape, dtype, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def kernel_route(kernels, device_type, dtype) -> bool:
+def kernel_route(kernels, device_type, dtype, dtypes=(torch.float32,)) -> bool:
     """The dispatch rule of every kernel, from the operand's device and
     dtype alone: "torch" always runs the plain version; "auto" and "pallas"
-    run it on the CPU and launch the CUDA kernel for a float32 CUDA
-    operand. A CUDA operand of another dtype (a float64 or float16 state)
+    run it on the CPU and launch the CUDA kernel for a CUDA operand of a
+    dtype the kernel reads (``dtypes``: float32; K6 also bfloat16, its
+    instance for ``compute_dtype="bfloat16"`` on the "pallas" route). A
+    CUDA operand of another dtype (a float64 or float16 state)
     takes the plain version under "auto", as the JAX package's
     ``*_supported`` gates send a non-float32 ``ue`` to its array path, and
     raises under "pallas", which names the kernels: the Mosaic lowering
     would refuse it. (Under "float32" and "bf16s" the step hands K1 float32
     copies of such a state, as the JAX package casts them:
-    ``models.hydrostatic.k1_operand_dtype``.) The kernel wrappers
-    themselves take float32 only."""
+    ``models.hydrostatic.k1_operand_dtype``, and K6 copies in the
+    compute dtype: ``k6_operand_dtype``.)"""
     if kernels == "torch":
         return False
     if kernels not in ("auto", "pallas"):
@@ -155,7 +157,7 @@ def kernel_route(kernels, device_type, dtype) -> bool:
         return False
     if device_type != "cuda":
         raise ValueError(f"kernels={kernels!r} has no kernel for device {device_type}")
-    if dtype == torch.float32:
+    if dtype in dtypes:
         return True
     if kernels == "pallas":
         raise NotImplementedError(f'kernels="pallas" on a {dtype} state: the kernels take '
@@ -163,9 +165,9 @@ def kernel_route(kernels, device_type, dtype) -> bool:
     return False
 
 
-def uses_kernel(cfg, t) -> bool:
+def uses_kernel(cfg, t, dtypes=(torch.float32,)) -> bool:
     """``kernel_route`` for the operand ``t`` under ``cfg.kernels``."""
-    return kernel_route(cfg.kernels, t.device.type, t.dtype)
+    return kernel_route(cfg.kernels, t.device.type, t.dtype, dtypes)
 
 
 def launch_info(kernel, name, *args, extra=()) -> dict:

@@ -13,11 +13,14 @@ baroclinic-instability ocean, the coupled climate model at 1/4 degree on
 the lat-lon islands grid or on the tripolar grid, the flagship with the
 k-epsilon closure (started from e = 1e-5, eps = 1e-8), or the
 shallow-water model of ``bench.py --config atmosphere`` at 1536x768.
-``--kernels pallas`` runs the K6 route (``models.hydrostatic``). On the
-flagship, ``--compute-dtype``, ``--closure vertical_scalar`` and
-``--free-surface explicit`` take the run scripts' further choices (the
-JAX package's ``utils/args.py``): a precision mode (K1's bf16-storage
-instance, or the cast array path, ``step/tendency_array``), the vertical
+``--kernels pallas`` runs the K6 route (``models.hydrostatic``).
+``--compute-dtype`` and ``--free-surface explicit`` reach every model but
+shallow water (the climate's as ``bench.py --config climate
+--compute-dtype`` sets its ocean's), ``--closure vertical_scalar`` the
+flagship: the run scripts' further choices (the JAX package's
+``utils/args.py``): a precision mode (K1's unfused float32 or
+bf16-storage instance, K6's bfloat16 instance on the K6 route, or the cast
+array path, ``step/tendency_array``), the vertical
 scalar closure (K3's constant-kappa pair) and the explicit free surface
 (K1 unfused, ``step/explicit_free_surface``; run it at ``--dt 5``: the
 quasi-AB2 step damps the fastest gravity wave of the 80-degree rows only
@@ -243,7 +246,11 @@ def main():
         grid_type = "gaussian_islands_tripolar" if args.model == "tripolar" else "gaussian_islands"
         ccfg, grid, atmos, state = data_free_ocean_climate_model(
             resolution=384 / NX, Nz=NZ, kernels=args.kernels, grid_type=grid_type)
-        ccfg = dataclasses.replace(ccfg, ocean=blocked(ccfg.ocean))
+        ocean = ccfg.ocean
+        if args.free_surface == "explicit":
+            ocean = dataclasses.replace(ocean, free_surface=ExplicitFreeSurface())
+        ocean = dataclasses.replace(blocked(ocean), compute_dtype=args.compute_dtype)
+        ccfg = dataclasses.replace(ccfg, ocean=ocean)
         if args.decomposed:
             fn = sharded_coupled_step_fn(ccfg, grid, atmos, make_mesh(),
                                          force_comm=args.decomposed)
@@ -267,7 +274,7 @@ def main():
     rows, stages, wall_ms, state = step_breakdown(eager, state, args.steps)
     busy = sum(r[1] for r in rows)
     route = f" decomposed 1x1 {args.decomposed}" if args.decomposed else ""
-    if args.model == "flagship":
+    if args.model != "shallow_water":
         route += "".join(f" {k}={v}" for k, v in (("compute_dtype", args.compute_dtype),
                                                    ("closure", args.closure),
                                                    ("free_surface", args.free_surface), ("dt", dt))

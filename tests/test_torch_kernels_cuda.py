@@ -999,13 +999,15 @@ def test_k1_unfused_matches_plain(cuda, storage, shape):
     assert max(float((a - c).abs().max()) for a, _, c in flat) > 0.0
 
 
-def test_k1_unfused_refuses_other_instances(cuda):
+def test_k1_unfused_climate_instance_matches_plain(cuda):
+    """The climate's three tracers (T, S, e) on the islands grid, which the
+    unfused instances once refused: one launch of the lat-lon instance (the
+    unfused form has no immersed variant), at K1's tolerances."""
     ccfg, grid, atmos, state = data_free_ocean_climate_model(resolution=3.0, Nz=8, device=cuda)
     ue = extend_field(grid, state.u, "u")
     ve = extend_field(grid, state.v, "v")
     tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pallas_zslab.zslab_tendencies(ccfg.ocean, grid, ue, ve, tr_e)
+    _check_k1_unfused(ccfg.ocean, grid, ue, ve, tr_e, None)
 
 
 @pytest.mark.parametrize("Nx", [31, 96, 100])
@@ -1267,30 +1269,18 @@ def test_k1_general_unfused_matches_plain(cuda, combo, storage):
     """K1's general unfused instances (float32 and bfloat16 storage) at
     K1's tolerances: every scheme combination with two tracers, and the
     one-tracer b instance."""
-    cfg, grid, ue, ve, tr_e, be, b_total, _ = _general_operands(cuda, "flat", combo == "b_tracer")
+    cfg, grid, ue, ve, tr_e, _, _, _ = _general_operands(cuda, "flat", combo == "b_tracer")
     if combo != "b_tracer":
         cfg = _schemes(cfg, combo)
-    st = torch.bfloat16 if storage == "bf16" else None
-    before = pallas_zslab.KERNEL.launches
-    got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, buoyancy=(be, b_total),
-                                        storage=st)
-    torch.cuda.synchronize()
-    assert pallas_zslab.KERNEL.launches == before + 1
-    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, be=be, storage=st)
-    _close(got[0], want[0], 2e-4, 1e-9)
-    _close(got[1], want[1], 2e-4, 1e-9)
-    for k in tr_e:
-        _close(got[2][k], want[2][k], 2e-4, 1e-7)
-    assert float(got[1][:, 0, :].abs().max()) == 0.0
-    form = "unfused" if st is None else "unfused_bf16"
-    assert pallas_zslab.kernel_info(len(tr_e), False, False, form, general=True)["registers"] > 0
+    _check_k1_unfused(cfg, grid, ue, ve, tr_e, torch.bfloat16 if storage == "bf16" else None,
+                      general=True)
 
 
-def test_k1_unfused_still_refuses_three_tracers(cuda):
+def test_k1_unfused_general_three_tracers_matches_plain(cuda):
+    """A general unfused instance with three tracers on the islands grid,
+    which the unfused instances once refused, at K1's tolerances."""
     cfg, grid, ue, ve, tr_e, be, b_total, _ = _general_operands(cuda, "immersed")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        pallas_zslab.zslab_tendencies(_schemes(cfg, "none-hollingsworth-upwind1"), grid, ue, ve,
-                                      tr_e)
+    _check_k1_unfused(_schemes(cfg, "none-hollingsworth-upwind1"), grid, ue, ve, tr_e, None)
 
 
 def _check_k6_bitwise(cfg, grid, ue, ve, tr_e):
@@ -1388,3 +1378,178 @@ def test_scheme_route_step_matches_plain_step(cuda, name):
     assert [k.launches - b for k, b in zip(kernels, before)] == launches
     b = time_step(dataclasses.replace(cfg, kernels="torch"), grid, state, dt)
     _step_close(cfg, grid, state, a, b, route=name == "oracle_schemes_k6")
+
+
+# --------------------------------------------------------------------------
+# every compute_dtype on every route and closure: K1's unfused instances for
+# three and four tracers and on the tripolar planes, K6's bfloat16 instances
+# --------------------------------------------------------------------------
+
+def _check_k1_unfused(cfg, grid, ue, ve, tr_e, storage, general=None):
+    """One launch of K1's unfused form against its plain version at K1's
+    tolerances, the wall row of Gv 0; ``general``: the instance's launch
+    shape is read too."""
+    be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
+    before = pallas_zslab.KERNEL.launches
+    got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, buoyancy=(be, b_total),
+                                        storage=storage)
+    torch.cuda.synchronize()
+    assert pallas_zslab.KERNEL.launches == before + 1
+    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, be=be, storage=storage)
+    _close(got[0], want[0], 2e-4, 1e-9)
+    _close(got[1], want[1], 2e-4, 1e-9)
+    assert list(got[2]) == list(tr_e)
+    for k in tr_e:
+        _close(got[2][k], want[2][k], 2e-4, 1e-7)
+    assert float(got[1][:, 0, :].abs().max()) == 0.0
+    if general is not None:
+        form = "unfused" if storage is None else "unfused_bf16"
+        info = pallas_zslab.kernel_info(len(tr_e), False, grid.north_fold, form, general)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+
+
+def _precision_operands(cuda, geometry, ntr):
+    """Extended operands with ``ntr`` tracers: b alone (1), T and S (2),
+    T, S, e (3), T, S, e, eps (4) on the lat-lon k-epsilon grid (flat) or
+    the tripolar islands grid, with the config that advects them."""
+    if geometry == "flat":
+        cfg, grid, ue, ve, tr_all = _keps_operands(cuda, (128, 64, 8), 21)[:5]
+    else:
+        cfg, grid, ue, ve, tr_all, _, _, noise = _climate_operands(
+            cuda, (128, 64, 8), 22, "gaussian_islands_tripolar")
+        tr_all = {**tr_all, "eps": extend_field(grid, 1e-8 * (1.0 + noise(0.1)), "c")}
+    if ntr == 1:
+        cfg, tr_e, _, _ = _b_operands(cfg, grid, tr_all)
+        return cfg, grid, ue, ve, tr_e
+    names = ("T", "S", "e", "eps")[:ntr]
+    closure = {2: None, 3: CATKEVerticalDiffusivity(),
+               4: TKEDissipationVerticalDiffusivity()}[ntr]
+    cfg = dataclasses.replace(cfg, closure=closure, tracers=names)
+    return cfg, grid, ue, ve, {k: tr_all[k] for k in names}
+
+
+# (tracers, general): the flagship's schemes are compiled for two tracers or more
+UNFUSED_INSTANCES = [(1, True), *((n, g) for n in (2, 3, 4) for g in (False, True))]
+
+
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("ntr,general", UNFUSED_INSTANCES)
+@pytest.mark.parametrize("geometry", ["flat", "tripolar"])
+def test_k1_unfused_instances_match_plain(cuda, geometry, ntr, general, storage):
+    """Every unfused instance, float32 and bf16-storage: one to four
+    tracers, metric columns and tripolar planes, the flagship's schemes
+    compiled in (two tracers or more) and the general instance (the
+    oracle's schemes)."""
+    cfg, grid, ue, ve, tr_e = _precision_operands(cuda, geometry, ntr)
+    if general:
+        cfg = _schemes(cfg, "vector_invariant-standard-centered2")
+    _check_k1_unfused(cfg, grid, ue, ve, tr_e, torch.bfloat16 if storage == "bf16" else None,
+                      general)
+
+
+@pytest.mark.parametrize("ntr", [1, 2, 3, 4])
+@pytest.mark.parametrize("geometry", ["flat", "tripolar"])
+def test_k6_bf16_instances_match_plain_bitwise(cuda, geometry, ntr):
+    """K6's bfloat16 instances (one to four tracers, columns and planes) on
+    the operands, f and the grid cast to bfloat16: one launch, bfloat16
+    outputs bit for bit with the plain twin (float32 arithmetic on the
+    widened operands, each output rounded to bfloat16)."""
+    cfg, grid, ue, ve, tr_e = _precision_operands(cuda, geometry, ntr)
+    bf = torch.bfloat16
+    pallas = dataclasses.replace(cfg, kernels="pallas")
+    args = (pallas, grid.cast(bf), coriolis_ff(grid, cfg.coriolis).to(bf), ue.to(bf), ve.to(bf),
+            {k: c.to(bf) for k, c in tr_e.items()})
+    before = pallas_tendency.KERNEL.launches
+    got = pallas_tendency.pallas_tendencies(*args)
+    torch.cuda.synchronize()
+    assert pallas_tendency.KERNEL.launches == before + 1
+    want = pallas_tendency.pallas_tendencies_plain(*args)
+    assert list(got[2]) == list(tr_e)
+    for g, w in ((got[0], want[0]), (got[1], want[1]), *((got[2][k], want[2][k]) for k in tr_e)):
+        assert g.dtype == bf and torch.isfinite(w).all()
+        assert torch.equal(g, w), float((g.float() - w.float()).abs().max())
+    info = pallas_tendency.kernel_info(ntr, "all", grid.north_fold, general=True, dtype=bf)
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    with pytest.raises(ValueError, match="one launch"):
+        pallas_tendency.pallas_tendencies(*args, split=True)
+
+
+def _precision_route_model(cuda, name):
+    """The config (a CoupledConfig for the climate), grid, atmosphere (or
+    None) and state of one of chip_smoke [39]'s rows at 128x64x8, with its
+    step's launches of K1, K2, K6, K5, K3, K4 (catke or k-epsilon)."""
+    k1, mode, kernels, model = {
+        "climate_bf16s": (1, "bf16s", "auto", "tripolar"),
+        "climate_float32": (1, "float32", "auto", "tripolar"),
+        "keps_float32": (1, "float32", "auto", "keps"),
+        "flagship_k6_bfloat16": (0, "bfloat16", "pallas", "flagship"),
+        "climate_k6_bfloat16": (0, "bfloat16", "pallas", "tripolar"),
+        "climate_explicit": (1, None, "auto", "tripolar"),
+    }[name]
+    if model == "tripolar":
+        ccfg, grid, atmos, state = data_free_ocean_climate_model(
+            resolution=3.0, Nz=8, device=cuda, grid_type="gaussian_islands_tripolar",
+            kernels=kernels)
+        ocean = dataclasses.replace(ccfg.ocean, compute_dtype=mode)
+        if name == "climate_explicit":
+            ocean = dataclasses.replace(ocean, free_surface=ExplicitFreeSurface())
+        cfg, n3, n4 = dataclasses.replace(ccfg, ocean=ocean), 3, 1
+    else:
+        closure = TKEDissipationVerticalDiffusivity() if model == "keps" else None
+        cfg, grid, state = baroclinic_instability_model(128, 64, 8, device=cuda, kernels=kernels,
+                                                        closure=closure)
+        cfg, atmos, ocean = dataclasses.replace(cfg, compute_dtype=mode), None, None
+        n3, n4 = (4, 1) if closure else (0, 0)
+    ocean = ocean or cfg
+    explicit = isinstance(ocean.free_surface, ExplicitFreeSurface)
+    k5 = _k6_route_k5_launches(ocean, grid) if kernels == "pallas" else 0
+    launches = [k1, int(k1 and not explicit), 1 - k1, k5, n3, n4]
+    return cfg, grid, atmos, state, launches
+
+
+PRECISION_ROUTES = ("climate_bf16s", "climate_float32", "keps_float32", "flagship_k6_bfloat16",
+                    "climate_k6_bfloat16", "climate_explicit")
+
+
+@pytest.mark.parametrize("name", PRECISION_ROUTES)
+def test_precision_route_step_matches_plain_step(cuda, name, monkeypatch):
+    """One step of each of chip_smoke [39]'s routes after 8 steps, with its
+    launches a step, against the same route's plain path (every wrapper's
+    plain version: on the K6 route under "bfloat16" the "torch" route would
+    run the K1 route's cast array path), and the device loop against the
+    host loop over 16 steps, bit for bit."""
+    cfg, grid, atmos, state, launches = _precision_route_model(cuda, name)
+    dt = 5.0 if name == "climate_explicit" else 60.0
+    if atmos is None:
+        def step(s):
+            return time_step(cfg, grid, s, dt)
+
+        def run(s, n):
+            return loop(cfg, grid, s, dt, n)
+    else:
+        def step(s):
+            return coupled_time_step(cfg, grid, atmos, s, dt)
+
+        def run(s, n):
+            return coupled_loop(cfg, grid, atmos, s, dt, n)
+    state = run(state, 8)  # from rest Gu is too small for the atol
+    kernels = (pallas_zslab.KERNEL, pallas_barotropic.KERNEL, pallas_tendency.KERNEL,
+               pallas_barotropic.BLOCK_KERNEL, pallas_tridiag.KERNEL,
+               pallas_catke.KEPS_KERNEL if name == "keps_float32" else pallas_catke.KERNEL)
+    before = [k.launches for k in kernels]
+    a = step(state)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == launches
+    replayed = run(state, device_loop.BLOCK_STEPS)
+    host = device_loop.host_loop(functools.partial(
+        coupled_time_step, cfg, grid, atmos, dt=dt, premasked=True) if atmos is not None
+        else functools.partial(time_step, cfg, grid, dt=dt, premasked=True),
+        premask_state(grid, state), device_loop.BLOCK_STEPS)
+    ta, tb = device_loop._tensors(replayed), device_loop._tensors(host)
+    assert [f for f in ta if not torch.equal(ta[f], tb[f])] == []
+    for module in (pallas_zslab, pallas_barotropic, pallas_tendency, pallas_tridiag,
+                   pallas_catke):
+        monkeypatch.setattr(module, "uses_kernel", lambda *args: False)
+    b = step(state)
+    ocean = cfg.ocean if atmos is not None else cfg
+    _step_close(ocean, grid, state, a, b)

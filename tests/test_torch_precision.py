@@ -69,7 +69,7 @@ from gb25_tpu_torch.models import (
 )
 from gb25_tpu_torch.models.catke import CATKEVerticalDiffusivity
 from gb25_tpu_torch.models.config import KERNEL_MODES, NONFINITE_COMPUTE_DTYPES
-from gb25_tpu_torch.models.hydrostatic import k1_operand_dtype
+from gb25_tpu_torch.models.hydrostatic import k1_operand_dtype, k6_operand_dtype
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.ops import (
     pallas_barotropic,
@@ -294,9 +294,15 @@ def test_refused_combinations_raise():
     cfg = baroclinic_instability_config()
     with pytest.raises(ValueError, match="bf16s"):
         dataclasses.replace(cfg, kernels="pallas", compute_dtype="bf16s")
-    for mode in ("bfloat16", "float64", "f32x2"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            dataclasses.replace(cfg, kernels="pallas", compute_dtype=mode)
+    # every other compute_dtype runs on the "pallas" route: K6 on copies in
+    # "float32" or "bfloat16", the float64 array path for "float64", "f32x2"
+    _, grid, state = baroclinic_instability_model(16, 8, 4, device="cpu")
+    for mode, array in (("float32", None), ("bfloat16", None), ("float64", torch.float64),
+                        ("f32x2", torch.float64)):
+        pallas = dataclasses.replace(cfg, kernels="pallas", compute_dtype=mode)
+        assert pallas.array_dtype == array and not pallas.fused
+        out = time_step(pallas, grid, state, DT)
+        assert out.u.dtype == torch.float32 and torch.isfinite(out.u).all()
     with pytest.raises(NotImplementedError, match="item 14"):
         dataclasses.replace(cfg, compute_dtype="bf16x2")
     for mode in NONFINITE_COMPUTE_DTYPES:
@@ -305,11 +311,13 @@ def test_refused_combinations_raise():
     with pytest.raises(ValueError, match="compute_dtype"):
         dataclasses.replace(cfg, compute_dtype="float128")
     assert not dataclasses.replace(cfg, compute_dtype="float32").fused
+    # and every compute_dtype with CATKE and k-epsilon
     for closure in (CATKEVerticalDiffusivity(), TKEDissipationVerticalDiffusivity()):
         with_closure = baroclinic_instability_config(closure=closure)
+        _, grid, state = baroclinic_instability_model(16, 8, 4, device="cpu", closure=closure)
         for mode in ("bf16s", "bfloat16"):
-            with pytest.raises(NotImplementedError, match="item 12"):
-                dataclasses.replace(with_closure, compute_dtype=mode)
+            out = time_step(dataclasses.replace(with_closure, compute_dtype=mode), grid, state, DT)
+            assert all(torch.isfinite(c).all() for c in out.tracers.values())
 
 
 def test_kernel_route_follows_the_state_dtype():
@@ -343,3 +351,16 @@ def test_kernel_route_follows_the_state_dtype():
     for mode in (None, "bfloat16", "float64", "f32x2"):
         cfg = dataclasses.replace(baroclinic_instability_config(), compute_dtype=mode)
         assert k1_operand_dtype(cfg, torch.float64) is None
+    # K6 also reads bfloat16 (its instance for "bfloat16" on the "pallas"
+    # route), on float32 or bfloat16 copies of the state (k6_operand_dtype)
+    bf = torch.bfloat16
+    assert cuda_build.kernel_route("pallas", "cuda", bf, pallas_tendency.DTYPES)
+    assert not cuda_build.kernel_route("auto", "cuda", bf)
+    assert not cuda_build.kernel_route("pallas", "cpu", bf, pallas_tendency.DTYPES)
+    for mode, dtype, want in (("float32", torch.float64, torch.float32),
+                              ("float32", torch.float32, None), ("bfloat16", torch.float32, bf),
+                              ("bfloat16", torch.float64, bf), (None, torch.float64, None),
+                              ("float64", torch.float32, None)):
+        cfg = dataclasses.replace(baroclinic_instability_config(kernels="pallas"),
+                                  compute_dtype=mode)
+        assert k6_operand_dtype(cfg, dtype) == want
