@@ -268,9 +268,41 @@ held the same way.
      free surface at dt = 5 s (1 K1 unfused float32, no K2, 3 K3, 1 K4);
      (j) row (d) on the forced 1x1 tile, "local", W = 30 (1 K1,
      ceil(30 / s) K5, no K2, 3 K3, 1 K4).
+  the production-run path (outputs under smoke_out/, removed after each
+  phase):
+  40. the port's run script in this process, ``python -m
+     gb25_tpu_torch.scripts.ocean_climate_simulation --resolution 0.25
+     --Nz 64 --grid tripolar --dt 60 --sea-ice slab --output-format
+     netcdf`` (1440x680x64, the synthetic restoring and initialization),
+     70 steps in ``Simulation`` chunks of 10: only the Euler step runs
+     eagerly (the run fails if a full chunk ran from the host), per step
+     exactly 1 K1, 1 K2, 3 K3, 1 K4 on the device, the profiler over one
+     more chunk and one host step; the script's own step
+     (``coupled_ice_loop`` with the run's restoring dict, chunks of 10)
+     from the run's last state replayed from the run's graph (no new
+     capture) against the host loop over two chunks, bit for bit on
+     ocean, ice, clock and iteration; K1, K2, K3 and K4 against their
+     plain versions, and timed, on the operands one of its steps gave
+     them at 1440x680x64; the NetCDF record read back, finite fields, land
+     at rest, the ice in bounds; the atmosphere at a model time in the
+     pre-regridded and the gather form (held to each other), the port's
+     ``_increments`` with and without the restoring and the ice's step
+     timed alone; ``Simulation.run``'s ms/step beside [13]'s;
+  41. the slab ice at 1536x768x64 on the islands tripolar grid from a
+     seeded polar cold (T = -2.2 degC poleward of 60 degrees, v = 1 m, a =
+     0.9 poleward of 70) through ``coupled_ice_loop``: 8 + 2x32 steps
+     replayed, the launches of [13] per step with the profiler probe, the
+     device loop against the host loop bit for bit on ocean, ice, clock
+     and iteration, v >= 0, 0 <= a <= 1, no ice on land or equatorward of
+     40 degrees, growth in the cold band; ms/step beside [13]'s;
+  42. kill and resume: ``python -m gb25_tpu_torch.scripts.run_10day
+     --phase all --nx 1536 --nz 64 --dt 60 --days 0.1`` (144 steps, the
+     checkpoint at step 72) as three subprocesses on the card; fails
+     unless ``bitwise_equal`` on all 15 fields; each phase's ms/step with
+     and without its checkpoints and each checkpoint's write time.
 
 Every phase raises on failure, and the script then exits non-zero. [30]
-sums up the ms/step of every path; it is printed last, after [31]-[39],
+sums up the ms/step of every path; it is printed last, after [31]-[42],
 then the script's wall time. Three lines end the output: a JSON
 object with each kernel instance's launches on its main path, error
 against its plain version, times, its bound (the larger of its compulsory
@@ -297,7 +329,9 @@ registers and spills; [37]-[39]'s entries (K1's unfused float32 instance on
 row (e), its bf16-storage instance on row (d), K6's bfloat16 instance on
 row (h), each the tripolar three-tracer instance) carry every instance
 [37] or [38] checked under "instances" and their launches on the other
-rows ((f), (i); (j); (g));
+rows ((f), (i); (j); (g)); the tripolar K1 and K2 entries and the K3 and
+K4 entries carry under "production_routes" their launches on [40] and
+[41] and [40]'s check and times at its width;
 each entry
 of a replayed path carries its launches on the device over the run, the
 method that established them and the device loop's eager and replayed
@@ -319,9 +353,12 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -853,15 +890,16 @@ def phase_k3(cfg, grid, solves):
     return out
 
 
-def phase_k1_instance(cfg, grid, ue, ve, tr_e, be, b_total, prev, label):
+def phase_k1_instance(cfg, grid, ue, ve, tr_e, be, b_total, prev, label, ab=None):
     """K1 against its plain version on the operands of one instance (the
-    immersed integrals where the grid is immersed)."""
+    immersed integrals where the grid is immersed); ``ab``: the AB2
+    coefficients (dt c1, dt c2), by default those of a step of DT."""
     from gb25_tpu_torch.grids.immersed import face_bottom_planes
     from gb25_tpu_torch.ops import pallas_zslab
 
     fb = face_bottom_planes(grid) if grid.immersed else None
-    ab = (float(torch.tensor(DT * 1.6, dtype=torch.float32)),
-          float(torch.tensor(DT * -0.6, dtype=torch.float32)))
+    ab = ab or (float(torch.tensor(DT * 1.6, dtype=torch.float32)),
+                float(torch.tensor(DT * -0.6, dtype=torch.float32)))
     got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab,
                                         buoyancy=(be, b_total), face_bottoms=fb)
     want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be, fb)
@@ -893,11 +931,11 @@ def phase_k2_masked(cfg, grid, ue, ve, gen):
     return time_k2(cfg, grid, eta0, U0, V0, GU, GV, Hu, Hv, mu, mv)
 
 
-def check_climate_state(state, grid):
+def check_climate_state(state, grid, shape=None):
     from gb25_tpu_torch.grids.immersed import interior_masks
     from gb25_tpu_torch.models.free_surface import face_depths
 
-    umax = check_state(state, (NZ, NY, NX))
+    umax = check_state(state, shape or (NZ, NY, NX))
     if float(state.tracers["e"].min()) < 0.0:
         raise AssertionError("e < 0 after the run")
     Hu, Hv = face_depths(grid)
@@ -1059,18 +1097,18 @@ def device_launches(run, names):
     return counts, out
 
 
-def loop_vs_host(label, step_n, host_n, state, loop_ms):
+def loop_vs_host(label, step_n, host_n, state, loop_ms, n=None):
     """The device loop (``step_n``, replayed from its kept graph) against the
-    host loop (``host_n``, every step launched from the host) over
-    BLOCK_STEPS steps from ``state``: bit for bit on every field, the clock
-    and the iteration. Every kernel is deterministic and bit for bit with
-    its plain twin, so a difference is the loop's fault (a stale cache, an
-    aliased buffer, a host scalar baked into the graph). Both timed, the
-    host loop on its second run; ``loop_ms``: the main path's replayed
-    ms/step. Returns the host loop's ms/step."""
+    host loop (``host_n``, every step launched from the host) over ``n``
+    steps (BLOCK_STEPS by default) from ``state``: bit for bit on every
+    field, the clock and the iteration. Every kernel is deterministic and
+    bit for bit with its plain twin, so a difference is the loop's fault (a
+    stale cache, an aliased buffer, a host scalar baked into the graph).
+    Both timed, the host loop on its second run; ``loop_ms``: the main
+    path's replayed ms/step. Returns the host loop's ms/step."""
     from gb25_tpu_torch.models import device_loop
 
-    n = device_loop.BLOCK_STEPS
+    n = n or device_loop.BLOCK_STEPS
     device_loop.STATS.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3356,6 +3394,440 @@ def precision_phases(card):
     return entries, rows
 
 
+# --------------------------------------------------------------------------
+# the production-run path: the run script, the prognostic ice, kill and
+# resume
+# --------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SMOKE_OUT = os.path.join(ROOT, "smoke_out")  # git-ignored; emptied after each phase
+PRODUCTION_RESOLUTION = 0.25  # [40]: the run script's 1440 x 680 tripolar grid
+PRODUCTION_STEPS = 70   # [40]: 7 chunks of 10 at dt = 60 s
+ICE_STEPS = 32          # [41]: the timed loop
+RUN10_DAYS = 0.1        # [42]: 144 steps at dt = 60 s, the checkpoint at step 72
+CLIMATE_PER_STEP = {"K1": 1, "K2": 1, "K3": 3, "K4": 1}
+
+
+def climate_kernels():
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_catke, pallas_tridiag, pallas_zslab
+
+    return {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
+            "K3": pallas_tridiag.KERNEL, "K4": pallas_catke.KERNEL}
+
+
+def probe_chunk(run, per_step, steps, replayed):
+    """The profiler's count of each kernel over ``run()`` (``steps`` steps,
+    ``replayed`` of them from a graph): all of them, or (a profiler blind
+    inside graphs) the host steps' alone; fewer (lost records) repeats, up
+    to PROBE_ATTEMPTS; more fails. Returns (seen, method)."""
+    want = {k: n * steps for k, n in per_step.items()}
+    host = {k: n * (steps - replayed) for k, n in per_step.items()}
+    tries = []
+    for _ in range(PROBE_ATTEMPTS):
+        seen, _ = device_launches(run, per_step)
+        tries.append(seen)
+        if any(seen[k] > want[k] for k in per_step):
+            raise AssertionError(f"the profiler saw {seen} launches over {steps} steps, more "
+                                 f"than {want}")
+        if seen == want:
+            return seen, f"the profiler saw all {steps} probe steps' launches"
+        if seen == host:
+            return seen, (f"the profiler saw the probe's {steps - replayed} host step(s) and no "
+                          f"kernel of its {replayed} replayed steps")
+    raise AssertionError(f"the profiler saw fewer launches than {want} in each of "
+                         f"{PROBE_ATTEMPTS} probes: {tries}")
+
+
+def hold_launches(label, kernels, per_step, steps):
+    """Hold each kernel's launches on the device since the counts were set
+    to 0 to per_step x ``steps``, and the wrappers' counts to per_step x
+    the eager and recorded steps; returns the launches on the device."""
+    from gb25_tpu_torch.models import device_loop
+
+    stats = device_loop.STATS
+    calls = {k: kern.launches for k, kern in kernels.items()}
+    launches = {k: stats.launches(kern) for k, kern in kernels.items()}
+    wrapper_steps = stats.eager_steps + stats.captured_steps
+    if stats.eager_steps + stats.replayed_steps != steps:
+        raise AssertionError(f"{label}: {stats.eager_steps} eager and {stats.replayed_steps} "
+                             f"replayed steps do not make up the {steps} steps")
+    want = {k: n * steps for k, n in per_step.items()}
+    want_calls = {k: n * wrapper_steps for k, n in per_step.items()}
+    if launches != want or calls != want_calls:
+        raise AssertionError(f"{label}: launches on the device {launches} over {steps} steps, "
+                             f"expected {want}; through the wrappers {calls}, expected "
+                             f"{want_calls}")
+    print(f"  launches on the device over {steps} steps: {launches}; through the wrappers "
+          f"{calls} ({stats.eager_steps} eager, {stats.captured_steps} recorded by "
+          f"{stats.captures} captures, {stats.replayed_steps} replayed in {stats.replays} "
+          f"replays)")
+    return launches
+
+
+def capture_step_operands(run_step):
+    """Run ``run_step()`` (one host step) with the step's kernel calls and
+    its increments wrapped; return each one's operands: "K1"
+    (``zslab_tendencies``: cfg, grid, ue, ve, tr_e, prev, ab and the
+    keywords), "K2" (``barotropic_loop``), "K3" (each ``implicit_solve``),
+    "K4" (``catke_diffusivities_kernel``) and "increments" (``_increments``,
+    its tendencies and fused update cloned before the call, which adds to
+    them in place)."""
+    from gb25_tpu_torch.models import free_surface, hydrostatic
+
+    seen = {"K3": []}
+
+    def clone(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(clone(v) for v in x)
+        return x
+
+    def spy(module, name, key):
+        wrapped = getattr(module, name)
+
+        def call(*args, **kw):
+            if key == "K3":
+                seen["K3"].append((args, kw))
+            elif key == "increments":
+                seen[key] = (args[:1] + clone(args[1:3]) + args[3:], kw)
+            else:
+                seen[key] = (args, kw)
+            return wrapped(*args, **kw)
+
+        setattr(module, name, call)
+        return module, name, wrapped
+
+    spies = [spy(hydrostatic, "zslab_tendencies", "K1"),
+             spy(free_surface, "barotropic_loop", "K2"),
+             spy(hydrostatic, "implicit_solve", "K3"),
+             spy(hydrostatic, "catke_diffusivities_kernel", "K4"),
+             spy(hydrostatic, "_increments", "increments")]
+    try:
+        run_step()
+    finally:
+        for module, name, wrapped in spies:
+            setattr(module, name, wrapped)
+    return seen
+
+
+def production_kernels(ops):
+    """K1-K4 against their plain versions (and timed) on the operands one
+    host step of the run script's own step gave them at its width
+    (``capture_step_operands``): K1's tripolar climate instance, K2's fold
+    instance on that grid's tiles, K3's three solves, K4."""
+    (cfg, grid, ue, ve, tr_e, prev, ab), kw = ops["K1"]
+    be, b_total = kw["buoyancy"]
+    print(f"  K1-K4 vs plain on the operands of one host step at {grid.Nx}x{grid.Ny}x{grid.Nz}")
+    k1 = phase_k1_instance(cfg, grid, ue, ve, tr_e, be, b_total, prev, "run script", ab)
+    (c2, g2, eta0, U0, V0, GU, GV, Hu, Hv, dt), kw2 = ops["K2"]
+    if dt != DT:
+        raise AssertionError(f"the run's barotropic step is {dt} s, not {DT}")
+    k2 = time_k2(c2, g2, eta0, U0, V0, GU, GV, Hu, Hv, kw2["mu"], kw2["mv"])
+    names = ("u,v", "T,S", "e")
+    if len(ops["K3"]) != 3:
+        raise AssertionError(f"{len(ops['K3'])} implicit solves in the step, expected 3")
+    solves = {}
+    for name, (args, kw3) in zip(names, ops["K3"]):
+        # implicit_solve(cfg, fields, kappa, dt, a_lam, a_mu, damping=None)
+        solves[name] = (args[1], args[2], kw3.get("damping", args[6] if len(args) > 6 else None))
+    k3 = phase_k3(cfg, grid, solves)
+    (c4, g4, ue4, ve4, be4, ee4), _ = ops["K4"]
+    k4, _ = phase_k4(c4, g4, ue4, ve4, be4, ee4)
+    substeps = cfg.free_surface.substeps
+    out = {}
+    for key, res, b in (("K1", k1, k1_bound(cfg, grid, 3, True)),
+                        ("K2", k2, k2_bound(grid, substeps, True)),
+                        ("K3", k3, (k3["bound_ms"], "bytes")), ("K4", k4, k4_bound(grid))):
+        out[key] = {"max_abs_err": res["max_abs_err"], "ms": res["ms"],
+                    "plain_ms": res["plain_ms"], "bound_ms": b[0], "bound_by": b[1],
+                    "shape": [grid.Nx, grid.Ny, grid.Nz]}
+    out["K2"]["bitwise"] = k2["bitwise"]
+    out["K2"]["tiles"] = {k: k2["launch"][k] for k in ("tile", "grid", "instance")}
+    return out
+
+
+def time_production_terms(grid, atmos_pre, atmos_gather, increments, state, ice, ccfg):
+    """Device times at the run's width: the atmosphere at a model time in
+    the pre-regridded and the gather form; the port's ``_increments`` on
+    the operands of one step of the run (``capture_step_operands``) with
+    its restoring and without, whose difference is what the restoring
+    costs a step (T and S: G += inc and the fused x* += dt c1 inc); the
+    ice's thermodynamics and advection."""
+    from gb25_tpu_torch.models.hydrostatic import _increments
+    from gb25_tpu_torch.models.seaice import seaice_advect, seaice_thermodynamics
+
+    t = state.time + 1234.0
+    pre_ms = cuda_time_ms(lambda: atmos_pre.at_time(t), 20)
+    gather_ms = cuda_time_ms(lambda: atmos_gather.at_time(t), 20)
+    for k in atmos_pre.fields:
+        a, b = atmos_pre.at_time(t)[k], atmos_gather.at_time(t)[k]
+        err = float((a - b).abs().max())
+        if err > 1e-4 * max(float(a.abs().max()), 1e-30):
+            raise AssertionError(f"the gather form's {k} is {err} from the pre-regridded form")
+    args, kw = increments
+    if not args[8]:
+        raise AssertionError("the run's step passed no restoring to _increments")
+    # the tendencies and the fused update grow at each call (G += inc): the
+    # time of the arithmetic, not of its values
+    with_ms = cuda_time_ms(lambda: _increments(*args, **kw), 10)
+    without_ms = cuda_time_ms(lambda: _increments(*args[:8], None, *args[9:], **kw), 10)
+    af = atmos_pre.at_time(t)
+
+    def ice_step():
+        th, _ = seaice_thermodynamics(ccfg.sea_ice, grid, af, state, ice, DT)
+        seaice_advect(ccfg.sea_ice, grid, state, th, af, DT)
+
+    ice_ms = cuda_time_ms(ice_step, 10)
+    out = {"atmosphere_pre_regridded_ms": pre_ms, "atmosphere_gather_ms": gather_ms,
+           "increments_with_restoring_ms": with_ms, "increments_without_restoring_ms": without_ms,
+           "restoring_ms": with_ms - without_ms, "seaice_ms": ice_ms}
+    print("  device times at " + f"{grid.Nx}x{grid.Ny}x{grid.Nz}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
+def production_run(card, trip_ms):
+    """[40]: the port's ocean_climate_simulation main in this process at
+    1/4 degree on the tripolar grid (1440x680x64) with the slab ice, the
+    synthetic restoring and initialization and NetCDF output, over
+    ``PRODUCTION_STEPS`` steps: every full chunk of 10 replays from a
+    graph (only the Euler step runs eagerly), 1 K1, 1 K2, 3 K3 and 1 K4 a
+    step, the NetCDF record read back, finite fields and land at rest.
+    Then the script's own step (``coupled_ice_loop`` with the run's
+    restoring dict, chunks of 10) replayed from the run's graph against
+    the host loop over two chunks, bit for bit (the graph reads the
+    restoring targets by address), and K1-K4 against their plain versions
+    on the operands of one of its steps at this width."""
+    import shutil
+
+    from gb25_tpu_torch.data.netcdf import read_netcdf
+    from gb25_tpu_torch.models import device_loop
+    from gb25_tpu_torch.models.atmosphere import data_free_atmosphere
+    from gb25_tpu_torch.models.coupled import OceanIceState, _ice_pair_step, coupled_ice_loop
+    from gb25_tpu_torch.models.hydrostatic import premask_state
+    from gb25_tpu_torch.scripts import ocean_climate_simulation as script
+
+    out = os.path.join(SMOKE_OUT, "climate")
+    shutil.rmtree(out, ignore_errors=True)
+    kernels = climate_kernels()
+    argv = ["--resolution", str(PRODUCTION_RESOLUTION), "--Nz", str(NZ), "--grid", "tripolar",
+            "--dt", str(DT), "--sea-ice", "slab", "--output-format", "netcdf", "--output-dir",
+            out, "--stop-days", repr(PRODUCTION_STEPS * DT / 86400.0), "--device", DEVICE]
+    print(f"[40] the run script in process: python -m gb25_tpu_torch.scripts."
+          f"ocean_climate_simulation {' '.join(argv)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in kernels.values():
+        k.launches = 0
+    device_loop.STATS.reset()
+    t0 = time.perf_counter()
+    sim, parts = script.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = device_loop.STATS
+    if sim.iteration != PRODUCTION_STEPS:
+        raise AssertionError(f"the run stopped at iteration {sim.iteration}")
+    if stats.eager_steps != 1 or stats.replayed_steps != PRODUCTION_STEPS - 1:
+        raise AssertionError(f"a full chunk ran from the host: {stats.eager_steps} eager steps, "
+                             f"{stats.replayed_steps} replayed (only the Euler step may run "
+                             "eagerly)")
+    launches = hold_launches("[40]", kernels, CLIMATE_PER_STEP, PRODUCTION_STEPS)
+    record = {"eager_steps": stats.eager_steps, "replayed_steps": stats.replayed_steps,
+              "captures": stats.captures, "replays": stats.replays,
+              "pool_gb": stats.pool_bytes / 1e9}
+    ms_step = 1e3 * sim.run_wall_time / PRODUCTION_STEPS
+    grid, state, ice = sim.grid, sim.state, parts["ice"]
+    ccfg, atmos, restoring = parts["ccfg"], parts["atmos"], parts["restoring"]
+
+    # the profiler over one more full chunk (replayed) and one host step
+    chunk = script.INNER_STEPS
+    seen, method = probe_chunk(lambda: sim._step_fn(sim.cfg, grid, state, sim.dt, chunk + 1),
+                               CLIMATE_PER_STEP, chunk + 1, chunk)
+    print(f"  profiler probe over {chunk + 1} steps: {seen} ({method})")
+
+    # the script's own step from the run's last state: two chunks replayed
+    # from the graph the run captured, against the host loop
+    def step_n(pair, n):
+        return OceanIceState(*coupled_ice_loop(ccfg, grid, atmos, pair.ocean, pair.ice, DT, n,
+                                               restoring=restoring, chunk=chunk))
+
+    host_step = functools.partial(_ice_pair_step, ccfg, grid, atmos, dt=DT, restoring=restoring,
+                                  premasked=True)
+
+    def host_n(pair, n):
+        return device_loop.host_loop(host_step, OceanIceState(premask_state(grid, pair.ocean),
+                                                              pair.ice), n)
+
+    pair = OceanIceState(state, ice)
+    host_ms = loop_vs_host("run script, restoring and slab ice", step_n, host_n, pair, ms_step,
+                           n=2 * chunk)
+    if stats.captures != 0 or stats.replays != 2 or stats.eager_steps != 0:
+        raise AssertionError(f"the script's step did not replay the run's graph: {stats.captures} "
+                             f"captures, {stats.replays} replays, {stats.eager_steps} eager steps")
+    ops = capture_step_operands(lambda: host_step(pair))
+    checks = production_kernels(ops)
+
+    nc = read_netcdf(os.path.join(out, "surface.nc"))[0]
+    if list(nc["time"]) != [0.0] or nc["T_surface"].shape != (1, grid.Nx, grid.Ny):
+        raise AssertionError(f"unexpected NetCDF record: time {nc['time']}, "
+                             f"T_surface {nc['T_surface'].shape}")
+    if not all(np.isfinite(nc[k]).all() for k in ("u_surface", "v_surface", "T_surface",
+                                                  "S_surface", "eta", "lon", "lat")):
+        raise AssertionError("non-finite values in the NetCDF record")
+    print(f"  NetCDF record read back: {sorted(nc)}, T_surface in "
+          f"[{nc['T_surface'].min():.3f}, {nc['T_surface'].max():.3f}] degC")
+    check_climate_state(state, grid, (grid.Nz, grid.Ny, grid.Nx))
+    if not (float(ice.v.min()) >= 0.0 and 0.0 <= float(ice.a.min()) <= float(ice.a.max()) <= 1):
+        raise AssertionError("ice out of bounds")
+    atmos_gather = data_free_atmosphere(grid, pre_regrid=False)
+    terms = time_production_terms(grid, atmos, atmos_gather, ops["increments"], state, ice, ccfg)
+    del ops
+    cells = grid.Nx * grid.Ny * grid.Nz
+    print(f"  [40] Simulation.run {grid.Nx}x{grid.Ny}x{grid.Nz} on {card}: {ms_step:.3f} ms/step "
+          f"({cells * PRODUCTION_STEPS / sim.run_wall_time:.4e} cell-steps/s; "
+          f"{PRODUCTION_STEPS} steps, progress {PRODUCTION_STEPS // 10} times, the NetCDF record, "
+          f"{record['captures']} captures), from the host {host_ms:.3f} ms/step, "
+          f"the call {wall:.1f} s with the set-up; [13] the islands tripolar climate "
+          f"{NX}x{NY}x{NZ} replayed {trip_ms:.3f} ms/step "
+          f"({NX * NY * NZ / (1e-3 * trip_ms):.4e} cell-steps/s)")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"ms_step": ms_step, "host_ms_step": host_ms, "launches": launches, "loop": record,
+            "probe": seen, "probe_method": method, "terms": terms, "kernels": checks,
+            "shape": [grid.Nx, grid.Ny, grid.Nz]}
+
+
+def seeded_cold(grid, state):
+    """``state`` with T = -2.2 degC poleward of 60 degrees, and an ice cover
+    v = 1 m, a = 0.9 poleward of 70 degrees on wet columns: from the
+    data-free start the surface stays above freezing, so the ice would run
+    on zeros."""
+    from gb25_tpu_torch.models.seaice import SeaIceState
+
+    phi = (grid.phi2_c if grid.north_fold else grid.phi_c_i.reshape(-1, 1).expand(grid.Ny,
+                                                                                   grid.Nx)).abs()
+    T = torch.where(phi[None] > 60.0, torch.full_like(state.tracers["T"], -2.2),
+                    state.tracers["T"])
+    cover = ((phi > 70.0) & (grid.bottom_height < 0.0)).to(grid.dtype)
+    return (state.replace(tracers={**state.tracers, "T": T}),
+            SeaIceState(v=1.0 * cover, a=0.9 * cover), phi)
+
+
+def prognostic_ice(card, trip_ms):
+    """[41]: the slab ice at full width on the islands tripolar grid
+    (1536x768x64), from the seeded polar cold, through ``coupled_ice_loop``:
+    the main path's launches and profiler probe, the device loop against
+    the host loop bit for bit on ocean, ice, clock and iteration, the ice's
+    bounds, none on land or equatorward of 40 degrees, growth in the cold
+    band."""
+    from gb25_tpu_torch import coupled_ice_loop, data_free_ocean_climate_model
+    from gb25_tpu_torch.models import device_loop
+    from gb25_tpu_torch.models.coupled import OceanIceState, _ice_pair_step
+    from gb25_tpu_torch.models.hydrostatic import premask_state
+
+    print(f"[41] the prognostic slab ice at {NX}x{NY}x{NZ} (islands tripolar, CATKE), "
+          "T = -2.2 degC poleward of 60 degrees, v = 1 m, a = 0.9 poleward of 70")
+    ccfg, grid, atmos, state = data_free_ocean_climate_model(
+        resolution=RESOLUTION, Nz=NZ, device=DEVICE, grid_type="gaussian_islands_tripolar",
+        sea_ice="slab")
+    state, ice, phi = seeded_cold(grid, state)
+    v0 = ice.v.clone()
+
+    def step_n(pair, n):
+        return OceanIceState(*coupled_ice_loop(ccfg, grid, atmos, pair.ocean, pair.ice, DT, n))
+
+    def host_n(pair, n):
+        step = functools.partial(_ice_pair_step, ccfg, grid, atmos, dt=DT, premasked=True)
+        return device_loop.host_loop(step, OceanIceState(premask_state(grid, pair.ocean),
+                                                         pair.ice), n)
+
+    s, elapsed, launches, _, loop_rec = run_main_path(step_n, OceanIceState(state, ice),
+                                                      climate_kernels(), CLIMATE_PER_STEP,
+                                                      ICE_STEPS)
+    ms_step = 1e3 * elapsed / ICE_STEPS
+    host_ms = loop_vs_host("slab ice", step_n, host_n, s, ms_step)
+    check_climate_state(s.ocean, grid)
+    v, a = s.ice.v, s.ice.a
+    land = grid.bottom_height == 0.0
+    band = (phi > 60.0) & (phi < 70.0) & ~land
+    growth = float((v - v0)[band].max())
+    checks = {"v_min": float(v.min()), "a_min": float(a.min()), "a_max": float(a.max()),
+              "v_on_land": float(v[land].abs().max()), "v_below_40": float(v[phi < 40.0].max()),
+              "growth_in_band": growth, "cover_cells": int((a > 0.15).sum())}
+    print(f"  ice after {s.iteration} steps: {checks}")
+    if (checks["v_min"] < 0 or checks["a_min"] < 0 or checks["a_max"] > 1
+            or checks["v_on_land"] != 0 or checks["v_below_40"] != 0 or growth <= 0):
+        raise AssertionError(f"the ice is out of bounds or did not grow: {checks}")
+    print(f"  [41] slab ice {NX}x{NY}x{NZ} on {card}: {ms_step:.3f} ms/step replayed "
+          f"({NX * NY * NZ * ICE_STEPS / elapsed:.4e} cell-steps/s), from the host "
+          f"{host_ms:.3f} ms/step; [13] without the ice {trip_ms:.3f} ms/step")
+    return {"ms_step": ms_step, "host_ms_step": host_ms, "launches": launches,
+            "loop": loop_rec, "checks": checks}
+
+
+def kill_and_resume(card):
+    """[42]: the port's run_10day --phase all at 1536x768x64, dt = 60 s,
+    over RUN10_DAYS days (144 steps, the checkpoint at step 72) as three
+    subprocesses on this card; fails unless the resumed state equals the
+    uninterrupted one bit for bit on all 15 fields."""
+    import shutil
+
+    out = os.path.join(SMOKE_OUT, "run10day")
+    report = os.path.join(SMOKE_OUT, "run10day.json")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(SMOKE_OUT, exist_ok=True)
+    free_gb = shutil.disk_usage(SMOKE_OUT).free / 1e9
+    cmd = [sys.executable, "-m", "gb25_tpu_torch.scripts.run_10day", "--phase", "all",
+           "--nx", str(NX), "--nz", str(NZ), "--dt", str(DT), "--days", str(RUN10_DAYS),
+           "--out", out, "--json-out", report, "--device", DEVICE]
+    print(f"[42] kill and resume: {' '.join(cmd[1:])} ({free_gb:.0f} GB free on the disk)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0 or not os.path.exists(report):
+            raise AssertionError(f"run_10day failed ({r.returncode}):\n{r.stdout[-3000:]}\n"
+                                 f"{r.stderr[-3000:]}")
+        with open(report) as f:
+            res = json.load(f)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    comp = res["comparison"]
+    if not comp["bitwise_equal"] or comp["n_fields"] != 15:
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: {comp}")
+    phases = {p: {k: res[p][k] for k in ("iteration", "ms_per_step",
+                                         "ms_per_step_without_checkpoints",
+                                         "checkpoint_write_s", "eager_steps", "replayed_steps",
+                                         "process_s")} for p in ("full", "interrupt", "resume")}
+    for p, r_ in phases.items():
+        print(f"  {p}: to iteration {r_['iteration']}, {r_['ms_per_step']:.3f} ms/step with the "
+              f"checkpoints, {r_['ms_per_step_without_checkpoints']:.3f} without; checkpoint "
+              f"writes {', '.join(f'{t:.2f}' for t in r_['checkpoint_write_s'])} s; "
+              f"{r_['eager_steps']} eager, {r_['replayed_steps']} replayed steps; the process "
+              f"{r_['process_s']:.1f} s")
+    print(f"  [42] on {card}: bitwise_equal {comp['bitwise_equal']} on {comp['n_fields']} "
+          f"fields; {wall:.1f} s in all")
+    return {"phases": phases, "comparison": comp, "wall_s": wall}
+
+
+def production_phases(card, trip_ms):
+    """[40]-[42]; returns their records."""
+    t0 = time.perf_counter()
+    run = production_run(card, trip_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ice = prognostic_ice(card, trip_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume = kill_and_resume(card)
+    print(f"  [40]-[42] {time.perf_counter() - t0:.1f} s")
+    return {"run_script": run, "seaice": ice, "kill_resume": resume}
+
+
 T_START = time.perf_counter()
 
 
@@ -3432,6 +3904,9 @@ def main():
     precision_entries, precision = precision_phases(card)
     gc.collect()
     torch.cuda.empty_cache()
+    production = production_phases(card, trip["ms_step"])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def host(r):
         return "" if r.get("host_ms_step") is None else f", from the host {r['host_ms_step']:.3f}"
@@ -3458,7 +3933,13 @@ def main():
               f"{name} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s, {r['steps']} steps, idle "
               f"{100 * r['idle']:.1f}%){host(r)}" for name, r in schemes.items()) + "; " + "; ".join(
               f"({row}) {PRECISION_ROWS[row]} {r['ms_step']:.3f} ({r['rate']:.4e} cell-steps/s, "
-              f"{r['steps']} steps){host(r)}" for row, r in precision.items()))
+              f"{r['steps']} steps){host(r)}" for row, r in precision.items())
+          + f"; [40] run script Simulation.run {production['run_script']['ms_step']:.3f} "
+          f"({'x'.join(map(str, production['run_script']['shape']))}, chunks of 10 replayed)"
+          f"; [41] slab ice {production['seaice']['ms_step']:.3f}"
+          f"{host(production['seaice'])}; [42] kill and resume, full phase "
+          f"{production['kill_resume']['phases']['full']['ms_per_step']:.3f} with its "
+          f"checkpoints")
 
     k5_entry = entry("barotropic_block", "barotropic_block.cu",
                      "gb25_tpu/ops/pallas_barotropic.py:349", "climate_tripolar_decomposed",
@@ -3491,6 +3972,14 @@ def main():
     choice_entries[1].update(
         launches_tiles={"bf16s_decomposed": tiles["bf16s"]["launches"]["K1"]},
         launches_float64_state=f32["float64_state"]["operand_modes"]["bf16s"])
+    # the K1-K4 instances of the tripolar and islands climate on the production paths
+    for e, kernel in zip(trip_kernels[:2] + clim_kernels[2:4], ("K1", "K2", "K3", "K4")):
+        e["production_routes"] = {
+            "run_script": production["run_script"]["launches"][kernel],
+            "run_script_steps": PRODUCTION_STEPS,
+            "run_script_vs_plain": production["run_script"]["kernels"][kernel],
+            "seaice": production["seaice"]["launches"][kernel],
+            "seaice_steps": production["seaice"]["loop"]["steps"]}
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s on {card}")
     print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels
                       + [k5_entry] + k6_entries + [k6_tile] + choice_entries

@@ -6,9 +6,13 @@ leaves ("u", "v", "eta", "tracers/T", ..., "Gtracers/S", "time",
 in (X, Y); any tracer set crosses (T, S and, with CATKE, e). The port
 stores (Z, Y, X) and (Y, X), so every array has its axes reversed on the
 way in and out. The same holds for a bathymetry (X, Y) -> (Y, X), for
-an atmosphere record (X, Y, T) -> (T, Y, X), one contiguous plane per time,
-and for a shallow-water state (leaves "u", "v", "h", "Gu", "Gv", "Gh",
-"time", "iteration", planes (X, Y) -> (Y, X)).
+an atmosphere record (X, Y, T) -> (T, Y, X), one contiguous plane per time
+(a gather-form record on the atmosphere's grid likewise, its gather
+indices and weights (X, Y) planes -> flat indices and weights (Y, X)), for a
+shallow-water state (leaves "u", "v", "h", "Gu", "Gv", "Gh", "time",
+"iteration", planes (X, Y) -> (Y, X)), for a sea-ice state (leaves "v",
+"a", planes) and for a restoring dict (name -> (target (X, Y, Z), rate
+(X, Y, 1) or a field)).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 
 from gb25_tpu_torch.grids.immersed import with_bathymetry
 from gb25_tpu_torch.models.atmosphere import PrescribedAtmosphere
+from gb25_tpu_torch.models.seaice import SeaIceState
 from gb25_tpu_torch.models.state import HydrostaticState, ShallowWaterState
 
 SW_PLANES = ("u", "v", "h", "Gu", "Gv", "Gh")
@@ -93,3 +98,40 @@ def atmosphere_from_numpy(fields: dict, times: np.ndarray, period: float,
         times=torch.as_tensor(np.array(times), device=device),
         period=float(period),
     )
+
+
+def gather_atmosphere_from_numpy(fields: dict, times: np.ndarray, period: float,
+                                 ix0, ix1, wx, iy0, iy1, wy, device) -> PrescribedAtmosphere:
+    """A gather-form atmosphere from the JAX package's (Na, Ma, Nt) record
+    arrays, its (Nt,) times and its (Nx, Ny) gather indices and weights."""
+    Na = next(iter(fields.values())).shape[0]
+    ix0, ix1, iy0, iy1 = (np.asarray(i).astype(np.int64) for i in (ix0, ix1, iy0, iy1))
+
+    def index(iy, ix):
+        return _to_port(iy * Na + ix, device)
+
+    return PrescribedAtmosphere(
+        fields={k: _to_port(f, device) for k, f in fields.items()},
+        times=torch.as_tensor(np.array(times), device=device),
+        period=float(period),
+        gather=(index(iy0, ix0), index(iy0, ix1), index(iy1, ix0), index(iy1, ix1),
+                _to_port(wx, device), _to_port(wy, device)),
+    )
+
+
+def ice_state_from_numpy(arrays: dict, device) -> SeaIceState:
+    """The port's sea-ice state from the JAX package's (Nx, Ny) "v" and
+    "a"."""
+    return SeaIceState(v=_to_port(arrays["v"], device), a=_to_port(arrays["a"], device))
+
+
+def ice_state_to_numpy(ice: SeaIceState) -> dict:
+    """The port's sea-ice state as (Nx, Ny) numpy arrays "v", "a"."""
+    return {"v": _to_jax(ice.v), "a": _to_jax(ice.a)}
+
+
+def restoring_from_numpy(restoring: dict, device) -> dict:
+    """The port's restoring dict from the JAX package's: name -> (target,
+    rate) numpy arrays, axes reversed."""
+    return {name: (_to_port(np.asarray(target), device), _to_port(np.asarray(rate), device))
+            for name, (target, rate) in restoring.items()}

@@ -13,11 +13,20 @@ from gb25_tpu_torch.models.config import (  # noqa: F401
 )
 from gb25_tpu_torch.models.coupled import (  # noqa: F401
     CoupledConfig,
+    OceanIceState,
+    coupled_ice_loop,
+    coupled_ice_time_step,
     coupled_loop,
     coupled_time_step,
     data_free_ocean_climate_model,
 )
 from gb25_tpu_torch.models.hydrostatic import loop, time_step  # noqa: F401
+from gb25_tpu_torch.models.seaice import (  # noqa: F401
+    FreezingLimitedOceanTemperature,
+    SeaIceState,
+    SlabSeaIce,
+    initial_ice_state,
+)
 from gb25_tpu_torch.models.shallow_water import (  # noqa: F401
     ShallowWaterConfig,
     shallow_water_model,

@@ -1,13 +1,18 @@
 """Prescribed atmosphere on the ocean grid (port of
-``gb25_tpu.models.atmosphere``, the pre-regridded form).
+``gb25_tpu.models.atmosphere``).
 
 The data-free atmosphere of the coupled climate model: analytic, steady
-surface fields sampled on a 360x180 lat-lon grid at 24 hourly times,
-regridded bilinearly onto the ocean's cell centers once, at construction,
-in float64 numpy as the JAX package does. Each step then only interpolates
-linearly in time, cyclically over the one-day record.
-
-Fields are stored ``(Nt, Ny, Nx)``: one contiguous ocean plane per time.
+surface fields sampled on a 360x180 lat-lon grid at 24 hourly times. Two
+forms, as in the JAX package:
+  - pre-regridded (the default): the record regridded bilinearly onto the
+    ocean's cell centers once, at construction, in float64 numpy; each
+    step only interpolates linearly in time, cyclically over the record.
+    Fields are stored ``(Nt, Ny, Nx)``: one contiguous ocean plane a time;
+  - the per-step gather form (``pre_regrid=False``, for records too large
+    to hold at ocean resolution): fields stay on the atmosphere's grid,
+    stored ``(Nt, Ma, Na)``, and each step interpolates in time there,
+    then gathers the four neighbours of every ocean center (flat indices
+    into the (Ma, Na) plane) and weights them bilinearly, on the device.
 """
 
 from __future__ import annotations
@@ -45,14 +50,24 @@ def _bilinear_weights(src_x, src_y, dst_x, dst_y, periodic_x=360.0):
 
 @dataclasses.dataclass(frozen=True)
 class PrescribedAtmosphere:
-    """A cyclic time series of surface fields on the ocean's centers.
+    """A cyclic time series of surface fields, on the ocean's centers or,
+    with ``gather``, on the atmosphere's own grid.
 
-    fields: name -> (Nt, Ny, Nx) tensor. Names: Ta (K), ua, va (m/s), qa
-    (kg/kg), Qsw, Qlw (W/m^2, downwelling), pa (Pa)."""
+    fields: name -> (Nt, Ny, Nx) tensor, or (Nt, Ma, Na) with ``gather``.
+    Names: Ta (K), ua, va (m/s), qa (kg/kg), Qsw, Qlw (W/m^2, downwelling),
+    pa (Pa). ``gather``: None (pre-regridded), or (i00, i10, i01, i11, wx,
+    wy), each (Ny, Nx): the flat indices into an (Ma, Na) plane of the
+    (x0, y0), (x1, y0), (x0, y1) and (x1, y1) neighbours of each ocean
+    center and the bilinear weights."""
 
     fields: dict
     times: torch.Tensor  # (Nt,) seconds
     period: float        # seconds; the time interpolation is cyclic
+    gather: tuple | None = None
+
+    @property
+    def on_ocean_grid(self) -> bool:
+        return self.gather is None
 
     def _time_weights(self, t):
         """(k0, k1, wt) at model time ``t`` (a 0-d tensor), as 0-d tensors
@@ -72,11 +87,74 @@ class PrescribedAtmosphere:
         return k0, k1, wt
 
     def at_time(self, t):
-        """The fields at model time ``t``: name -> (Ny, Nx)."""
+        """The fields at model time ``t`` on the ocean's centers: name ->
+        (Ny, Nx)."""
         k0, k1, wt = self._time_weights(t)
         i0, i1 = k0.reshape(1), k1.reshape(1)
-        return {name: (1.0 - wt) * f.index_select(0, i0)[0] + wt * f.index_select(0, i1)[0]
-                for name, f in self.fields.items()}
+        out = {}
+        for name, f in self.fields.items():
+            ft = (1.0 - wt) * f.index_select(0, i0)[0] + wt * f.index_select(0, i1)[0]
+            if self.gather is None:
+                out[name] = ft
+                continue
+            i00, i10, i01, i11, wx, wy = self.gather
+            out[name] = ((1 - wx) * (1 - wy) * torch.take(ft, i00)
+                         + wx * (1 - wy) * torch.take(ft, i10)
+                         + (1 - wx) * wy * torch.take(ft, i01)
+                         + wx * wy * torch.take(ft, i11))
+        return out
+
+    def pre_regrid(self):
+        """The pre-regridded atmosphere of this gather form: every time of
+        the record regridded at once, in float64 on the fields' device, as
+        the JAX package's ``pre_regrid`` does in numpy: the same products
+        in the same order, each rounded once (one op a kernel), so the
+        record equals its bit for bit; rounded to the fields' dtype at the
+        end. Time and space interpolation are both linear, so the two
+        forms agree to rounding."""
+        if self.gather is None:
+            return self
+        i00, i10, i01, i11, wx, wy = self.gather
+        wx, wy = wx.double()[None], wy.double()[None]
+        fields = {}
+        for name, f in self.fields.items():
+            fn = f.double().reshape(f.shape[0], -1)
+
+            def at(i):
+                return fn.index_select(1, i.reshape(-1)).reshape(fn.shape[0], *i.shape)
+
+            g = ((1 - wx) * (1 - wy) * at(i00) + wx * (1 - wy) * at(i10)
+                 + (1 - wx) * wy * at(i01) + wx * wy * at(i11))
+            fields[name] = g.to(f.dtype)
+        return dataclasses.replace(self, fields=fields, gather=None)
+
+
+def gather_atmosphere(fields, times, period, weights, ocean_grid, dtype=None):
+    """A gather-form atmosphere on ``ocean_grid``'s device: ``fields`` name
+    -> (Na, Ma, Nt) numpy record (the JAX package's layout), rounded to
+    ``dtype``; ``weights`` = (ix0, ix1, wx, iy0, iy1, wy) of
+    ``_bilinear_weights`` in the JAX package's (Nx, Ny) order."""
+    dtype = dtype or ocean_grid.dtype
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    device = ocean_grid.device
+    ix0, ix1, wx, iy0, iy1, wy = (np.ascontiguousarray(np.transpose(w)) for w in weights)
+    Na = next(iter(fields.values())).shape[0]
+
+    def index(iy, ix):
+        return torch.as_tensor((iy * Na + ix).astype(np.int64), device=device)
+
+    def plane(w):
+        return torch.as_tensor(w.astype(np_dtype), device=device)
+
+    return PrescribedAtmosphere(
+        fields={k: torch.as_tensor(np.ascontiguousarray(np.transpose(np.asarray(f))
+                                                        .astype(np_dtype)), device=device)
+                for k, f in fields.items()},
+        times=torch.as_tensor(np.asarray(times).astype(np_dtype), device=device),
+        period=float(period),
+        gather=(index(iy0, ix0), index(iy0, ix1), index(iy1, ix0), index(iy1, ix1),
+                plane(wx), plane(wy)),
+    )
 
 
 def zonal_wind(phi):
@@ -94,15 +172,16 @@ def atmos_temperature(phi):
     return 30.0 * np.cos(np.deg2rad(phi)) + 273.15
 
 
-def data_free_atmosphere(ocean_grid, Na=360, Ma=180, ntimes=24, dtype=None):
+def data_free_atmosphere(ocean_grid, Na=360, Ma=180, ntimes=24, dtype=None, pre_regrid=True):
     """The data-free atmosphere on ``ocean_grid``'s device: analytic steady
     fields on an Na x Ma grid at ``ntimes`` times over one day, regridded
-    onto the ocean centers. The arithmetic is the JAX package's, operation
-    for operation (the fields and weights rounded to ``dtype`` before the
+    onto the ocean centers at construction (``pre_regrid``) or gathered at
+    each step. The arithmetic is the JAX package's, operation for
+    operation (the fields and weights rounded to ``dtype`` before the
     float64 regrid, the result rounded again), so the record equals its
     bit for bit."""
-    torch_dtype = dtype or ocean_grid.dtype
-    np_dtype = np.dtype(str(torch_dtype).removeprefix("torch."))
+    dtype = dtype or ocean_grid.dtype
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
     lam_a = (np.arange(Na) + 0.5) * (360.0 / Na)
     phi_a = -90.0 + (np.arange(Ma) + 0.5) * (180.0 / Ma)
     times = np.linspace(0.0, 86400.0, ntimes, endpoint=False)
@@ -128,23 +207,7 @@ def data_free_atmosphere(ocean_grid, Na=360, Ma=180, ntimes=24, dtype=None):
         phi_o = ocean_grid.phi_c_i.cpu().numpy().astype(np_dtype)
         dst_lam = lam_o[:, None] + 0 * phi_o[None, :]
         dst_phi = 0 * dst_lam + phi_o[None, :]
-    ix0, ix1, wx, iy0, iy1, wy = _bilinear_weights(lam_a, phi_a, dst_lam, dst_phi)
-    wx = wx.astype(np_dtype).astype(np.float64)[:, :, None]
-    wy = wy.astype(np_dtype).astype(np.float64)[:, :, None]
-
-    fields = {}
-    for name in FIELD_NAMES:
-        fn = src[name].astype(np_dtype).astype(np.float64)  # (Na, Ma, Nt)
-        g = (
-            (1 - wx) * (1 - wy) * fn[ix0, iy0, :]
-            + wx * (1 - wy) * fn[ix1, iy0, :]
-            + (1 - wx) * wy * fn[ix0, iy1, :]
-            + wx * wy * fn[ix1, iy1, :]
-        )  # (Nx, Ny, Nt)
-        fields[name] = torch.as_tensor(np.ascontiguousarray(np.transpose(g).astype(np_dtype)),
-                                       device=ocean_grid.device)
-    return PrescribedAtmosphere(
-        fields=fields,
-        times=torch.as_tensor(times.astype(np_dtype), device=ocean_grid.device),
-        period=86400.0,
-    )
+    weights = _bilinear_weights(lam_a, phi_a, dst_lam, dst_phi)
+    atmos = gather_atmosphere({name: src[name] for name in FIELD_NAMES}, times, 86400.0,
+                              weights, ocean_grid, dtype)
+    return atmos.pre_regrid() if pre_regrid else atmos

@@ -27,6 +27,22 @@ state; the function and those arguments are the key of the captured graph
   4. returns a state of its own, which no later replay writes: its iteration
      advanced by n on the host, its clock by the steps on the device.
 
+A driver that runs its steps in chunks (``simulation.Simulation``) calls
+with ``block`` its chunk length and ``lead=True``: a chunk that must begin
+with an eager step (the Euler step, or the step before a first capture)
+then replays the rest of that chunk from a second graph, of ``block - 1``
+steps, kept beside the first with the same static state and memory pool,
+so that every full chunk runs from graphs and only chunks cut short by a
+schedule run eagerly.
+
+The state is a dataclass of tensors, dicts of tensors and dataclasses of
+those (the (ocean, ice) pair of ``coupled_ice_loop``), with an
+``iteration``. Arguments of the step other than values (the grid, the
+atmosphere, a restoring dict's tensors) are told apart by identity; the
+graph keeps the tensors of a dict or tuple argument (the restoring
+targets and rates), which it reads by address, so they live as long as
+it does, and another tensor in their place makes another key.
+
 On a CPU state it is the plain host loop (``host_loop``): the CPU has no
 graphs. On the decomposed path (a ``comm``) the loop is replayed where the
 mesh is the one card (the forced 1x1 "local" and "ring" modes): there every
@@ -58,6 +74,7 @@ from gb25_tpu_torch.utils.cuda_build import launch_counts
 BLOCK_STEPS = 16
 
 _ENTRY = "device_loop"  # the captured graph's name in a grid's cache
+_LEAD = "device_loop/lead"  # the chunk's lead graph (``lead_plan``)
 
 
 @dataclasses.dataclass
@@ -107,6 +124,19 @@ def plan(n, iteration, block, captured):
     return head, replays, tail
 
 
+def lead_plan(n, iteration, block, captured):
+    """(head, lead, replays, tail) with ``lead``: as ``plan``, but where an
+    eager head step cuts the call's first block, the rest of that block
+    (``lead`` = block - 1 steps) replays from a graph of its own; a call of
+    fewer than ``block`` steps runs eagerly."""
+    if n < block:
+        return n, 0, 0, 0
+    head = 1 if iteration == 0 or not captured else 0
+    lead = block - head if head else 0
+    replays, tail = divmod(n - head - lead, block)
+    return head, lead, replays, tail
+
+
 def spans_ranks(comm) -> bool:
     """Whether a step with ``comm`` exchanges with other ranks through
     ``torch.distributed`` (a mesh of several ranks), which keeps its loop on
@@ -114,11 +144,15 @@ def spans_ranks(comm) -> bool:
     return comm is not None and comm.mesh.size > 1
 
 
-def run_loop(step, state, n, comm, cache):
+def run_loop(step, state, n, comm, cache, chunk=None):
     """``n`` steps of ``step`` with the exchange ``comm`` (None serially):
-    from the host where ``comm`` spans ranks, else ``device_loop``."""
+    from the host where ``comm`` spans ranks, else ``device_loop``, in
+    blocks of ``chunk`` steps with its ``lead`` graph where a driver runs
+    chunks of that length."""
     if spans_ranks(comm):
         return host_loop(step, state, n)
+    if chunk:
+        return device_loop(step, state, n, cache, chunk, lead=True)
     return device_loop(step, state, n, cache)
 
 
@@ -129,12 +163,13 @@ def host_loop(step, state, n):
     return state
 
 
-def device_loop(step, state, n, cache, block=BLOCK_STEPS):
+def device_loop(step, state, n, cache, block=BLOCK_STEPS, lead=False):
     """``n`` applications of ``step`` (a ``functools.partial``: state ->
     next state) to ``state``; on a CUDA state, replayed from a graph of
     ``block`` steps kept in ``cache`` (the grid's) under the key that
     ``step``'s function and arguments, the state's layout and ``block``
-    make."""
+    make; with ``lead``, also from a graph of ``block - 1`` steps after an
+    eager head step (``lead_plan``)."""
     if not isinstance(step, functools.partial):
         raise TypeError("device_loop takes the step as a functools.partial of a step function "
                         "over its arguments but the state: they make the captured graph's key")
@@ -142,16 +177,37 @@ def device_loop(step, state, n, cache, block=BLOCK_STEPS):
     if not _on_card(tensors):
         return _eager(step, state, n)
     key = (_step_key(step), _layout(tensors), block)
+    for name in (_ENTRY, _LEAD):
+        entry = cache.get(name)
+        if entry is not None and entry.key != key:
+            del cache[name]  # frees the graph and its pool before another capture
     entry = cache.get(_ENTRY)
-    if entry is not None and entry.key != key:
-        del cache[_ENTRY]  # frees the graph and its pool before another capture
-        entry = None
-    head, replays, tail = plan(n, state.iteration, block, entry is not None)
-    if replays == 0:
+    captured = entry is not None or cache.get(_LEAD) is not None
+    if lead:
+        head, lead_steps, replays, tail = lead_plan(n, state.iteration, block, captured)
+    else:
+        (head, replays, tail), lead_steps = plan(n, state.iteration, block, captured), 0
+    if replays == 0 and lead_steps == 0:
         return _eager(step, state, n)
     state = _eager(step, state, head)
+    static = None
+    if lead_steps:
+        state, static = _replay(step, state, lead_steps, key, cache, _LEAD, 1)
+    if replays:
+        state, static = _replay(step, state, block, key, cache, _ENTRY, replays)
+    return _own(_eager(step, state, tail), static)
+
+
+def _replay(step, state, block, key, cache, name, replays):
+    """``replays`` replays of the graph of ``block`` steps kept under
+    ``name`` in ``cache``, captured first where it is missing (sharing the
+    other kept graph's static state and memory pool); (the state after,
+    the static state)."""
+    entry = cache.get(name)
     if entry is None:
-        entry = cache[_ENTRY] = _capture(step, state, block, key, cache)
+        other = cache.get(_LEAD if name == _ENTRY else _ENTRY)
+        entry = cache[name] = _capture(step, state, block, key, cache,
+                                       **({} if other is None else {"share": other}))
     static = entry.static
     for field, t in _tensors(state).items():
         if t is not static[field]:
@@ -162,8 +218,7 @@ def device_loop(step, state, n, cache, block=BLOCK_STEPS):
     STATS.replayed_steps += replays * block
     for kernel, count in entry.recorded.items():
         STATS.replayed_launches[kernel] += count * replays
-    state = _with_tensors(state, static).replace(iteration=state.iteration + replays * block)
-    return _own(_eager(step, state, tail), static)
+    return _with_tensors(state, static).replace(iteration=state.iteration + replays * block), static
 
 
 @dataclasses.dataclass
@@ -179,8 +234,16 @@ def _on_card(tensors):
     return next(iter(tensors.values())).is_cuda
 
 
-def _capture(step, state, block, key, cache):
-    static = {field: t.clone() for field, t in _tensors(state).items()}
+def _capture(step, state, block, key, cache, share=None):
+    """A graph of ``block`` steps of ``step`` from ``state``; with ``share``
+    (another kept graph of the same key), on its static state and in its
+    memory pool: the two never run at once, and neither leaves a tensor in
+    the pool between replays (each copies its result into the static
+    state, which lies outside)."""
+    if share is None:
+        static = {field: t.clone() for field, t in _tensors(state).items()}
+    else:
+        static = share.static
     graph = torch.cuda.CUDAGraph()
     # A graph freed while another captures (cyclic garbage that holds one,
     # collected at some allocation) frees device memory, which ends the
@@ -192,7 +255,7 @@ def _capture(step, state, block, key, cache):
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, pool=None if share is None else share.graph.pool()):
             out = _tensors(host_loop(step, _with_tensors(state, static), block))
             _check_aliases(out, static)
             for field, t in out.items():
@@ -212,13 +275,26 @@ def _capture(step, state, block, key, cache):
 
 def _kept(step, cache):
     """What a graph of ``step`` reads by address and must keep: the grid's
-    cached operands (a later dt replaces K3's coefficients in the cache)
-    and, on a tile, the comm's (the blocked solve's statics)."""
-    keep = tuple(v for name, v in cache.items() if name != _ENTRY)
+    cached operands (a later dt replaces K3's coefficients in the cache),
+    on a tile the comm's (the blocked solve's statics), and the tensors of
+    the step's dict and tuple arguments (the restoring targets and
+    rates)."""
+    keep = tuple(v for name, v in cache.items() if name not in (_ENTRY, _LEAD))
     comm = step.keywords.get("comm")
     if comm is not None:
         keep += tuple(comm.cache.values())
+    for arg in (*step.args, *step.keywords.values()):
+        keep += tuple(_tensors_in(arg))
     return keep
+
+
+def _tensors_in(x):
+    """The tensors in a dict or tuple argument, at any depth."""
+    if torch.is_tensor(x):
+        yield x
+    elif isinstance(x, (dict, tuple)):
+        for v in (x.values() if isinstance(x, dict) else x):
+            yield from _tensors_in(v)
 
 
 def _eager(step, state, n):
@@ -227,7 +303,8 @@ def _eager(step, state, n):
 
 
 def _tensors(state):
-    """A state's tensors by field, dict fields flattened to "field/name"."""
+    """A state's tensors by field, dict and dataclass fields flattened to
+    "field/name"."""
     out = {}
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
@@ -235,6 +312,8 @@ def _tensors(state):
             out[f.name] = v
         elif isinstance(v, dict):
             out.update({f"{f.name}/{k}": t for k, t in v.items()})
+        elif dataclasses.is_dataclass(v):
+            out.update({f"{f.name}/{k}": t for k, t in _tensors(v).items()})
     return out
 
 
@@ -248,7 +327,11 @@ def _with_tensors(state, tensors):
             kw[f.name] = tensors[f.name]
         elif isinstance(v, dict):
             kw[f.name] = {k: tensors[f"{f.name}/{k}"] for k in v}
-    return state.replace(**kw)
+        elif dataclasses.is_dataclass(v):
+            prefix = f.name + "/"
+            kw[f.name] = _with_tensors(v, {k[len(prefix):]: t for k, t in tensors.items()
+                                           if k.startswith(prefix)})
+    return dataclasses.replace(state, **kw)
 
 
 def _layout(tensors):
@@ -265,9 +348,17 @@ def _step_key(step):
 
 def _arg(x):
     """A step argument in a graph's key: itself where it is a value (a
-    config, dt, a flag), else a ``_Ref`` (the grid, whose cache holds the
-    graph; an atmosphere; the step function)."""
-    return x if _is_value(x) else _Ref(x)
+    config, dt, a flag); a dict or tuple by its items (a restoring dict:
+    its names and each (target, rate) pair of tensors); else a ``_Ref``
+    (the grid, whose cache holds the graph; an atmosphere; a tensor; the
+    step function)."""
+    if _is_value(x):
+        return x
+    if isinstance(x, dict):
+        return ("dict", tuple((k, _arg(v)) for k, v in x.items()))
+    if isinstance(x, tuple):
+        return tuple(map(_arg, x))
+    return _Ref(x)
 
 
 def _is_value(x):

@@ -21,8 +21,9 @@ One step, in the fused form the JAX package runs on its kernels
      (WENO by default), the quasi-AB2 update, the south-wall row and the
      depth integrals;
   5. the increments after the kernel, each also folded into the fused
-     update as dt c1 inc: the closure's sources, the surface fluxes into
-     the top cell, the immersed re-mask, the wall row;
+     update as dt c1 inc: the closure's sources, the T/S restoring
+     (G_c += rate (target - c)), the surface fluxes into the top cell, the
+     immersed re-mask, the wall row;
   6. kernel K2: the 30-substep split-explicit free surface (on a tile,
      blocks of W substeps in kernel K5, each after a width-W exchange),
      then the barotropic correction, on the tripolar grid the seam-row
@@ -240,7 +241,7 @@ def _ab2_coeffs(cfg, state, dtype):
     return ft(1.5 + cfg.chi), ft(-(0.5 + cfg.chi))
 
 
-def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
+def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None, restoring=None):
     """Halo fill, the closure (K4), the tendency stage (K1 fused or
     unfused, the cast array path, or K6 on the "pallas" route), the
     explicit free surface's terms, then the increments after the stage.
@@ -252,7 +253,10 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
     ``surface_fluxes``: optional dict of (Ny, Nx) kinematic fluxes
     {"u", "v", "T", "S", "e"} (field units times m/s, positive into the
     ocean), deposited into the top cell. ``comm``: this tile's halo
-    exchange on the decomposed path."""
+    exchange on the decomposed path. ``restoring``: optional dict tracer
+    name -> (target, rate), G_c += rate (target - c), with the target an
+    interior (Nz, Ny, Nx) field and the rate (1, Ny, Nx) or a field (on a
+    tile, both cut to the tile)."""
     with record_function("step/halo_fill_and_mask"):
         ue = extend_field(grid, state.u, "u", comm)
         ve = extend_field(grid, state.v, "v", comm)
@@ -338,7 +342,7 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None):
             Geta = explicit_eta_tendency(grid, ue, ve)
     with record_function("step/increments"):
         outs = _increments(grid, (Gu, Gv, Gtr), updated, ints, ab[0], diffusivities,
-                           surface_fluxes, wall)
+                           surface_fluxes, wall, restoring, state.tracers)
     return (*outs, diffusivities, Geta)
 
 
@@ -381,9 +385,11 @@ def array_tendencies(cfg, grid, ue, ve, tr_e, cdt):
             {k: grid.interior(g).to(dtype) for k, g in Gtr_e.items()})
 
 
-def _increments(grid, tendencies, updated, ints, dtc1, diffusivities, surface_fluxes, wall=True):
+def _increments(grid, tendencies, updated, ints, dtc1, diffusivities, surface_fluxes, wall=True,
+                restoring=None, tracers=None):
     """The increments after the tendency kernel, in the JAX package's
-    order: the closure's sources (of e, then of eps), the surface-flux
+    order: the closure's sources (of e, then of eps), the restoring of
+    ``tracers`` (the state's) toward its targets, the surface-flux
     deposits, the immersed re-mask, the wall row (``wall``: this tile owns
     it). After K1 each G -> G + inc also moves the fused update ``updated``
     = (u*, v*, tracers*), x* -> x* + dt c1 inc, and the integrals ``ints``
@@ -397,6 +403,12 @@ def _increments(grid, tendencies, updated, ints, dtc1, diffusivities, surface_fl
             Gtr[name] += src
             if updated is not None:
                 tr_new[name] += dtc1 * src
+
+    for name, (target, rate) in (restoring or {}).items():
+        inc = rate * (target - tracers[name])
+        Gtr[name] += inc
+        if updated is not None:
+            tr_new[name] += dtc1 * inc
 
     if surface_fluxes is not None and updated is None:
         dz_top = grid.dz_c[grid.hz + grid.Nz - 1, 0, 0]
@@ -457,10 +469,11 @@ def premask_state(grid, state):
 
 
 def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
-              premasked=False, comm=None) -> HydrostaticState:
+              premasked=False, comm=None, restoring=None) -> HydrostaticState:
     """One quasi-AB2 hydrostatic step with the split-explicit or the
     explicit free surface and, with a closure, the vertically implicit
-    solves; with ``comm``, of the tile ``grid`` (see ``parallel.sharded``)."""
+    solves; with ``comm``, of the tile ``grid`` (see ``parallel.sharded``);
+    with ``restoring``, T/S relaxed toward targets (``compute_tendencies``)."""
     if not premasked:
         state = premask_state(grid, state)
     dtype = state.u.dtype
@@ -468,7 +481,7 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
     c1, c2 = _ab2_coeffs(cfg, state, dtype)
     ab = (float(dt_t * c1), float(dt_t * c2))
     Gu, Gv, Gtr, updated, ints, diffusivities, Geta = compute_tendencies(
-        cfg, grid, state, ab, surface_fluxes, comm)
+        cfg, grid, state, ab, surface_fluxes, comm, restoring)
     wall = owns_south_wall(comm)
     G_ab = None
     a, b, h = float(c1), float(c2), float(dt_t)
@@ -560,12 +573,16 @@ def _implicit_solves(cfg, grid, u, v, tracers, d, dt):
     return u, v, out
 
 
-def loop(cfg, grid, state, dt, n, comm=None):
+def loop(cfg, grid, state, dt, n, comm=None, restoring=None, chunk=None):
     """``n`` time steps (the immersed mask applied once, before the first):
     on the card replayed from a captured CUDA graph (``device_loop``), also
     on a tile of the decomposed path whose mesh is the one card
     (``comm.mesh.size == 1``); on the CPU and on a tile of a mesh of several
-    ranks launched step by step from the host (``host_loop``)."""
+    ranks launched step by step from the host (``host_loop``). ``chunk``: the
+    call is one chunk of a driver that runs chunks of that many steps
+    (``simulation.Simulation``), replayed whole (``device_loop``'s
+    ``lead``)."""
     state = premask_state(grid, state)
-    step = functools.partial(time_step, cfg, grid, dt=dt, premasked=True, comm=comm)
-    return run_loop(step, state, n, comm, grid.cache)
+    step = functools.partial(time_step, cfg, grid, dt=dt, premasked=True, comm=comm,
+                             restoring=restoring)
+    return run_loop(step, state, n, comm, grid.cache, chunk)

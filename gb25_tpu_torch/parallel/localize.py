@@ -44,9 +44,15 @@ def localize_grid(grid, comm, nx_local: int, ny_local: int):
 
 
 def localize_atmosphere(atmos, comm, nx_local: int, ny_local: int):
-    """The pre-regridded atmosphere of ``comm``'s tile: its (Nt, Ny, Nx)
-    records sliced like any other ocean plane."""
+    """The atmosphere of ``comm``'s tile: a pre-regridded one's (Nt, Ny, Nx)
+    records sliced like any other ocean plane; a gather form's index and
+    weight planes sliced so, its record on the atmosphere's grid kept
+    whole."""
     x0, y0 = comm.ix * nx_local, comm.iy * ny_local
-    return dataclasses.replace(atmos, fields={
-        k: f[:, y0 : y0 + ny_local, x0 : x0 + nx_local].contiguous()
-        for k, f in atmos.fields.items()})
+
+    def plane(f):
+        return f[..., y0 : y0 + ny_local, x0 : x0 + nx_local].contiguous()
+
+    if atmos.gather is not None:
+        return dataclasses.replace(atmos, gather=tuple(map(plane, atmos.gather)))
+    return dataclasses.replace(atmos, fields={k: plane(f) for k, f in atmos.fields.items()})

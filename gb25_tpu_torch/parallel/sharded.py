@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -56,31 +57,51 @@ def _tile(grid, mesh, force_comm):
     return comm, localize_grid(grid, comm, grid.Nx // mesh.Rx, grid.Ny // mesh.Ry)
 
 
-def sharded_step_fn(cfg, grid, mesh, n_inner: int | None = None, force_comm=False):
+def sharded_step_fn(cfg, grid, mesh, n_inner: int | None = None, force_comm=False,
+                    restoring=None):
     """This rank's ``fn(state_tile, dt, n=n_inner) -> state_tile``: one
     step, or ``n`` steps (the immersed mask applied once), of the model on
     ``grid`` (the global grid) decomposed over ``mesh``. ``fn.step(state,
     dt=dt)`` is the tile's one step on a premasked state, the step its loop
-    runs, and ``fn.grid`` the tile's grid."""
+    runs, and ``fn.grid`` the tile's grid. ``restoring``: the global
+    {tracer: (target, rate)} dict, each target and rate cut to the tile's
+    interior (``localize_restoring``), as the JAX package shards them."""
     from gb25_tpu_torch.models.hydrostatic import time_step
 
     comm, lgrid = _tile(grid, mesh, force_comm)
-    return _tile_fn(functools.partial(time_step, cfg, lgrid, premasked=True, comm=comm),
+    return _tile_fn(functools.partial(time_step, cfg, lgrid, premasked=True, comm=comm,
+                                      restoring=localize_restoring(restoring, mesh, lgrid)),
                     lgrid, comm, n_inner)
 
 
 def sharded_coupled_step_fn(ccfg, grid, atmos, mesh, n_inner: int | None = None,
-                            force_comm=False):
+                            force_comm=False, restoring=None):
     """This rank's coupled ``fn(state_tile, dt, n=n_inner) ->
-    state_tile``, the atmosphere sliced to the tile; ``fn.step`` and
-    ``fn.grid`` as ``sharded_step_fn``'s."""
+    state_tile``, the atmosphere and ``restoring`` cut to the tile;
+    ``fn.step`` and ``fn.grid`` as ``sharded_step_fn``'s."""
     from gb25_tpu_torch.models.coupled import coupled_time_step
 
     comm, lgrid = _tile(grid, mesh, force_comm)
     if comm is not None:
         atmos = localize_atmosphere(atmos, comm, lgrid.Nx, lgrid.Ny)
     return _tile_fn(functools.partial(coupled_time_step, ccfg, lgrid, atmos, premasked=True,
-                                      comm=comm), lgrid, comm, n_inner)
+                                      comm=comm,
+                                      restoring=localize_restoring(restoring, mesh, lgrid)),
+                    lgrid, comm, n_inner)
+
+
+def localize_restoring(restoring, mesh, lgrid):
+    """The restoring dict of this rank's tile of ``lgrid``'s size: every
+    target and rate (interior fields, or (1, Ny, Nx) planes) cut to the
+    tile; None stays None."""
+    if restoring is None:
+        return None
+    y0, x0 = mesh.iy * lgrid.Ny, mesh.ix * lgrid.Nx
+
+    def cut(a):
+        return a[..., y0 : y0 + lgrid.Ny, x0 : x0 + lgrid.Nx].contiguous()
+
+    return {name: (cut(target), cut(rate)) for name, (target, rate) in restoring.items()}
 
 
 def _tile_fn(step, lgrid, comm, n_inner):
@@ -137,18 +158,21 @@ def gather_state(state, mesh):
     return _map_fields(state, gather)
 
 
-def run_decomposed(mesh, cfg, grid, arrays, dt, steps, atmos=None, force_comm=False):
+def run_decomposed(mesh, cfg, grid, arrays, dt, steps, atmos=None, force_comm=False,
+                   restoring=None):
     """``steps`` steps from a JAX-layout numpy state ``arrays`` (see
     ``convert``), decomposed over ``mesh``; returns the gathered global
     state as JAX-layout numpy arrays. ``cfg`` is a ``HydrostaticConfig``,
-    or a ``CoupledConfig`` with its ``atmos``. Fit for ``parallel.mesh.spawn``
-    (every rank passes the same global ``grid``)."""
+    or a ``CoupledConfig`` with its ``atmos``; ``restoring`` the global
+    restoring dict. Fit for ``parallel.mesh.spawn`` (every rank passes the
+    same global ``grid``)."""
     state = shard_state(state_from_numpy(arrays, grid.device), mesh)
     if atmos is None:
-        fn = sharded_step_fn(cfg, grid, mesh, n_inner=steps, force_comm=force_comm)
+        fn = sharded_step_fn(cfg, grid, mesh, n_inner=steps, force_comm=force_comm,
+                             restoring=restoring)
     else:
         fn = sharded_coupled_step_fn(cfg, grid, atmos, mesh, n_inner=steps,
-                                     force_comm=force_comm)
+                                     force_comm=force_comm, restoring=restoring)
     return state_to_numpy(gather_state(fn(state, dt), mesh))
 
 
@@ -163,6 +187,42 @@ def run_decomposed_sw(mesh, cfg, grid, arrays, dt, steps):
     comm, lgrid = _tile(grid, mesh, False)
     state = shard_state(sw_state_from_numpy(arrays, grid.device), mesh)
     return sw_state_to_numpy(gather_state(sw_loop(cfg, lgrid, state, dt, steps, comm), mesh))
+
+
+def checkpoint_decomposed(mesh, arrays, directory):
+    """Write this rank's tile of a JAX-layout numpy state ``arrays`` as a
+    sharded checkpoint (``io.checkpoint.save_sharded_state`` with the mesh:
+    the tile with its global slices, no gather). Fit for
+    ``parallel.mesh.spawn``."""
+    from gb25_tpu_torch.io.checkpoint import save_sharded_state
+
+    save_sharded_state(shard_state(state_from_numpy(arrays, "cpu"), mesh), directory, mesh=mesh)
+
+
+def run_decomposed_seaice_advect(mesh, sea_ice, grid, arrays, ice, atmos, dt):
+    """``models.seaice.seaice_advect`` on this rank's tile of ``grid`` (the
+    width-1 extensions exchanged with the neighbours, the fold's across the
+    top rank row), from a JAX-layout numpy ocean state ``arrays``, the
+    (Nx, Ny) numpy planes ``ice`` ({"v", "a"}) and ``atmos`` (name -> plane
+    at the model time); returns the gathered (v, a) in JAX's layout. Fit
+    for ``parallel.mesh.spawn``."""
+    from gb25_tpu_torch.convert import ice_state_from_numpy, ice_state_to_numpy
+    from gb25_tpu_torch.models.seaice import seaice_advect
+
+    comm, lgrid = _tile(grid, mesh, False)
+    state = shard_state(state_from_numpy(arrays, grid.device), mesh)
+    y0, x0 = mesh.iy * lgrid.Ny, mesh.ix * lgrid.Nx
+
+    def cut(t):
+        return t[..., y0 : y0 + lgrid.Ny, x0 : x0 + lgrid.Nx].contiguous()
+
+    ice_t = ice_state_from_numpy(ice, grid.device)
+    ice_t = ice_t.replace(v=cut(ice_t.v), a=cut(ice_t.a))
+    atmos_t = {k: cut(torch.as_tensor(np.ascontiguousarray(np.transpose(a)), device=grid.device))
+               for k, a in atmos.items()}
+    out = seaice_advect(sea_ice, lgrid, state, ice_t, atmos_t, dt, comm)
+    gathered = gather_state(dataclasses.replace(state, u=out.v[None], v=out.a[None]), mesh)
+    return ice_state_to_numpy(ice_t.replace(v=gathered.u[0], a=gathered.v[0]))
 
 
 def tile_snapshot(mesh, grid, fields, force_comm=False):
