@@ -300,9 +300,40 @@ held the same way.
      checkpoint at step 72) as three subprocesses on the card; fails
      unless ``bitwise_equal`` on all 15 fields; each phase's ms/step with
      and without its checkpoints and each checkpoint's write time.
+  the flagship's own entry points (outputs under smoke_out/, removed after):
+  43. the serial run script's main in this process, ``python -m
+     gb25_tpu_torch.scripts.baroclinic_instability_run --grid-x 1536
+     --grid-y 768 --grid-z 64 --steps 64``, then again with ``--kernels
+     pallas``: its five phase times (compile first_time_step, compile
+     loop, first time step, first loop, second loop), per step exactly 1
+     K1 and 1 K2 (K6 and K5's launches of [23] with pallas) over the run
+     (the compile phase's step on a copy, the Euler step, 2 x 64 replayed
+     from the one graph the compile phase captured) and under the profiler
+     over one more replayed block and a host step; the final state bit for
+     bit against the same 1 + 2 x 64 steps launched from the host; the
+     second loop's ms/step beside [5]'s ([23]'s);
+  44. the sharded run script on a group of one rank (tile 1536x768x64,
+     64-step loops, dt 1 s, ``--save-dir``): 1 K1 and 1 K2 a step, the
+     dumps read back bit for bit into the final state;
+  45. the correctness protocol at 1536x768x64 f32 (noise 1e-3, dt 1e-9 s,
+     the 100-step loop): the serial model against the decomposed model
+     forced onto the 1x1 tile ("local": K1 and K5, no K2) at f32's rtol
+     (sqrt(eps)) at all five checkpoints, each field's largest relative
+     difference printed; per step 1 K1 in each model, 1 K2 in the serial
+     one and K5's launches at W = 4 in the decomposed one;
+  46. the eddy probe (``scripts.eddy_statistics.run``): (a) the JAX
+     package's validated 1-degree run (360x160x8, dt 900 s, 1920 steps,
+     chunks of 96), held to tests/test_eddy_statistics.py:82-91's band
+     (EKE growth > 3, fit r2 > 0.9, 0.1 < sigma_fit / sigma_Eady < 1.2)
+     and its EKE finite to day 16 (``EDDY_1DEG_FINITE_DAYS``), the chunks
+     with a finite EKE and the day it went non-finite printed;
+     (b) the balanced jet at 1536x768x64 (dt 90 s, noise 1e-5, 960 steps,
+     chunks of 96): EKE finite and never below its first sample, growing;
+     its fit printed beside docs/EDDY_VALIDATION.json's
+     quarter_degree_balanced record; 1 K1 and 1 K2 a step in both.
 
 Every phase raises on failure, and the script then exits non-zero. [30]
-sums up the ms/step of every path; it is printed last, after [31]-[42],
+sums up the ms/step of every path; it is printed last, after [31]-[46],
 then the script's wall time. Three lines end the output: a JSON
 object with each kernel instance's launches on its main path, error
 against its plain version, times, its bound (the larger of its compulsory
@@ -331,7 +362,9 @@ row (h), each the tripolar three-tracer instance) carry every instance
 [37] or [38] checked under "instances" and their launches on the other
 rows ((f), (i); (j); (g)); the tripolar K1 and K2 entries and the K3 and
 K4 entries carry under "production_routes" their launches on [40] and
-[41] and [40]'s check and times at its width;
+[41] and [40]'s check and times at its width; the flagship K1 and K2
+entries, K6's flagship entry and K5's carry under "run_script_routes"
+their launches on [43]-[46] with each path's steps;
 each entry
 of a replayed path carries its launches on the device over the run, the
 method that established them and the device loop's eager and replayed
@@ -3828,6 +3861,297 @@ def production_phases(card, trip_ms):
     return {"run_script": run, "seaice": ice, "kill_resume": resume}
 
 
+# --------------------------------------------------------------------------
+# the flagship's own entry points: the run scripts, the correctness
+# protocol, the eddy probe
+# --------------------------------------------------------------------------
+
+RUN_SCRIPT_STEPS = 64   # [43], [44]: each script's two loops
+CORRECTNESS_LOOP = 100  # [45]: the protocol's last loop, as the script's main runs it
+EDDY_1DEG = dict(nx=360, ny=160, nz=8, dt=900.0, steps=1920, chunk=96)  # [46] (a)
+# [46] (a): the days its EKE must stay finite. The closure-free run goes
+# non-finite late, at a day that float32 rounding moves: on the CPU from the
+# port's initial state both packages at day 17, from JAX's the port at day
+# 19 and JAX not in 20 days; in float64 they agree to day 20
+# (tests/test_torch_eddy_witness.py). The fit window ends near day 10.
+EDDY_1DEG_FINITE_DAYS = 16
+EDDY_BALANCED = dict(nx=NX, ny=NY, nz=NZ, dt=90.0, steps=960, chunk=96, init="balanced",
+                     noise=1e-5)  # [46] (b)
+SCRIPT_LABELS = ("compile first_time_step", "compile loop", "first time step", "first loop",
+                 "second loop")
+
+
+def run_quietly(main, argv):
+    """``main(argv)`` with its output printed, each allocator-stats line
+    (a whole ``torch.cuda.memory_stats`` dict) cut to its first 100
+    characters."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return main(argv)
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(line[:100] + " ..." if "allocator" in line and len(line) > 100 else line)
+
+
+def zero_counts(kernels):
+    from gb25_tpu_torch.models import device_loop
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in kernels.values():
+        k.launches = 0
+    device_loop.STATS.reset()
+
+
+def loop_record():
+    from gb25_tpu_torch.models import device_loop
+
+    stats = device_loop.STATS
+    return {"eager_steps": stats.eager_steps, "replayed_steps": stats.replayed_steps,
+            "captured_steps": stats.captured_steps, "captures": stats.captures,
+            "replays": stats.replays, "pool_gb": stats.pool_bytes / 1e9}
+
+
+def serial_run_script(card, flag_ms, k6_ms):
+    """[43]: the port's serial run script's main in this process at
+    1536x768x64 with 64-step loops, on the K1 route and with --kernels
+    pallas: its five phase times, the launches a step over the run (the
+    compile phase's step on a copy, the Euler step, 2 x 64 replayed) and
+    under the profiler over one more replayed block and a host step, and
+    its final state bit for bit against the same 1 + 2 x 64 steps launched
+    from the host."""
+    from gb25_tpu_torch.models import baroclinic_instability_state, device_loop, loop, time_step
+    from gb25_tpu_torch.models.hydrostatic import loop_step
+    from gb25_tpu_torch.scripts import baroclinic_instability_run as script
+
+    steps = RUN_SCRIPT_STEPS
+    base = ["--grid-x", str(NX), "--grid-y", str(NY), "--grid-z", str(NZ), "--steps", str(steps),
+            "--device", DEVICE]
+    kernels = k6_kernels()
+    out = {}
+    for route, extra, ref_ms in (("auto", [], flag_ms), ("pallas", ["--kernels", "pallas"], k6_ms)):
+        argv = base + extra
+        print(f"[43] the serial run script in process: python -m gb25_tpu_torch.scripts."
+              f"baroclinic_instability_run {' '.join(argv)}")
+        zero_counts(kernels)
+        res = run_quietly(script.main, argv)
+        cfg, grid, s = res["cfg"], res["grid"], res["state"]
+        if list(res["times"]) != list(SCRIPT_LABELS):
+            raise AssertionError(f"[43] phase labels {list(res['times'])}")
+        if route == "auto":
+            per_step = {"K1": 1, "K2": 1, "K6": 0, "K5": 0}
+        else:
+            per_step = {"K6": 1, "K5": k5_per_step(cfg, grid), "K1": 0, "K2": 0}
+        # the compile phase's warm step on a copy, the Euler step, 2 x steps
+        launches = hold_launches(f"[43] {route}", kernels, per_step, 2 + 2 * steps)
+        rec = loop_record()
+        if rec["eager_steps"] != 2 or rec["captures"] != 1:
+            raise AssertionError(f"[43] {route}: {rec} (one capture, in the compile phase, and "
+                                 "two eager steps expected)")
+        check_state(s, (NZ, NY, NX))
+        s0 = baroclinic_instability_state(grid, tracers=cfg.tracers)
+        host = device_loop.host_loop(loop_step(cfg, grid, DT), time_step(cfg, grid, s0, DT),
+                                     2 * steps)
+        ta, tb = device_loop._tensors(s), device_loop._tensors(host)
+        differ = [f for f in ta if not torch.equal(ta[f], tb[f])]
+        if differ or s.iteration != host.iteration:
+            raise AssertionError(f"[43] {route}: the script's final state differs from the host "
+                                 f"loop's in {differ} (iteration {s.iteration} vs "
+                                 f"{host.iteration})")
+        del host, s0
+        seen, method = probe_chunk(lambda: loop(cfg, grid, s, DT, PROBE_STEPS), per_step,
+                                   PROBE_STEPS, PROBE_STEPS - 1)
+        times = res["times"]
+        ms_step = 1e3 * times["second loop"] / steps
+        print(f"  bit for bit with 1 + 2 x {steps} steps from the host in {len(ta)} tensors; "
+              f"profiler probe {seen} ({method})")
+        print(f"  [43] {route} on {card}: " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+              + f"; second loop {ms_step:.3f} ms/step ({NX * NY * NZ / (1e-3 * ms_step):.4e} "
+              f"cell-steps/s); the main path's loop {ref_ms:.3f} ms/step")
+        out[route] = {"times": times, "ms_step": ms_step, "launches": launches,
+                      "steps": 2 + 2 * steps, "loop": rec, "probe": seen,
+                      "probe_method": method}
+        del res, s, grid
+    return out
+
+
+def sharded_run_script(card):
+    """[44]: the port's sharded run script on a group of one rank at tile
+    1536x768x64, 64-step loops at dt 1 s, with --save-dir: the phase times,
+    K1 and K2 once a step, and the dumps read back bit for bit into the
+    final state."""
+    import shutil
+
+    from gb25_tpu_torch.io import restore_state
+    from gb25_tpu_torch.models import device_loop
+    from gb25_tpu_torch.scripts import sharded_baroclinic_instability_run as script
+
+    steps = RUN_SCRIPT_STEPS
+    save = os.path.join(SMOKE_OUT, "sharded")
+    shutil.rmtree(save, ignore_errors=True)
+    argv = ["--tile-x", str(NX), "--tile-y", str(NY), "--Nz", str(NZ), "--steps", str(steps),
+            "--dt", "1", "--save-dir", save, "--device", DEVICE]
+    print(f"[44] the sharded run script on a group of one rank: python -m gb25_tpu_torch."
+          f"scripts.sharded_baroclinic_instability_run {' '.join(argv)}")
+    kernels = k6_kernels()
+    zero_counts(kernels)
+    try:
+        res = run_quietly(script.main, argv)
+        s = res["state"]
+        launches = hold_launches("[44]", kernels, {"K1": 1, "K2": 1, "K6": 0, "K5": 0},
+                                 2 + 2 * steps)
+        rec = loop_record()
+        check_state(s, (NZ, NY, NX))
+        back = restore_state(s, save, mesh=res["mesh"])
+        ta, tb = device_loop._tensors(s), device_loop._tensors(back)
+        differ = [f for f in ta if not torch.equal(ta[f], tb[f].to(ta[f].device))]
+        if differ or back.iteration != s.iteration:
+            raise AssertionError(f"[44] the dumps read back differ in {differ}")
+        dumped = sum(os.path.getsize(os.path.join(save, f)) for f in os.listdir(save))
+    finally:
+        shutil.rmtree(save, ignore_errors=True)
+    times = res["times"]
+    ms_step = 1e3 * times["second loop"] / steps
+    print(f"  the dumps ({dumped / 1e9:.2f} GB) read back bit for bit in {len(ta)} tensors")
+    print(f"  [44] on {card}: " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+          + f"; second loop {ms_step:.3f} ms/step at dt 1 s")
+    return {"times": times, "ms_step": ms_step, "launches": launches, "steps": 2 + 2 * steps,
+            "loop": rec, "dump_gb": dumped / 1e9}
+
+
+def correctness_run(card):
+    """[45]: the correctness protocol at 1536x768x64 f32 (dt 1e-9 s, noise
+    1e-3, the 100-step loop): the serial model (K1, K2) against the
+    decomposed model forced onto the 1x1 tile ("local": K1, K5, no K2) at
+    f32's rtol at all five checkpoints; each field's largest relative
+    difference printed."""
+    from gb25_tpu_torch.grids import simple_latitude_longitude_grid
+    from gb25_tpu_torch.models import baroclinic_instability_config, baroclinic_instability_state
+    from gb25_tpu_torch.models import device_loop
+    from gb25_tpu_torch.parallel import make_mesh
+    from gb25_tpu_torch.scripts.correctness_baroclinic_instability_run import protocol
+    from gb25_tpu_torch.utils.correctness import default_rtol
+
+    rtol = default_rtol(torch.float32)
+    print(f"[45] the correctness protocol at {NX}x{NY}x{NZ} f32: serial against the decomposed "
+          f"model forced onto the 1x1 tile ('local'), rtol {rtol:.3e}, dt 1e-9 s, loop "
+          f"{CORRECTNESS_LOOP}")
+    kernels = k6_kernels()
+    cfg = baroclinic_instability_config()
+    grid = simple_latitude_longitude_grid(NX, NY, NZ, device=DEVICE)
+    state = baroclinic_instability_state(grid, noise_velocity=1e-3, tracers=cfg.tracers)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):  # per-field lines
+        checkpoints = protocol(make_mesh(), cfg, grid, state, 1e-9, CORRECTNESS_LOOP, "local")
+    wall = time.perf_counter() - t0
+    stats = device_loop.STATS
+    steps = 11 + CORRECTNESS_LOOP
+    k5 = k5_per_step(cfg, grid)
+    launches = {k: stats.launches(kern) for k, kern in kernels.items()}
+    want = {"K1": 2 * steps, "K2": steps, "K6": 0, "K5": k5 * steps}
+    if launches != want:
+        raise AssertionError(f"[45] launches on the device {launches}, expected {want}")
+    out = {}
+    for name, report, _ in checkpoints:
+        rel = {f: (err / ref if ref else err) for f, ref, err, _ in report}
+        out[name] = rel
+        print(f"  {name}: largest relative difference " + ", ".join(
+            f"{f} {r:.3e}" for f, r in rel.items()))
+    print(f"  [45] on {card}: all five checkpoints within rtol {rtol:.3e}; launches {launches} "
+          f"({steps} steps each model); {wall:.1f} s")
+    return {"checkpoints": out, "launches": launches, "steps": steps, "rtol": rtol,
+            "wall_s": wall}
+
+
+def eddy_probe(card):
+    """[46]: the eddy probe (a) in the JAX package's validated 1-degree
+    configuration, held to tests/test_eddy_statistics.py:82-91's band and
+    finite to day ``EDDY_1DEG_FINITE_DAYS``, and
+    (b) on the balanced jet at 1536x768x64 (dt 90 s, noise 1e-5, 960
+    steps): EKE finite and growing from its first sample (no adjustment
+    dip), the fit printed beside docs/EDDY_VALIDATION.json's
+    quarter_degree_balanced record; K1 and K2 once a step."""
+    from gb25_tpu_torch.scripts import eddy_statistics
+
+    kernels = k6_kernels()
+    per_step = {"K1": 1, "K2": 1, "K6": 0, "K5": 0}
+    out = {}
+    for key, kw in (("one_degree", EDDY_1DEG), ("balanced", EDDY_BALANCED)):
+        print(f"[46] the eddy probe ({key}): python -m gb25_tpu_torch.scripts.eddy_statistics "
+              + " ".join(f"--{k} {v}" for k, v in kw.items()))
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        res = eddy_statistics.run(**kw, device=DEVICE)
+        wall = time.perf_counter() - t0
+        launches = hold_launches(f"[46] {key}", kernels, per_step, res["steps_run"])
+        rec = loop_record()
+        eke = np.asarray(res["eke"])
+        summary = {k: res[k] for k in ("sigma_fit_per_s", "fit_r2", "sigma_ratio",
+                                       "eke_growth_factor", "fit_window", "sigma_eady_per_s")}
+        print(f"  EKE {eke[0]:.4e} -> {eke[-1]:.4e} over {res['times_days'][-1]:.2f} days "
+              f"({len(eke)} chunks); {summary}; {wall:.1f} s, {1e3 * wall / res['steps_run']:.3f} "
+              "ms/step with the diagnostics")
+        chunks = kw["steps"] // kw["chunk"]
+        finite = len(eke) == chunks  # run() drops a non-finite tail
+        # the day of the first chunk whose EKE is not finite (run() stops there)
+        breakdown_day = None if finite else res["steps_run"] * kw["dt"] / 86400.0
+        finite_days = res["times_days"][-1] if len(eke) else 0.0
+        print(f"  {len(eke)} of {chunks} chunks with a finite EKE, to day {finite_days:.2f}; "
+              + ("finite to the end" if finite else f"non-finite at day {breakdown_day:.2f}"))
+        if key == "one_degree":
+            # the JAX test's band (its run() too drops a non-finite tail),
+            # and a finite run to EDDY_1DEG_FINITE_DAYS, which the band
+            # cannot see
+            band = (res["eke_growth_factor"] > 3.0 and res["fit_r2"] > 0.9
+                    and 0.1 < res["sigma_ratio"] < 1.2)
+            if not band:
+                raise AssertionError(f"[46] (a) outside the band EKE growth > 3, r2 > 0.9, "
+                                     f"0.1 < sigma_fit / sigma_Eady < 1.2: {summary}")
+            if finite_days < EDDY_1DEG_FINITE_DAYS:
+                raise AssertionError(f"[46] (a) EKE finite to day {finite_days:.2f} only, "
+                                     f"non-finite at day {breakdown_day:.2f} (at least "
+                                     f"{EDDY_1DEG_FINITE_DAYS} days expected)")
+        else:
+            if not finite or int(np.argmin(eke)) != 0 or not eke[-1] > eke[0]:
+                raise AssertionError(f"[46] (b) EKE goes non-finite, dips below its first "
+                                     f"sample or does not grow: {eke}")
+            with open(os.path.join(ROOT, "docs", "EDDY_VALIDATION.json")) as f:
+                ref = json.load(f)["quarter_degree_balanced"]
+            print(f"  beside docs/EDDY_VALIDATION.json quarter_degree_balanced ({ref['steps']} "
+                  f"steps, {ref['times_days'][-1]:.2f} days): sigma_fit "
+                  f"{ref['sigma_fit_per_s']:.4e} /s, r2 {ref['fit_r2']:.4f}, EKE growth "
+                  f"{ref['eke_growth_factor']:.4e}; this run's first {len(eke)} chunks: sigma_fit "
+                  f"{res['sigma_fit_per_s']:.4e} /s, r2 {res['fit_r2']:.4f}, EKE growth "
+                  f"{res['eke_growth_factor']:.4e}")
+        print(f"  [46] {key} on {card}: launches {launches} over {res['steps_run']} steps "
+              f"({rec['eager_steps']} eager, {rec['replayed_steps']} replayed)")
+        out[key] = {**summary, "eke": res["eke"], "times_days": res["times_days"], "finite": finite,
+                    "finite_chunks": len(eke), "chunks": chunks, "finite_days": finite_days,
+                    "breakdown_day": breakdown_day, "launches": launches, "steps": res["steps_run"], "loop": rec, "wall_s": wall}
+    return out
+
+
+def entry_point_phases(card, flag_ms, k6_ms):
+    """[43]-[46]; returns their records."""
+    t0 = time.perf_counter()
+    serial = serial_run_script(card, flag_ms, k6_ms)
+    sharded = sharded_run_script(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    correct = correctness_run(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eddy = eddy_probe(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  [43]-[46] {time.perf_counter() - t0:.1f} s")
+    return {"serial": serial, "sharded": sharded, "correctness": correct, "eddy": eddy}
+
+
 T_START = time.perf_counter()
 
 
@@ -3907,6 +4231,7 @@ def main():
     production = production_phases(card, trip["ms_step"])
     gc.collect()
     torch.cuda.empty_cache()
+    scripts = entry_point_phases(card, flag["ms_step"], k6_ms["flagship_k6"]["ms_step"])
 
     def host(r):
         return "" if r.get("host_ms_step") is None else f", from the host {r['host_ms_step']:.3f}"
@@ -3939,7 +4264,14 @@ def main():
           f"; [41] slab ice {production['seaice']['ms_step']:.3f}"
           f"{host(production['seaice'])}; [42] kill and resume, full phase "
           f"{production['kill_resume']['phases']['full']['ms_per_step']:.3f} with its "
-          f"checkpoints")
+          f"checkpoints; [43] serial run script, second loop "
+          f"{scripts['serial']['auto']['ms_step']:.3f}, --kernels pallas "
+          f"{scripts['serial']['pallas']['ms_step']:.3f}; [44] sharded run script on one rank "
+          f"{scripts['sharded']['ms_step']:.3f} at dt 1 s; [46] eddy probe, 1 degree "
+          f"{1e3 * scripts['eddy']['one_degree']['wall_s'] / scripts['eddy']['one_degree']['steps']:.3f}"
+          f", balanced jet "
+          f"{1e3 * scripts['eddy']['balanced']['wall_s'] / scripts['eddy']['balanced']['steps']:.3f} with "
+          f"the EKE diagnostics")
 
     k5_entry = entry("barotropic_block", "barotropic_block.cu",
                      "gb25_tpu/ops/pallas_barotropic.py:349", "climate_tripolar_decomposed",
@@ -3980,6 +4312,30 @@ def main():
             "run_script_vs_plain": production["run_script"]["kernels"][kernel],
             "seaice": production["seaice"]["launches"][kernel],
             "seaice_steps": production["seaice"]["loop"]["steps"]}
+    # the flagship instances' launches on the run scripts' paths ([43]-[46])
+    serial, eddy = scripts["serial"], scripts["eddy"]
+    correct = scripts["correctness"]
+    for e, kernel in zip(flag_kernels, ("K1", "K2")):
+        e["run_script_routes"] = {
+            "serial_script": serial["auto"]["launches"][kernel],
+            "serial_script_steps": serial["auto"]["steps"],
+            "sharded_script": scripts["sharded"]["launches"][kernel],
+            "sharded_script_steps": scripts["sharded"]["steps"],
+            "correctness": correct["launches"][kernel],
+            "correctness_steps": correct["steps"],
+            **{f"eddy_{k}": eddy[k]["launches"][kernel] for k in eddy},
+            **{f"eddy_{k}_steps": eddy[k]["steps"] for k in eddy},
+            **{f"eddy_{k}_finite": {f: eddy[k][f] for f in ("finite_chunks", "chunks",
+                                                            "breakdown_day")}
+               for k in eddy}}
+    k6_entries[0]["run_script_routes"] = {
+        "serial_script_pallas": serial["pallas"]["launches"]["K6"],
+        "serial_script_pallas_steps": serial["pallas"]["steps"]}
+    k5_entry["run_script_routes"] = {
+        "serial_script_pallas": serial["pallas"]["launches"]["K5"],
+        "serial_script_pallas_steps": serial["pallas"]["steps"],
+        "correctness_decomposed": correct["launches"]["K5"],
+        "correctness_decomposed_steps": correct["steps"]}
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s on {card}")
     print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels
                       + [k5_entry] + k6_entries + [k6_tile] + choice_entries

@@ -56,15 +56,22 @@ def state_from_numpy(arrays: dict, device) -> HydrostaticState:
     )
 
 
+def state_tensors(state: HydrostaticState) -> dict:
+    """The port's state as tensors under the JAX leaf names, in the JAX leaf
+    order, each in the port's layout where it lies (the iteration a 0-d
+    int32 tensor)."""
+    out = {"u": state.u, "v": state.v, "eta": state.eta}
+    out.update({f"tracers/{k}": state.tracers[k] for k in sorted(state.tracers)})
+    out.update({"Gu": state.Gu, "Gv": state.Gv, "Geta": state.Geta})
+    out.update({f"Gtracers/{k}": state.Gtracers[k] for k in sorted(state.Gtracers)})
+    out.update({"time": state.time, "time_lo": state.time_lo,
+                "iteration": torch.tensor(state.iteration, dtype=torch.int32)})
+    return out
+
+
 def state_to_numpy(state: HydrostaticState) -> dict:
     """The port's state as JAX-layout numpy arrays, in the JAX leaf order."""
-    out = {"u": _to_jax(state.u), "v": _to_jax(state.v), "eta": _to_jax(state.eta)}
-    out.update({f"tracers/{k}": _to_jax(state.tracers[k]) for k in sorted(state.tracers)})
-    out.update({"Gu": _to_jax(state.Gu), "Gv": _to_jax(state.Gv), "Geta": _to_jax(state.Geta)})
-    out.update({f"Gtracers/{k}": _to_jax(state.Gtracers[k]) for k in sorted(state.Gtracers)})
-    out.update({"time": _to_jax(state.time), "time_lo": _to_jax(state.time_lo),
-                "iteration": np.asarray(state.iteration, np.int32)})
-    return out
+    return {k: _to_jax(t) for k, t in state_tensors(state).items()}
 
 
 def sw_state_from_numpy(arrays: dict, device) -> ShallowWaterState:

@@ -1,4 +1,5 @@
 from gb25_tpu_torch.models.baroclinic import (  # noqa: F401
+    balanced_jet_state,
     baroclinic_instability_config,
     baroclinic_instability_model,
     baroclinic_instability_state,

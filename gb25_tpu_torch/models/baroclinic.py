@@ -75,6 +75,68 @@ def baroclinic_instability_state(grid, noise_velocity=1e-3, seed=42,
     return state.replace(u=u, v=v, tracers={"T": T, "S": S, **closure})
 
 
+def balanced_jet_state(grid, cfg=None, noise_velocity=1e-3, seed=42,
+                       tracers=("T", "S")) -> HydrostaticState:
+    """The thermal-wind-balanced baroclinic jet (the eddy probe's
+    ``--init balanced``): the analytic T/S front of
+    ``baroclinic_instability_state``, with u in thermal-wind balance with
+    it and the free surface set so that the bottom flow vanishes,
+
+        g eta(y) = int_{-H}^0 b dz' (its mean removed),
+        u(y, z) = -(1/f) d/dy int_{-H}^z b dz',
+
+    so the run starts without the geostrophic-adjustment transient of the
+    unbalanced front. 1/f is clamped at |phi| = 10 degrees. The balance
+    arithmetic runs in float64 numpy, in the JAX package's order; g is
+    9.80665 whatever the config's free surface says, as in the JAX package
+    (a known fault of the reference, ROADMAP.md section 3). The velocity
+    noise comes from a ``torch.Generator`` seeded with ``seed``: u's draw,
+    then v's, v 0 on the southern wall face."""
+    import numpy as np
+
+    from gb25_tpu_torch.grids.latlon import EARTH_RADIUS
+    from gb25_tpu_torch.models.config import EARTH_ROTATION_RATE
+
+    cfg = cfg or baroclinic_instability_config()
+    state = baroclinic_instability_state(grid, noise_velocity=0.0, seed=seed, tracers=tracers)
+    dtype, device = grid.dtype, grid.device
+
+    def host(t):
+        return t.detach().to("cpu", torch.float64).numpy()
+
+    phi_c = host(grid.phi_c_i)                                  # (Ny,)
+    z_c = host(grid.z_c_i)                                      # (Nz,)
+    hz = grid.hz
+    dz = host(grid.dz_c).reshape(-1)[hz : hz + grid.Nz]
+    T = host(state.tracers["T"][:, :, 0]).T                     # (Ny, Nz): x-independent
+    S = host(state.tracers["S"][:, :, 0]).T
+    b = host(cfg.eos.buoyancy(torch.from_numpy(T), torch.from_numpy(S),
+                              torch.from_numpy(z_c.reshape(1, -1))))
+
+    # int_{-H}^{z_k} b dz' at the cell centres (midpoint rule)
+    B = np.cumsum(b * dz.reshape(1, -1), axis=1)               # (Ny, Nz)
+    y_c = EARTH_RADIUS * np.deg2rad(phi_c)
+    dBdy = np.gradient(B, y_c, axis=0)
+
+    f = 2.0 * EARTH_ROTATION_RATE * np.sin(np.deg2rad(phi_c))
+    f_min = 2.0 * EARTH_ROTATION_RATE * np.sin(np.deg2rad(10.0))
+    f_cl = np.where(np.abs(f) < f_min, np.where(f < 0, -f_min, f_min), f)
+
+    u2 = -dBdy / f_cl.reshape(-1, 1)                           # (Ny, Nz)
+    eta1 = (B[:, -1] - B[:, -1].mean()) / 9.80665              # (Ny,)
+
+    shape = grid.shape
+    u = torch.as_tensor(u2.T, dtype=dtype, device=device)[:, :, None].expand(shape).contiguous()
+    eta = torch.as_tensor(eta1, dtype=dtype, device=device)[:, None].expand(shape[1:]).contiguous()
+    v = torch.zeros(shape, dtype=dtype, device=device)
+    if noise_velocity:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        u = u + noise_velocity * torch.randn(shape, generator=gen, dtype=dtype, device=device)
+        v = noise_velocity * torch.randn(shape, generator=gen, dtype=dtype, device=device)
+        v[:, 0, :] = 0.0
+    return state.replace(u=u, v=v, eta=eta)
+
+
 def buoyancy_tracer_state(state, grid, eos=None):
     """``state`` with its T and S replaced by the b tracer, b = ``eos``'s
     buoyancy of them (the linear equation of state unless given: the

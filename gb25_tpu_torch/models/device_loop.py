@@ -198,6 +198,39 @@ def device_loop(step, state, n, cache, block=BLOCK_STEPS, lead=False):
     return _own(_eager(step, state, tail), static)
 
 
+def warm(step, state):
+    """One eager step of ``step`` (a ``functools.partial``, as
+    ``device_loop`` takes it) on a copy of a CUDA ``state``: it builds, or
+    loads, the kernels that the step's dispatch launches and fills every
+    cache a capture needs warm, without advancing ``state``. A run script's
+    "compile first_time_step" phase. Returns the stepped copy, which
+    ``prepare`` captures from; None on a CPU state (nothing to build)."""
+    if not isinstance(step, functools.partial):
+        raise TypeError("warm takes the step as device_loop does: a functools.partial")
+    tensors = _tensors(state)
+    if not _on_card(tensors):
+        return None
+    return _eager(step, _with_tensors(state, {f: t.clone() for f, t in tensors.items()}), 1)
+
+
+def prepare(step, warmed, cache, block=BLOCK_STEPS):
+    """Capture, ahead of the loop, the graph that ``device_loop(step, s, n,
+    cache, block)`` replays for a state laid out as ``warmed`` (``warm``'s
+    copy): the capture records ``block`` steps from it (recorded, not run).
+    A run script's "compile loop" phase. Returns False, and does nothing,
+    where ``warmed`` is None (a CPU state, whose loop does not replay)."""
+    if warmed is None:
+        return False
+    key = (_step_key(step), _layout(_tensors(warmed)), block)
+    entry = cache.get(_ENTRY)
+    if entry is not None and entry.key == key:
+        return True
+    for name in (_ENTRY, _LEAD):
+        cache.pop(name, None)  # frees another key's graph before the capture
+    cache[_ENTRY] = _capture(step, warmed, block, key, cache)
+    return True
+
+
 def _replay(step, state, block, key, cache, name, replays):
     """``replays`` replays of the graph of ``block`` steps kept under
     ``name`` in ``cache``, captured first where it is missing (sharing the

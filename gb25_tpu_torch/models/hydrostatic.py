@@ -583,6 +583,13 @@ def loop(cfg, grid, state, dt, n, comm=None, restoring=None, chunk=None):
     (``simulation.Simulation``), replayed whole (``device_loop``'s
     ``lead``)."""
     state = premask_state(grid, state)
-    step = functools.partial(time_step, cfg, grid, dt=dt, premasked=True, comm=comm,
+    return run_loop(loop_step(cfg, grid, dt, comm, restoring), state, n, comm, grid.cache, chunk)
+
+
+def loop_step(cfg, grid, dt, comm=None, restoring=None):
+    """The step ``loop`` runs on its premasked state, as the
+    ``functools.partial`` that keys its captured graph
+    (``device_loop.warm`` and ``prepare`` capture that graph ahead of the
+    loop)."""
+    return functools.partial(time_step, cfg, grid, dt=dt, premasked=True, comm=comm,
                              restoring=restoring)
-    return run_loop(step, state, n, comm, grid.cache, chunk)

@@ -63,7 +63,7 @@ def fold_exchange_strips(comm, a, h, faces=("c", "u")):
                 got[slot] = torch.empty_like(strip)
                 ops.append(dist.P2POp(dist.irecv, got[slot], rank(src[me]), mesh.group,
                                       _TAG[key, slot]))
-        post(ops)
+        post(ops, comm.traffic)
         # ascending source columns: [r, nxl) of s0, then [0, r) of s1
         stitched = torch.cat([got[0][..., r:], got[1][..., :r]], dim=-1) if r else got[0]
         out[key] = stitched.flip(-1)

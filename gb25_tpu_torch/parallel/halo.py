@@ -25,7 +25,7 @@ import torch.distributed as dist
 
 from gb25_tpu_torch.ops.halos import FIELD_BCS, ghost_blocks
 from gb25_tpu_torch.parallel.fold import fold_ghosts_north_dist
-from gb25_tpu_torch.parallel.mesh import Mesh, post
+from gb25_tpu_torch.parallel.mesh import Mesh, Traffic, post
 
 _DIM = {"x": -1, "y": -2}
 _TAG = {("x", "up"): 1, ("x", "dn"): 2, ("y", "up"): 3, ("y", "dn"): 4}
@@ -48,6 +48,8 @@ class MeshComm:
     force_ring: bool = False
     # per-tile constants built once (models.free_surface.blocked_statics)
     cache: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+    # the exchanges posted and the bytes sent (analysis.comm)
+    traffic: Traffic = dataclasses.field(default_factory=Traffic, compare=False, repr=False)
 
     @property
     def Rx(self) -> int:
@@ -106,7 +108,7 @@ class MeshComm:
         if has_hi:
             hi = torch.empty_like(send_dn, memory_format=torch.contiguous_format)
             ops.append(dist.P2POp(dist.irecv, hi, above, group, _TAG[axis, "dn"]))
-        post(ops)
+        post(ops, self.traffic)
         return lo, hi
 
     def fill_axis(self, e, h, axis, modes, periodic):

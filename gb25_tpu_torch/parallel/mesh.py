@@ -102,16 +102,47 @@ def make_mesh(shape=None, group=None) -> Mesh:
     return Mesh(rx, ry, rank, group)
 
 
-def post(ops):
-    """Post point-to-point operations as one batch and wait for them. Under
-    a CUDA graph capture it raises instead: a graph is replayed only where
-    the mesh is the one card, whose exchanges call no ``torch.distributed``
-    operation (``models.device_loop``), so a call here would be a fault."""
+@dataclasses.dataclass
+class Traffic:
+    """What a tile's exchanges posted: batches (each one latency round) and
+    the bytes this rank sent (``analysis.comm`` reads it over a step)."""
+
+    exchanges: int = 0
+    bytes_sent: int = 0
+
+    def reset(self):
+        self.exchanges = self.bytes_sent = 0
+
+
+def join_group(device):
+    """Join the process group ``torchrun`` describes (env://): NCCL with one
+    card a rank (``LOCAL_RANK``) for a CUDA ``device``, gloo on the CPU;
+    returns this rank's device."""
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", init_method="env://", device_id=device)
+    else:
+        dist.init_process_group("gloo", init_method="env://")
+    return device
+
+
+def post(ops, traffic=None):
+    """Post point-to-point operations as one batch and wait for them,
+    counted in ``traffic`` where given (a tile's ``MeshComm.traffic``).
+    Under a CUDA graph capture it raises instead: a graph is replayed only
+    where the mesh is the one card, whose exchanges call no
+    ``torch.distributed`` operation (``models.device_loop``), so a call
+    here would be a fault."""
     if ops:
         if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
             raise RuntimeError("a torch.distributed exchange under a CUDA graph capture: only a "
                                "mesh of one rank is replayed, and its exchanges stay on the "
                                "device")
+        if traffic is not None:
+            traffic.exchanges += 1
+            traffic.bytes_sent += sum(op.tensor.numel() * op.tensor.element_size()
+                                      for op in ops if op.op is dist.isend)
         for work in dist.batch_isend_irecv(ops):
             work.wait()
 

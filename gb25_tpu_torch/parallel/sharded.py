@@ -11,7 +11,8 @@ loop is replayed from a CUDA graph (``models.device_loop``), which lives in
 the tile grid's cache: ``fn`` builds that grid once, so run the untimed and
 the timed loops through one ``fn`` (``fn(state, dt, n)`` runs another
 count on the same tile; ``fn.step`` is the tile's one step, for a loop
-launched from the host, and ``fn.grid`` the tile's grid).
+launched from the host, ``fn.grid`` the tile's grid and ``fn.comm`` its
+exchange, None on the serial route).
 
 A 1x1 mesh takes the serial route (``comm=None``: kernel K2, no
 exchanges) unless ``force_comm`` keeps the decomposed program on one
@@ -117,7 +118,7 @@ def _tile_fn(step, lgrid, comm, n_inner):
             return step(state, dt=dt)
         return run_loop(functools.partial(step, dt=dt), state, n, comm, lgrid.cache)
 
-    fn.step, fn.grid = step, lgrid
+    fn.step, fn.grid, fn.comm = step, lgrid, comm
     return fn
 
 

@@ -43,16 +43,117 @@ comes from the first window. ``--blocks`` times the replayed loop with
 graphs of each block length. Needs a CUDA device; it fails without one.
 ``queued_device_ms`` times a call by the device alone (``chip_smoke.py``
 [19], ``solver_variants.py``).
+
+The run scripts' phase timing and traces (the JAX package's
+``gb25_tpu/utils/profiling.py``): ``Timer`` prints the
+``[rank] label: X seconds`` lines the reference's weak-scaling scrapers
+parse; ``with_profiler`` writes a ``torch.profiler`` Chrome trace
+(``analysis.trace`` summarizes it); ``annotate`` names a span in it;
+``gbprofile`` runs cProfile over a phase; ``allocator_stats`` reads the
+caching allocator of each card. The JAX package's
+``force_virtual_cpu_devices`` has no counterpart: the port's CPU ranks are
+processes of a gloo group (``parallel.spawn``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
+import os
 import time
 
 import torch
+
+
+def _synchronize():
+    """Wait for the card's queued work where the process has used a card."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class Timer:
+    """Phase timer printing ``[{rank}] {label}: {seconds:.6f} seconds`` (the
+    reference's ``@time "[rank] label"`` log line, which its weak-scaling
+    tooling scrapes). The card is synchronized before the clock is read at
+    both ends, so a phase holds the device work it queued. ``times`` keeps
+    each label's seconds, in the order run."""
+
+    def __init__(self, rank: int = 0):
+        self.rank = rank
+        self.times = {}
+
+    @contextlib.contextmanager
+    def __call__(self, label: str):
+        _synchronize()
+        t0 = time.perf_counter()
+        yield
+        _synchronize()
+        dt = time.perf_counter() - t0
+        self.times[label] = dt
+        print(f"[{self.rank}] {label}: {dt:.6f} seconds", flush=True)
+
+
+@contextlib.contextmanager
+def with_profiler(directory: str | None):
+    """Trace the block with ``torch.profiler`` (CPU activity, and CUDA
+    activity where a card is present) and write it as a Chrome-trace JSON
+    ``<host>_<pid>.pt.trace.json`` into ``directory``; None traces
+    nothing."""
+    if directory is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        _synchronize()
+    prof.export_chrome_trace(os.path.join(directory,
+                                          f"{os.uname().nodename}_{os.getpid()}.pt.trace.json"))
+
+
+def annotate(name: str, **metadata):
+    """A span named in the trace (``torch.profiler.record_function``) with
+    the JAX package's label: ``name#k=v,...#`` with metadata, else
+    ``name``."""
+    label = name
+    if metadata:
+        label += "#" + ",".join(f"{k}={v}" for k, v in metadata.items()) + "#"
+    return torch.profiler.record_function(label)
+
+
+@contextlib.contextmanager
+def gbprofile(name: str, enabled: bool = True):
+    """Host-side Python profile of a phase (the reference's @gbprofile):
+    cProfile over the block, the 60 costliest calls by cumulative time
+    written to ``profile_<name>.txt`` in the working directory."""
+    if not enabled:
+        yield
+        return
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    try:
+        yield
+    finally:
+        prof.disable()
+        with open(f"profile_{name}.txt", "w") as f:
+            pstats.Stats(prof, stream=f).sort_stats("cumulative").print_stats(60)
+
+
+def allocator_stats() -> dict:
+    """The caching allocator's ``torch.cuda.memory_stats`` of each visible
+    card, by "cuda:<index>"; ``{}`` without a card."""
+    if not torch.cuda.is_available():
+        return {}
+    return {f"cuda:{i}": torch.cuda.memory_stats(i) for i in range(torch.cuda.device_count())}
 
 NX, NY, NZ = 1536, 768, 64  # the flagship grid
 
