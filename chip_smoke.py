@@ -331,6 +331,29 @@ held the same way.
      chunks of 96): EKE finite and never below its first sample, growing;
      its fit printed beside docs/EDDY_VALIDATION.json's
      quarter_degree_balanced record; 1 K1 and 1 K2 a step in both.
+  the last of the JAX package's surface:
+  47. (a) K6's float64 instance against its plain twin at 1536x768x64 on
+     the lat-lon flagship's operands (b alone, T and S under TEOS-10 and
+     under the linear equation of state, four tracers) and on the tripolar
+     climate's planes (three and four tracers), bit for bit (the run fails
+     otherwise), each timed alone and plain, with its registers, shared
+     memory, blocks per SM, spills and bound (8-byte values over 3.35 TB/s
+     against its operations over 34 TFLOP/s FP64); (b) a float64 flagship
+     state on kernels="pallas": one step with K6 against the same route's
+     plain path bit for bit and against the "torch" route within 1e-12 of
+     each field's largest value, then the main path (8 + 2x16 steps
+     replayed, the probe) at 1 K6 launch a step and no K1, K2 or K5 (their
+     plain versions run on float64), its ms/step (Gu and Gv against the
+     "torch" route within 1e-10: that route's reduction sums the column
+     total of b dz in another order); (c) compute_dtype="bf16x2"
+     (paired-bfloat16 limbs, the array path) on the flagship at
+     1536x768x64: one step from rest against the float32 step (distances
+     printed, not bounded), finite; 1 + 2 steps from a device loop of
+     2-step graphs bit for bit with the same 3 steps from the host, its
+     ms/step replayed and from the host, 1 K2 a step; at 64x32x8 one step
+     on the card against the same step on the CPU at [5]'s tolerances;
+     (d) bf16x2 with CATKE on the tripolar climate at 1536x768x8 the same
+     way (1 K2, 3 K3, 1 K4 a step).
 
 Every phase raises on failure, and the script then exits non-zero. [30]
 sums up the ms/step of every path; it is printed last, after [31]-[46],
@@ -445,11 +468,12 @@ def cuda_time_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_rate=None):
     """(bound_ms, bound_by): the least time for ``nbytes`` of compulsory
-    traffic and ``flops`` float32 operations."""
+    traffic and ``flops`` operations at ``flop_rate`` (float32's by
+    default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / (flop_rate or F32_FLOP_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -566,9 +590,11 @@ def k1_bound(cfg, grid, ntr, immersed, fused=True, value_bytes=4):
 
 def k6_bound(cfg, grid, ntr, value_bytes=4):
     """K6 with ``ntr`` tracers under ``cfg``: it reads u, v and the tracers
-    extended (a value of ``value_bytes``: 4, or 2 in the bfloat16
-    instances, which also write bfloat16) and (tripolar) the six metrics
-    and f as extended planes, and writes the interior G of each.
+    extended (a value of ``value_bytes``: 4, 2 in the bfloat16 instances,
+    which also write bfloat16, or 8 in the float64 instance, whose metric
+    planes are float64 too and whose operations run at the FP64 rate) and
+    (tripolar) the six metrics and f as extended planes, and writes the
+    interior G of each.
     Operations: ``stencil_ops`` less the AB2
     update and integrals K6 does not do (20), plus the buoyancy's (TEOS-10
     120: 48 multiply-add pairs of its Horner scheme, the reduced variables
@@ -578,11 +604,12 @@ def k6_bound(cfg, grid, ntr, value_bytes=4):
     n, ext, _, ext_plane = sizes(grid)
     nprog = 2 + ntr
     nbytes = (nprog * ext + nprog * n) * value_bytes // 4
-    nbytes += 7 * ext_plane if grid.north_fold else 0
+    f64 = value_bytes == 8
+    nbytes += (7 * ext_plane * (2 if f64 else 1)) if grid.north_fold else 0
     eos_ops = (0 if "b" in cfg.tracers
                else 6 if isinstance(cfg.eos, LinearEquationOfState) else 120)
     ops = stencil_ops(cfg, ntr) - 20 + eos_ops + 10
-    return bound(nbytes, ops * grid.Nx * grid.Ny * grid.Nz)
+    return bound(nbytes, ops * grid.Nx * grid.Ny * grid.Nz, F64_FLOP_PER_S if f64 else None)
 
 
 def launch_line(info, b):
@@ -2694,9 +2721,12 @@ def k1_key(ntr, immersed, metric2d, fused=True, bf16=False, general=True):
             f"E{'13__nv_bfloat16' if bf16 else 'f'}Lb{int(general)}EE")
 
 
-def k6_key(ntr, mode, metric2d, general=True, bf16=False):
+def k6_key(ntr, mode, metric2d, general=True, bf16=False, dtype=None):
+    """A K6 instance's mangled name; ``dtype``: its storage type's mangling
+    ("f", "13__nv_bfloat16", "d"), else by ``bf16``."""
+    dtype = dtype or ("13__nv_bfloat16" if bf16 else "f")
     return (f"tendency_stage_kernelILi{ntr}ELi{mode}ELb{int(metric2d)}ELb{int(general)}"
-            f"E{'13__nv_bfloat16' if bf16 else 'f'}EE")
+            f"E{dtype}EE")
 
 
 def k1_general_case(label, cfg, grid, ue, ve, tr_e, be, b_total, prev, fused=True):
@@ -4152,6 +4182,250 @@ def entry_point_phases(card, flag_ms, k6_ms):
     return {"serial": serial, "sharded": sharded, "correctness": correct, "eddy": eddy}
 
 
+# --------------------------------------------------------------------------
+# the last of the JAX package's surface: K6's float64 instance, a float64
+# state on the K6 route, paired-bfloat16 limbs ([47])
+# --------------------------------------------------------------------------
+
+F64_FLOP_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores
+F64_STEPS = 16          # [47] (b)'s timed loops
+BF16X2_BLOCK = 2        # [47] (c), (d): steps a captured graph holds
+CLIMATE_BF16X2_NZ = 8   # [47] (d)'s depth
+
+
+def k6_f64_case(label, cfg, grid, ue, ve, tr_e):
+    """One K6 float64 instance on ``ue``, ``ve``, ``tr_e``, f and the grid
+    cast to float64: one launch, float64 outputs bit for bit with the plain
+    twin; the kernel alone and the twin timed, launch shape, spills and
+    bound (8-byte values, the FP64 rate)."""
+    from gb25_tpu_torch.ops import pallas_tendency as k6
+    from gb25_tpu_torch.ops.operators import coriolis_ff
+
+    f64 = torch.float64
+    args = (dataclasses.replace(cfg, kernels="pallas"), grid.cast(f64),
+            coriolis_ff(grid, cfg.coriolis).to(f64), ue.to(f64), ve.to(f64),
+            {k: c.to(f64) for k, c in tr_e.items()})
+    before = k6.KERNEL.launches
+    got = k6.pallas_tendencies(*args)
+    want = k6.pallas_tendencies_plain(*args)
+    torch.cuda.synchronize()
+    if k6.KERNEL.launches != before + 1:
+        raise AssertionError(f"K6 {label}: {k6.KERNEL.launches - before} launches")
+    pairs = [("Gu", got[0], want[0]), ("Gv", got[1], want[1])]
+    pairs += [("G" + k, got[2][k], want[2][k]) for k in tr_e]
+    if any(g.dtype != f64 for _, g, _ in pairs):
+        raise AssertionError(f"K6 {label}: outputs not float64")
+    errs = [compare(n, g, w, 0.0, 0.0) for n, g, w in pairs]
+    del got, want, pairs
+    ms = cuda_time_ms(lambda: k6.tendency_kernel(*args), reps=10)
+    plain_ms = cuda_time_ms(lambda: k6.pallas_tendencies_plain(*args), reps=1, warmup=0)
+    ntr = len(tr_e)
+    info = k6.kernel_info(ntr, "all", grid.north_fold, general=True, dtype=f64)
+    b = k6_bound(args[0], grid, ntr, value_bytes=8)
+    spills = spills_of(k6.KERNEL, k6_key(ntr, 0, grid.north_fold, dtype="d"))
+    print(f"  K6 {label}: bit for bit; alone {ms:.3f} ms; plain {plain_ms:.3f} ms; spills "
+          f"(stores, loads) {spills}; " + launch_line(info, b))
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+            "bound_by": b[1], "bitwise": True, "launch": info, "spills": spills}
+
+
+def k6_f64_instances():
+    """[47] (a): K6's float64 instances at 1536x768x64 on
+    ``precision_fields``' operands."""
+    from gb25_tpu_torch.ops.eos import LinearEquationOfState
+
+    out = {}
+    for geometry, cases in (("flat", ((1, None), (2, None), (2, "linear"), (4, None))),
+                            ("tripolar", ((3, None), (4, None)))):
+        cfg_all, grid, ue, ve, tr_all = precision_fields(geometry)
+        for ntr, eos in cases:
+            cfg, tr_e = with_tracers(cfg_all, tr_all, ntr)
+            if eos == "linear":
+                cfg = dataclasses.replace(cfg, eos=LinearEquationOfState())
+            label = (f"f64 {geometry} {ntr} tracer{'s' if ntr > 1 else ''}"
+                     + (" linear eos" if eos else ""))
+            out[label] = k6_f64_case(label, cfg, grid, ue, ve, tr_e)
+            gc.collect()
+            torch.cuda.empty_cache()
+        del cfg_all, grid, ue, ve, tr_all
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def float64_k6_route(card):
+    """[47] (b): a float64 flagship state on kernels="pallas": K6's float64
+    instance once a step, K2-K5's plain versions (the JAX package's gates
+    send float64 to its array code)."""
+    from gb25_tpu_torch import baroclinic_instability_model, loop, time_step
+
+    cfg, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE,
+                                                    dtype=torch.float64, kernels="pallas")
+    moved = loop(cfg, grid, state, DT, WARMUP)
+    step = functools.partial(time_step, cfg, grid, dt=DT)
+
+    def plain_step(st):
+        with plain_versions():
+            return step(st)
+
+    a, b = fields_of(step(moved)), fields_of(plain_step(moved))
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ:
+        raise AssertionError(f"[47] (b): the float64 K6 route differs from its plain path in "
+                             f"{differ}")
+    # the 'torch' route sums each column's b dz by torch's reduction, the K6
+    # route by the running sum: p = csum - total cancels ~300 m^2/s^2, so Gu
+    # and Gv part by up to ~2e-11 of their largest value (64 float64 ulps of
+    # p over the cell); every other field within 1e-12
+    c = fields_of(time_step(dataclasses.replace(cfg, kernels="torch"), grid, moved, DT))
+    for name in a:
+        rel = 1e-10 if name in ("Gu", "Gv") else 1e-12
+        compare(f"f64 {name}", a[name], c[name], 0.0, rel * float(c[name].abs().max()))
+    del a, b, c
+    print(f"  one step after {WARMUP}: bit for bit with the route's plain path; against the "
+          "'torch' route within 1e-12 of each field's largest value, Gu and Gv within 1e-10")
+    kernels = k6_kernels()
+    per_step = {"K6": 1, "K5": 0, "K1": 0, "K2": 0}
+    step_n = lambda st, n: loop(cfg, grid, st, DT, n)  # noqa: E731
+    s, elapsed, launches, peak_gb, rec = run_main_path(step_n, moved, kernels, per_step,
+                                                       F64_STEPS)
+    umax = check_state(s, (NZ, NY, NX))
+    ms_step = 1e3 * elapsed / F64_STEPS
+    host_ms = loop_vs_host("[47] (b)", step_n, host_steps(
+        functools.partial(time_step, cfg, grid, dt=DT, premasked=True), grid), s, ms_step)
+    print(f"  [47] (b) float64 flagship on the K6 route {NX}x{NY}x{NZ} on {card}: {ms_step:.3f} "
+          f"ms/step (timed second {F64_STEPS}-step loop, replayed), from the host {host_ms:.3f}; "
+          f"max|u| {umax:.4f} m/s; peak device memory {peak_gb:.2f} GB")
+    return {"ms_step": ms_step, "host_ms_step": host_ms, "steps": F64_STEPS,
+            "launches": launches, "loop": rec, "peak_gb": peak_gb}
+
+
+def bf16x2_row(card, label, cfg, grid, state, step, kernels, per_step):
+    """[47] (c), (d): 1 + ``BF16X2_BLOCK`` steps from a device loop of
+    ``BF16X2_BLOCK``-step graphs (an eager step, a capture, a replay)
+    against the same steps from the host, bit for bit; the replayed
+    ms/step from a second call that replays the kept graph, the host's;
+    each kernel's launches a step through the wrappers over the host
+    steps."""
+    from gb25_tpu_torch.models import device_loop
+
+    n = 1 + BF16X2_BLOCK
+    device_loop.STATS.reset()
+    a = device_loop.device_loop(step, state, n, grid.cache, block=BF16X2_BLOCK)
+    torch.cuda.synchronize()
+    stats = device_loop.STATS
+    if (stats.captures, stats.replays) != (1, 1):
+        raise AssertionError(f"{label}: {stats.captures} captures, {stats.replays} replays")
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    b = device_loop.host_loop(step, state, n)
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0) / n
+    calls = {name: k.launches for name, k in kernels.items()}
+    if calls != {name: m * n for name, m in per_step.items()}:
+        raise AssertionError(f"{label}: launches {calls} over {n} host steps, expected "
+                             f"{per_step} a step")
+    ta, tb = device_loop._tensors(a), device_loop._tensors(b)
+    differ = [f for f in ta if not torch.equal(ta[f], tb[f])]
+    if differ or a.iteration != b.iteration:
+        raise AssertionError(f"{label}: the device loop differs from the host loop in {differ}")
+    for name, f in fields_of(a).items():
+        if not torch.isfinite(f).all():
+            raise AssertionError(f"{label}: {name} is not finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device_loop.device_loop(step, a, BF16X2_BLOCK, grid.cache, block=BF16X2_BLOCK)
+    torch.cuda.synchronize()
+    ms_step = 1e3 * (time.perf_counter() - t0) / BF16X2_BLOCK
+    if device_loop.STATS.replays != 2:
+        raise AssertionError(f"{label}: the timed call did not replay the kept graph")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {label} on {card}: 1 + {BF16X2_BLOCK} steps replayed bit for bit with the host "
+          f"loop in {len(ta)} tensors; {ms_step:.3f} ms/step replayed, {host_ms:.3f} ms/step "
+          f"from the host; launches a step {per_step} (through the wrappers, host steps); "
+          f"max|u| {float(a.u.abs().max()):.4f} m/s; peak device memory {peak_gb:.2f} GB, graph "
+          f"pool {stats.pool_bytes / 1e9:.2f} GB")
+    return {"ms_step": ms_step, "host_ms_step": host_ms, "launches": calls,
+            "steps": n, "peak_gb": peak_gb, "pool_gb": stats.pool_bytes / 1e9}
+
+
+def bf16x2_rows(card):
+    """[47] (c) and (d)."""
+    from gb25_tpu_torch import (
+        baroclinic_instability_model,
+        coupled_time_step,
+        data_free_ocean_climate_model,
+        time_step,
+    )
+    from gb25_tpu_torch.models.hydrostatic import loop_step
+    from gb25_tpu_torch.ops import pallas_barotropic, pallas_catke, pallas_tridiag, pallas_zslab
+
+    rows = {}
+    cfg32, grid, state = baroclinic_instability_model(NX, NY, NZ, device=DEVICE)
+    cfg = dataclasses.replace(cfg32, compute_dtype="bf16x2")
+    t0 = time.perf_counter()
+    precision_distance("(c) bf16x2", time_step(cfg, grid, state, DT),
+                       time_step(cfg32, grid, state, DT), bounded=False)
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL}
+    rows["flagship"] = bf16x2_row(card, f"(c) bf16x2 flagship {NX}x{NY}x{NZ}", cfg, grid, state,
+                                  loop_step(cfg, grid, DT), kernels, {"K1": 0, "K2": 1})
+    del grid, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the card's step against the CPU's at 64x32x8, from the same state
+    _, g_cpu, s_cpu = baroclinic_instability_model(64, 32, 8, device="cpu")
+    _, g_card, _ = baroclinic_instability_model(64, 32, 8, device=DEVICE)
+    got = fields_of(time_step(cfg, g_card, cast_state(s_cpu, DEVICE), DT))
+    want = fields_of(time_step(cfg, g_cpu, s_cpu, DT))
+    for name in got:
+        y = want[name].to(DEVICE)
+        compare(f"(c) {name}", got[name], y, 1e-3, min(5e-6, 1e-3 * float(y.abs().max())))
+    print(f"  (c) bf16x2 at 64x32x8: the card's step within [5]'s tolerances of the CPU's; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ccfg, grid, atmos, state = data_free_ocean_climate_model(
+        resolution=RESOLUTION, Nz=CLIMATE_BF16X2_NZ, device=DEVICE,
+        grid_type="gaussian_islands_tripolar")
+    ccfg = dataclasses.replace(ccfg, ocean=dataclasses.replace(ccfg.ocean,
+                                                               compute_dtype="bf16x2"))
+    kernels = {"K1": pallas_zslab.KERNEL, "K2": pallas_barotropic.KERNEL,
+               "K3": pallas_tridiag.KERNEL, "K4": pallas_catke.KERNEL}
+    from gb25_tpu_torch.models.hydrostatic import premask_state
+
+    state = premask_state(grid, state)
+    step = functools.partial(coupled_time_step, ccfg, grid, atmos, dt=DT, premasked=True)
+    rows["climate_tripolar"] = bf16x2_row(
+        card, f"(d) bf16x2 CATKE tripolar climate {NX}x{NY}x{CLIMATE_BF16X2_NZ}", ccfg, grid,
+        state, step, kernels, {"K1": 0, "K2": 1, "K3": 3, "K4": 1})
+    print(f"  (d) {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def last_surface_phases(card):
+    """[47]; returns K6's float64 entry and the rows' records."""
+    t0 = time.perf_counter()
+    print(f"[47] (a) K6's float64 instances vs plain at {NX}x{NY}x{NZ}, bit for bit")
+    k6f = k6_f64_instances()
+    print(f"[47] (b) a float64 flagship state on kernels='pallas' at {NX}x{NY}x{NZ}")
+    f64 = float64_k6_route(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[47] (c), (d) compute_dtype='bf16x2'")
+    rows = bf16x2_rows(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  [47] {time.perf_counter() - t0:.1f} s")
+    res = k6f["f64 flat 2 tracers"]
+    e = entry("pallas_tendencies_f64", "tendencies.cu", "gb25_tpu/ops/pallas_tendency.py:115",
+              "float64_flagship_k6", f64["launches"]["K6"], res,
+              (res["bound_ms"], res["bound_by"]))
+    e |= {"spills": res["spills"], "bitwise": True, "instances": k6f,
+          **on_device(f64["loop"], "K6")}
+    return e, {"float64_k6": f64, **{f"bf16x2_{k}": r for k, r in rows.items()}}
+
+
 T_START = time.perf_counter()
 
 
@@ -4232,6 +4506,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     scripts = entry_point_phases(card, flag["ms_step"], k6_ms["flagship_k6"]["ms_step"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    k6_f64_entry, last = last_surface_phases(card)
 
     def host(r):
         return "" if r.get("host_ms_step") is None else f", from the host {r['host_ms_step']:.3f}"
@@ -4271,7 +4548,12 @@ def main():
           f"{1e3 * scripts['eddy']['one_degree']['wall_s'] / scripts['eddy']['one_degree']['steps']:.3f}"
           f", balanced jet "
           f"{1e3 * scripts['eddy']['balanced']['wall_s'] / scripts['eddy']['balanced']['steps']:.3f} with "
-          f"the EKE diagnostics")
+          f"the EKE diagnostics; [47] float64 flagship on the K6 route "
+          f"{last['float64_k6']['ms_step']:.3f}{host(last['float64_k6'])}; bf16x2 flagship "
+          f"{last['bf16x2_flagship']['ms_step']:.3f}{host(last['bf16x2_flagship'])}; bf16x2 CATKE "
+          f"tripolar climate {NX}x{NY}x{CLIMATE_BF16X2_NZ} "
+          f"{last['bf16x2_climate_tripolar']['ms_step']:.3f}{host(last['bf16x2_climate_tripolar'])}"
+          f" (the bf16x2 rows replayed from {BF16X2_BLOCK}-step graphs)")
 
     k5_entry = entry("barotropic_block", "barotropic_block.cu",
                      "gb25_tpu/ops/pallas_barotropic.py:349", "climate_tripolar_decomposed",
@@ -4339,7 +4621,7 @@ def main():
     print(f"chip_smoke wall time {time.perf_counter() - T_START:.1f} s on {card}")
     print(json.dumps({"kernels": flag_kernels + clim_kernels + trip_kernels + keps_kernels
                       + [k5_entry] + k6_entries + [k6_tile] + choice_entries
-                      + scheme_entries + precision_entries}))
+                      + scheme_entries + precision_entries + [k6_f64_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

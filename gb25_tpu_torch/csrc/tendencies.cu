@@ -59,6 +59,22 @@
 // The inputs arrive halo-filled (the fold rows included) and, on immersed
 // grids, with u and v masked on solid faces: like the Pallas kernel, K6 has
 // no fold, no mask and no wall logic. The outputs are fresh buffers.
+//
+// The float64 instance (tendencies_f64: a float64 state, or
+// compute_dtype="float64", on the "pallas" route, where the JAX package
+// hands its kernel float64 operands) runs the same expressions in double:
+// fields, metrics, profiles, scalars, shared memory and every operation,
+// TEOS-10's coefficients from a double table, the wrapper's scalars as
+// torch applies them to a float64 tensor. It is general (schemes and eos
+// read at run time), one launch, 1-4 tracers, columns or tripolar planes.
+// Its shared memory is twice the float instance's (59,904 bytes a block on
+// the flagship, up to 117,344 on tripolar planes with four tracers), so it
+// takes the opt-in above 48 KB, and it has launch bounds of its own
+// (kMinBlocksF64): doubles under the float instances' 80-register cap
+// would spill. Bound on an H100: 8-byte values double the bytes of the
+// float instance, and its ~720 operations a cell run at the FP64 rate of
+// 34 TFLOP/s, half the float32 rate: ~1.7 ms of operations against ~1.5
+// ms of bytes on the flagship.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,32 +90,41 @@ using bf16 = __nv_bfloat16;
 
 enum Mode { kAll = 0, kMomentum = 1, kTracers = 2 };
 
-// S: the type of the fields and of the outputs (float, or bfloat16 in the
-// bfloat16 instances); the metrics and profiles are float.
+// Blocks per SM the float64 instance's registers must allow: 1 leaves it
+// up to 255 registers a thread.
+constexpr int kMinBlocksF64 = 1;
+
+// S: the type of the fields and of the outputs (float, bfloat16 in the
+// bfloat16 instances, double in the float64 instance); R = Real<S>: the
+// type of the metrics, the profiles, the scalars and the arithmetic (float,
+// or double in the float64 instance).
 template <class S>
 struct ArgsT {
+  using R = Real<S>;
   const S* stage[2 + kMaxTracers];  // the staged fields: u, v, then the tracers or T, S
   FieldT<S> u, v, T, S_;
   FieldT<S> tr[kMaxTracers];
   // (Ny+2hy) y profiles, or (Ny+2hy, Nx+2hx) planes on the tripolar grid
-  const float *dxc, *dxf, *dyc, *dyf, *azc, *azf, *fff;
-  const float *dzc, *dzf, *zc;  // (Nz+2hz) z profiles
-  S *Gu, *Gv;                   // (Nz, Ny, Nx)
+  const R *dxc, *dxf, *dyc, *dyf, *azc, *azf, *fff;
+  const R *dzc, *dzf, *zc;  // (Nz+2hz) z profiles
+  S *Gu, *Gv;               // (Nz, Ny, Nx)
   S* Gtr[kMaxTracers];
   int Nx, Ny, Nz, hx, hy, hz;
   int align;   // staged column -3 - align is 16-byte aligned; -1: value by value
   int iT, iS;  // T and S among the staged fields after u and v (b twice in b mode)
-  float eps;                                              // WENO epsilon
-  float inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0;  // TEOS-10 scalars
-  float lin_g, lin_alpha, lin_T0, lin_beta, lin_S0;       // the linear equation's
+  R eps;                                              // WENO epsilon
+  R inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0;  // TEOS-10 scalars
+  R lin_g, lin_alpha, lin_T0, lin_beta, lin_S0;       // the linear equation's
   Schemes sch;  // the advection and kinetic-energy schemes (general instances)
   int eos;      // kEosTeos10, kEosLinear or kEosTracer (general instances)
 };
 using Args = ArgsT<float>;
 
-// An output value in its storage type: float, or rounded to bfloat16.
+// An output value in its storage type: float, rounded to bfloat16, or
+// double.
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store(double* p, double x) { *p = x; }
 
 // Where b comes from: TEOS-10 of T and S, the linear equation of state of
 // T and S, or the b tracer (staged and read as T, and as S).
@@ -108,49 +133,66 @@ enum { kEosTeos10 = 0, kEosLinear = 1, kEosTracer = 2 };
 // The polyTEOS10_bsq anomaly coefficient of ss^i tt^j zz^k as kEos[k][j][i]
 // (ops/eos.py::_EOS): at zz^k, tt runs to kDeg[k] and ss to kDeg[k] - j,
 // with kDeg = {6, 4, 2, 1}. Each double is rounded once to float, as torch
-// rounds a Python number for a float32 tensor.
-__constant__ float kEos[4][7][7] = {
-    {
-        {8.0189615746e02, 8.6672408165e02, -1.7864682637e03, 2.0375295546e03,
-         -1.2849161071e03, 4.3227585684e02, -6.0579916612e01},
-        {2.6010145068e01, -6.5281885265e01, 8.1770425108e01, -5.6888046321e01,
-         1.7681814114e01, -1.9193502195e00},
-        {-3.7074170417e01, 6.1548258127e01, -6.0362551501e01, 2.9130021253e01,
-         -5.4723692739e00},
-        {2.1661789529e01, -3.3449108469e01, 1.9717078466e01, -3.1742946532e00},
-        {-8.3627885467e00, 1.1311538584e01, -5.3563304045e00},
-        {5.4048723791e-01, 4.8169980163e-01},
-        {-1.9083568888e-01},
-    },
-    {
-        {1.9681925209e01, -4.2549998214e01, 5.0774768218e01, -3.0938076334e01,
-         6.6051753097e00},
-        {-1.3336301113e01, -4.4870114575e00, 5.0042598061e00, -6.5399043664e-01},
-        {6.7080479603e00, 3.5063081279e00, -1.8795372996e00},
-        {-2.4649669534e00, -5.5077101279e-01},
-        {5.5927935970e-01},
-    },
-    {
-        {2.0660924175e00, -4.9527603989e00, 2.5019633244e00},
-        {2.0564311499e00, -2.1311365518e-01},
-        {-1.2419983026e00},
-    },
-    {
-        {-2.3342758797e-02, -1.8507636718e-02},
-        {3.7969820455e-01},
-    },
-};
+// rounds a Python number for a float32 tensor; kEosD holds the doubles
+// themselves (the float64 instance), from the same literals.
+#define GB25_TEOS10_COEFFS \
+  {                                                                                     \
+    {                                                                                   \
+        {8.0189615746e02, 8.6672408165e02, -1.7864682637e03, 2.0375295546e03,           \
+         -1.2849161071e03, 4.3227585684e02, -6.0579916612e01},                          \
+        {2.6010145068e01, -6.5281885265e01, 8.1770425108e01, -5.6888046321e01,          \
+         1.7681814114e01, -1.9193502195e00},                                            \
+        {-3.7074170417e01, 6.1548258127e01, -6.0362551501e01, 2.9130021253e01,          \
+         -5.4723692739e00},                                                             \
+        {2.1661789529e01, -3.3449108469e01, 1.9717078466e01, -3.1742946532e00},         \
+        {-8.3627885467e00, 1.1311538584e01, -5.3563304045e00},                          \
+        {5.4048723791e-01, 4.8169980163e-01},                                           \
+        {-1.9083568888e-01},                                                            \
+    },                                                                                  \
+    {                                                                                   \
+        {1.9681925209e01, -4.2549998214e01, 5.0774768218e01, -3.0938076334e01,          \
+         6.6051753097e00},                                                              \
+        {-1.3336301113e01, -4.4870114575e00, 5.0042598061e00, -6.5399043664e-01},       \
+        {6.7080479603e00, 3.5063081279e00, -1.8795372996e00},                           \
+        {-2.4649669534e00, -5.5077101279e-01},                                          \
+        {5.5927935970e-01},                                                             \
+    },                                                                                  \
+    {                                                                                   \
+        {2.0660924175e00, -4.9527603989e00, 2.5019633244e00},                           \
+        {2.0564311499e00, -2.1311365518e-01},                                           \
+        {-1.2419983026e00},                                                             \
+    },                                                                                  \
+    {                                                                                   \
+        {-2.3342758797e-02, -1.8507636718e-02},                                         \
+        {3.7969820455e-01},                                                             \
+    },                                                                                  \
+  }
+
+__constant__ float kEos[4][7][7] = GB25_TEOS10_COEFFS;
+__constant__ double kEosD[4][7][7] = GB25_TEOS10_COEFFS;
+
+// The coefficient kEos[K][j][i] in the arithmetic type R.
+template <class R>
+__device__ __forceinline__ R eos_coeff(int K, int j, int i) {
+  if constexpr (std::is_same<R, double>::value)
+    return kEosD[K][j][i];
+  else
+    return kEos[K][j][i];
+}
+
+__device__ __forceinline__ float sqrt_rn(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_rn(double x) { return sqrt(x); }
 
 // sum_ij kEos[K][j][i] ss^i tt^j: Horner in tt of Horner in ss, from the
 // highest powers down (ops/eos.py::_horner_2d).
-template <int K, int N>
-__device__ __forceinline__ float eos_horner2d(float ss, float tt) {
-  float out = 0.0f;
+template <int K, int N, class R>
+__device__ __forceinline__ R eos_horner2d(R ss, R tt) {
+  R out = R(0.0);
 #pragma unroll
   for (int j = N; j >= 0; --j) {
-    float acc = kEos[K][j][N - j];
+    R acc = eos_coeff<R>(K, j, N - j);
 #pragma unroll
-    for (int i = N - j - 1; i >= 0; --i) acc = acc * ss + kEos[K][j][i];
+    for (int i = N - j - 1; i >= 0; --i) acc = acc * ss + eos_coeff<R>(K, j, i);
     out = (j == N) ? acc : out * tt + acc;
   }
   return out;
@@ -158,12 +200,13 @@ __device__ __forceinline__ float eos_horner2d(float ss, float tt) {
 
 // b = -g (rho' - rho0) / rho0 from the TEOS-10 anomaly rho'(S, T, z)
 // (ops/eos.py::TEOS10EquationOfState.buoyancy).
-template <class A_>
-__device__ __forceinline__ float teos10_buoyancy(const A_& A, float T, float S, float z) {
-  const float ss = sqrtf((S + 32.0f) * A.inv_sau);
-  const float tt = T * A.inv_ctu;
-  const float zz = (-z) * A.inv_zu;
-  float r = eos_horner2d<3, 1>(ss, tt);
+template <class A_, class R = typename A_::R>
+__device__ __forceinline__ R teos10_buoyancy(const A_& A, NoDeduce<R> T, NoDeduce<R> S,
+                                             NoDeduce<R> z) {
+  const R ss = sqrt_rn((S + R(32.0)) * A.inv_sau);
+  const R tt = T * A.inv_ctu;
+  const R zz = (-z) * A.inv_zu;
+  R r = eos_horner2d<3, 1>(ss, tt);
   r = r * zz + eos_horner2d<2, 2>(ss, tt);
   r = r * zz + eos_horner2d<1, 4>(ss, tt);
   r = r * zz + eos_horner2d<0, 6>(ss, tt);
@@ -172,15 +215,16 @@ __device__ __forceinline__ float teos10_buoyancy(const A_& A, float T, float S, 
 
 // b = g (alpha (T - T0) - beta (S - S0)) (ops/eos.py::LinearEquationOfState),
 // each operation rounded on its own.
-template <class A_>
-__device__ __forceinline__ float linear_buoyancy(const A_& A, float T, float S) {
+template <class A_, class R = typename A_::R>
+__device__ __forceinline__ R linear_buoyancy(const A_& A, NoDeduce<R> T, NoDeduce<R> S) {
   return A.lin_g * (A.lin_alpha * (T - A.lin_T0) - A.lin_beta * (S - A.lin_S0));
 }
 
 // The buoyancy of a cell: TEOS-10 in the flagship's instances; in the
 // general ones A.eos's (in b mode T holds b).
-template <bool GEN, class A_>
-__device__ __forceinline__ float buoyancy(const A_& A, float T, float S, float z) {
+template <bool GEN, class A_, class R = typename A_::R>
+__device__ __forceinline__ R buoyancy(const A_& A, NoDeduce<R> T, NoDeduce<R> S,
+                                      NoDeduce<R> z) {
   if (GEN && A.eos == kEosTracer) return T;
   if (GEN && A.eos == kEosLinear) return linear_buoyancy(A, T, S);
   return teos10_buoyancy(A, T, S, z);
@@ -189,24 +233,25 @@ __device__ __forceinline__ float buoyancy(const A_& A, float T, float S, float z
 // Shared memory of a launch in bytes. A launch stages 2 + NTR fields: u, v
 // and the tracers; for the momentum launch u, v and its NTR buoyancy fields
 // (T and S, or b). With bfloat16 fields the ring holds bfloat16 slots and
-// the float slot each level is widened into (tendency_tile.cuh).
+// the float slot each level is widened into (tendency_tile.cuh); with
+// double fields every value is a double.
 template <int NTR, int MODE, bool M2, class S = float>
 constexpr size_t smem_bytes() {
   constexpr int NF = 2 + NTR;
-  return sizeof(float) * (tile_floats<NF, MODE == kMomentum ? 0 : NTR, M2>() -
-                          kStages * NF * kSF + ring_floats<S, NF>());
+  return sizeof(Real<S>) * (tile_floats<NF, MODE == kMomentum ? 0 : NTR, M2>() -
+                            kStages * NF * kSF + ring_floats<S, NF>());
 }
 
-template <bool M2, class A_>
-__device__ __forceinline__ void start_column(Column& c, const A_& A, const Tile& t, int Xe) {
-  c.razc = 1.0f / metric_at<M2>(A.azc, t.Y0 + c.y, t.X0 + c.x, Xe);
+template <bool M2, class A_, class R = typename A_::R>
+__device__ __forceinline__ void start_column(ColumnT<R>& c, const A_& A, const Tile& t, int Xe) {
+  c.razc = R(1.0) / metric_at<M2>(A.azc, t.Y0 + c.y, t.X0 + c.x, Xe);
 }
 
 // The column total of b dz, b down the column from device memory, summed up
 // from the floor.
-template <bool GEN, class A_>
-__device__ __forceinline__ float column_total(const A_& A, int Y, int X) {
-  float tot = 0.0f;
+template <bool GEN, class A_, class R = typename A_::R>
+__device__ __forceinline__ R column_total(const A_& A, int Y, int X) {
+  R tot = R(0.0);
   for (int k = 0; k < A.Nz; ++k) {
     const int Z = k + A.hz;
     tot = tot + buoyancy<GEN>(A, A.T(Z, Y, X), A.S_(Z, Y, X), A.zc[Z]) * A.dzc[Z];
@@ -214,36 +259,46 @@ __device__ __forceinline__ float column_total(const A_& A, int Y, int X) {
   return tot;
 }
 
+// Blocks per SM an instance's registers must allow: kMinBlocks (80
+// registers a thread) for float and bfloat16 fields, kMinBlocksF64 for
+// double ones.
+template <class S>
+struct MinBlocks {
+  static constexpr int value = std::is_same<S, double>::value ? kMinBlocksF64 : kMinBlocks;
+};
+
 // GEN: the general instance (A.sch, A.eos); else the flagship's schemes
 // and TEOS-10. S: the fields' and outputs' type; bfloat16 fields are
 // staged as bfloat16 and each level widened once into a float slot, as in
-// K1's bf16-storage instance, and every operation is float.
+// K1's bf16-storage instance, and every operation is float; double fields
+// are staged as they are and every operation is double (R = Real<S>).
 template <int NTR, int MODE, bool M2, bool GEN, class S = float>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, MinBlocks<S>::value)
     tendency_stage_kernel(const ArgsT<S> A) {
+  using R = Real<S>;
   constexpr bool kMom = MODE != kTracers, kTrc = MODE != kMomentum;
   const Schemes sch = GEN ? A.sch : kFlagship;
   constexpr int NF = 2 + NTR;  // staged fields
   constexpr int NT = kTrc ? NTR : 0;  // tracers this launch advects
-  constexpr bool kF32 = std::is_same<S, float>::value;
-  constexpr int kSXS = kF32 ? kSX : kSXH;  // a staged row of S
+  constexpr bool kWide = std::is_same<S, bf16>::value;  // staged narrow, widened per level
+  constexpr int kSXS = kWide ? kSXH : kSX;  // a staged row of S
   constexpr int kSlotS = kSXS * kSY;
   extern __shared__ __align__(16) float smem[];
   const bool vec = A.align >= 0;
   const int a = vec ? A.align : 0;  // the staged rows' alignment
-  // the float layout the stencils read: the float ring's, or the widened
-  // slot's (columns from -3)
-  const Tile t(A.Nx, A.Ny, A.hx, A.hy, kF32 ? a : 0);
+  // the layout the stencils read: the ring's, or the widened slot's
+  // (columns from -3)
+  const Tile t(A.Nx, A.Ny, A.hx, A.hy, kWide ? 0 : a);
   const int Xe = A.Nx + 2 * A.hx, Ye = A.Ny + 2 * A.hy;
   const size_t plane = (size_t)Ye * Xe;
   S* ring = reinterpret_cast<S*>(smem);  // [kStages][NF][kSlotS], then (bf16) [NF][kSF]
-  float* mets = smem + ring_floats<S, NF>();
-  float* pvq = mets + metric_floats<M2>();  // [kPY][kPX]
-  float* keq = pvq + kPY * kPX;              // [kCY][kCX]
-  float* wq = keq + kCY * kCX;
-  float* pq = wq + kCY * kCX;
-  float* fxq = pq + kCY * kCX;               // [NT][kTY][kCX]
-  float* fyq = fxq + NT * kTY * kCX;         // [NT][kCY][kTX]
+  R* mets = reinterpret_cast<R*>(smem) + ring_floats<S, NF>();
+  R* pvq = mets + metric_floats<M2>();  // [kPY][kPX]
+  R* keq = pvq + kPY * kPX;              // [kCY][kCX]
+  R* wq = keq + kCY * kCX;
+  R* pq = wq + kCY * kCX;
+  R* fxq = pq + kCY * kCX;               // [NT][kTY][kCX]
+  R* fyq = fxq + NT * kTY * kCX;         // [NT][kCY][kTX]
 
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < A.Nz)
@@ -251,14 +306,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                              vec, a);
     cp_async_commit();
   }
-  const Metrics<M2> m =
+  const Metrics<M2, R> m =
       stage_metrics<M2>(mets, A.dxc, A.dxf, A.dyc, A.dyf, A.azf, A.fff, t, Xe, Ye);
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const bool own = tx < t.nx && ty < t.ny;
-  Column oc = {ty, tx, own};
-  Column ac = {};
-  if (kMom) ac = apron_column(t);
+  ColumnT<R> oc = {ty, tx, own};
+  ColumnT<R> ac = {};
+  if (kMom) ac = apron_column<R>(t);
   if (oc.on) start_column<M2>(oc, A, t, Xe);
   if (ac.on) start_column<M2>(ac, A, t, Xe);
 
@@ -271,11 +326,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int X = t.X0 + tx, Y = t.Y0 + ty;
   const size_t ij = own ? (size_t)(t.j0 + ty) * A.Nx + t.i0 + tx : 0;
   const size_t plane_i = (size_t)A.Ny * A.Nx;
-  float r_dxc = 0.f, r_dyf = 0.f;
-  float cz[NT > 0 ? NT : 1][6];  // c(Z - 2 .. Z + 3) of each tracer
+  R r_dxc = R(0.0), r_dyf = R(0.0);
+  R cz[NT > 0 ? NT : 1][6];  // c(Z - 2 .. Z + 3) of each tracer
   if (own) {
-    r_dxc = 1.0f / metric_at<M2>(A.dxc, Y, X, Xe);
-    r_dyf = 1.0f / metric_at<M2>(A.dyf, Y, X, Xe);
+    r_dxc = R(1.0) / metric_at<M2>(A.dxc, Y, X, Xe);
+    r_dyf = R(1.0) / metric_at<M2>(A.dyf, Y, X, Xe);
 #pragma unroll
     for (int q = 0; q < NT; ++q)
 #pragma unroll
@@ -283,23 +338,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
   // the vertical terms at the bottom face of the level, carried from the
   // level below: w = 0 on the sea floor
-  float xu = 0.f, xv = 0.f, fz[NT > 0 ? NT : 1];
+  R xu = R(0.0), xv = R(0.0), fz[NT > 0 ? NT : 1];
 #pragma unroll
-  for (int q = 0; q < NT; ++q) fz[q] = 0.f;
+  for (int q = 0; q < NT; ++q) fz[q] = R(0.0);
 
   for (int k = 0; k < A.Nz; ++k) {
     const int Z = k + A.hz;
-    const float dzc = A.dzc[Z];
+    const R dzc = A.dzc[Z];
     // the own column's device-memory operands of this level, loaded before
     // the wait: u, v one level up and the tracers three levels up
-    float un1 = 0.f, vn1 = 0.f, cnext[NT > 0 ? NT : 1];
+    R un1 = R(0.0), vn1 = R(0.0), cnext[NT > 0 ? NT : 1];
     if (own) {
       if (kMom) {
         un1 = A.u(Z + 1, Y, X);
         vn1 = A.v(Z + 1, Y, X);
       }
 #pragma unroll
-      for (int q = 0; q < NT; ++q) cnext[q] = k + 1 < A.Nz ? A.tr[q](Z + 4, Y, X) : 0.f;
+      for (int q = 0; q < NT; ++q) cnext[q] = k + 1 < A.Nz ? A.tr[q](Z + 4, Y, X) : R(0.0);
     }
 
     cp_async_wait<kStages - 2>();
@@ -309,8 +364,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                              (size_t)(Z + kStages - 1) * plane, t, Xe, vec, a);
     cp_async_commit();
 
-    const float* slot;
-    if constexpr (kF32) {
+    const R* slot;
+    if constexpr (!kWide) {
       slot = ring + (k % kStages) * NF * kSF + t.origin();
     } else {
       float* wide = reinterpret_cast<float*>(ring + kStages * NF * kSlotS);
@@ -318,40 +373,40 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       __syncthreads();  // the level widened
       slot = wide + t.origin();
     }
-    const Win u{slot}, v{slot + kSF};
+    const WinT<R> u{slot}, v{slot + kSF};
     // shared quantities of the level
     if (kMom) {
-      const Win Tw{slot + (2 + A.iT) * kSF}, Sw{slot + (2 + A.iS) * kSF};
-      auto level = [&](Column& c) {
-        const float bdz = buoyancy<GEN>(A, Tw(c.y, c.x), Sw(c.y, c.x), A.zc[Z]) * dzc;
+      const WinT<R> Tw{slot + (2 + A.iT) * kSF}, Sw{slot + (2 + A.iS) * kSF};
+      auto level = [&](ColumnT<R>& c) {
+        const R bdz = buoyancy<GEN>(A, Tw(c.y, c.x), Sw(c.y, c.x), A.zc[Z]) * dzc;
         column_level<true, M2>(c, u, v, m, dzc, bdz, keq, wq, pq, sch);
       };
       if (oc.on) level(oc);
       if (ac.on) level(ac);
       if (sch.mom != kMomNone) corner_pv<M2>(u, v, m, t, pvq);
     } else if (oc.on) {
-      column_level<false, M2>(oc, u, v, m, dzc, 0.f, keq, wq, pq, sch);
+      column_level<false, M2>(oc, u, v, m, dzc, R(0.0), keq, wq, pq, sch);
     }
     if (sch.tr != kTrNone) {
 #pragma unroll
       for (int q = 0; q < NT; ++q)
-        tracer_faces<M2>(Win{slot + (2 + q) * kSF}, u, v, m, t, A.eps, sch.tr,
+        tracer_faces<M2>(WinT<R>{slot + (2 + q) * kSF}, u, v, m, t, A.eps, sch.tr,
                          fxq + q * kTY * kCX, fyq + q * kCY * kTX);
     }
     __syncthreads();
 
     if (own) {
       const size_t o = (size_t)k * plane_i + ij;
-      float Gu = 0.f, Gv = 0.f, Gc[NT > 0 ? NT : 1];
+      R Gu = R(0.0), Gv = R(0.0), Gc[NT > 0 ? NT : 1];
       if (kMom)
         momentum<M2>(u, v, m, pvq, keq, wq, pq, ty, tx, r_dxc, r_dyf, un1, vn1,
-                     1.0f / A.dzf[Z + 1], A.eps, sch, xu, xv, Gu, Gv);
-      const float w = wq[centre(ty, tx)];
-      const float r_dzc = 1.0f / dzc;
+                     R(1.0) / A.dzf[Z + 1], A.eps, sch, xu, xv, Gu, Gv);
+      const R w = wq[centre(ty, tx)];
+      const R r_dzc = R(1.0) / dzc;
 #pragma unroll
       for (int q = 0; q < NT; ++q) {
         Gc[q] = sch.tr == kTrNone
-                    ? 0.0f
+                    ? R(0.0)
                     : tracer(fxq + q * kTY * kCX, fyq + q * kCY * kTX, cz[q], w, fz[q], ty, tx,
                              oc.razc, r_dzc, A.eps, sch.tr);
 #pragma unroll
@@ -447,17 +502,24 @@ namespace {
    {F<3, kAll, false, true, bf16>, F<3, kAll, true, true, bf16>},                      \
    {F<4, kAll, false, true, bf16>, F<4, kAll, true, true, bf16>}}
 
+// Every float64 instance, by [ntr - 1][metric2d]: the general variant of
+// the one-launch form (mode 0).
+#define GB25_K6_F64_TABLE(F)                                                           \
+  {{F<1, kAll, false, true, double>, F<1, kAll, true, true, double>},                  \
+   {F<2, kAll, false, true, double>, F<2, kAll, true, true, double>},                  \
+   {F<3, kAll, false, true, double>, F<3, kAll, true, true, double>},                  \
+   {F<4, kAll, false, true, double>, F<4, kAll, true, true, double>}}
+
 // The entry points' common body: check the arguments, fill ArgsT<S> and
-// launch the instance.
-template <class S>
+// launch the instance. R: the metrics', profiles' and scalars' type.
+template <class S, class R = Real<S>>
 int launch_stage(const S* u, const S* v, const S* T, const S* S_, const S* const* tr,
-                 const float* dxc, const float* dxf, const float* dyc, const float* dyf,
-                 const float* azc, const float* azf, const float* fff, const float* dzc,
-                 const float* dzf, const float* zc, S* Gu, S* Gv, S* const* Gtr, int ntr,
-                 int Nx, int Ny, int Nz, int hx, int hy, int hz, int metric2d, int mode,
-                 float eps, float inv_sau, float inv_ctu, float inv_zu, float neg_g, float rho0,
-                 float inv_rho0, float lin_g, float lin_alpha, float lin_T0, float lin_beta,
-                 float lin_S0, int mom, int ke, int trs, int eos, void* stream) {
+                 const R* dxc, const R* dxf, const R* dyc, const R* dyf, const R* azc,
+                 const R* azf, const R* fff, const R* dzc, const R* dzf, const R* zc, S* Gu,
+                 S* Gv, S* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz,
+                 int metric2d, int mode, R eps, R inv_sau, R inv_ctu, R inv_zu, R neg_g, R rho0,
+                 R inv_rho0, R lin_g, R lin_alpha, R lin_T0, R lin_beta, R lin_S0, int mom,
+                 int ke, int trs, int eos, void* stream) {
   constexpr bool kF32 = std::is_same<S, float>::value;
   if (ntr < 1 || ntr > kMaxTracers || mode < kAll || mode > kTracers || hx < 3 || hy < 3 ||
       hz < 3 || mom < kMomWenoVI || mom > kMomNone || ke < kKeHollingsworth ||
@@ -526,8 +588,11 @@ int launch_stage(const S* u, const S* v, const S* T, const S* S_, const S* const
     const int n = mode == kMomentum ? nstaged - 2 : ntr;
     static const Launch launchers[2][3][4][2] = GB25_K6_TABLE(launch);
     return static_cast<int>(launchers[gen][mode][n - 1][metric2d ? 1 : 0](A, grid, block, s));
-  } else {
+  } else if constexpr (std::is_same<S, bf16>::value) {
     static const Launch launchers[4][2] = GB25_K6_BF16_TABLE(launch);
+    return static_cast<int>(launchers[ntr - 1][metric2d ? 1 : 0](A, grid, block, s));
+  } else {
+    static const Launch launchers[4][2] = GB25_K6_F64_TABLE(launch);
     return static_cast<int>(launchers[ntr - 1][metric2d ? 1 : 0](A, grid, block, s));
   }
 }
@@ -585,6 +650,37 @@ extern "C" int tendencies_bf16_info(int ntr, int metric2d, int* out) {
   if (ntr < 1 || ntr > kMaxTracers) return static_cast<int>(cudaErrorInvalidValue);
   using Info = cudaError_t (*)(int*);
   static const Info infos[4][2] = GB25_K6_BF16_TABLE(info);
+  return static_cast<int>(infos[ntr - 1][metric2d ? 1 : 0](out));
+}
+
+// The float64 instance (a float64 state, or compute_dtype="float64", on the
+// "pallas" route): u, v, T, S, the tracers, the outputs, the metrics, f, the
+// profiles and the scalars double; every operation double. The TEOS-10
+// scalars 1 / SAU, 1 / CTU, 1 / ZU, -g, rho0 and 1 / rho0 and the linear
+// equation's g, alpha, T0, beta, S0 as torch applies them to a float64
+// tensor. mode 0 only; the schemes and eos read at run time (general
+// instances). Arguments otherwise as tendencies_f32's.
+extern "C" int tendencies_f64(
+    const double* u, const double* v, const double* T, const double* S,
+    const double* const* tr, const double* dxc, const double* dxf, const double* dyc,
+    const double* dyf, const double* azc, const double* azf, const double* fff,
+    const double* dzc, const double* dzf, const double* zc, double* Gu, double* Gv,
+    double* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int metric2d,
+    int mode, double eps, double inv_sau, double inv_ctu, double inv_zu, double neg_g,
+    double rho0, double inv_rho0, double lin_g, double lin_alpha, double lin_T0,
+    double lin_beta, double lin_S0, int mom, int ke, int trs, int eos, void* stream) {
+  return launch_stage<double>(u, v, T, S, tr, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf, zc,
+                              Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, metric2d, mode, eps,
+                              inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0, lin_g, lin_alpha,
+                              lin_T0, lin_beta, lin_S0, mom, ke, trs, eos, stream);
+}
+
+// The launch shape of one float64 instance (ntr, metric2d), as
+// tendencies_info's.
+extern "C" int tendencies_f64_info(int ntr, int metric2d, int* out) {
+  if (ntr < 1 || ntr > kMaxTracers) return static_cast<int>(cudaErrorInvalidValue);
+  using Info = cudaError_t (*)(int*);
+  static const Info infos[4][2] = GB25_K6_F64_TABLE(info);
   return static_cast<int>(infos[ntr - 1][metric2d ? 1 : 0](out));
 }
 

@@ -21,6 +21,11 @@
 // the flagship alone; the general instances read the codes from the launch
 // arguments, the same for every thread, so the branches are uniform.
 //
+// The arithmetic type R of every helper below is a template parameter
+// that defaults to float: K1 and K6's float32 and bfloat16 instances use
+// the float helpers, K6's float64 instance the same expressions in double
+// (each float literal is R(literal), which is the same float).
+//
 // Coordinates: (y, x) are relative to the tile's first interior cell;
 // extended index Y = Y0 + y, X = X0 + x.
 
@@ -79,21 +84,46 @@ inline bool is_flagship(const Schemes& sch, int ntr) {
 }
 static_assert(2 * kApron <= kThreads, "apron columns and apron faces need their own threads");
 
-// A value of device memory as float (bfloat16 widens exactly).
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+// The arithmetic type of a storage type: float for float and bfloat16,
+// double for double.
+template <class S>
+using Real = typename std::conditional<std::is_same<S, double>::value, double, float>::type;
+
+// T itself, in a parameter that must not take part in deducing T.
+template <class T>
+struct NoDeduceT {
+  using type = T;
+};
+template <class T>
+using NoDeduce = typename NoDeduceT<T>::type;
+
+// A value of device memory in its arithmetic type (bfloat16 widens
+// exactly to float).
+__device__ __forceinline__ float load_real(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_real(const __nv_bfloat16* p) {
   return __bfloat162float(__ldg(p));
 }
+__device__ __forceinline__ double load_real(const double* p) { return __ldg(p); }
 
-// A halo-extended (Z, Y, X) field in device memory, stored as T (float, or
-// bfloat16 in K1's bf16-storage instance), read as float.
+// Sums and products rounded on their own, never fused into a
+// multiply-add.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+// A halo-extended (Z, Y, X) field in device memory, stored as T (float,
+// bfloat16 in K1's bf16-storage instance, double in K6's float64
+// instance), read in its arithmetic type.
 template <class T>
 struct FieldT {
   const T* p;
   int Xe;
   size_t plane;  // (Ny + 2hy) * (Nx + 2hx)
-  __device__ __forceinline__ float operator()(int z, int y, int x) const {
-    return load_f32(p + (size_t)z * plane + (size_t)y * Xe + x);
+  __device__ __forceinline__ Real<T> operator()(int z, int y, int x) const {
+    return load_real(p + (size_t)z * plane + (size_t)y * Xe + x);
   }
 };
 using Field = FieldT<float>;
@@ -112,23 +142,25 @@ struct Tile {
 };
 
 // A staged window; (0, 0) at the tile's first interior cell.
-struct Win {
-  const float* p;
-  __device__ __forceinline__ float operator()(int y, int x) const { return p[y * kSX + x]; }
+template <class R = float>
+struct WinT {
+  const R* p;
+  __device__ __forceinline__ R operator()(int y, int x) const { return p[y * kSX + x]; }
 };
+using Win = WinT<>;
 
 // A metric: a staged window (M2) or a staged y profile.
-template <bool M2>
+template <bool M2, class R = float>
 struct Met {
-  const float* p;
-  __device__ __forceinline__ float operator()(int y, int x) const {
+  const R* p;
+  __device__ __forceinline__ R operator()(int y, int x) const {
     return M2 ? p[y * kSX + x] : p[y];
   }
 };
 
-template <bool M2>
+template <bool M2, class R = float>
 struct Metrics {
-  Met<M2> dxc, dxf, dyc, dyf, razf, fff;
+  Met<M2, R> dxc, dxf, dyc, dyf, razf, fff;
 };
 
 template <bool M2>
@@ -136,7 +168,8 @@ __host__ __device__ constexpr int metric_floats() {
   return kMetrics * (M2 ? kSF : kSY);
 }
 
-// Shared memory of a tile kernel, in floats: the ring of NF staged fields,
+// Shared memory of a tile kernel, in values of its arithmetic type (floats,
+// or doubles in K6's float64 instance): the ring of NF staged fields,
 // the metrics, the corner PV, the kinetic energy, w and p at the centres
 // with their west and south apron, and the tracers' x- and y-face fluxes.
 template <int NF, int NTR, bool M2>
@@ -145,13 +178,14 @@ __host__ __device__ constexpr int tile_floats() {
          NTR * (kTY * kCX + kCY * kTX);
 }
 
-// Floats of shared memory the ring of staged fields takes: kStages float
-// slots; with bfloat16 storage, kStages bfloat16 slots (rows of kSXH) and
-// the one float slot the level is widened into.
+// Values of shared memory (as tile_floats counts them) the ring of staged
+// fields takes: kStages slots of S; with bfloat16 storage, kStages
+// bfloat16 slots (rows of kSXH) and the one float slot the level is
+// widened into.
 template <class S, int NF>
 __host__ __device__ constexpr int ring_floats() {
-  return std::is_same<S, float>::value ? kStages * NF * kSF
-                                       : kStages * NF * kSFH / 2 + NF * kSF;
+  return !std::is_same<S, __nv_bfloat16>::value ? kStages * NF * kSF
+                                                : kStages * NF * kSFH / 2 + NF * kSF;
 }
 
 // Widen the staged bfloat16 slot of a level (columns from -3 - a) into the
@@ -178,8 +212,8 @@ __device__ __forceinline__ int yface(int yf, int x) { return yf * kTX + x; }
 // of SX values: rows -3 .. ny + 2, columns -3 .. nx + 2 of the tile, as
 // 16-byte copies from column -3 - a (vec), else value by value from column
 // -3 (a = 0): float by 4-byte copies, bfloat16 (whose cp.async has no
-// 2-byte form) by plain loads, which the block barrier after the wait
-// publishes as it does the copies.
+// 2-byte form) and double by plain loads, which the block barrier after
+// the wait publishes as it does the copies.
 template <int NF, int SX, class T, int N>
 __device__ __forceinline__ void stage_window(T* slot, const T* const (&f)[N], size_t zoff,
                                              const Tile& t, int Xe, bool vec, int a) {
@@ -228,10 +262,10 @@ __device__ __forceinline__ void stage_level(float* slot, const float* const (&f)
 // The metrics, once per block (plain loads): on M2 grids the six planes
 // over the staged window, else the six y profiles over its rows; 1 / azf
 // in place of azf. Returns the accessors.
-template <bool M2>
-__device__ Metrics<M2> stage_metrics(float* m, const float* dxc, const float* dxf,
-                                     const float* dyc, const float* dyf, const float* azf,
-                                     const float* fff, const Tile& t, int Xe, int Ye) {
+template <bool M2, class R = float>
+__device__ Metrics<M2, R> stage_metrics(R* m, const R* dxc, const R* dxf, const R* dyc,
+                                        const R* dyf, const R* azf, const R* fff, const Tile& t,
+                                        int Xe, int Ye) {
   const int tid = threadIdx.y * kTX + threadIdx.x;
   if (M2) {
     for (int n = tid; n < kSF; n += kThreads) {
@@ -243,7 +277,7 @@ __device__ Metrics<M2> stage_metrics(float* m, const float* dxc, const float* dx
         m[kDXF * kSF + n] = dxf[g];
         m[kDYC * kSF + n] = dyc[g];
         m[kDYF * kSF + n] = dyf[g];
-        m[kRAZF * kSF + n] = 1.0f / azf[g];
+        m[kRAZF * kSF + n] = R(1.0) / azf[g];
         m[kFFF * kSF + n] = fff[g];
       }
     }
@@ -255,7 +289,7 @@ __device__ Metrics<M2> stage_metrics(float* m, const float* dxc, const float* dx
         m[kDXF * kSY + n] = dxf[Y];
         m[kDYC * kSY + n] = dyc[Y];
         m[kDYF * kSY + n] = dyf[Y];
-        m[kRAZF * kSY + n] = 1.0f / azf[Y];
+        m[kRAZF * kSY + n] = R(1.0) / azf[Y];
         m[kFFF * kSY + n] = fff[Y];
       }
     }
@@ -266,102 +300,109 @@ __device__ Metrics<M2> stage_metrics(float* m, const float* dxc, const float* dx
 }
 
 // A metric at extended (Y, X) from device memory: a plane or a profile.
-template <bool M2>
-__device__ __forceinline__ float metric_at(const float* m, int Y, int X, int Xe) {
+template <bool M2, class R = float>
+__device__ __forceinline__ R metric_at(const R* m, int Y, int X, int Xe) {
   return M2 ? m[(size_t)Y * Xe + X] : m[Y];
 }
 
 // WENO-5 from five upwind-ordered samples, factored division-free form
 // (ops/weno.py::_weno5_from_shifts).
-__device__ __forceinline__ float weno5(float m2, float m1, float s0, float p1, float p2,
-                                       float eps) {
-  const float sixth = 1.0f / 6.0f;
-  const float c13 = 13.0f / 12.0f;
-  float d1 = m1 - m2, d2 = s0 - m1, d3 = p1 - s0, d4 = p2 - p1;
-  float q0 = s0 + (5.0f * d2 - 2.0f * d1) * sixth;
-  float q1 = s0 + (d2 + 2.0f * d3) * sixth;
-  float q2 = s0 + (4.0f * d3 - d4) * sixth;
-  float x0 = d2 - d1, x1 = d3 - d2, x2 = d4 - d3, y1 = d2 + d3;
-  float e0 = x0 + 2.0f * d2, e2 = x2 - 2.0f * d3;
-  float b0 = c13 * x0 * x0 + 0.25f * (e0 * e0);
-  float b1 = c13 * x1 * x1 + 0.25f * y1 * y1;
-  float b2 = c13 * x2 * x2 + 0.25f * (e2 * e2);
-  float t0 = (b0 + eps) * (b0 + eps);
-  float t1 = (b1 + eps) * (b1 + eps);
-  float t2 = (b2 + eps) * (b2 + eps);
-  float w0 = 0.1f * (t1 * t2), w1 = 0.6f * (t0 * t2), w2 = 0.3f * (t0 * t1);
+template <class R>
+__device__ __forceinline__ R weno5(R m2, R m1, R s0, R p1, R p2, NoDeduce<R> eps) {
+  const R sixth = R(1.0) / R(6.0);
+  const R c13 = R(13.0) / R(12.0);
+  R d1 = m1 - m2, d2 = s0 - m1, d3 = p1 - s0, d4 = p2 - p1;
+  R q0 = s0 + (R(5.0) * d2 - R(2.0) * d1) * sixth;
+  R q1 = s0 + (d2 + R(2.0) * d3) * sixth;
+  R q2 = s0 + (R(4.0) * d3 - d4) * sixth;
+  R x0 = d2 - d1, x1 = d3 - d2, x2 = d4 - d3, y1 = d2 + d3;
+  R e0 = x0 + R(2.0) * d2, e2 = x2 - R(2.0) * d3;
+  R b0 = c13 * x0 * x0 + R(0.25) * (e0 * e0);
+  R b1 = c13 * x1 * x1 + R(0.25) * y1 * y1;
+  R b2 = c13 * x2 * x2 + R(0.25) * (e2 * e2);
+  R t0 = (b0 + eps) * (b0 + eps);
+  R t1 = (b1 + eps) * (b1 + eps);
+  R t2 = (b2 + eps) * (b2 + eps);
+  R w0 = R(0.1) * (t1 * t2), w1 = R(0.6) * (t0 * t2), w2 = R(0.3) * (t0 * t1);
   return (w0 * q0 + w1 * q1 + w2 * q2) / (w0 + w1 + w2);
 }
 
 // Upwind selection over six samples s[0..5] ordered along the axis, with
 // the reconstruction point between s[2] and s[3]: from below when vel > 0.
-__device__ __forceinline__ float weno_upwind(const float s[6], float vel, float eps) {
-  return vel > 0.0f ? weno5(s[0], s[1], s[2], s[3], s[4], eps)
-                    : weno5(s[5], s[4], s[3], s[2], s[1], eps);
+template <class R>
+__device__ __forceinline__ R weno_upwind(const R s[6], NoDeduce<R> vel, NoDeduce<R> eps) {
+  return vel > R(0.0) ? weno5(s[0], s[1], s[2], s[3], s[4], eps)
+                      : weno5(s[5], s[4], s[3], s[2], s[1], eps);
 }
 
 // A tracer's reconstruction at the face between s[2] and s[3] of six
 // samples ordered along the axis, with the face velocity vel: WENO-5,
 // centred 0.5 (a + a[i - 1]) or the donor cell (ops/weno.py).
-__device__ __forceinline__ float reconstruct(const float s[6], float vel, float eps, int tr) {
-  if (tr == kTrCentered2) return 0.5f * (s[3] + s[2]);
-  if (tr == kTrUpwind1) return vel > 0.0f ? s[2] : s[3];
+template <class R>
+__device__ __forceinline__ R reconstruct(const R s[6], NoDeduce<R> vel, NoDeduce<R> eps,
+                                         int tr) {
+  if (tr == kTrCentered2) return R(0.5) * (s[3] + s[2]);
+  if (tr == kTrUpwind1) return vel > R(0.0) ? s[2] : s[3];
   return weno_upwind(s, vel, eps);
 }
 
 // q = f + zeta at the corner (y, x).
-template <bool M2>
-__device__ __forceinline__ float pv(const Win& u, const Win& v, const Metrics<M2>& m, int y,
-                                    int x) {
-  float zeta = ((v(y, x) * m.dyf(y, x) - v(y, x - 1) * m.dyf(y, x - 1)) -
-                (u(y, x) * m.dxc(y, x) - u(y - 1, x) * m.dxc(y - 1, x))) *
-               m.razf(y, x);
+template <bool M2, class R>
+__device__ __forceinline__ R pv(const WinT<R>& u, const WinT<R>& v, const Metrics<M2, R>& m,
+                                int y, int x) {
+  R zeta = ((v(y, x) * m.dyf(y, x) - v(y, x - 1) * m.dyf(y, x - 1)) -
+            (u(y, x) * m.dxc(y, x) - u(y - 1, x) * m.dxc(y - 1, x))) *
+           m.razf(y, x);
   return m.fff(y, x) + zeta;
 }
 
 // Kinetic energy at the centre (y, x): the plain C-grid form (ke =
 // kKeStandard) or Hollingsworth-corrected.
-__device__ __forceinline__ float kinetic(const Win& u, const Win& v, int y, int x, int ke) {
-  float u0 = u(y, x), u1 = u(y, x + 1);
-  float v0 = v(y, x), v1 = v(y + 1, x);
-  float Ks = 0.5f * (0.5f * (u1 * u1 + u0 * u0) + 0.5f * (v1 * v1 + v0 * v0));
+template <class R>
+__device__ __forceinline__ R kinetic(const WinT<R>& u, const WinT<R>& v, int y, int x, int ke) {
+  R u0 = u(y, x), u1 = u(y, x + 1);
+  R v0 = v(y, x), v1 = v(y + 1, x);
+  R Ks = R(0.5) * (R(0.5) * (u1 * u1 + u0 * u0) + R(0.5) * (v1 * v1 + v0 * v0));
   if (ke == kKeStandard) return Ks;
-  float ub0 = 0.5f * (u(y + 1, x) + u(y - 1, x));
-  float ub1 = 0.5f * (u(y + 1, x + 1) + u(y - 1, x + 1));
-  float vb0 = 0.5f * (v(y, x + 1) + v(y, x - 1));
-  float vb1 = 0.5f * (v(y + 1, x + 1) + v(y + 1, x - 1));
-  float Kb = 0.5f * (0.5f * (ub1 * ub1 + ub0 * ub0) + 0.5f * (vb1 * vb1 + vb0 * vb0));
-  const float third = 1.0f / 3.0f;
-  return (2.0f * third) * Ks + third * Kb;
+  R ub0 = R(0.5) * (u(y + 1, x) + u(y - 1, x));
+  R ub1 = R(0.5) * (u(y + 1, x + 1) + u(y - 1, x + 1));
+  R vb0 = R(0.5) * (v(y, x + 1) + v(y, x - 1));
+  R vb1 = R(0.5) * (v(y + 1, x + 1) + v(y + 1, x - 1));
+  R Kb = R(0.5) * (R(0.5) * (ub1 * ub1 + ub0 * ub0) + R(0.5) * (vb1 * vb1 + vb0 * vb0));
+  const R third = R(1.0) / R(3.0);
+  return (R(2.0) * third) * Ks + third * Kb;
 }
 
 // Horizontal divergence of (u, v) at the centre (y, x); razc = 1 / azc there.
-template <bool M2>
-__device__ __forceinline__ float divergence(const Win& u, const Win& v, const Metrics<M2>& m,
-                                            int y, int x, float razc) {
+template <bool M2, class R>
+__device__ __forceinline__ R divergence(const WinT<R>& u, const WinT<R>& v,
+                                        const Metrics<M2, R>& m, int y, int x,
+                                        NoDeduce<R> razc) {
   return ((u(y, x + 1) * m.dyc(y, x + 1) - u(y, x) * m.dyc(y, x)) +
           (v(y + 1, x) * m.dxf(y + 1, x) - v(y, x) * m.dxf(y, x))) *
          razc;
 }
 
 // Tracer flux through the x face (y, xf) and through the y face (yf, x).
-template <bool M2>
-__device__ __forceinline__ float xface_flux(const Win& c, const Win& u, const Metrics<M2>& m,
-                                            int y, int xf, float eps, int tr) {
-  float s[6];
+template <bool M2, class R>
+__device__ __forceinline__ R xface_flux(const WinT<R>& c, const WinT<R>& u,
+                                        const Metrics<M2, R>& m, int y, int xf,
+                                        NoDeduce<R> eps, int tr) {
+  R s[6];
 #pragma unroll
   for (int r = 0; r < 6; ++r) s[r] = c(y, xf - 3 + r);
-  const float vel = u(y, xf);
+  const R vel = u(y, xf);
   return (vel * m.dyc(y, xf)) * reconstruct(s, vel, eps, tr);
 }
 
-template <bool M2>
-__device__ __forceinline__ float yface_flux(const Win& c, const Win& v, const Metrics<M2>& m,
-                                            int yf, int x, float eps, int tr) {
-  float s[6];
+template <bool M2, class R>
+__device__ __forceinline__ R yface_flux(const WinT<R>& c, const WinT<R>& v,
+                                        const Metrics<M2, R>& m, int yf, int x,
+                                        NoDeduce<R> eps, int tr) {
+  R s[6];
 #pragma unroll
   for (int r = 0; r < 6; ++r) s[r] = c(yf - 3 + r, x);
-  const float vel = v(yf, x);
+  const R vel = v(yf, x);
   return (vel * m.dxf(yf, x)) * reconstruct(s, vel, eps, tr);
 }
 
@@ -369,18 +410,21 @@ __device__ __forceinline__ float yface_flux(const Win& c, const Win& v, const Me
 // thread of the tile, and for the first kApron threads one column of the
 // south row (y = -1) or the west column (x = -1), which the momentum
 // stencil reads at j - 1 and i - 1.
-struct Column {
+template <class R = float>
+struct ColumnT {
   int y, x;
-  bool on;      // the column exists in this tile
-  float sw;     // continuity sum: w at the top face = -sw
-  float cs;     // running sum of b dz
-  float tot;    // the column total of b dz
-  float razc;   // 1 / azc
+  bool on;  // the column exists in this tile
+  R sw;     // continuity sum: w at the top face = -sw
+  R cs;     // running sum of b dz
+  R tot;    // the column total of b dz
+  R razc;   // 1 / azc
 };
+using Column = ColumnT<>;
 
-__device__ __forceinline__ Column apron_column(const Tile& t) {
+template <class R = float>
+__device__ __forceinline__ ColumnT<R> apron_column(const Tile& t) {
   const int tid = threadIdx.y * kTX + threadIdx.x;
-  Column c = {};
+  ColumnT<R> c = {};
   if (tid < kTX) {
     c.y = -1;
     c.x = tid;
@@ -399,25 +443,25 @@ __device__ __forceinline__ Column apron_column(const Tile& t) {
 // The sums are rounded term by term (no fused multiply-add), as a cumsum
 // of the products rounds them: p ~ 500 m^2/s^2 against horizontal
 // differences far smaller, so one ulp of p shows in the pressure gradient.
-template <bool MOM, bool M2>
-__device__ __forceinline__ void column_level(Column& c, const Win& u, const Win& v,
-                                             const Metrics<M2>& m, float dzc, float bdz,
-                                             float* keq, float* wq, float* pq,
+template <bool MOM, bool M2, class R>
+__device__ __forceinline__ void column_level(ColumnT<R>& c, const WinT<R>& u, const WinT<R>& v,
+                                             const Metrics<M2, R>& m, NoDeduce<R> dzc,
+                                             NoDeduce<R> bdz, R* keq, R* wq, R* pq,
                                              const Schemes& sch) {
   const int ci = centre(c.y, c.x);
-  c.sw = __fadd_rn(c.sw, __fmul_rn(divergence<M2>(u, v, m, c.y, c.x, c.razc), dzc));
+  c.sw = add_rn(c.sw, mul_rn(divergence<M2>(u, v, m, c.y, c.x, c.razc), dzc));
   wq[ci] = -c.sw;
   if (MOM) {
     if (sch.mom != kMomNone) keq[ci] = kinetic(u, v, c.y, c.x, sch.ke);
-    c.cs = __fadd_rn(c.cs, bdz);
-    pq[ci] = __fsub_rn(__fsub_rn(c.cs, c.tot), __fmul_rn(0.5f, bdz));
+    c.cs = add_rn(c.cs, bdz);
+    pq[ci] = sub_rn(sub_rn(c.cs, c.tot), mul_rn(R(0.5), bdz));
   }
 }
 
 // The potential vorticity at every corner the tile's vorticity fluxes read.
-template <bool M2>
-__device__ __forceinline__ void corner_pv(const Win& u, const Win& v, const Metrics<M2>& m,
-                                          const Tile& t, float* pvq) {
+template <bool M2, class R>
+__device__ __forceinline__ void corner_pv(const WinT<R>& u, const WinT<R>& v,
+                                          const Metrics<M2, R>& m, const Tile& t, R* pvq) {
   const int tid = threadIdx.y * kTX + threadIdx.x;
   for (int n = tid; n < kPY * kPX; n += kThreads) {
     const int y = n / kPX - 2, x = n % kPX - 2;
@@ -428,10 +472,11 @@ __device__ __forceinline__ void corner_pv(const Win& u, const Win& v, const Metr
 // Tracer c's fluxes through the west face and the south face of this
 // thread's cell and, for the last kApron threads, through one east face of
 // the tile's east column or one north face of its north row.
-template <bool M2>
-__device__ __forceinline__ void tracer_faces(const Win& c, const Win& u, const Win& v,
-                                             const Metrics<M2>& m, const Tile& t, float eps,
-                                             int tr, float* fx, float* fy) {
+template <bool M2, class R>
+__device__ __forceinline__ void tracer_faces(const WinT<R>& c, const WinT<R>& u,
+                                             const WinT<R>& v, const Metrics<M2, R>& m,
+                                             const Tile& t, NoDeduce<R> eps, int tr, R* fx,
+                                             R* fy) {
   const int tx = threadIdx.x, ty = threadIdx.y;
   if (tx < t.nx && ty < t.ny) {
     fx[xface(ty, tx)] = xface_flux<M2>(c, u, m, ty, tx, eps, tr);
@@ -454,51 +499,51 @@ __device__ __forceinline__ void tracer_faces(const Win& c, const Win& u, const W
 // v one level up; r_dzf1 = 1 / dz_f there. Under kMomNone q is f at the
 // corners, interpolated, and neither the kinetic energy nor w is read
 // (the caller stages no corner PV).
-template <bool M2>
-__device__ __forceinline__ void momentum(const Win& u, const Win& v, const Metrics<M2>& m,
-                                         const float* pvq, const float* keq, const float* wq,
-                                         const float* pq, int y, int x, float r_dxc,
-                                         float r_dyf, float un1, float vn1, float r_dzf1,
-                                         float eps, const Schemes& sch, float& xu, float& xv,
-                                         float& Gu, float& Gv) {
+template <bool M2, class R>
+__device__ __forceinline__ void momentum(const WinT<R>& u, const WinT<R>& v,
+                                         const Metrics<M2, R>& m, const R* pvq, const R* keq,
+                                         const R* wq, const R* pq, int y, int x,
+                                         NoDeduce<R> r_dxc, NoDeduce<R> r_dyf, NoDeduce<R> un1,
+                                         NoDeduce<R> vn1, NoDeduce<R> r_dzf1, NoDeduce<R> eps,
+                                         const Schemes& sch, R& xu, R& xv, R& Gu, R& Gv) {
   const bool advect = sch.mom != kMomNone;
   auto vbar_at = [&] {
-    return 0.5f * (0.5f * (v(y + 1, x) + v(y + 1, x - 1)) + 0.5f * (v(y, x) + v(y, x - 1)));
+    return R(0.5) * (R(0.5) * (v(y + 1, x) + v(y + 1, x - 1)) + R(0.5) * (v(y, x) + v(y, x - 1)));
   };
   auto ubar_at = [&] {
-    return 0.5f * (0.5f * (u(y, x + 1) + u(y - 1, x + 1)) + 0.5f * (u(y, x) + u(y - 1, x)));
+    return R(0.5) * (R(0.5) * (u(y, x + 1) + u(y - 1, x + 1)) + R(0.5) * (u(y, x) + u(y - 1, x)));
   };
   if (advect) {
-    float s[6];
+    R s[6];
 #pragma unroll
     for (int r = 0; r < 6; ++r) s[r] = pvq[corner(y - 2 + r, x)];
-    const float vbar = vbar_at();
-    Gu = (sch.mom == kMomWenoVI ? weno_upwind(s, vbar, eps) : 0.5f * (s[3] + s[2])) * vbar;
+    const R vbar = vbar_at();
+    Gu = (sch.mom == kMomWenoVI ? weno_upwind(s, vbar, eps) : R(0.5) * (s[3] + s[2])) * vbar;
 #pragma unroll
     for (int r = 0; r < 6; ++r) s[r] = pvq[corner(y, x - 2 + r)];
-    const float ubar = ubar_at();
-    Gv = -(sch.mom == kMomWenoVI ? weno_upwind(s, ubar, eps) : 0.5f * (s[3] + s[2])) * ubar;
+    const R ubar = ubar_at();
+    Gv = -(sch.mom == kMomWenoVI ? weno_upwind(s, ubar, eps) : R(0.5) * (s[3] + s[2])) * ubar;
   } else {
-    Gu = 0.5f * (m.fff(y + 1, x) + m.fff(y, x)) * vbar_at();
-    Gv = -(0.5f * (m.fff(y, x + 1) + m.fff(y, x))) * ubar_at();
+    Gu = R(0.5) * (m.fff(y + 1, x) + m.fff(y, x)) * vbar_at();
+    Gv = -(R(0.5) * (m.fff(y, x + 1) + m.fff(y, x))) * ubar_at();
   }
 
   const int c = centre(y, x), cw = centre(y, x - 1), cs = centre(y - 1, x);
   if (advect) {
-    const float K = keq[c];
+    const R K = keq[c];
     Gu = Gu - (K - keq[cw]) * r_dxc;
     Gv = Gv - (K - keq[cs]) * r_dyf;
 
-    const float w_c1 = wq[c];
-    const float xu1 = 0.5f * (w_c1 + wq[cw]) * ((un1 - u(y, x)) * r_dzf1);
-    const float xv1 = 0.5f * (w_c1 + wq[cs]) * ((vn1 - v(y, x)) * r_dzf1);
-    Gu = Gu - 0.5f * (xu1 + xu);
-    Gv = Gv - 0.5f * (xv1 + xv);
+    const R w_c1 = wq[c];
+    const R xu1 = R(0.5) * (w_c1 + wq[cw]) * ((un1 - u(y, x)) * r_dzf1);
+    const R xv1 = R(0.5) * (w_c1 + wq[cs]) * ((vn1 - v(y, x)) * r_dzf1);
+    Gu = Gu - R(0.5) * (xu1 + xu);
+    Gv = Gv - R(0.5) * (xv1 + xv);
     xu = xu1;
     xv = xv1;
   }
 
-  const float p_c = pq[c];
+  const R p_c = pq[c];
   Gu = Gu - (p_c - pq[cw]) * r_dxc;
   Gv = Gv - (p_c - pq[cs]) * r_dyf;
 }
@@ -533,14 +578,15 @@ cudaError_t launch_info(Kernel kernel, size_t smem, int* out) {
 // shared face fluxes and its vertical flux, reconstructed in the scheme tr
 // from the column's six levels cz = c(Z - 2 .. Z + 3) at the top face (w)
 // and carried from the level below (fz, updated to the top face).
-__device__ __forceinline__ float tracer(const float* fx, const float* fy, const float cz[6],
-                                        float w, float& fz, int y, int x, float r_azc,
-                                        float r_dzc, float eps, int tr) {
-  const float fz1 = w * reconstruct(cz, w, eps, tr);
-  const float h = -((fx[xface(y, x + 1)] - fx[xface(y, x)]) +
-                    (fy[yface(y + 1, x)] - fy[yface(y, x)])) *
-                  r_azc;
-  const float G = h - (fz1 - fz) * r_dzc;
+template <class R>
+__device__ __forceinline__ R tracer(const R* fx, const R* fy, const R cz[6], NoDeduce<R> w,
+                                    R& fz, int y, int x, NoDeduce<R> r_azc, NoDeduce<R> r_dzc,
+                                    NoDeduce<R> eps, int tr) {
+  const R fz1 = w * reconstruct(cz, w, eps, tr);
+  const R h = -((fx[xface(y, x + 1)] - fx[xface(y, x)]) +
+                (fy[yface(y + 1, x)] - fy[yface(y, x)])) *
+              r_azc;
+  const R G = h - (fz1 - fz) * r_dzc;
   fz = fz1;
   return G;
 }

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from gb25_tpu_torch.grids.vertical import exponential_z_faces, uniform_z_faces
+from gb25_tpu_torch.ops.multifloat import TwoFloat
 
 EARTH_RADIUS = 6.371e6  # meters
 DEG2RAD = np.pi / 180.0
@@ -149,7 +150,9 @@ class LatitudeLongitudeGrid:
 
     def cast(self, dtype):
         """This grid with every floating tensor in ``dtype``, the geometry's
-        too (the JAX package casts the whole grid for a ``compute_dtype``).
+        too (the JAX package casts the whole grid for a ``compute_dtype``);
+        for ``dtype="bf16x2"`` each one a ``TwoFloat`` of bfloat16 limbs
+        (``ops.multifloat``), integer and boolean tensors as they are.
         Built once per dtype and kept in ``cache``, so a captured step does
         not cast the metrics again; the copy starts with a cache of its own
         (the parent's holds, among others, its captured loop)."""
@@ -184,11 +187,11 @@ class LatitudeLongitudeGrid:
 
 def _cast_floating(obj, dtype):
     """A copy of the dataclass ``obj`` with each floating tensor field, and
-    each dataclass field's, in ``dtype`` (fields with ``init=False``, a
-    cache, start anew)."""
+    each dataclass field's, in ``dtype`` or, for "bf16x2", as limbs (fields
+    with ``init=False``, a cache, start anew)."""
     def cast(x):
         if torch.is_tensor(x) and x.is_floating_point():
-            return x.to(dtype)
+            return TwoFloat.from_array(x) if dtype == "bf16x2" else x.to(dtype)
         if dataclasses.is_dataclass(x) and not isinstance(x, type):
             return _cast_floating(x, dtype)
         return x

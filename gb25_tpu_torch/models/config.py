@@ -21,18 +21,19 @@ KE_SCHEMES = ("hollingsworth", "standard")
 # state, or b itself (the reference's BuoyancyTracer)
 BUOYANCY_TRACERS = (("T", "S"), ("b",))
 
-# compute_dtype -> the dtype the array tendency path computes in; "bf16s"
+# compute_dtype -> what the array tendency path computes in; "bf16s"
 # (bf16 storage, f32 arithmetic) runs K1's bf16-storage instance and
-# "float32" K1's unfused float32 instance instead. "f32x2" is the JAX
-# package's double-single arithmetic (ops/multifloat.py): the port computes
-# it in native float64, which the H100 has (a deviation, ROADMAP.md
-# section 3). On the "pallas" route "float32" and "bfloat16" run K6 on
-# copies in that dtype (``K6_COMPUTE_DTYPES``); "float64" and "f32x2" run
-# the array path (the JAX package's K6 in float64 runs in interpret mode
-# only: a deviation, ROADMAP.md section 3).
+# "float32" K1's unfused float32 instance instead. "bf16x2" is the JAX
+# package's paired-bfloat16 limbs (ops/multifloat.py): ``TwoFloat``
+# values. "f32x2" is its double-single arithmetic: the port computes it in
+# native float64, which the H100 has (a deviation, ROADMAP.md section 3).
+# On the "pallas" route "float32", "bfloat16" and "float64" run K6 on
+# copies in that dtype (``K6_COMPUTE_DTYPES``); "f32x2" and "bf16x2" run
+# the array path, as the JAX package's ``not multifloat`` guards send them.
 ARRAY_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64,
-                        "f32x2": torch.float64}
-K6_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+                        "f32x2": torch.float64, "bf16x2": "bf16x2"}
+K6_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                     "float64": torch.float64}
 COMPUTE_DTYPES = (None, "float32", "bf16s", *ARRAY_COMPUTE_DTYPES)
 # what the JAX package's run scripts make of --target-float-type f16, f8E5M2
 # and f8E4M3: it runs them, and they go non-finite within 2 steps
@@ -114,17 +115,19 @@ class HydrostaticConfig:
     the stage reads float32 copies of the fields and the grid), "bfloat16",
     "float64" or "f32x2" (the tendency stage runs the array path on copies
     of the fields, f and the grid in that dtype, native float64 for
-    "f32x2"), or "bf16s" (K1 reads u, v, the tracers and b rounded to
-    bfloat16 and computes in float32). On the "pallas" route "float32" and
-    "bfloat16" run K6 on copies of the fields, f and the grid in that dtype
-    (K6's bfloat16 instance computes in float32 and rounds its outputs to
-    bfloat16), "float64" and "f32x2" the array path, and "bf16s" is refused,
-    as in the JAX package. The state and its update stay in the storage
-    precision, and the AB2 update is unfused; a closure's diffusivities (K4)
-    read the state-precision fields and their own buoyancy, as the JAX
-    package's closure does. "float16" and the float8 modes are not ported
-    (they go non-finite in the JAX package: ROADMAP.md section 1, "Not to
-    port"), nor is "bf16x2" (item 14)."""
+    "f32x2"), "bf16x2" (the array path on paired-bfloat16 limbs of the
+    fields, f and the grid, ``ops.multifloat``), or "bf16s" (K1 reads u, v,
+    the tracers and b rounded to bfloat16 and computes in float32). On the
+    "pallas" route "float32", "bfloat16" and "float64" run K6 on copies of
+    the fields, f and the grid in that dtype (K6's bfloat16 instance
+    computes in float32 and rounds its outputs to bfloat16; its float64
+    instance computes in float64), "f32x2" and "bf16x2" the array path, and
+    "bf16s" is refused, as in the JAX package. The state and its update
+    stay in the storage precision, and the AB2 update is unfused; a
+    closure's diffusivities (K4) read the state-precision fields and their
+    own buoyancy, as the JAX package's closure does. "float16" and the
+    float8 modes are not ported (they go non-finite in the JAX package:
+    ROADMAP.md section 1, "Not to port")."""
 
     tracers: tuple = ("T", "S")
     momentum_advection: str = "weno_vector_invariant"
@@ -167,9 +170,6 @@ class HydrostaticConfig:
 
     def _check_compute_dtype(self):
         cd = self.compute_dtype
-        if cd == "bf16x2":
-            raise NotImplementedError("compute_dtype='bf16x2' (paired bfloat16) is not ported: "
-                                      "ROADMAP.md section 1 item 14")
         if cd in NONFINITE_COMPUTE_DTYPES:
             raise NotImplementedError(
                 f"compute_dtype={cd!r} is not ported: in the JAX package this mode goes "
@@ -205,8 +205,8 @@ class HydrostaticConfig:
 
     @property
     def array_dtype(self):
-        """The torch dtype of the cast array tendency path, or None (K1, or
-        K6 on the "pallas" route)."""
+        """What the array tendency path computes in: a torch dtype, or
+        "bf16x2" (limbs); None for K1, or K6 on the "pallas" route."""
         if self.kernels == "pallas" and self.compute_dtype in K6_COMPUTE_DTYPES:
             return None
         return ARRAY_COMPUTE_DTYPES.get(self.compute_dtype)

@@ -47,11 +47,13 @@ alone and the step forms x* = x + dt (c1 G + c2 G_prev) itself
     the blocked solve K5);
   - the array path (``step/tendency_array``): "bfloat16", "float64" or
     "f32x2" (native float64), ``tendency_math`` on copies of the extended
-    fields, f and the grid in that dtype, the tendencies cast back;
+    fields, f and the grid in that dtype, the tendencies cast back; or
+    "bf16x2", ``tendency_math`` on paired-bfloat16 limbs of them
+    (``ops.multifloat``), the tendencies' float32 value cast back;
   - the ``kernels="pallas"`` route, the JAX package's unfused form around
-    kernel K6 (under "float32" on a state of another dtype, or
-    "bfloat16", on copies of the fields, f and the grid in that dtype:
-    ``k6_operand_dtype``; "float64" and "f32x2" take the array path): the
+    kernel K6 (under "float32", "bfloat16" or "float64" on a state of
+    another dtype, on copies of the fields, f and the grid in that dtype:
+    ``k6_operand_dtype``; "f32x2" and "bf16x2" take the array path): the
     buoyancy runs eagerly only for K4 (step 2 without a closure is gone);
     K6 computes the tendencies, the buoyancy inside, in place of K1
     (step 4); the increments of step 5 touch the tendencies alone; the free
@@ -79,7 +81,8 @@ Which kernel a step launches follows its operands' dtype
 them, a float64 or float16 state takes every plain version under "auto"
 (the JAX package's gates send it to the array path), except K1 under
 "float32" and "bf16s", whose operands are the float32 copies; K6 also
-launches on bfloat16 copies.
+launches on bfloat16 and float64 operands, so under "pallas" a float64
+state runs K6's float64 instance and the plain versions of K2-K5.
 """
 
 from __future__ import annotations
@@ -108,6 +111,7 @@ from gb25_tpu_torch.models.free_surface import (
 from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.models.state import HydrostaticState, advance_clock
 from gb25_tpu_torch.ops.halos import extend_field
+from gb25_tpu_torch.ops.multifloat import wrap_compute
 from gb25_tpu_torch.ops.operators import (
     coriolis_ff,
     diagnose_w,
@@ -364,8 +368,9 @@ def k6_operand_dtype(cfg, dtype):
     """The dtype of the copies K6 reads on the "pallas" route for a
     ``dtype`` state, or None (K6 reads the fields themselves): float32
     under "float32" on a state of another dtype, bfloat16 under
-    "bfloat16" (K6's bfloat16 instance). The JAX package casts the
-    fields, f and the grid to the compute dtype and hands them to its
+    "bfloat16" (K6's bfloat16 instance), float64 under "float64" on a
+    state of another dtype (K6's float64 instance). The JAX package casts
+    the fields, f and the grid to the compute dtype and hands them to its
     kernel; so does the port."""
     cdt = K6_COMPUTE_DTYPES.get(cfg.compute_dtype)
     return cdt if cdt is not None and cdt != dtype else None
@@ -375,12 +380,22 @@ def array_tendencies(cfg, grid, ue, ve, tr_e, cdt):
     """The tendency stage in ``cdt`` (the JAX package's precision-lowered
     array path): ``tendency_math`` on the extended fields, f and the grid
     cast to that dtype (``grid.cast``, kept per dtype; on a tile, the
-    tile's grid), interior tendencies cast back to the fields' dtype."""
+    tile's grid), interior tendencies cast back to the fields' dtype. For
+    ``cdt="bf16x2"`` each of them is wrapped into bfloat16 limbs
+    (``ops.multifloat.wrap_compute``, the grid by ``grid.cast``) and the
+    tendencies come back through their float32 value, as the JAX
+    package's ``to_array``."""
     dtype = ue.dtype
     grid_c = grid.cast(cdt)
-    f_c = coriolis_ff(grid, cfg.coriolis).to(dtype).to(cdt)
-    Gu_e, Gv_e, Gtr_e = tendency_math(cfg, grid_c, f_c, ue.to(cdt), ve.to(cdt),
-                                      {k: c.to(cdt) for k, c in tr_e.items()})
+    f = coriolis_ff(grid, cfg.coriolis).to(dtype)
+    if cdt == "bf16x2":
+        def wrap(x):
+            return wrap_compute(x, cdt)
+    else:
+        def wrap(x):
+            return x.to(cdt)
+    Gu_e, Gv_e, Gtr_e = tendency_math(cfg, grid_c, wrap(f), wrap(ue), wrap(ve),
+                                      {k: wrap(c) for k, c in tr_e.items()})
     return (grid.interior(Gu_e).to(dtype), grid.interior(Gv_e).to(dtype),
             {k: grid.interior(g).to(dtype) for k, g in Gtr_e.items()})
 

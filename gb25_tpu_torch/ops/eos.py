@@ -92,8 +92,9 @@ def _const(c, like):
     those dtypes plus a Python number rounds the number first on the CPU
     and not on the card, and at bfloat16's ulp of 8 kg/m^3 in rho' that
     moves b by a whole step (0.077 m/s^2) between the two; ``c`` itself
-    for float32 and float64."""
-    if like.dtype in (torch.bfloat16, torch.float16):
+    for float32 and float64, and for a ``TwoFloat`` (bfloat16 limbs, which
+    split the number into a limb pair as the JAX package's do)."""
+    if isinstance(like, torch.Tensor) and like.dtype in (torch.bfloat16, torch.float16):
         return float(torch.tensor(c, dtype=like.dtype))
     return c
 

@@ -44,8 +44,9 @@ def cumsum_z(x):
     reduced precision in float32, its CUDA scan in the input's dtype: a
     bfloat16 running sum rounded at every level loses the hydrostatic
     pressure (p ~ 300 m^2/s^2, where a bfloat16 ulp is 2), and the
-    "bfloat16" compute mode then parts from float32 on the card alone."""
-    if x.dtype in (torch.bfloat16, torch.float16):
+    "bfloat16" compute mode then parts from float32 on the card alone. A
+    ``TwoFloat`` takes its own float32 cumsum of the limbs."""
+    if isinstance(x, torch.Tensor) and x.dtype in (torch.bfloat16, torch.float16):
         return torch.cumsum(x, dim=0, dtype=torch.float32).to(x.dtype)
     return torch.cumsum(x, dim=0)
 

@@ -18,7 +18,11 @@ JAX package hands them to its kernel under ``compute_dtype="bfloat16"``)
 the bfloat16 instances (general, one launch) widen them and the grid to
 float32, compute in float32 and round each output to bfloat16 once; the
 JAX kernel rounds every operation in bfloat16 (a deviation, ROADMAP.md
-section 3).
+section 3). On float64 operands (a float64 state, or the fields, f and the
+grid cast to float64 under ``compute_dtype="float64"``, as the JAX package
+hands its kernel float64 operands on that route) the float64 instance
+(general, one launch) computes in float64 throughout, bit for bit with
+``pallas_tendencies_plain`` on the same operands.
 The inputs come halo-filled and immersed-masked: K6 has no fold, mask or
 wall logic, and no AB2 update (the ``kernels="pallas"`` route of
 ``models.hydrostatic`` applies those).
@@ -49,23 +53,33 @@ from gb25_tpu_torch.utils.cuda_build import CudaKernel, check_tensor, launch_inf
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _MAX_TRACERS = 4
 _PTRS = ctypes.c_void_p * _MAX_TRACERS  # one pointer per tracer slot, unused slots null
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _MODES = {"all": 0, "momentum": 1, "tracers": 2}
 
-_STAGE = [_P] * 4 + [_PP] + [_P] * 12 + [_PP] + [_I] * 9 + [_F] * 12 + [_I] * 4 + [_P]
+
+def _stage(real):
+    return [_P] * 4 + [_PP] + [_P] * 12 + [_PP] + [_I] * 9 + [real] * 12 + [_I] * 4 + [_P]
+
+
 KERNEL = CudaKernel(
     "tendencies.cu",
-    {"tendencies_f32": _STAGE,
-     "tendencies_bf16": _STAGE,
+    {"tendencies_f32": _stage(_F),
+     "tendencies_bf16": _stage(_F),
+     "tendencies_f64": _stage(_D),
      "tendencies_info": [_I] * 4 + [ctypes.POINTER(_I)],
-     "tendencies_bf16_info": [_I] * 2 + [ctypes.POINTER(_I)]},
+     "tendencies_bf16_info": [_I] * 2 + [ctypes.POINTER(_I)],
+     "tendencies_f64_info": [_I] * 2 + [ctypes.POINTER(_I)]},
     extra_flags=("-fmad=false",),
 )
-# the operand dtypes K6 has instances for: float32, and bfloat16 (the
-# "pallas" route under compute_dtype="bfloat16")
-DTYPES = (torch.float32, torch.bfloat16)
+# the operand dtypes K6 has instances for, with their entry points: float32,
+# bfloat16 (the "pallas" route under compute_dtype="bfloat16") and float64
+# (a float64 state, or compute_dtype="float64", on that route)
+_ENTRIES = {torch.float32: "tendencies_f32", torch.bfloat16: "tendencies_bf16",
+            torch.float64: "tendencies_f64"}
+DTYPES = tuple(_ENTRIES)
 # the same library's TEOS-10 entry, for checks only (its own launch count)
 EOS_KERNEL = CudaKernel(
     "tendencies.cu",
@@ -78,27 +92,30 @@ EOS_KERNEL = CudaKernel(
 EOS_TEOS10, EOS_LINEAR, EOS_TRACER = 0, 1, 2
 
 
-def eos_scalars(eos):
-    """TEOS-10's scalars as torch applies them to a CUDA float32 tensor
-    (ops/eos.py): a division by a Python number is a product with the
-    float32 reciprocal of its float32 rounding. Returns (1 / SAU, 1 / CTU,
-    1 / ZU, -g, rho0, 1 / rho0) as Python floats (those of the default
-    TEOS-10 for another equation of state: the kernel reads them only
-    under TEOS-10)."""
+def eos_scalars(eos, dtype=torch.float32):
+    """TEOS-10's scalars as torch applies them to a CUDA tensor of
+    ``dtype`` (ops/eos.py): a division by a Python number is a product
+    with the reciprocal of its rounding, taken in the arithmetic's type
+    (float32 for float32 and bfloat16 operands, float64 for float64).
+    Returns (1 / SAU, 1 / CTU, 1 / ZU, -g, rho0, 1 / rho0) as Python floats
+    (those of the default TEOS-10 for another equation of state: the kernel
+    reads them only under TEOS-10)."""
     if not isinstance(eos, TEOS10EquationOfState):
         eos = TEOS10EquationOfState()
-    f, one = np.float32, np.float32(1.0)
+    f = np.float64 if dtype == torch.float64 else np.float32
+    one = f(1.0)
     return tuple(float(x) for x in (one / f(_SAU), one / f(_CTU), one / f(_ZU), f(-eos.g),
                                     f(eos.rho0), one / f(eos.rho0)))
 
 
-def linear_scalars(eos):
-    """The linear equation of state's g, alpha, T0, beta and S0 rounded to
-    float32, as torch rounds a Python number for a float32 tensor (zeros
-    for another equation of state)."""
+def linear_scalars(eos, dtype=torch.float32):
+    """The linear equation of state's g, alpha, T0, beta and S0 as torch
+    rounds a Python number for a tensor of ``dtype``: to float32, or as
+    they are for float64 (zeros for another equation of state)."""
     if not isinstance(eos, LinearEquationOfState):
         return (0.0,) * 5
-    return tuple(float(np.float32(x)) for x in (eos.g, eos.alpha, eos.T0, eos.beta, eos.S0))
+    f = np.float64 if dtype == torch.float64 else np.float32
+    return tuple(float(f(x)) for x in (eos.g, eos.alpha, eos.T0, eos.beta, eos.S0))
 
 
 def eos_mode(cfg, tr_e):
@@ -169,20 +186,21 @@ def sequential_pressure(grid, be):
 
 
 def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
-    """Launch the CUDA kernel alone on float32 CUDA tensors, or on bfloat16
+    """Launch the CUDA kernel alone on float32 CUDA tensors, on bfloat16
     ones (the bfloat16 instances, ``which="all"`` only; the grid and f are
-    widened to float32 and the outputs are bfloat16). ``which``: "all"
-    returns (Gu, Gv, {tracer: G}), "momentum" (Gu, Gv), "tracers"
-    {tracer: G}."""
+    widened to float32 and the outputs are bfloat16) or on float64 ones
+    (the float64 instance, ``which="all"`` only; the grid and f float64).
+    ``which``: "all" returns (Gu, Gv, {tracer: G}), "momentum" (Gu, Gv),
+    "tracers" {tracer: G}."""
     dev = ue.device
-    f32 = torch.float32
     dtype = ue.dtype
     if dtype not in DTYPES:
-        raise ValueError(f"K6 reads float32 or bfloat16 fields, got {dtype}")
-    if dtype == torch.bfloat16 and which != "all":
-        raise ValueError("K6's bfloat16 instances compute the whole stage in one launch")
+        raise ValueError(f"K6 reads float32, bfloat16 or float64 fields, got {dtype}")
+    if dtype != torch.float32 and which != "all":
+        raise ValueError(f"K6's {dtype} instances compute the whole stage in one launch")
+    real = torch.float64 if dtype == torch.float64 else torch.float32  # the metrics' dtype
     if grid.dtype == torch.bfloat16:  # the bfloat16 grid's metrics, widened
-        grid, f_ff = grid.cast(f32), f_ff.float()
+        grid, f_ff = grid.cast(torch.float32), f_ff.float()
     hx, hy, hz = grid.halo
     Nx, Ny, Nz = grid.Nx, grid.Ny, grid.Nz
     if min(hx, hy, hz) < 3:
@@ -203,9 +221,9 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
     zprof = [m.reshape(-1).contiguous() for m in (grid.dz_c, grid.dz_f, grid.z_c)]
     metric_len = ext[1] * ext[2] if grid.north_fold else ext[1]
     for name, t in zip(("dxc", "dxf", "dyc", "dyf", "azc", "azf", "f_ff"), prof):
-        check_tensor(t, name, (metric_len,), f32, dev)
+        check_tensor(t, name, (metric_len,), real, dev)
     for name, t in zip(("dz_c", "dz_f", "z_c"), zprof):
-        check_tensor(t, name, (ext[0],), f32, dev)
+        check_tensor(t, name, (ext[0],), real, dev)
 
     def new3():
         return torch.empty((Nz, Ny, Nx), dtype=dtype, device=dev)
@@ -223,14 +241,14 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         KERNEL.launch(
-            "tendencies_f32" if dtype == f32 else "tendencies_bf16",
+            _ENTRIES[dtype],
             ue.data_ptr(), ve.data_ptr(), tr_e[buoyant[0]].data_ptr(),
             tr_e[buoyant[-1]].data_ptr(), ptrs(tr_e.values()),
             *[t.data_ptr() for t in prof + zprof],
             None if Gu is None else Gu.data_ptr(), None if Gv is None else Gv.data_ptr(),
             ptrs(Gtr.values()) if Gtr else None,
             len(names), Nx, Ny, Nz, hx, hy, hz, int(grid.north_fold), _MODES[which],
-            float(cfg.weno_eps), *eos_scalars(cfg.eos), *linear_scalars(cfg.eos),
+            float(cfg.weno_eps), *eos_scalars(cfg.eos, dtype), *linear_scalars(cfg.eos, dtype),
             *cfg.scheme_codes, mode, stream,
         )
     if which == "momentum":
@@ -243,12 +261,12 @@ def tendency_kernel(cfg, grid, f_ff, ue, ve, tr_e, which="all"):
 def kernel_info(ntr, which, metric2d, general=False, dtype=torch.float32):
     """One instance's launch shape on the current CUDA device (see
     ``pallas_zslab.kernel_info``); for ``which="momentum"`` ``ntr`` counts
-    the launch's buoyancy fields (2: T and S; 1: b). ``dtype=bfloat16``:
-    the bfloat16 instance (general, ``which="all"``)."""
-    if dtype == torch.bfloat16:
+    the launch's buoyancy fields (2: T and S; 1: b). ``dtype`` bfloat16 or
+    float64: that dtype's instance (general, ``which="all"``)."""
+    if dtype != torch.float32:
         if which != "all" or not general:
-            raise ValueError("K6's bfloat16 instances are general and one launch")
-        return launch_info(KERNEL, "tendencies_bf16_info", ntr, int(metric2d))
+            raise ValueError(f"K6's {dtype} instances are general and one launch")
+        return launch_info(KERNEL, _ENTRIES[dtype] + "_info", ntr, int(metric2d))
     return launch_info(KERNEL, "tendencies_info", ntr, _MODES[which], int(metric2d),
                        int(general))
 

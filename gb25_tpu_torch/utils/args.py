@@ -75,8 +75,8 @@ def benchmark_parser(description="gb25_tpu_torch simulation") -> argparse.Argume
                         "'bf16s' = bf16 storage, f32 arithmetic in K1")
     p.add_argument("--limbs", type=int, default=1, choices=[1, 2],
                    help="limbs=2 with --target-float-type f32 runs the tendencies in "
-                        "float64 (the JAX package's double-single f32x2); with bf16 "
-                        "(bf16x2) it is refused")
+                        "float64 (the JAX package's double-single f32x2); with bf16 in "
+                        "paired-bfloat16 limbs (bf16x2, as the JAX package)")
     p.add_argument("--dt", type=float, default=60.0)
     p.add_argument("--steps", type=int, default=256,
                    help="steps per loop (reference benchmarks use 256)")

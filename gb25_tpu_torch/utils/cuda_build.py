@@ -139,14 +139,16 @@ def kernel_route(kernels, device_type, dtype, dtypes=(torch.float32,)) -> bool:
     """The dispatch rule of every kernel, from the operand's device and
     dtype alone: "torch" always runs the plain version; "auto" and "pallas"
     run it on the CPU and launch the CUDA kernel for a CUDA operand of a
-    dtype the kernel reads (``dtypes``: float32; K6 also bfloat16, its
-    instance for ``compute_dtype="bfloat16"`` on the "pallas" route). A
-    CUDA operand of another dtype (a float64 or float16 state)
-    takes the plain version under "auto", as the JAX package's
-    ``*_supported`` gates send a non-float32 ``ue`` to its array path, and
-    raises under "pallas", which names the kernels: the Mosaic lowering
-    would refuse it. (Under "float32" and "bf16s" the step hands K1 float32
-    copies of such a state, as the JAX package casts them:
+    dtype the kernel reads (``dtypes``: float32; K6 also bfloat16 and
+    float64, its instances for ``compute_dtype="bfloat16"`` and for a
+    float64 state or ``"float64"`` on the "pallas" route). A CUDA operand
+    of another dtype takes the plain version: a float64 or float16 state
+    under "auto", as the JAX package's ``*_supported`` gates send a
+    non-float32 ``ue`` to its array path, and a float64 state's K2-K5
+    under "pallas", as that route's gates do there. "pallas" raises on
+    any other dtype (a float16 state): it names the kernels, and K6 has no
+    instance for it. (Under "float32" and "bf16s" the step hands K1
+    float32 copies of such a state, as the JAX package casts them:
     ``models.hydrostatic.k1_operand_dtype``, and K6 copies in the
     compute dtype: ``k6_operand_dtype``.)"""
     if kernels == "torch":
@@ -159,9 +161,10 @@ def kernel_route(kernels, device_type, dtype, dtypes=(torch.float32,)) -> bool:
         raise ValueError(f"kernels={kernels!r} has no kernel for device {device_type}")
     if dtype in dtypes:
         return True
-    if kernels == "pallas":
+    if kernels == "pallas" and dtype != torch.float64:
         raise NotImplementedError(f'kernels="pallas" on a {dtype} state: the kernels take '
-                                  'float32; kernels="auto" runs their plain versions')
+                                  'float32 (K6 also bfloat16 and float64); kernels="auto" '
+                                  'runs their plain versions')
     return False
 
 

@@ -4,7 +4,7 @@
     python -m gb25_tpu_torch.utils.profiling
         [--model flagship|climate|tripolar|keps|shallow_water] [--steps 4 --warmup 3]
         [--kernels auto|torch|pallas] [--decomposed local|ring] [--blocks 1 2 4 8 16]
-        [--compute-dtype float32|bf16s|bfloat16|float64|f32x2]
+        [--compute-dtype float32|bf16s|bfloat16|float64|f32x2|bf16x2]
         [--closure none|vertical_scalar]
         [--free-surface split_explicit|explicit] [--dt 60]
 
@@ -19,8 +19,9 @@ shallow water (the climate's as ``bench.py --config climate
 --compute-dtype`` sets its ocean's), ``--closure vertical_scalar`` the
 flagship: the run scripts' further choices (the JAX package's
 ``utils/args.py``): a precision mode (K1's unfused float32 or
-bf16-storage instance, K6's bfloat16 instance on the K6 route, or the cast
-array path, ``step/tendency_array``), the vertical
+bf16-storage instance, K6's bfloat16 or float64 instance on the K6 route,
+or the cast array path, ``step/tendency_array``, paired-bfloat16 limbs
+under bf16x2), the vertical
 scalar closure (K3's constant-kappa pair) and the explicit free surface
 (K1 unfused, ``step/explicit_free_surface``; run it at ``--dt 5``: the
 quasi-AB2 step damps the fastest gravity wave of the 80-degree rows only
@@ -283,7 +284,7 @@ def main():
     p.add_argument("--decomposed", default=None, choices=["local", "ring"])
     p.add_argument("--blocks", type=int, nargs="*", default=None)
     p.add_argument("--compute-dtype", default=None,
-                   choices=["float32", "bf16s", "bfloat16", "float64", "f32x2"])
+                   choices=["float32", "bf16s", "bfloat16", "float64", "f32x2", "bf16x2"])
     p.add_argument("--closure", default="none", choices=["none", "vertical_scalar"])
     p.add_argument("--free-surface", default="split_explicit",
                    choices=["split_explicit", "explicit"])

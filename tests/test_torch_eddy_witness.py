@@ -13,7 +13,10 @@ EKE and max|u|, and the EKE's relative difference, for 20 days; a
 package whose EKE is not finite stops there, the other runs on.
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_eddy_witness.py \\
-        --dtype float32 --init jax [--threads 4]
+        --dtype float32 --init jax [--seed 42] [--threads 4]
+
+``--seed`` draws another initial noise (the validated run's is 42), so
+that the onset day of a non-finite EKE can be counted over seeds.
 
 The test runs the same code at 48x24x8 for two chunks of 8 steps in
 float64 from JAX's state and holds the port's EKE and max|u| to JAX's at
@@ -117,14 +120,15 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     p.add_argument("--init", default="jax", choices=["jax", "port"])
+    p.add_argument("--seed", type=int, default=42, help="the initial noise's seed")
     p.add_argument("--threads", type=int, default=4, help="torch's intra-op threads")
     args = p.parse_args(argv)
     jax.config.update("jax_enable_x64", args.dtype == "float64")
     torch.set_num_threads(args.threads)
     head = {"nx": 360, "ny": 160, "nz": 8, "dt": 900.0, "chunk": 96, "dtype": args.dtype,
-            "init": args.init}
+            "init": args.init, "seed": args.seed}
     print(json.dumps(head), flush=True)
-    for row in trajectories(360, 160, 8, args.dtype, args.init, 20, 96):
+    for row in trajectories(360, 160, 8, args.dtype, args.init, 20, 96, seed=args.seed):
         ej, ep = row.get("jax", (None,))[0], row.get("port", (None,))[0]
         if ej is not None and ep is not None and math.isfinite(ej) and ej:
             row["eke_rel_diff"] = abs(ep - ej) / ej

@@ -24,7 +24,8 @@ blocked solve at the grid halo):
     bfloat16 tendency moves, parts by the closure's float32 rounding);
   - "float64" on the flagship's float64 state: JAX runs K6 on float64
     operands (interpret mode only: Mosaic has no float64 vectors), the port
-    the array path in float64, the same function: 1e-10 of each field's
+    K6's float64 twin (its plain version here; on the card its float64
+    instance), the same function: 1e-10 of each field's
     largest value.
 The explicit free surface with CATKE on the tripolar climate (the unfused
 K1 route with no compute_dtype): 3 float64 coupled steps against JAX

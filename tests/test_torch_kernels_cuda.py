@@ -60,7 +60,13 @@ the tripolar climate's loops replayed bit for bit with the host loop in
 VerticalScalarDiffusivity and the explicit free surface on the tile against
 a "torch" step with their launches (K5's ceil(30 / s), no K2). "float32"
 serially: 1 K1 (unfused), 1 K2 a step, replayed bit for bit. A float64
-state under "auto" launches nothing and equals the CPU step within 1e-10.
+state under "auto" launches nothing and equals the CPU step within 1e-10;
+under "pallas" it launches K6's float64 instance once a step (K2-K5 plain)
+and equals the CPU's "pallas" step within 1e-10. K6's float64 instances
+(one to four tracers, columns and planes, TEOS-10, the linear equation of
+state and the b tracer) bit for bit with the plain twin; "float64" on the
+K6 route and "bf16x2" (paired-bfloat16 limbs, array path) replayed bit for
+bit with the host loop.
 """
 
 import dataclasses
@@ -189,7 +195,9 @@ def test_auto_on_cuda_raises_for_unsupported_dtype(cuda):
     """A float64 state on the card: "auto" takes every kernel's plain
     version (the JAX package's route for a non-float32 state), launching
     nothing, and its step equals the same step on the CPU within 1e-10;
-    "pallas" raises, and so does a kernel handed a float64 operand."""
+    "pallas" launches K6's float64 instance once and the plain versions of
+    K2-K5, and equals the CPU's "pallas" step within 1e-10; K1 raises on a
+    float64 operand."""
     cfg, grid, _ = baroclinic_instability_model(32, 16, 4, device=cuda, dtype=torch.float64)
     _, grid_cpu, state_cpu = baroclinic_instability_model(32, 16, 4, device="cpu",
                                                           dtype=torch.float64)
@@ -204,8 +212,14 @@ def test_auto_on_cuda_raises_for_unsupported_dtype(cuda):
     b = time_step(cfg, grid_cpu, state_cpu, 60.0)
     for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), (a.tracers["T"], b.tracers["T"])):
         _close(x.cpu(), y, 1e-10, 1e-10 * float(y.abs().max()))
-    with pytest.raises(NotImplementedError, match="float32"):
-        time_step(dataclasses.replace(cfg, kernels="pallas"), grid, state, 60.0)
+    pallas = dataclasses.replace(cfg, kernels="pallas")
+    before = [k.launches for k in kernels]
+    a = time_step(pallas, grid, state, 60.0)
+    torch.cuda.synchronize()
+    assert [k.launches - b0 for k, b0 in zip(kernels, before)] == [0, 0, 0, 0, 0, 0, 1]
+    b = time_step(pallas, grid_cpu, state_cpu, 60.0)
+    for x, y in ((a.u, b.u), (a.v, b.v), (a.eta, b.eta), (a.tracers["T"], b.tracers["T"])):
+        _close(x.cpu(), y, 1e-10, 1e-10 * float(y.abs().max()))
     ue, ve = extend_field(grid, state.u, "u"), extend_field(grid, state.v, "v")
     tr_e = {k: extend_field(grid, c, "c") for k, c in state.tracers.items()}
     be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
@@ -874,8 +888,10 @@ def _looped_model(cuda, name):
           "vertical_scalar": {"closure": VerticalScalarDiffusivity()},
           "explicit": {"free_surface": ExplicitFreeSurface()}}.get(name, {})
     cfg, grid, state = baroclinic_instability_model(128, 64, 8, device=cuda, **kw)
-    if name in ("bf16s", "bfloat16", "f32x2", "float32"):
+    if name in ("bf16s", "bfloat16", "f32x2", "float32", "bf16x2"):
         cfg = dataclasses.replace(cfg, compute_dtype=name)
+    if name == "float64_k6_route":
+        cfg = dataclasses.replace(cfg, kernels="pallas", compute_dtype="float64")
     return (lambda s, n: loop(cfg, grid, s, 60.0, n),
             lambda s: time_step(cfg, grid, s, 60.0, premasked=True), grid, state)
 
@@ -905,7 +921,7 @@ def _forced_1x1_model(cuda, model, mode):
                                   "vertical_scalar", "explicit", "forced_flagship_local",
                                   "forced_flagship_ring", "forced_tripolar_local",
                                   "forced_tripolar_ring", "oracle_schemes", "b_tracer",
-                                  "oracle_schemes_k6"])
+                                  "oracle_schemes_k6", "bf16x2", "float64_k6_route"])
 def test_device_loop_matches_host_loop_bitwise(cuda, name):
     """A call from iteration 0 (the Euler step eager, a capture, 2 replays,
     3 steps left over), then a call that replays the kept graph twice,
@@ -1472,6 +1488,53 @@ def test_k6_bf16_instances_match_plain_bitwise(cuda, geometry, ntr):
     assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
     with pytest.raises(ValueError, match="one launch"):
         pallas_tendency.pallas_tendencies(*args, split=True)
+
+
+@pytest.mark.parametrize("ntr", [1, 2, 3, 4])
+@pytest.mark.parametrize("geometry", ["flat", "tripolar"])
+def test_k6_f64_instances_match_plain_bitwise(cuda, geometry, ntr):
+    """K6's float64 instances (one to four tracers: b alone, T and S, T, S,
+    e and T, S, e, eps; columns and planes) on the operands, f and the grid
+    in float64: one launch, float64 outputs bit for bit with the plain twin
+    (the same operations in float64, -fmad=false); with two tracers the
+    linear equation of state too."""
+    cfg, grid, ue, ve, tr_e = _precision_operands(cuda, geometry, ntr)
+    f64 = torch.float64
+    eoss = [cfg.eos] + ([LinearEquationOfState()] if ntr == 2 else [])
+    for eos in eoss:
+        pallas = dataclasses.replace(cfg, kernels="pallas", eos=eos)
+        args = (pallas, grid.cast(f64), coriolis_ff(grid, cfg.coriolis).to(f64), ue.to(f64),
+                ve.to(f64), {k: c.to(f64) for k, c in tr_e.items()})
+        before = pallas_tendency.KERNEL.launches
+        got = pallas_tendency.pallas_tendencies(*args)
+        torch.cuda.synchronize()
+        assert pallas_tendency.KERNEL.launches == before + 1
+        want = pallas_tendency.pallas_tendencies_plain(*args)
+        assert list(got[2]) == list(tr_e)
+        for g, w in ((got[0], want[0]), (got[1], want[1]),
+                     *((got[2][k], want[2][k]) for k in tr_e)):
+            assert g.dtype == f64 and torch.isfinite(w).all()
+            assert torch.equal(g, w), float((g - w).abs().max())
+    info = pallas_tendency.kernel_info(ntr, "all", grid.north_fold, general=True, dtype=f64)
+    assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+    with pytest.raises(ValueError, match="one launch"):
+        pallas_tendency.pallas_tendencies(*args, split=True)
+
+
+@pytest.mark.parametrize("name", list(TILE_CASES))
+def test_k6_f64_tiles_match_plain_bitwise(cuda, name):
+    """K6's float64 instance bit for bit with its plain twin on the grids
+    its 32 x 8 tiles do not divide, narrower than a tile, with unaligned
+    rows (value-by-value staging) and 400 levels deep."""
+    cfg, grid, ue, ve, tr_e = _tile_operands(cuda, *TILE_CASES[name])[:5]
+    f64 = torch.float64
+    args = (dataclasses.replace(cfg, kernels="pallas"), grid.cast(f64),
+            coriolis_ff(grid, cfg.coriolis).to(f64), ue.to(f64), ve.to(f64),
+            {k: c.to(f64) for k, c in tr_e.items()})
+    got = pallas_tendency.pallas_tendencies(*args)
+    want = pallas_tendency.pallas_tendencies_plain(*args)
+    for g, w in ((got[0], want[0]), (got[1], want[1]), *((got[2][k], want[2][k]) for k in tr_e)):
+        assert torch.equal(g, w), float((g - w).abs().max())
 
 
 def _precision_route_model(cuda, name):

@@ -295,16 +295,19 @@ def test_refused_combinations_raise():
     with pytest.raises(ValueError, match="bf16s"):
         dataclasses.replace(cfg, kernels="pallas", compute_dtype="bf16s")
     # every other compute_dtype runs on the "pallas" route: K6 on copies in
-    # "float32" or "bfloat16", the float64 array path for "float64", "f32x2"
+    # "float32", "bfloat16" or "float64", the float64 array path for "f32x2",
+    # the limbs' array path for "bf16x2"
     _, grid, state = baroclinic_instability_model(16, 8, 4, device="cpu")
-    for mode, array in (("float32", None), ("bfloat16", None), ("float64", torch.float64),
-                        ("f32x2", torch.float64)):
+    for mode, array in (("float32", None), ("bfloat16", None), ("float64", None),
+                        ("f32x2", torch.float64), ("bf16x2", "bf16x2")):
         pallas = dataclasses.replace(cfg, kernels="pallas", compute_dtype=mode)
         assert pallas.array_dtype == array and not pallas.fused
         out = time_step(pallas, grid, state, DT)
         assert out.u.dtype == torch.float32 and torch.isfinite(out.u).all()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        dataclasses.replace(cfg, compute_dtype="bf16x2")
+    # "bf16x2" (paired bfloat16 limbs) runs on the K1 routes too, unfused
+    bf16x2 = dataclasses.replace(cfg, compute_dtype="bf16x2")
+    assert bf16x2.array_dtype == "bf16x2" and not bf16x2.fused
+    assert torch.isfinite(time_step(bf16x2, grid, state, DT).u).all()
     for mode in NONFINITE_COMPUTE_DTYPES:
         with pytest.raises(NotImplementedError, match="non-finite.*Not to port"):
             dataclasses.replace(cfg, compute_dtype=mode)
@@ -327,11 +330,15 @@ def test_kernel_route_follows_the_state_dtype():
     version for a float64 or float16 state, as the JAX package's gates send
     a non-float32 ue to its array path; "pallas" refuses such a state; the
     CPU and "torch" always take the plain versions. "float32" and "bf16s" on
-    a state of another dtype hand K1 float32 copies, which launch it."""
+    a state of another dtype hand K1 float32 copies, which launch it. Under
+    "pallas" a float64 state launches K6's float64 instance and takes the
+    plain versions of K2-K5, as the JAX package's gates do."""
     for dtype in (torch.float64, torch.float16):
         assert not cuda_build.kernel_route("auto", "cuda", dtype)
-        with pytest.raises(NotImplementedError, match="float32"):
-            cuda_build.kernel_route("pallas", "cuda", dtype)
+    assert not cuda_build.kernel_route("pallas", "cuda", torch.float64)
+    assert cuda_build.kernel_route("pallas", "cuda", torch.float64, pallas_tendency.DTYPES)
+    with pytest.raises(NotImplementedError, match="float32"):
+        cuda_build.kernel_route("pallas", "cuda", torch.float16)
     for kernels in ("auto", "pallas"):
         assert cuda_build.kernel_route(kernels, "cuda", torch.float32)
     for kernels in KERNEL_MODES:
@@ -348,7 +355,7 @@ def test_kernel_route_follows_the_state_dtype():
         for dtype in (torch.float64, torch.float16):
             assert k1_operand_dtype(cfg, dtype) == torch.float32
         assert k1_operand_dtype(cfg, torch.float32) is None
-    for mode in (None, "bfloat16", "float64", "f32x2"):
+    for mode in (None, "bfloat16", "float64", "f32x2", "bf16x2"):
         cfg = dataclasses.replace(baroclinic_instability_config(), compute_dtype=mode)
         assert k1_operand_dtype(cfg, torch.float64) is None
     # K6 also reads bfloat16 (its instance for "bfloat16" on the "pallas"
@@ -360,7 +367,8 @@ def test_kernel_route_follows_the_state_dtype():
     for mode, dtype, want in (("float32", torch.float64, torch.float32),
                               ("float32", torch.float32, None), ("bfloat16", torch.float32, bf),
                               ("bfloat16", torch.float64, bf), (None, torch.float64, None),
-                              ("float64", torch.float32, None)):
+                              ("float64", torch.float32, torch.float64),
+                              ("float64", torch.float64, None), ("bf16x2", torch.float32, None)):
         cfg = dataclasses.replace(baroclinic_instability_config(kernels="pallas"),
                                   compute_dtype=mode)
         assert k6_operand_dtype(cfg, dtype) == want

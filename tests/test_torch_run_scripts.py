@@ -4,8 +4,8 @@
   --limbs, --closure, --free-surface and --kernels against JAX's: the same
   free surface and substeps, closure and its parameters, compute_dtype, and
   the kernels mapped (auto, zslab -> auto; pallas -> pallas; jnp -> torch);
-  where the port's config refuses a mode (float16, float8, bf16x2: it
-  raises NotImplementedError; bf16s on the "pallas" route: ValueError),
+  where the port's config refuses a mode (float16, float8: it raises
+  NotImplementedError; bf16s on the "pallas" route: ValueError),
   build_config raises that error; where JAX's exits, so does the port's.
 - ``resolve_grid_size``; ``Timer``'s line; ``sync_states`` onto a tile.
 - The serial script's ``main`` at 48x24x10 float64 on the CPU (2-step
@@ -114,7 +114,7 @@ def _port_init(shape, noise=1e-3):
 # ---------------------------------------------------------------------------
 
 TARGETS = [None, "f32", "bf16", "f16", "f64", "f8E5M2", "f8E4M3", "bf16s"]
-REFUSED = ("float16", "float8_e5m2", "float8_e4m3", "bf16x2")
+REFUSED = ("float16", "float8_e5m2", "float8_e4m3")
 COMBOS = list(itertools.product(TARGETS, (1, 2), ("none", "vertical_scalar", "catke"),
                                 ("split_explicit", "explicit"), ("auto", "zslab", "pallas", "jnp")))
 
