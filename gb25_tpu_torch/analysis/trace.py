@@ -7,6 +7,8 @@ of each event name across the traces there, by default of the events that
 ran on the device (kernels, copies, fills), and prints the largest:
 
     python -m gb25_tpu_torch.analysis.trace DIR [--top 20]
+
+``range_busy_ms`` reads one trace's device busy time inside a span's range.
 """
 
 from __future__ import annotations
@@ -42,6 +44,27 @@ def op_durations(events, category=None) -> dict:
         if e.get("cat") in cats:
             totals[e["name"]] = totals.get(e["name"], 0.0) + float(e.get("dur", 0.0)) / 1e3
     return dict(sorted(totals.items(), key=lambda kv: -kv[1]))
+
+
+def range_busy_ms(events, name) -> float:
+    """The device's busy time inside the device-side ranges ``name``
+    (``gpu_user_annotation``: a ``utils.tracing.span`` as the card ran it),
+    ms: the union of the device events that start inside each occurrence
+    (one stream runs them in order), cut at its end, summed. The card's
+    waits on the host's launches inside a range do not count."""
+    total = 0.0
+    for r in events:
+        if r.get("cat") != "gpu_user_annotation" or r["name"] != name:
+            continue
+        a, b = float(r["ts"]), float(r["ts"]) + float(r["dur"])
+        end = a
+        for t, d in sorted((float(e["ts"]), float(e["dur"])) for e in events
+                           if e.get("cat") in DEVICE_CATEGORIES and a <= float(e["ts"]) <= b):
+            lo, hi = max(t, end), min(t + d, b)
+            if hi > lo:
+                total += hi - lo
+                end = hi
+    return total / 1e3
 
 
 def summarize(logdir, top=20):

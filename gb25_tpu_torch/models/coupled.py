@@ -25,7 +25,6 @@ import dataclasses
 import functools
 
 import torch
-from torch.profiler import record_function
 
 from gb25_tpu_torch.grids import resolution_to_points, simple_latitude_longitude_grid
 from gb25_tpu_torch.grids.immersed import gaussian_islands_bottom
@@ -41,7 +40,7 @@ from gb25_tpu_torch.models.fluxes import (
     radiative_fluxes,
     similarity_fluxes,
 )
-from gb25_tpu_torch.models.hydrostatic import premask_state, time_step
+from gb25_tpu_torch.models.hydrostatic import ocean_step, premask_state
 from gb25_tpu_torch.models.seaice import (
     FreezingLimitedOceanTemperature,
     SeaIceState,
@@ -52,6 +51,7 @@ from gb25_tpu_torch.models.seaice import (
 )
 from gb25_tpu_torch.models.state import initial_state
 from gb25_tpu_torch.ops.halos import extend2
+from gb25_tpu_torch.utils.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,12 +139,13 @@ def coupled_time_step(ccfg: CoupledConfig, grid, atmos, state, dt, premasked=Fal
     """One coupled step: interface fluxes, the ocean's step (with
     ``restoring``, T/S relaxed toward its targets), then the freezing
     limiter; with ``comm``, of the tile ``grid``."""
-    with record_function("step/interface_fluxes"):
-        fluxes, _ = compute_interface_fluxes(ccfg, grid, atmos, state, comm)
-    state = time_step(ccfg.ocean, grid, state, dt, surface_fluxes=fluxes, premasked=premasked,
-                      comm=comm, restoring=restoring)
-    with record_function("step/freezing_limiter"):
-        return limit_ocean_temperature(ccfg.sea_ice, state)
+    with span("step"):
+        with span("step/interface_fluxes"):
+            fluxes, _ = compute_interface_fluxes(ccfg, grid, atmos, state, comm)
+        state = ocean_step(ccfg.ocean, grid, state, dt, surface_fluxes=fluxes,
+                           premasked=premasked, comm=comm, restoring=restoring)
+        with span("step/freezing_limiter"):
+            return limit_ocean_temperature(ccfg.sea_ice, state)
 
 
 def coupled_ice_time_step(ccfg: CoupledConfig, grid, atmos, state, ice, dt, comm=None,
@@ -154,18 +155,19 @@ def coupled_ice_time_step(ccfg: CoupledConfig, grid, atmos, state, ice, dt, comm
     free drift, the ocean's step, the freezing limiter. Returns (state,
     ice)."""
     si = ccfg.sea_ice
-    with record_function("step/seaice"):
-        af = atmos.at_time(state.time)
-        ice_th, coup = seaice_thermodynamics(si, grid, af, state, ice, dt)
-    with record_function("step/interface_fluxes"):
-        fluxes, _ = _interface_fluxes(ccfg, grid, af, state, comm, ice_cover=coup["shade"],
-                                      ice_coupling=coup)
-    with record_function("step/seaice"):
-        ice_new = seaice_advect(si, grid, state, ice_th, af, dt, comm)
-    state = time_step(ccfg.ocean, grid, state, dt, surface_fluxes=fluxes, premasked=premasked,
-                      comm=comm, restoring=restoring)
-    with record_function("step/freezing_limiter"):
-        return limit_ocean_temperature(si, state), ice_new
+    with span("step"):
+        with span("step/seaice"):
+            af = atmos.at_time(state.time)
+            ice_th, coup = seaice_thermodynamics(si, grid, af, state, ice, dt)
+        with span("step/interface_fluxes"):
+            fluxes, _ = _interface_fluxes(ccfg, grid, af, state, comm, ice_cover=coup["shade"],
+                                          ice_coupling=coup)
+        with span("step/seaice"):
+            ice_new = seaice_advect(si, grid, state, ice_th, af, dt, comm)
+        state = ocean_step(ccfg.ocean, grid, state, dt, surface_fluxes=fluxes,
+                           premasked=premasked, comm=comm, restoring=restoring)
+        with span("step/freezing_limiter"):
+            return limit_ocean_temperature(si, state), ice_new
 
 
 @dataclasses.dataclass(frozen=True)

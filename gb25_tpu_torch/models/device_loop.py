@@ -54,6 +54,15 @@ capture (NCCL between cards could be; ROADMAP.md queues that for the first
 4-card cell). Nowhere else does the loop fall back: a capture that fails
 raises. The graph reads the grid's and the comm's cached operands
 (K3's coefficients, the blocked solve's statics), so it keeps them.
+
+A call's boundary is traced (``utils.tracing``): ``loop/call`` spans the
+call, ``loop/copy_in`` the copies into the static state, ``loop/replay``
+the replays (the steps and the ``loop/copy_back`` that a capture records
+take it as their parent, so its own time is mostly the card's wait for
+the graph's first step) and ``loop/own`` the clones on return;
+``STATS.copy_bytes`` counts the bytes of those copies and clones. A
+graph's key holds ``tracing.stamping()``: one captured with the tracer's
+stamps is replayed only while that tracer is on.
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ import weakref
 
 import torch
 
+from gb25_tpu_torch.utils import tracing
 from gb25_tpu_torch.utils.cuda_build import launch_counts
 
 # steps a captured graph holds; chosen on the H100 (PERF.md, the block
@@ -81,11 +91,14 @@ _LEAD = "device_loop/lead"  # the chunk's lead graph (``lead_plan``)
 class LoopStats:
     """Steps run by ``device_loop`` since the last ``reset``: eagerly,
     recorded by a capture (launching nothing), and replayed; the graphs
-    captured and replayed, and the memory their pools took. A replay does
-    not pass through the kernels' wrappers, so their launch counts see the
-    eager and the recorded steps only: ``recorded_launches`` holds each
-    kernel's launches that captures recorded, ``replayed_launches`` those
-    that replays made (a graph's recorded launches, each replay)."""
+    captured and replayed, the memory their pools took, and the bytes
+    copied at the calls' boundaries (``copy_bytes``: each copy of a field
+    into a graph's static state before the replays, and each clone of a
+    field out of it on return). A replay does not pass through the
+    kernels' wrappers, so their launch counts see the eager and the
+    recorded steps only: ``recorded_launches`` holds each kernel's launches
+    that captures recorded, ``replayed_launches`` those that replays made
+    (a graph's recorded launches, each replay)."""
 
     eager_steps: int = 0
     captured_steps: int = 0
@@ -93,6 +106,7 @@ class LoopStats:
     captures: int = 0
     replays: int = 0
     pool_bytes: int = 0  # device memory the captured graphs' private pools reserved
+    copy_bytes: int = 0  # bytes copied into the static state and cloned out of it
     recorded_launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
     replayed_launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
@@ -173,10 +187,15 @@ def device_loop(step, state, n, cache, block=BLOCK_STEPS, lead=False):
     if not isinstance(step, functools.partial):
         raise TypeError("device_loop takes the step as a functools.partial of a step function "
                         "over its arguments but the state: they make the captured graph's key")
+    with tracing.span("loop/call"):
+        return _call(step, state, n, cache, block, lead)
+
+
+def _call(step, state, n, cache, block, lead):
     tensors = _tensors(state)
     if not _on_card(tensors):
         return _eager(step, state, n)
-    key = (_step_key(step), _layout(tensors), block)
+    key = _key(step, tensors, block)
     for name in (_ENTRY, _LEAD):
         entry = cache.get(name)
         if entry is not None and entry.key != key:
@@ -221,7 +240,7 @@ def prepare(step, warmed, cache, block=BLOCK_STEPS):
     where ``warmed`` is None (a CPU state, whose loop does not replay)."""
     if warmed is None:
         return False
-    key = (_step_key(step), _layout(_tensors(warmed)), block)
+    key = _key(step, _tensors(warmed), block)
     entry = cache.get(_ENTRY)
     if entry is not None and entry.key == key:
         return True
@@ -242,11 +261,14 @@ def _replay(step, state, block, key, cache, name, replays):
         entry = cache[name] = _capture(step, state, block, key, cache,
                                        **({} if other is None else {"share": other}))
     static = entry.static
-    for field, t in _tensors(state).items():
-        if t is not static[field]:
-            static[field].copy_(t)
-    for _ in range(replays):
-        entry.graph.replay()
+    with tracing.span("loop/copy_in"):
+        for field, t in _tensors(state).items():
+            if t is not static[field]:
+                static[field].copy_(t)
+                STATS.copy_bytes += _nbytes(t)
+    with tracing.span("loop/replay"):
+        for _ in range(replays):
+            entry.graph.replay()
     STATS.replays += replays
     STATS.replayed_steps += replays * block
     for kernel, count in entry.recorded.items():
@@ -288,12 +310,14 @@ def _capture(step, state, block, key, cache, share=None):
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, pool=None if share is None else share.graph.pool()):
+        with (torch.cuda.graph(graph, pool=None if share is None else share.graph.pool()),
+              tracing.parent("loop/replay")):
             out = _tensors(host_loop(step, _with_tensors(state, static), block))
             _check_aliases(out, static)
-            for field, t in out.items():
-                if t is not static[field]:
-                    static[field].copy_(t)
+            with tracing.span("loop/copy_back"):
+                for field, t in out.items():
+                    if t is not static[field]:
+                        static[field].copy_(t)
     finally:
         if collecting:
             gc.enable()
@@ -311,8 +335,9 @@ def _kept(step, cache):
     cached operands (a later dt replaces K3's coefficients in the cache),
     on a tile the comm's (the blocked solve's statics), and the tensors of
     the step's dict and tuple arguments (the restoring targets and
-    rates)."""
+    rates), and the tracer's device tables, which its stamps write."""
     keep = tuple(v for name, v in cache.items() if name not in (_ENTRY, _LEAD))
+    keep += tracing.kept()
     comm = step.keywords.get("comm")
     if comm is not None:
         keep += tuple(comm.cache.values())
@@ -371,6 +396,12 @@ def _layout(tensors):
     """The fields' names, shapes, dtypes and devices (not their strides:
     the copy into the static state takes any)."""
     return tuple((f, tuple(t.shape), t.dtype, t.device) for f, t in tensors.items())
+
+
+def _key(step, tensors, block):
+    """A graph's key: the step, the state's layout, the block length and
+    whether (with which table) the tracer stamps."""
+    return (_step_key(step), _layout(tensors), block, tracing.stamping())
 
 
 def _step_key(step):
@@ -439,9 +470,19 @@ def _check_aliases(out, static):
             raise ValueError(f"the step's {field} aliases the loop's static {other}")
 
 
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
+
 def _own(state, static):
     """``state`` with every tensor that lies in the static copy cloned: a
     later replay or call overwrites that copy."""
-    kept = {_storage(t) for t in static.values()}
-    tensors = {f: t.clone() if _storage(t) in kept else t for f, t in _tensors(state).items()}
-    return _with_tensors(state, tensors)
+    with tracing.span("loop/own"):
+        kept = {_storage(t) for t in static.values()}
+        tensors = {}
+        for f, t in _tensors(state).items():
+            if _storage(t) in kept:
+                t = t.clone()
+                STATS.copy_bytes += _nbytes(t)
+            tensors[f] = t
+        return _with_tensors(state, tensors)

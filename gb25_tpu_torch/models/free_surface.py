@@ -32,13 +32,13 @@ import weakref
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gb25_tpu_torch.ops.halos import extend2, extend_field_xy
 from gb25_tpu_torch.ops.pallas_barotropic import barotropic_block, barotropic_loop
 from gb25_tpu_torch.ops.stencils import dx_c, dx_f, dy_c, dy_f
 from gb25_tpu_torch.parallel.halo import make_comm
 from gb25_tpu_torch.parallel.mesh import Mesh
+from gb25_tpu_torch.utils.tracing import span
 
 
 def averaging_weights(substeps: int, kind: str = "parabolic") -> np.ndarray:
@@ -238,7 +238,7 @@ def _blocked_solve(cfg, grid, eta, U0, V0, GU, GV, dt, comm):
     m = 0
     while m < M:
         block = min(W, M - m)
-        with record_function("step/K5_exchange"):
+        with span("step/K5_exchange"):
             ext = [extend2(grid, a, k, W, comm) for a, k in ((eta, "c"), (U, "u"), (V, "v"))]
         eta_e, U_e, V_e, pe, pU, pV = barotropic_block(
             cfg, weights[m : m + block], *ext, pu, pv, fu, fv, dyc, dxf, rz, mu, mv)

@@ -91,7 +91,6 @@ import functools
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gb25_tpu_torch.grids.immersed import face_bottom_planes, face_masks, interior_masks
 from gb25_tpu_torch.grids.tripolar import north_fold_projection
@@ -125,6 +124,7 @@ from gb25_tpu_torch.ops.pallas_tridiag import grid_coefficients, implicit_solve
 from gb25_tpu_torch.ops.pallas_zslab import column_buoyancy, zslab_tendencies
 from gb25_tpu_torch.ops.stencils import dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f, iz_c
 from gb25_tpu_torch.ops.weno import centered2, upwind1, weno5_upwind
+from gb25_tpu_torch.utils.tracing import span
 
 
 def owns_south_wall(comm) -> bool:
@@ -261,7 +261,7 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None, res
     name -> (target, rate), G_c += rate (target - c), with the target an
     interior (Nz, Ny, Nx) field and the rate (1, Ny, Nx) or a field (on a
     tile, both cut to the tile)."""
-    with record_function("step/halo_fill_and_mask"):
+    with span("step/halo_fill_and_mask"):
         ue = extend_field(grid, state.u, "u", comm)
         ve = extend_field(grid, state.v, "v", comm)
         tr_e = {k: extend_field(grid, c, "c", comm) for k, c in state.tracers.items()}
@@ -287,25 +287,25 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None, res
         tr_k = {k: copy(c) for k, c in tr_e.items()}
     be = b_total = None  # K1's buoyancy operands
     if k1 and not bf16s:
-        with record_function("step/teos10"):
+        with span("step/teos10"):
             be, b_total = column_buoyancy(cfg, grid_k, tr_k)
     be_c = None  # the closure's: of the state-precision fields, as in the JAX package
     if isinstance(cfg.closure, (CATKEVerticalDiffusivity, TKEDissipationVerticalDiffusivity)):
         if be is not None and grid_k is grid:
             be_c = be  # once per step: K4 and K1 both read it
         else:
-            with record_function("step/teos10"):
+            with span("step/teos10"):
                 be_c = buoyancy_field(cfg, grid, tr_e)  # K4's alone
 
     diffusivities = None
     if isinstance(cfg.closure, CATKEVerticalDiffusivity):
-        with record_function("step/K4_catke"):
+        with span("step/K4_catke"):
             ku, kc, ke, G_e, lam_e = catke_diffusivities_kernel(cfg, grid, ue, ve, be_c,
                                                                 tr_e["e"])
         diffusivities = {"kappa_u": ku, "kappa_c": kc, "kappa_e": ke, "lam_e": lam_e,
                          "G_e": G_e}
     elif isinstance(cfg.closure, TKEDissipationVerticalDiffusivity):
-        with record_function("step/K4_keps"):
+        with span("step/K4_keps"):
             ku, kc, ke, keps, G_e, G_eps = keps_diffusivities_kernel(
                 cfg, grid, ue, ve, be_c, tr_e["e"], tr_e["eps"])
         diffusivities = {"kappa_u": ku, "kappa_c": kc, "kappa_e": ke, "kappa_eps": keps,
@@ -314,37 +314,37 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None, res
     updated = ints = None
     wall = owns_south_wall(comm)
     if cfg.fused:
-        with record_function("step/K1_tendencies"):
+        with span("step/K1_tendencies"):
             Gu, Gv, Gtr, u_new, v_new, tr_new, ints = zslab_tendencies(
                 cfg, grid, ue, ve, tr_e, (state.Gu, state.Gv, state.Gtracers), ab,
                 buoyancy=(be, b_total), face_bottoms=face_bottoms, wall_v=wall)
         updated = (u_new, v_new, tr_new)
     elif k1:
-        with record_function("step/K1_tendencies"):
+        with span("step/K1_tendencies"):
             Gu, Gv, Gtr = zslab_tendencies(
                 cfg, grid_k, ue_k, ve_k, tr_k, buoyancy=None if bf16s else (be, b_total),
                 wall_v=wall, storage=torch.bfloat16 if bf16s else None)
         if kdt is not None:
             Gu, Gv, Gtr = Gu.to(dtype), Gv.to(dtype), {k: g.to(dtype) for k, g in Gtr.items()}
     elif cast is not None:
-        with record_function("step/tendency_array"):
+        with span("step/tendency_array"):
             Gu, Gv, Gtr = array_tendencies(cfg, grid, ue, ve, tr_e, cast)
     else:
-        with record_function("step/K6_tendencies"):
+        with span("step/K6_tendencies"):
             f_ff = coriolis_ff(grid, cfg.coriolis).to(dtype).to(ue_k.dtype)
             Gu, Gv, Gtr = pallas_tendencies(cfg, grid_k, f_ff, ue_k, ve_k, tr_k)
         if kdt is not None:
             Gu, Gv, Gtr = Gu.to(dtype), Gv.to(dtype), {k: g.to(dtype) for k, g in Gtr.items()}
     Geta = None
     if isinstance(cfg.free_surface, ExplicitFreeSurface):
-        with record_function("step/explicit_free_surface"):
+        with span("step/explicit_free_surface"):
             # the barotropic pressure gradient joins the slow tendencies; the
             # free surface's tendency comes from the extended (storage) fields
             gu, gv = explicit_pressure_gradient(cfg, grid, state.eta, comm)
             Gu = Gu + gu
             Gv = Gv + gv
             Geta = explicit_eta_tendency(grid, ue, ve)
-    with record_function("step/increments"):
+    with span("step/increments"):
         outs = _increments(grid, (Gu, Gv, Gtr), updated, ints, ab[0], diffusivities,
                            surface_fluxes, wall, restoring, state.tracers)
     return (*outs, diffusivities, Geta)
@@ -488,7 +488,16 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
     """One quasi-AB2 hydrostatic step with the split-explicit or the
     explicit free surface and, with a closure, the vertically implicit
     solves; with ``comm``, of the tile ``grid`` (see ``parallel.sharded``);
-    with ``restoring``, T/S relaxed toward targets (``compute_tendencies``)."""
+    with ``restoring``, T/S relaxed toward targets (``compute_tendencies``).
+    The step's root span, ``step``, holds its stages' ``step/*`` spans."""
+    with span("step"):
+        return ocean_step(cfg, grid, state, dt, surface_fluxes, premasked, comm, restoring)
+
+
+def ocean_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
+               premasked=False, comm=None, restoring=None) -> HydrostaticState:
+    """``time_step`` without the root span: the coupled steps run it inside
+    their own."""
     if not premasked:
         state = premask_state(grid, state)
     dtype = state.u.dtype
@@ -501,7 +510,7 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
     G_ab = None
     a, b, h = float(c1), float(c2), float(dt_t)
     if updated is None:
-        with record_function("step/ab2_update"):
+        with span("step/ab2_update"):
             # the unfused update, in the JAX package's association:
             # x* = x + dt (c1 G + c2 G_prev)
             G_ab = (a * Gu + b * state.Gu, a * Gv + b * state.Gv)
@@ -513,11 +522,11 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
         u_star, v_star, tracers = updated
         v_star = mask_v_wall(v_star, wall)
     if Geta is not None:
-        span = "step/explicit_free_surface"
+        stage = "step/explicit_free_surface"
     else:
         blocked = comm is not None or cfg.kernels == "pallas"
-        span = "step/K5_barotropic" if blocked else "step/K2_barotropic"
-    with record_function(span):
+        stage = "step/K5_barotropic" if blocked else "step/K2_barotropic"
+    with span(stage):
         if Geta is not None:
             eta = state.eta + h * (a * Geta + b * state.Geta)
             u_new, v_new = u_star, v_star
@@ -527,7 +536,7 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
             Geta = state.Geta
         v_new = mask_v_wall(v_new, wall)
         if grid.north_fold:
-            with record_function("step/north_fold"):
+            with span("step/north_fold"):
                 # the seam row its own mirror image (in place: every field
                 # here is this step's own); on a tile, the top rank row's
                 if comm is None:
@@ -541,10 +550,10 @@ def time_step(cfg, grid, state: HydrostaticState, dt, surface_fluxes=None,
             v_new = v_new * v_mask
 
     if isinstance(cfg.closure, VerticalScalarDiffusivity):
-        with record_function("step/K3_implicit"):
+        with span("step/K3_implicit"):
             u_new, v_new, tracers = _scalar_solves(cfg, grid, u_new, v_new, tracers, h)
     elif diffusivities is not None:
-        with record_function("step/K3_implicit"):
+        with span("step/K3_implicit"):
             u_new, v_new, tracers = _implicit_solves(cfg, grid, u_new, v_new, tracers,
                                                      diffusivities, h)
 

@@ -13,6 +13,11 @@ starts with the eager Euler step, from one of ``inner_steps - 1``), and
 only chunks cut short by a schedule run from the host
 (``models.device_loop``). A custom ``step_fn(cfg, grid, state, dt, n)``
 should pass ``chunk`` to its loop the same way.
+
+``run`` spans its parts (``utils.tracing``): ``sim/chunk`` the step
+function's call, ``sim/schedule`` the stop test and the chunk's length
+(which read the device clock ``state.time`` on the host) and the writers'
+schedules, ``sim/callbacks`` the callbacks, ``sim/writers`` the writers.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from gb25_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger("gb25_tpu_torch")
 
@@ -148,24 +155,32 @@ class Simulation:
         writers after each."""
         t0 = _time.perf_counter()
         # the initial record at the true start time
-        for w in self.output_writers:
-            w.maybe_write(self)
-        while not self._should_stop():
-            if (self.wall_time_limit is not None
-                    and _time.perf_counter() - t0 > self.wall_time_limit):
-                logger.warning("wall-time limit reached; stopping cleanly")
-                break
-            n = self._next_chunk()
-            if n <= 0:
-                break
-            self.state = self._step_fn(self.cfg, self.grid, self.state, self.dt, n)
-            for cb in self.callbacks:
-                if cb.schedule.should_fire(self):
-                    cb.fn(self)
-            for sched in self._writer_schedules:
-                sched.should_fire(self)  # keeps the boundary tracking advancing
+        with span("sim/writers"):
             for w in self.output_writers:
                 w.maybe_write(self)
+        while True:
+            with span("sim/schedule"):
+                if self._should_stop():
+                    break
+                if (self.wall_time_limit is not None
+                        and _time.perf_counter() - t0 > self.wall_time_limit):
+                    logger.warning("wall-time limit reached; stopping cleanly")
+                    break
+                n = self._next_chunk()
+                if n <= 0:
+                    break
+            with span("sim/chunk"):
+                self.state = self._step_fn(self.cfg, self.grid, self.state, self.dt, n)
+            with span("sim/callbacks"):
+                for cb in self.callbacks:
+                    if cb.schedule.should_fire(self):
+                        cb.fn(self)
+            with span("sim/schedule"):
+                for sched in self._writer_schedules:
+                    sched.should_fire(self)  # keeps the boundary tracking advancing
+            with span("sim/writers"):
+                for w in self.output_writers:
+                    w.maybe_write(self)
         self.run_wall_time = _time.perf_counter() - t0
         return self.state
 

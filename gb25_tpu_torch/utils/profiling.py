@@ -32,16 +32,19 @@ substeps a step) in the "local" or the "ring" mode, on the tile grid and
 exchange of one ``sharded_step_fn`` (the grid keeps the captured graph),
 with every other option.
 
-Two windows. First ``--steps`` steps launched one by one from the host:
+Three windows. First ``--steps`` steps launched one by one from the host:
 the device time per kernel name, grouped into the hand-written kernels and
-the torch ops around them, each stage's device span (the ``step/*``
-profiler ranges) and the device busy share of the window (summed kernel
-time over wall time; a single stream has no overlap). Then the loop as a
-user runs it, replayed from its captured CUDA graph
+the torch ops around them, and the device busy share of the window (summed
+kernel time over wall time; a single stream has no overlap). Then the loop
+as a user runs it, replayed from its captured CUDA graph
 (``models.device_loop``; the forced 1x1 decomposed path too): wall,
-device busy, idle share, peak device memory and the graph's pool. The ranges do not exist inside a replay, so the breakdown by stage
-comes from the first window. ``--blocks`` times the replayed loop with
-graphs of each block length. Needs a CUDA device; it fails without one.
+device busy, idle share, peak device memory and the graph's pool. Last,
+the replayed loop again with the tracer on (``utils.tracing``), its graph
+captured anew with the spans' device stamps, which run at every replay:
+each stage's total and self device ms a replayed step (the ``step`` root,
+its ``step/*`` stages; self leaves out the spans nested in it) and its
+count a step. ``--blocks`` times the replayed loop with graphs of each
+block length. Needs a CUDA device; it fails without one.
 ``queued_device_ms`` times a call by the device alone (``chip_smoke.py``
 [19], ``solver_variants.py``).
 
@@ -49,7 +52,8 @@ The run scripts' phase timing and traces (the JAX package's
 ``gb25_tpu/utils/profiling.py``): ``Timer`` prints the
 ``[rank] label: X seconds`` lines the reference's weak-scaling scrapers
 parse; ``with_profiler`` writes a ``torch.profiler`` Chrome trace
-(``analysis.trace`` summarizes it); ``annotate`` names a span in it;
+(``analysis.trace`` summarizes it); ``annotate`` names a span in it
+(a ``utils.tracing`` span);
 ``gbprofile`` runs cProfile over a phase; ``allocator_stats`` reads the
 caching allocator of each card. The JAX package's
 ``force_virtual_cpu_devices`` has no counterpart: the port's CPU ranks are
@@ -66,6 +70,8 @@ import os
 import time
 
 import torch
+
+from gb25_tpu_torch.utils import tracing
 
 
 def _synchronize():
@@ -119,13 +125,12 @@ def with_profiler(directory: str | None):
 
 
 def annotate(name: str, **metadata):
-    """A span named in the trace (``torch.profiler.record_function``) with
-    the JAX package's label: ``name#k=v,...#`` with metadata, else
-    ``name``."""
+    """A span named in the trace (``tracing.span``) with the JAX package's
+    label: ``name#k=v,...#`` with metadata, else ``name``."""
     label = name
     if metadata:
         label += "#" + ",".join(f"{k}={v}" for k, v in metadata.items()) + "#"
-    return torch.profiler.record_function(label)
+    return tracing.span(label)
 
 
 @contextlib.contextmanager
@@ -176,20 +181,16 @@ def queued_device_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def _device_us(evt, total=False) -> float:
-    attrs = ("device_time_total", "cuda_time_total") if total else (
-        "self_device_time_total", "self_cuda_time_total")
-    for attr in attrs:
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     raise RuntimeError("torch.profiler event carries no device time")
 
 
 def step_breakdown(run, state, steps):
-    """Profile ``run(state, steps)``; returns (rows, stages, wall_ms,
-    state): rows of (kernel name, device ms per step, calls per step) and
-    stages of (profiler range, its device span in ms per step), largest
-    first."""
+    """Profile ``run(state, steps)``; returns (rows, wall_ms, state): rows of
+    (kernel name, device ms per step, calls per step), largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -198,23 +199,34 @@ def step_breakdown(run, state, steps):
         state = run(state, steps)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows, stages = [], []
+    rows = []
     for evt in prof.key_averages():
-        if evt.key.startswith("step/"):
-            # A range shows twice. On the device timeline: its span from the
-            # first to the last kernel launched inside it, idle gaps
-            # included, the stage's share of the step. On the host: the
-            # device time of the torch ops inside it, which misses the
-            # ctypes-launched CUDA kernels (no torch op owns them); skipped.
-            if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CPU:
-                stages.append((evt.key, _device_us(evt, total=True) / 1e3 / steps))
-            continue
+        if evt.is_user_annotation:
+            continue  # the spans (``tracing.span``): their device time is their kernels'
         us = _device_us(evt)
         if us > 0 and getattr(evt, "device_type", None) != torch.autograd.DeviceType.CPU:
             rows.append((evt.key, us / 1e3 / steps, evt.count / steps))
     rows.sort(key=lambda r: -r[1])
-    stages.sort(key=lambda r: -r[1])
-    return rows, stages, wall_ms / steps, state
+    return rows, wall_ms / steps, state
+
+
+def stamped_stages(run, state, steps):
+    """The stages of ``run(state, steps)`` (a loop replayed from its kept
+    graph) by the tracer's device stamps (``tracing.stamped``): one call of
+    ``steps`` + 1 steps that captures the graph anew with the stamps, then
+    the ``steps`` read (``steps`` a whole number of blocks). Returns (rows,
+    state): rows of (span, total ms a step, self ms a step, count a step)
+    for the ``step`` root and its ``step/*`` stages, largest first."""
+    held = {"state": state}
+
+    def call(n):
+        held["state"] = run(held["state"], n)
+
+    _, _, snap, _ = tracing.stamped(lambda: call(steps + 1), lambda: call(steps))
+    rows = [(name, s["total_ms"] / steps, s["self_ms"] / steps, s["count"] / steps)
+            for name, s in snap.items() if name == "step" or name.startswith("step/")]
+    rows.sort(key=lambda r: -r[1])
+    return rows, held["state"]
 
 
 # each hand-written kernel's device symbol (its instances share it) and the
@@ -242,7 +254,7 @@ def replayed_line(run, state, steps):
     returns (wall ms/step, device busy ms/step, peak allocated GB, reserved
     GB, state)."""
     torch.cuda.reset_peak_memory_stats()
-    rows, _, wall_ms, state = step_breakdown(run, state, steps)
+    rows, wall_ms, state = step_breakdown(run, state, steps)
     busy = sum(r[1] for r in rows)
     return wall_ms, busy, torch.cuda.max_memory_allocated() / 1e9, \
         torch.cuda.memory_reserved() / 1e9, state
@@ -373,7 +385,7 @@ def main():
 
     state = premask_state(grid, run(state, args.warmup))
     torch.cuda.reset_peak_memory_stats()
-    rows, stages, wall_ms, state = step_breakdown(eager, state, args.steps)
+    rows, wall_ms, state = step_breakdown(eager, state, args.steps)
     busy = sum(r[1] for r in rows)
     route = f" decomposed 1x1 {args.decomposed}" if args.decomposed else ""
     if args.model != "shallow_water":
@@ -392,9 +404,6 @@ def main():
         g[1] += calls
     for g, (ms, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:9.3f} ms/step {100 * ms / busy:5.1f}%  {calls:7.1f} launches/step  {g}")
-    print("device span per stage of the step (profiler ranges step/*, idle gaps included):")
-    for name, ms in stages:
-        print(f"  {ms:9.3f} ms/step {100 * ms / wall_ms:5.1f}% of wall  {name}")
     print("top kernels (device ms/step, launches/step):")
     for name, ms, calls in rows[:25]:
         print(f"  {ms:9.3f}  {calls:6.1f}  {name[:110]}")
@@ -408,6 +417,12 @@ def main():
           f"{busy_r:.3f} ms/step ({100 * busy_r / wall_r:.1f}%), idle "
           f"{100 * (1 - busy_r / wall_r):.1f}%, peak device memory {peak:.2f} GB allocated, "
           f"{reserved:.2f} GB reserved, graph pool {pool:.2f} GB")
+    stages, state = stamped_stages(run, state, n)
+    print(f"stages of a replayed step (the tracer's device stamps over {n} replayed steps; "
+          "self: less the spans nested in it):")
+    for name, total, own, count in stages:
+        print(f"  {total:9.3f} ms/step total {own:9.3f} self {100 * total / wall_r:5.1f}% of "
+              f"wall  {count:5.2f}/step  {name}")
     if args.blocks:
         print("the replayed loop by block length (64 steps timed after a call that captures):")
         for block, ms, pool, peak in block_sweep(step, state, grid.cache, args.blocks):
