@@ -37,8 +37,11 @@ held the same way.
      register and spill counts;
   the flagship baroclinic-instability ocean:
   3. K1 (zslab_tendencies, tracers T, S) against its plain PyTorch version,
-     rtol 2e-4; its time beside its bound, registers, shared memory per
-     block, tile and blocks per SM (so for every K1 and K6 instance);
+     rtol 2e-4: the instance the step runs, which makes b and its column
+     totals itself; its time beside its bound, registers, shared memory per
+     block, tile and blocks per SM (so for every K1 and K6 instance); the
+     instance that reads b (a closure's route) timed beside it, alone and
+     with the eager buoyancy before it;
   4. K2 (barotropic_loop: all 30 substeps in one cooperative launch)
      against its plain version at 1536x768, bit for bit (the run fails
      otherwise), in the instance its size takes (the tiles on chip) and in
@@ -566,7 +569,18 @@ def stencil_ops(cfg, ntr):
     return ops
 
 
-def k1_bound(cfg, grid, ntr, immersed, fused=True, value_bytes=4):
+def eos_ops(cfg):
+    """Operations of one buoyancy evaluation under ``cfg`` (TEOS-10 120: 48
+    multiply-add pairs of its Horner scheme, the reduced variables and b;
+    linear 6; the b tracer 0)."""
+    from gb25_tpu_torch.ops.eos import LinearEquationOfState
+
+    if "b" in cfg.tracers:
+        return 0
+    return 6 if isinstance(cfg.eos, LinearEquationOfState) else 120
+
+
+def k1_bound(cfg, grid, ntr, immersed, fused=True, value_bytes=4, own=False):
     """K1 with ``ntr`` tracers under ``cfg``: it reads u, v, b and the
     tracers extended (b once where it is the "b" tracer: the wrapper passes
     that one tensor as both) and the column total of b. Fused, it reads the
@@ -575,17 +589,24 @@ def k1_bound(cfg, grid, ntr, immersed, fused=True, value_bytes=4):
     G and the updated field of each and four integral planes; unfused (a
     value of ``value_bytes``: 4, or 2 stored as bfloat16), it writes the
     interior tendencies (and reads the tripolar planes too). Operations:
-    ``stencil_ops``."""
+    ``stencil_ops``. ``own``: the instance that makes b, which reads no b
+    and no column total but the fields b is made of (T and S, or b) a
+    second time for the totals, and evaluates the buoyancy twice a cell
+    (``eos_ops``), once for the totals and once on the level, besides the
+    totals' sums (10)."""
     n, ext, plane, ext_plane = sizes(grid)
     nprog = 2 + ntr
-    nread = 2 + ntr + int("b" not in cfg.tracers)
+    made_of = 1 if "b" in cfg.tracers else 2
+    nread = 2 + ntr + (made_of if own else int("b" not in cfg.tracers))
+    total = 0 if own else ext_plane
     if fused:
-        nbytes = nread * ext + ext_plane + 3 * nprog * n + 4 * plane
+        nbytes = nread * ext + total + 3 * nprog * n + 4 * plane
         nbytes += 2 * plane if immersed else 0
     else:
-        nbytes = nread * ext * value_bytes // 4 + ext_plane + nprog * n
+        nbytes = nread * ext * value_bytes // 4 + total + nprog * n
     nbytes += 7 * ext_plane if grid.north_fold else 0
-    return bound(nbytes, stencil_ops(cfg, ntr) * grid.Nx * grid.Ny * grid.Nz)
+    ops = stencil_ops(cfg, ntr) + (2 * eos_ops(cfg) + 10 if own else 0)
+    return bound(nbytes, ops * grid.Nx * grid.Ny * grid.Nz)
 
 
 def k6_bound(cfg, grid, ntr, value_bytes=4):
@@ -596,19 +617,14 @@ def k6_bound(cfg, grid, ntr, value_bytes=4):
     (tripolar) the six metrics and f as extended planes, and writes the
     interior G of each.
     Operations: ``stencil_ops`` less the AB2
-    update and integrals K6 does not do (20), plus the buoyancy's (TEOS-10
-    120: 48 multiply-add pairs of its Horner scheme, the reduced variables
-    and b; linear 6; the b tracer 0) and the pre-pass's column sums (10)."""
-    from gb25_tpu_torch.ops.eos import LinearEquationOfState
-
+    update and integrals K6 does not do (20), plus the buoyancy's
+    (``eos_ops``) and the pre-pass's column sums (10)."""
     n, ext, _, ext_plane = sizes(grid)
     nprog = 2 + ntr
     nbytes = (nprog * ext + nprog * n) * value_bytes // 4
     f64 = value_bytes == 8
     nbytes += (7 * ext_plane * (2 if f64 else 1)) if grid.north_fold else 0
-    eos_ops = (0 if "b" in cfg.tracers
-               else 6 if isinstance(cfg.eos, LinearEquationOfState) else 120)
-    ops = stencil_ops(cfg, ntr) - 20 + eos_ops + 10
+    ops = stencil_ops(cfg, ntr) - 20 + eos_ops(cfg) + 10
     return bound(nbytes, ops * grid.Nx * grid.Ny * grid.Nz, F64_FLOP_PER_S if f64 else None)
 
 
@@ -636,7 +652,10 @@ def build_kernels(kernels):
 # --------------------------------------------------------------------------
 
 def phase_k1(cfg, grid, state, gen):
-    """K1 against zslab_tendencies_plain on the flagship operands."""
+    """K1 against zslab_tendencies_plain on the flagship operands: the
+    instance the step runs, which makes b itself, against the plain
+    version that sums the column totals in the kernel's order; timed
+    beside the instance that reads b and its total."""
     from gb25_tpu_torch.ops import pallas_zslab
     from gb25_tpu_torch.ops.halos import extend_field
 
@@ -652,33 +671,42 @@ def phase_k1(cfg, grid, state, gen):
     prev = (noise(), Gv_p, {"T": noise(), "S": noise()})
     ab = (float(torch.tensor(DT * 1.6, dtype=torch.float32)),
           float(torch.tensor(DT * -0.6, dtype=torch.float32)))
-    cfg_plain = dataclasses.replace(cfg, kernels="torch")
 
-    def run_kernel():
+    def run_kernel():  # no b handed in: the kernel makes it
         return pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab)
 
     def run_plain():
-        return pallas_zslab.zslab_tendencies(cfg_plain, grid, ue, ve, tr_e, prev, ab)
+        return pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab,
+                                                   sequential=True)
 
     got, want = run_kernel(), run_plain()
     torch.cuda.synchronize()
     errs = check_k1(got, want, ab, grid, ("T", "S"))
     del got, want
 
-    # the CUDA kernel and its plain version alone, on buoyancy and column
-    # total computed once; the wrapper, with its own TEOS-10, beside them
+    # each instance and the plain version alone, the reading ones on buoyancy
+    # and column total computed once; the reading instance after the eager
+    # buoyancy, as a closure's step runs it
     be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
-    ms = cuda_time_ms(
+    ms = cuda_time_ms(run_kernel, reps=10)
+    read_ms = cuda_time_ms(
         lambda: pallas_zslab.zslab_kernel(cfg, grid, ue, ve, tr_e, be, b_total, prev, ab), reps=10)
-    wrapper_ms = cuda_time_ms(run_kernel, reps=10)
+
+    def run_reading():  # the eager buoyancy, then the instance that reads it
+        buoyancy = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
+        return pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab, buoyancy=buoyancy)
+
+    wrapper_ms = cuda_time_ms(run_reading, reps=10)
     plain_ms = cuda_time_ms(
         lambda: pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be), reps=3)
-    info = pallas_zslab.kernel_info(2, False, False)
-    print(f"  K1 CUDA kernel alone {ms:.3f} ms; wrapper (TEOS-10 + column total + kernel) "
-          f"{wrapper_ms:.3f} ms; plain version alone {plain_ms:.3f} ms; "
-          + launch_line(info, k1_bound(cfg, grid, 2, False)))
-    return {"max_abs_err": max(errs), "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "launch": info}
+    info = pallas_zslab.kernel_info(2, False, False, own=True)
+    read_bound = k1_bound(cfg, grid, 2, False)
+    print(f"  K1 CUDA kernel alone, making b (the step's instance) {ms:.3f} ms; reading b "
+          f"{read_ms:.3f} ms (bound {read_bound[0]:.3f} ms, {read_bound[1]}); TEOS-10 + column "
+          f"total + reading kernel {wrapper_ms:.3f} ms; plain version alone {plain_ms:.3f} ms; "
+          + launch_line(info, k1_bound(cfg, grid, 2, False, own=True)))
+    return {"max_abs_err": max(errs), "ms": ms, "read_ms": read_ms, "read_bound_ms": read_bound[0],
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "launch": info}
 
 
 def check_k1(got, want, ab, grid, names, prev=None):
@@ -851,13 +879,14 @@ def flagship(card):
           f"GH200), timed second {STEPS}-step loop, replayed; launched from the host "
           f"{host_ms:.3f} ms/step; plain torch {plain_ms_step:.3f} ms/step")
 
-    k1_b, k1_by = k1_bound(cfg, grid, 2, False)
+    k1_b, k1_by = k1_bound(cfg, grid, 2, False, own=True)
     k2_b, k2_by = k2_bound(grid, substeps, False)
     return [
         {"name": "zslab_tendencies", "route": "cuda",
          "source": "gb25_tpu_torch/csrc/zslab_tendencies.cu",
          "replaces": "gb25_tpu/ops/pallas_zslab.py:275", "path": "flagship",
          "launches": launches["K1"], "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+         "read_ms": k1["read_ms"], "read_bound_ms": k1["read_bound_ms"],
          "wrapper_ms": k1["wrapper_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1_b, "bound_by": k1_by, "library_ms": None, **k1["launch"],
          **on_device(loop_rec, "K1")},

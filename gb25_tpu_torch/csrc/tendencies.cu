@@ -45,16 +45,11 @@
 // The tracer launch of split = true needs no b: it skips the totals, the
 // momentum and the apron columns.
 //
-// TEOS-10 is written as torch evaluates ops/eos.py on a CUDA float32
-// tensor, so the kernel's b can equal the plain version's bit for bit: the
-// same Horner order (by powers of zz, then tt, then ss), every product and
-// sum rounded on its own (-fmad=false), each Python constant rounded once to
-// float, and each division by a constant a product with the float
-// reciprocal (the wrapper passes the reciprocals, rounded as torch rounds
-// them). The column sums are sequential, as the plain version's cumsum.
-// The linear equation of state is written the same way, g (alpha (T - T0)
-// - beta (S - S0)), its five constants rounded once to float; the b tracer
-// is read as it is.
+// The buoyancy and the column totals are eos.cuh's, shared with K1: TEOS-10
+// and the linear equation of state as torch evaluates ops/eos.py on a CUDA
+// tensor, so the kernel's b equals the plain version's bit for bit; the b
+// tracer is read as it is. The column sums are sequential, as the plain
+// version's cumsum. The rest of the kernel is built with -fmad=false.
 //
 // The inputs arrive halo-filled (the fold rows included) and, on immersed
 // grids, with u and v masked on solid faces: like the Pallas kernel, K6 has
@@ -81,6 +76,7 @@
 #include <cstddef>
 #include <type_traits>
 
+#include "eos.cuh"
 #include "tendency_tile.cuh"
 
 namespace {
@@ -126,110 +122,6 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
 __device__ __forceinline__ void store(double* p, double x) { *p = x; }
 
-// Where b comes from: TEOS-10 of T and S, the linear equation of state of
-// T and S, or the b tracer (staged and read as T, and as S).
-enum { kEosTeos10 = 0, kEosLinear = 1, kEosTracer = 2 };
-
-// The polyTEOS10_bsq anomaly coefficient of ss^i tt^j zz^k as kEos[k][j][i]
-// (ops/eos.py::_EOS): at zz^k, tt runs to kDeg[k] and ss to kDeg[k] - j,
-// with kDeg = {6, 4, 2, 1}. Each double is rounded once to float, as torch
-// rounds a Python number for a float32 tensor; kEosD holds the doubles
-// themselves (the float64 instance), from the same literals.
-#define GB25_TEOS10_COEFFS \
-  {                                                                                     \
-    {                                                                                   \
-        {8.0189615746e02, 8.6672408165e02, -1.7864682637e03, 2.0375295546e03,           \
-         -1.2849161071e03, 4.3227585684e02, -6.0579916612e01},                          \
-        {2.6010145068e01, -6.5281885265e01, 8.1770425108e01, -5.6888046321e01,          \
-         1.7681814114e01, -1.9193502195e00},                                            \
-        {-3.7074170417e01, 6.1548258127e01, -6.0362551501e01, 2.9130021253e01,          \
-         -5.4723692739e00},                                                             \
-        {2.1661789529e01, -3.3449108469e01, 1.9717078466e01, -3.1742946532e00},         \
-        {-8.3627885467e00, 1.1311538584e01, -5.3563304045e00},                          \
-        {5.4048723791e-01, 4.8169980163e-01},                                           \
-        {-1.9083568888e-01},                                                            \
-    },                                                                                  \
-    {                                                                                   \
-        {1.9681925209e01, -4.2549998214e01, 5.0774768218e01, -3.0938076334e01,          \
-         6.6051753097e00},                                                              \
-        {-1.3336301113e01, -4.4870114575e00, 5.0042598061e00, -6.5399043664e-01},       \
-        {6.7080479603e00, 3.5063081279e00, -1.8795372996e00},                           \
-        {-2.4649669534e00, -5.5077101279e-01},                                          \
-        {5.5927935970e-01},                                                             \
-    },                                                                                  \
-    {                                                                                   \
-        {2.0660924175e00, -4.9527603989e00, 2.5019633244e00},                           \
-        {2.0564311499e00, -2.1311365518e-01},                                           \
-        {-1.2419983026e00},                                                             \
-    },                                                                                  \
-    {                                                                                   \
-        {-2.3342758797e-02, -1.8507636718e-02},                                         \
-        {3.7969820455e-01},                                                             \
-    },                                                                                  \
-  }
-
-__constant__ float kEos[4][7][7] = GB25_TEOS10_COEFFS;
-__constant__ double kEosD[4][7][7] = GB25_TEOS10_COEFFS;
-
-// The coefficient kEos[K][j][i] in the arithmetic type R.
-template <class R>
-__device__ __forceinline__ R eos_coeff(int K, int j, int i) {
-  if constexpr (std::is_same<R, double>::value)
-    return kEosD[K][j][i];
-  else
-    return kEos[K][j][i];
-}
-
-__device__ __forceinline__ float sqrt_rn(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_rn(double x) { return sqrt(x); }
-
-// sum_ij kEos[K][j][i] ss^i tt^j: Horner in tt of Horner in ss, from the
-// highest powers down (ops/eos.py::_horner_2d).
-template <int K, int N, class R>
-__device__ __forceinline__ R eos_horner2d(R ss, R tt) {
-  R out = R(0.0);
-#pragma unroll
-  for (int j = N; j >= 0; --j) {
-    R acc = eos_coeff<R>(K, j, N - j);
-#pragma unroll
-    for (int i = N - j - 1; i >= 0; --i) acc = acc * ss + eos_coeff<R>(K, j, i);
-    out = (j == N) ? acc : out * tt + acc;
-  }
-  return out;
-}
-
-// b = -g (rho' - rho0) / rho0 from the TEOS-10 anomaly rho'(S, T, z)
-// (ops/eos.py::TEOS10EquationOfState.buoyancy).
-template <class A_, class R = typename A_::R>
-__device__ __forceinline__ R teos10_buoyancy(const A_& A, NoDeduce<R> T, NoDeduce<R> S,
-                                             NoDeduce<R> z) {
-  const R ss = sqrt_rn((S + R(32.0)) * A.inv_sau);
-  const R tt = T * A.inv_ctu;
-  const R zz = (-z) * A.inv_zu;
-  R r = eos_horner2d<3, 1>(ss, tt);
-  r = r * zz + eos_horner2d<2, 2>(ss, tt);
-  r = r * zz + eos_horner2d<1, 4>(ss, tt);
-  r = r * zz + eos_horner2d<0, 6>(ss, tt);
-  return (A.neg_g * (r - A.rho0)) * A.inv_rho0;
-}
-
-// b = g (alpha (T - T0) - beta (S - S0)) (ops/eos.py::LinearEquationOfState),
-// each operation rounded on its own.
-template <class A_, class R = typename A_::R>
-__device__ __forceinline__ R linear_buoyancy(const A_& A, NoDeduce<R> T, NoDeduce<R> S) {
-  return A.lin_g * (A.lin_alpha * (T - A.lin_T0) - A.lin_beta * (S - A.lin_S0));
-}
-
-// The buoyancy of a cell: TEOS-10 in the flagship's instances; in the
-// general ones A.eos's (in b mode T holds b).
-template <bool GEN, class A_, class R = typename A_::R>
-__device__ __forceinline__ R buoyancy(const A_& A, NoDeduce<R> T, NoDeduce<R> S,
-                                      NoDeduce<R> z) {
-  if (GEN && A.eos == kEosTracer) return T;
-  if (GEN && A.eos == kEosLinear) return linear_buoyancy(A, T, S);
-  return teos10_buoyancy(A, T, S, z);
-}
-
 // Shared memory of a launch in bytes. A launch stages 2 + NTR fields: u, v
 // and the tracers; for the momentum launch u, v and its NTR buoyancy fields
 // (T and S, or b). With bfloat16 fields the ring holds bfloat16 slots and
@@ -245,18 +137,6 @@ constexpr size_t smem_bytes() {
 template <bool M2, class A_, class R = typename A_::R>
 __device__ __forceinline__ void start_column(ColumnT<R>& c, const A_& A, const Tile& t, int Xe) {
   c.razc = R(1.0) / metric_at<M2>(A.azc, t.Y0 + c.y, t.X0 + c.x, Xe);
-}
-
-// The column total of b dz, b down the column from device memory, summed up
-// from the floor.
-template <bool GEN, class A_, class R = typename A_::R>
-__device__ __forceinline__ R column_total(const A_& A, int Y, int X) {
-  R tot = R(0.0);
-  for (int k = 0; k < A.Nz; ++k) {
-    const int Z = k + A.hz;
-    tot = tot + buoyancy<GEN>(A, A.T(Z, Y, X), A.S_(Z, Y, X), A.zc[Z]) * A.dzc[Z];
-  }
-  return tot;
 }
 
 // Blocks per SM an instance's registers must allow: kMinBlocks (80

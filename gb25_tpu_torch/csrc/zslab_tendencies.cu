@@ -28,13 +28,16 @@
 // unfused float32 and bfloat16.
 //
 // What bounds it on an H100: device memory. Per step the flagship instance
-// reads five extended fields (u, v, T, S, b) and four previous tendencies
-// and writes eight interior fields (~5 GB at 1536x768x64 f32, ~1.6 ms at
-// 3.35 TB/s) against ~600 flop per cell (~6e10 flop, ~1 ms at the float32
-// rate); the climate instance adds one tracer (~6.6 GB, ~2.0 ms). The
-// unfused float32 instance reads the five extended fields and writes four
-// (~2.8 GB, ~0.85 ms), the bfloat16 instance reads those five at 2 bytes a
-// value (~2.0 GB, ~0.6 ms): the ~1 ms of operations bound both.
+// reads four extended fields (u, v, T, S; T and S twice, the second time
+// for the column totals) and four previous tendencies and writes eight
+// interior fields (~5 GB at 1536x768x64 f32, ~1.6 ms at 3.35 TB/s) against
+// ~600 flop per cell of stencils and twice TEOS-10's ~120 (~8e10 flop,
+// ~1.2 ms at the float32 rate); the climate instance reads b and its
+// column total instead of making them and adds one tracer (~6.6 GB, ~2.0
+// ms). The unfused float32 instance reads the four extended fields and
+// writes four (~2.8 GB, ~0.85 ms), the bfloat16 instance reads u, v, T, S
+// and b at 2 bytes a value (~2.0 GB, ~0.6 ms): the ~1 ms of operations
+// bound both.
 //
 // Design (the level tile of tendency_tile.cuh, shared with kernel K6): a
 // block of 32 x kTY threads owns 32 x kTY interior columns and marches z
@@ -49,9 +52,16 @@
 // momentum stencil reads at j - 1 and i - 1; the bottom-face vertical
 // terms; a six-level register ring per tracer for the vertical WENO-5
 // (one new load a level); the AB2 update, the wall row and the depth
-// integrals of u, v, u*, v*. b and its column total come from device
-// memory (the caller's equation of state, or the b tracer itself). The
-// tracer count (1 to 4), the general schemes, the immersed
+// integrals of u, v, u*, v*. b and its column total come either from the
+// caller, in device memory (where a closure reads the same b: K4 and K1
+// must agree to the ulp, which decides the sign of N^2), or, with the
+// template flag OWN, from the kernel itself, as K6 makes them (eos.cuh):
+// before its first level each carried column's owner walks down its column
+// from device memory and sums b dz up from the floor, and on each level b
+// is the equation of state of the T and S staged for the tracers (the b
+// tracer itself in b mode), so no b field is read. OWN has the instances
+// of one and two tracers (b; T, S; b and one closure tracer) in float32.
+// The tracer count (1 to 4), the general schemes, the immersed
 // integrals, the 2-D metrics, the fused epilogue (AB2 update, wall row of
 // v*, integrals) and the storage type of the streamed fields are template
 // parameters. The bfloat16 instance stages each level by 16-byte copies of
@@ -76,7 +86,23 @@
 #include <cstddef>
 #include <type_traits>
 
+// the equation of state's sums and products rounded by intrinsics: K1 is
+// built without -fmad=false (eos.cuh)
+#define GB25_EOS_RN
+#include "eos.cuh"
 #include "tendency_tile.cuh"
+
+// Where the kernel makes b itself (OWN): mode (kEosTeos10, kEosLinear or
+// kEosTracer), the indices of T and S among the tracers (b's twice in b
+// mode), and the equations' scalars as K6 takes them
+// (ops/pallas_tendency.py::eos_scalars, linear_scalars). Outside the
+// unnamed namespace: the entry points take it, and a type of internal
+// linkage in their signatures would make them internal too.
+struct OwnB {
+  int mode, iT, iS;
+  float inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0;
+  float lin_g, lin_alpha, lin_T0, lin_beta, lin_S0;
+};
 
 namespace {
 
@@ -86,10 +112,17 @@ using bf16 = __nv_bfloat16;
 // S: the storage type of u, v, b and the tracers (float or bf16).
 template <class S>
 struct Args {
+  using R = float;  // the arithmetic type (eos.cuh)
   const S* stage[2 + kMaxTracers];  // u, v, tracers: the staged fields
   FieldT<S> u, v, b;
   FieldT<S> tr[kMaxTracers];
   const float* btot;  // (Ny+2hy, Nx+2hx): column total of b dz
+  // OWN: T and S (the b tracer twice in b mode) as fields and among the
+  // staged tracers, the source of b and its scalars
+  FieldT<S> T, S_;
+  int iT, iS, eos;
+  float inv_sau, inv_ctu, inv_zu, neg_g, rho0, inv_rho0;
+  float lin_g, lin_alpha, lin_T0, lin_beta, lin_S0;
   // (Ny+2hy) y profiles, or (Ny+2hy, Nx+2hx) planes on the tripolar grid
   const float *dxc, *dxf, *dyc, *dyf, *azc, *azf, *fff;
   const float *dzc, *dzf, *zc;                           // (Nz+2hz) z profiles
@@ -108,11 +141,15 @@ struct Args {
   Schemes sch;           // the advection and kinetic-energy schemes (general instances)
 };
 
-// A carried column's column total of b dz and 1 / azc.
-template <bool M2, class A_>
+// A carried column's column total of b dz (the caller's, or with OWN its
+// own, down the column from device memory) and 1 / azc.
+template <bool M2, bool OWN, bool GEN, class A_>
 __device__ __forceinline__ void start_column(Column& c, const A_& A, const Tile& t, int Xe) {
   const int Y = t.Y0 + c.y, X = t.X0 + c.x;
-  c.tot = A.btot[(size_t)Y * Xe + X];
+  if constexpr (OWN)
+    c.tot = column_total<GEN>(A, Y, X);
+  else
+    c.tot = A.btot[(size_t)Y * Xe + X];
   c.razc = 1.0f / metric_at<M2>(A.azc, Y, X, Xe);
 }
 
@@ -123,8 +160,10 @@ __host__ __device__ constexpr size_t smem_bytes() {
 
 // FUSED: the AB2 update, the wall row of v* and the depth integrals; else
 // the tendencies and the wall row of Gv alone. S: the storage type. GEN:
-// the general instance, whose schemes are A.sch; else the flagship's.
-template <int NTR, bool IMM, bool M2, bool FUSED, class S, bool GEN>
+// the general instance, whose schemes are A.sch (and with OWN whose b is
+// A.eos's); else the flagship's (and TEOS-10). OWN: b and its column
+// totals made in the kernel, not read.
+template <int NTR, bool IMM, bool M2, bool FUSED, class S, bool GEN, bool OWN>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     zslab_tendencies_kernel(const Args<S> A) {
   constexpr int NF = 2 + NTR;
@@ -132,6 +171,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   constexpr int kSXS = kF32 ? kSX : kSXH;  // a staged row of S
   constexpr int kSlotS = kSXS * kSY;
   static_assert(FUSED || !IMM, "the unfused form has no integrals to mask");
+  static_assert(kF32 || !OWN, "the bf16-storage instance reads the b of the rounded T and S");
   const Schemes sch = GEN ? A.sch : kFlagship;
   extern __shared__ __align__(16) float smem[];
   const bool vec = A.align >= 0;
@@ -164,8 +204,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const bool own = tx < t.nx && ty < t.ny;
   Column oc = {ty, tx, own};
   Column ac = apron_column(t);
-  if (oc.on) start_column<M2>(oc, A, t, Xe);
-  if (ac.on) start_column<M2>(ac, A, t, Xe);
+  if (oc.on) start_column<M2, OWN, GEN>(oc, A, t, Xe);
+  if (ac.on) start_column<M2, OWN, GEN>(ac, A, t, Xe);
 
   // this thread's column
   const int i = t.i0 + tx, j = t.j0 + ty;
@@ -199,10 +239,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int Z = k + A.hz;
     const float dzc = A.dzc[Z];
     // device-memory operands of this level, loaded before the wait: b of
-    // the carried columns; for the own column u, v one level up, the
-    // tracers three levels up (the vertical ring) and the previous G
-    const float b_o = oc.on ? A.b(Z, t.Y0 + oc.y, t.X0 + oc.x) : 0.f;
-    const float b_a = ac.on ? A.b(Z, t.Y0 + ac.y, t.X0 + ac.x) : 0.f;
+    // the carried columns (unless OWN); for the own column u, v one level
+    // up, the tracers three levels up (the vertical ring) and the previous G
+    const float b_o = !OWN && oc.on ? A.b(Z, t.Y0 + oc.y, t.X0 + oc.x) : 0.f;
+    const float b_a = !OWN && ac.on ? A.b(Z, t.Y0 + ac.y, t.X0 + ac.x) : 0.f;
     float un1 = 0.f, vn1 = 0.f, Gu_p = 0.f, Gv_p = 0.f, cnext[NTR], Gtr_p[NTR];
     const size_t o = (size_t)k * plane_i + ij;
     if (own) {
@@ -236,11 +276,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       slot = wide + t.origin();
     }
     const Win u{slot}, v{slot + kSF};
+    // b dz of a carried column: b from device memory, or with OWN the
+    // equation of state of its staged T and S
+    auto bdz = [&](const Column& c, float b) {
+      if constexpr (OWN)
+        b = buoyancy<GEN>(A, Win{slot + (2 + A.iT) * kSF}(c.y, c.x),
+                          Win{slot + (2 + A.iS) * kSF}(c.y, c.x), A.zc[Z]);
+      return __fmul_rn(b, dzc);
+    };
     // shared quantities of the level
-    if (oc.on)
-      column_level<true, M2>(oc, u, v, m, dzc, __fmul_rn(b_o, dzc), keq, wq, pq, sch);
-    if (ac.on)
-      column_level<true, M2>(ac, u, v, m, dzc, __fmul_rn(b_a, dzc), keq, wq, pq, sch);
+    if (oc.on) column_level<true, M2>(oc, u, v, m, dzc, bdz(oc, b_o), keq, wq, pq, sch);
+    if (ac.on) column_level<true, M2>(ac, u, v, m, dzc, bdz(ac, b_a), keq, wq, pq, sch);
     if (sch.mom != kMomNone) corner_pv<M2>(u, v, m, t, pvq);
     if (sch.tr != kTrNone) {
 #pragma unroll
@@ -303,23 +349,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-template <int NTR, bool IMM, bool M2, bool FUSED = true, class S = float, bool GEN = false>
+template <int NTR, bool IMM, bool M2, bool FUSED = true, class S = float, bool GEN = false,
+          bool OWN = false>
 cudaError_t launch(const Args<S>& A, cudaStream_t s) {
   const size_t smem = smem_bytes<S, 2 + NTR, NTR, M2>();
   const cudaError_t err =
-      allow_shared(zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S, GEN>, smem);
+      allow_shared(zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S, GEN, OWN>, smem);
   if (err != cudaSuccess) return err;
   const dim3 block(kTX, kTY, 1);
   const dim3 grid((A.Nx + kTX - 1) / kTX, (A.Ny + kTY - 1) / kTY, 1);
-  zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S, GEN><<<grid, block, smem, s>>>(A);
+  zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S, GEN, OWN><<<grid, block, smem, s>>>(A);
   return cudaGetLastError();
 }
 
 // out: registers per thread, shared memory per block (bytes), the tile's
 // columns in x and in y, blocks resident on one SM.
-template <int NTR, bool IMM, bool M2, bool FUSED = true, class S = float, bool GEN = false>
+template <int NTR, bool IMM, bool M2, bool FUSED = true, class S = float, bool GEN = false,
+          bool OWN = false>
 cudaError_t info(int* out) {
-  return launch_info(zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S, GEN>,
+  return launch_info(zslab_tendencies_kernel<NTR, IMM, M2, FUSED, S, GEN, OWN>,
                      smem_bytes<S, 2 + NTR, NTR, M2>(), out);
 }
 
@@ -330,15 +378,29 @@ bool valid(int mom, int ke, int tr) {
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
+// Whether a launch reads b and its column total (both given) or makes them
+// (both null, own set: one or two tracers, T and S or b among them);
+// 0, else cudaErrorInvalidValue.
+int check_b(const void* b, const float* btot, const OwnB* own, int ntr) {
+  if ((b == nullptr) != (btot == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (b != nullptr) return 0;
+  if (own == nullptr || ntr > 2 || own->mode < kEosTeos10 || own->mode > kEosTracer ||
+      own->iT < 0 || own->iT >= ntr || own->iS < 0 || own->iS >= ntr ||
+      (own->iT == own->iS) != (own->mode == kEosTracer))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
 // The operands every instance reads; the staged rows' alignment for 16-byte
 // copies of S (8 bfloat16 or 4 floats), or -1 where rows or fields are not
-// 16-byte aligned.
+// 16-byte aligned. own: where b is made in the kernel, its source (null
+// where b and btot are read).
 template <class S>
 Args<S> field_args(const S* u, const S* v, const S* b, const S* const* tr, int ntr,
-                   const float* btot, const float* dxc, const float* dxf, const float* dyc,
-                   const float* dyf, const float* azc, const float* azf, const float* fff,
-                   const float* dzc, const float* dzf, const float* zc, int Nx, int Ny, int Nz,
-                   int hx, int hy, int hz, int wall_v, float eps) {
+                   const float* btot, const OwnB* own, const float* dxc, const float* dxf,
+                   const float* dyc, const float* dyf, const float* azc, const float* azf,
+                   const float* fff, const float* dzc, const float* dzf, const float* zc, int Nx,
+                   int Ny, int Nz, int hx, int hy, int hz, int wall_v, float eps) {
   constexpr int kPer = 16 / sizeof(S);
   const int Xe = Nx + 2 * hx;
   const size_t plane = (size_t)(Ny + 2 * hy) * Xe;
@@ -356,6 +418,15 @@ Args<S> field_args(const S* u, const S* v, const S* b, const S* const* tr, int n
     vec = vec && (!used || aligned16(tr[t]));
   }
   A.btot = btot;
+  if (b == nullptr && own != nullptr) {
+    A.T = A.tr[own->iT];
+    A.S_ = A.tr[own->iS];
+    A.iT = own->iT; A.iS = own->iS; A.eos = own->mode;
+    A.inv_sau = own->inv_sau; A.inv_ctu = own->inv_ctu; A.inv_zu = own->inv_zu;
+    A.neg_g = own->neg_g; A.rho0 = own->rho0; A.inv_rho0 = own->inv_rho0;
+    A.lin_g = own->lin_g; A.lin_alpha = own->lin_alpha; A.lin_T0 = own->lin_T0;
+    A.lin_beta = own->lin_beta; A.lin_S0 = own->lin_S0;
+  }
   A.dxc = dxc; A.dxf = dxf; A.dyc = dyc; A.dyf = dyf; A.azc = azc; A.azf = azf; A.fff = fff;
   A.dzc = dzc; A.dzf = dzf; A.zc = zc;
   A.Nx = Nx; A.Ny = Ny; A.Nz = Nz; A.hx = hx; A.hy = hy; A.hz = hz;
@@ -365,6 +436,30 @@ Args<S> field_args(const S* u, const S* v, const S* b, const S* const* tr, int n
   A.eps = eps;
   return A;
 }
+
+// Whether a launch takes the general instance: other schemes, one tracer,
+// or (with own b) an equation of state other than TEOS-10.
+bool general_instance(const Schemes& sch, int ntr, const OwnB* own) {
+  return !is_flagship(sch, ntr) || (own != nullptr && own->mode != kEosTeos10);
+}
+
+// The fused instances of NTR tracers on the flat, immersed and tripolar
+// grids.
+#define GB25_K1_FUSED(F, NTR, GEN, OWN)                                                  \
+  {F<NTR, false, false, true, float, GEN, OWN>, F<NTR, true, false, true, float, GEN, OWN>, \
+   F<NTR, true, true, true, float, GEN, OWN>}
+
+// Every fused instance that reads b, by [general][ntr - 1][flat, immersed,
+// tripolar] (no flagship instance of one tracer), and every one that makes
+// it, one or two tracers.
+#define GB25_K1_FUSED_TABLE(F)                                                           \
+  {{{nullptr, nullptr, nullptr}, GB25_K1_FUSED(F, 2, false, false),                      \
+    GB25_K1_FUSED(F, 3, false, false), GB25_K1_FUSED(F, 4, false, false)},               \
+   {GB25_K1_FUSED(F, 1, true, false), GB25_K1_FUSED(F, 2, true, false),                  \
+    GB25_K1_FUSED(F, 3, true, false), GB25_K1_FUSED(F, 4, true, false)}}
+#define GB25_K1_FUSED_OWN_TABLE(F)                                                       \
+  {{{nullptr, nullptr, nullptr}, GB25_K1_FUSED(F, 2, false, true)},                      \
+   {GB25_K1_FUSED(F, 1, true, true), GB25_K1_FUSED(F, 2, true, true)}}
 
 // Every unfused instance of storage type S, by [general][ntr - 1][metric2d]
 // (the flagship's instances have no one-tracer form).
@@ -378,26 +473,44 @@ Args<S> field_args(const S* u, const S* v, const S* b, const S* const* tr, int n
     {F<3, false, false, false, S, true>, F<3, false, true, false, S, true>},             \
     {F<4, false, false, false, S, true>, F<4, false, true, false, S, true>}}}
 
+// The unfused float32 instances that make b, by [general][ntr - 1][metric2d].
+#define GB25_K1_UNFUSED_OWN_TABLE(F)                                                     \
+  {{{nullptr, nullptr},                                                                  \
+    {F<2, false, false, false, float, false, true>,                                      \
+     F<2, false, true, false, float, false, true>}},                                     \
+   {{F<1, false, false, false, float, true, true>, F<1, false, true, false, float, true, true>}, \
+    {F<2, false, false, false, float, true, true>, F<2, false, true, false, float, true, true>}}}
+
 template <class S>
 int launch_unfused(const S* u, const S* v, const S* b, const S* const* tr, const float* btot,
-                   const float* dxc, const float* dxf, const float* dyc, const float* dyf,
-                   const float* azc, const float* azf, const float* fff, const float* dzc,
-                   const float* dzf, float* Gu, float* Gv, float* const* Gtr, int ntr, int Nx,
-                   int Ny, int Nz, int hx, int hy, int hz, int metric2d, int wall_v, float eps,
-                   int mom, int ke, int trs, void* stream) {
+                   const OwnB* own, const float* dxc, const float* dxf, const float* dyc,
+                   const float* dyf, const float* azc, const float* azf, const float* fff,
+                   const float* dzc, const float* dzf, const float* zc, float* Gu, float* Gv,
+                   float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz,
+                   int metric2d, int wall_v, float eps, int mom, int ke, int trs, void* stream) {
+  constexpr bool kF32 = std::is_same<S, float>::value;
   if (ntr < 1 || ntr > kMaxTracers || hx < 3 || hy < 3 || hz < 3 || !valid(mom, ke, trs))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args<S> A = field_args<S>(u, v, b, tr, ntr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
-                            nullptr, Nx, Ny, Nz, hx, hy, hz, wall_v, eps);
+  if (const int err = check_b(b, btot, own, ntr)) return err;
+  const bool made = b == nullptr;
+  if (made && (!kF32 || zc == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  Args<S> A = field_args<S>(u, v, b, tr, ntr, btot, own, dxc, dxf, dyc, dyf, azc, azf, fff, dzc,
+                            dzf, zc, Nx, Ny, Nz, hx, hy, hz, wall_v, eps);
   A.Gu = Gu;
   A.Gv = Gv;
   for (int t = 0; t < ntr; ++t) A.Gtr[t] = Gtr[t];
   A.sch = Schemes{mom, ke, trs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using Launch = cudaError_t (*)(const Args<S>&, cudaStream_t);
+  const bool gen = general_instance(A.sch, ntr, made ? own : nullptr);
+  if constexpr (kF32) {
+    if (made) {
+      static const Launch owns[2][2][2] = GB25_K1_UNFUSED_OWN_TABLE(launch);
+      return static_cast<int>(owns[gen][ntr - 1][metric2d ? 1 : 0](A, s));
+    }
+  }
   static const Launch launchers[2][4][2] = GB25_K1_UNFUSED_TABLE(launch, S);
-  return static_cast<int>(
-      launchers[!is_flagship(A.sch, ntr)][ntr - 1][metric2d ? 1 : 0](A, s));
+  return static_cast<int>(launchers[gen][ntr - 1][metric2d ? 1 : 0](A, s));
 }
 
 }  // namespace
@@ -407,32 +520,39 @@ extern "C" const char* gb25_cuda_error_string(int err) {
 }
 
 // ntr tracers (1 to 4) in tr[0..ntr); the pointer arrays hold kMaxTracers
-// entries, the unused ones null. In the b-tracer configuration b and tr[0]
-// are the same field: both are only read. mom, ke and trs: the scheme
-// codes of tendency_tile.cuh; the flagship's (all 0) with two to four
-// tracers launch the instances compiled for them, any other the general
-// instances. bu and bv are null unless the grid is
-// immersed; then zc (the extended z_c profile) is read too. metric2d: the
-// six metrics and fff are (Ny+2hy, Nx+2hx) planes (the tripolar grid,
-// which is always immersed). wall_v: local row 0 is the south wall (serially,
-// and on the south-most tiles of the decomposed path), so v* and Gv are 0
-// there; 0 on the other tiles, whose row 0 is an interior row.
+// entries, the unused ones null. b and btot: the extended buoyancy and its
+// column total of b dz; in the b-tracer configuration b and tr[0] are the
+// same field (both are only read). Both null: the kernel makes them from
+// its staged tracers as own says (one or two tracers; own is read only
+// then). mom, ke and trs: the scheme codes of tendency_tile.cuh; the
+// flagship's (all 0) with two to four tracers, under TEOS-10 where b is
+// made, launch the instances compiled for them, any other the general
+// instances. bu and bv are null unless the grid is immersed; then zc (the
+// extended z_c profile, which b made in the kernel reads too) is read.
+// metric2d: the six metrics and fff are (Ny+2hy, Nx+2hx) planes (the
+// tripolar grid, which is always immersed). wall_v: local row 0 is the
+// south wall (serially, and on the south-most tiles of the decomposed
+// path), so v* and Gv are 0 there; 0 on the other tiles, whose row 0 is an
+// interior row.
 extern "C" int zslab_tendencies_f32(
     const float* u, const float* v, const float* b, const float* const* tr, const float* btot,
-    const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
-    const float* azf, const float* fff, const float* dzc, const float* dzf, const float* zc,
-    const float* bu, const float* bv, const float* Gu_p, const float* Gv_p,
+    const OwnB* own, const float* dxc, const float* dxf, const float* dyc, const float* dyf,
+    const float* azc, const float* azf, const float* fff, const float* dzc, const float* dzf,
+    const float* zc, const float* bu, const float* bv, const float* Gu_p, const float* Gv_p,
     const float* const* Gtr_p, float* Gu, float* Gv, float* const* Gtr, float* un, float* vn,
     float* const* trn, float* U0, float* V0, float* Us, float* Vs, int ntr, int Nx, int Ny,
     int Nz, int hx, int hy, int hz, int metric2d, int wall_v, float a, float b_prev, float eps,
     int mom, int ke, int trs, void* stream) {
   if (ntr < 1 || ntr > kMaxTracers || hx < 3 || hy < 3 || hz < 3 || !valid(mom, ke, trs))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err = check_b(b, btot, own, ntr)) return err;
+  const bool made = b == nullptr;
   const bool imm = bu != nullptr;
   if (imm && (bv == nullptr || zc == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  if (metric2d && !imm) return static_cast<int>(cudaErrorInvalidValue);
-  Args<float> A = field_args<float>(u, v, b, tr, ntr, btot, dxc, dxf, dyc, dyf, azc, azf, fff,
-                                    dzc, dzf, zc, Nx, Ny, Nz, hx, hy, hz, wall_v, eps);
+  if ((metric2d && !imm) || (made && zc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args<float> A = field_args<float>(u, v, b, tr, ntr, btot, own, dxc, dxf, dyc, dyf, azc, azf,
+                                    fff, dzc, dzf, zc, Nx, Ny, Nz, hx, hy, hz, wall_v, eps);
   for (int t = 0; t < ntr; ++t) {
     A.Gtr_p[t] = Gtr_p[t];
     A.Gtr[t] = Gtr[t];
@@ -446,85 +566,71 @@ extern "C" int zslab_tendencies_f32(
   A.a = a; A.b_prev = b_prev;
   A.sch = Schemes{mom, ke, trs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // [general][ntr - 1][flat, immersed, tripolar]; no flagship instance of one tracer
   using Launch = cudaError_t (*)(const Args<float>&, cudaStream_t);
-  static const Launch launchers[2][4][3] = {
-      {{nullptr, nullptr, nullptr},
-       {launch<2, false, false>, launch<2, true, false>, launch<2, true, true>},
-       {launch<3, false, false>, launch<3, true, false>, launch<3, true, true>},
-       {launch<4, false, false>, launch<4, true, false>, launch<4, true, true>}},
-      {{launch<1, false, false, true, float, true>, launch<1, true, false, true, float, true>,
-        launch<1, true, true, true, float, true>},
-       {launch<2, false, false, true, float, true>, launch<2, true, false, true, float, true>,
-        launch<2, true, true, true, float, true>},
-       {launch<3, false, false, true, float, true>, launch<3, true, false, true, float, true>,
-        launch<3, true, true, true, float, true>},
-       {launch<4, false, false, true, float, true>, launch<4, true, false, true, float, true>,
-        launch<4, true, true, true, float, true>}},
-  };
+  static const Launch read[2][4][3] = GB25_K1_FUSED_TABLE(launch);
+  static const Launch owns[2][2][3] = GB25_K1_FUSED_OWN_TABLE(launch);
   const int geometry = imm ? (metric2d ? 2 : 1) : 0;
-  return static_cast<int>(launchers[!is_flagship(A.sch, ntr)][ntr - 1][geometry](A, s));
+  const bool gen = general_instance(A.sch, ntr, made ? own : nullptr);
+  return static_cast<int>((made ? owns[gen][ntr - 1] : read[gen][ntr - 1])[geometry](A, s));
 }
-
 // The unfused instances (no AB2 update, no integrals; the wall row of Gv
 // where wall_v): one to four tracers, the metrics as y profiles or, with
 // metric2d, as (Ny+2hy, Nx+2hx) planes (the tripolar grid; no immersed
 // variant: only the fused integrals read the face bottoms). u, v, b and
 // the tracers float32, or bfloat16 in the bf16-storage instances; btot,
-// the metrics and the outputs float32. The schemes as
-// zslab_tendencies_f32's.
+// the metrics and the outputs float32. b and btot null: the float32
+// instances make them as own says, as zslab_tendencies_f32's, reading zc
+// (the bf16-storage instances read them always, and not zc). The schemes
+// as zslab_tendencies_f32's.
 extern "C" int zslab_tendencies_unfused_f32(
     const float* u, const float* v, const float* b, const float* const* tr, const float* btot,
-    const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
-    const float* azf, const float* fff, const float* dzc, const float* dzf, float* Gu, float* Gv,
-    float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int metric2d,
-    int wall_v, float eps, int mom, int ke, int trs, void* stream) {
-  return launch_unfused<float>(u, v, b, tr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
-                               Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, metric2d, wall_v, eps,
-                               mom, ke, trs, stream);
+    const OwnB* own, const float* dxc, const float* dxf, const float* dyc, const float* dyf,
+    const float* azc, const float* azf, const float* fff, const float* dzc, const float* dzf,
+    const float* zc, float* Gu, float* Gv, float* const* Gtr, int ntr, int Nx, int Ny, int Nz,
+    int hx, int hy, int hz, int metric2d, int wall_v, float eps, int mom, int ke, int trs,
+    void* stream) {
+  return launch_unfused<float>(u, v, b, tr, btot, own, dxc, dxf, dyc, dyf, azc, azf, fff, dzc,
+                               dzf, zc, Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, metric2d,
+                               wall_v, eps, mom, ke, trs, stream);
 }
 
 extern "C" int zslab_tendencies_unfused_bf16(
     const bf16* u, const bf16* v, const bf16* b, const bf16* const* tr, const float* btot,
-    const float* dxc, const float* dxf, const float* dyc, const float* dyf, const float* azc,
-    const float* azf, const float* fff, const float* dzc, const float* dzf, float* Gu, float* Gv,
-    float* const* Gtr, int ntr, int Nx, int Ny, int Nz, int hx, int hy, int hz, int metric2d,
-    int wall_v, float eps, int mom, int ke, int trs, void* stream) {
-  return launch_unfused<bf16>(u, v, b, tr, btot, dxc, dxf, dyc, dyf, azc, azf, fff, dzc, dzf,
-                              Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, metric2d, wall_v, eps,
-                              mom, ke, trs, stream);
+    const OwnB* own, const float* dxc, const float* dxf, const float* dyc, const float* dyf,
+    const float* azc, const float* azf, const float* fff, const float* dzc, const float* dzf,
+    const float* zc, float* Gu, float* Gv, float* const* Gtr, int ntr, int Nx, int Ny, int Nz,
+    int hx, int hy, int hz, int metric2d, int wall_v, float eps, int mom, int ke, int trs,
+    void* stream) {
+  return launch_unfused<bf16>(u, v, b, tr, btot, own, dxc, dxf, dyc, dyf, azc, azf, fff, dzc,
+                              dzf, zc, Gu, Gv, Gtr, ntr, Nx, Ny, Nz, hx, hy, hz, metric2d,
+                              wall_v, eps, mom, ke, trs, stream);
 }
 
 // The launch shape of one instance (ntr, immersed, metric2d; form 0 the
 // fused instances, 1 the unfused float32 one, 2 the unfused bf16-storage
-// one; general: the general instance), as tendency_tile.cuh's launch_info
-// reports it into out[0..5).
+// one; general: the general instance; own: the float32 instance that makes
+// b, of one or two tracers), as tendency_tile.cuh's launch_info reports it
+// into out[0..5).
 extern "C" int zslab_tendencies_info(int ntr, int immersed, int metric2d, int form, int general,
-                                     int* out) {
+                                     int own, int* out) {
   using Info = cudaError_t (*)(int*);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const int g = general ? 1 : 0;
+  if (ntr < 1 || ntr > kMaxTracers || form < 0 || form > 2 || (ntr == 1 && !g) ||
+      (own && (ntr > 2 || form == 2)))
+    return invalid;
   if (form != 0) {
-    if (form > 2 || ntr < 1 || ntr > kMaxTracers || immersed || (ntr == 1 && !general))
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (immersed) return invalid;
     static const Info f32[2][4][2] = GB25_K1_UNFUSED_TABLE(info, float);
     static const Info h16[2][4][2] = GB25_K1_UNFUSED_TABLE(info, bf16);
+    static const Info owns[2][2][2] = GB25_K1_UNFUSED_OWN_TABLE(info);
+    const int m = metric2d ? 1 : 0;
     return static_cast<int>(
-        (form == 1 ? f32 : h16)[general ? 1 : 0][ntr - 1][metric2d ? 1 : 0](out));
+        (own ? owns[g][ntr - 1][m] : (form == 1 ? f32 : h16)[g][ntr - 1][m])(out));
   }
-  if (ntr < 1 || ntr > kMaxTracers || (metric2d && !immersed) || (ntr == 1 && !general))
-    return static_cast<int>(cudaErrorInvalidValue);
-  static const Info infos[2][4][3] = {
-      {{nullptr, nullptr, nullptr},
-       {info<2, false, false>, info<2, true, false>, info<2, true, true>},
-       {info<3, false, false>, info<3, true, false>, info<3, true, true>},
-       {info<4, false, false>, info<4, true, false>, info<4, true, true>}},
-      {{info<1, false, false, true, float, true>, info<1, true, false, true, float, true>,
-        info<1, true, true, true, float, true>},
-       {info<2, false, false, true, float, true>, info<2, true, false, true, float, true>,
-        info<2, true, true, true, float, true>},
-       {info<3, false, false, true, float, true>, info<3, true, false, true, float, true>,
-        info<3, true, true, true, float, true>},
-       {info<4, false, false, true, float, true>, info<4, true, false, true, float, true>,
-        info<4, true, true, true, float, true>}},
-  };
-  return static_cast<int>(infos[general ? 1 : 0][ntr - 1][immersed ? (metric2d ? 2 : 1) : 0](out));
+  if (metric2d && !immersed) return invalid;
+  static const Info read[2][4][3] = GB25_K1_FUSED_TABLE(info);
+  static const Info owns[2][2][3] = GB25_K1_FUSED_OWN_TABLE(info);
+  const int geometry = immersed ? (metric2d ? 2 : 1) : 0;
+  return static_cast<int>((own ? owns[g][ntr - 1] : read[g][ntr - 1])[geometry](out));
 }

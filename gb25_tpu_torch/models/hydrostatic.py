@@ -11,15 +11,19 @@ One step, in the fused form the JAX package runs on its kernels
      grid; on a tile, exchanged with the neighbours); on immersed grids the
      extended velocities are masked on solid faces;
   2. the buoyancy (the equation of state, TEOS-10 or linear, of T and S,
-     or the b tracer itself) and its column total (torch ops), once per
-     step;
+     or the b tracer itself) and its column total (torch ops,
+     ``step/teos10``), once per step: with a closure that reads b (CATKE,
+     k-epsilon), for K4 and K1, which must read the same b; without one,
+     only where K1's CUDA kernel does not make b itself
+     (``pallas_zslab.makes_b``);
   3. with a closure, kernel K4: CATKE's diffusivities, TKE source and
      dissipation rate, or k-epsilon's diffusivities and the sources of e
      and eps, from the same extended fields;
   4. kernel K1: continuity w, hydrostatic pressure, vector-invariant
      momentum and flux-form tracer tendencies in the configured schemes
      (WENO by default), the quasi-AB2 update, the south-wall row and the
-     depth integrals;
+     depth integrals; without step 2's b, the buoyancy and its column
+     totals inside;
   5. the increments after the kernel, each also folded into the fused
      update as dt c1 inc: the closure's sources, the T/S restoring
      (G_c += rate (target - c)), the surface fluxes into the top cell, the
@@ -121,9 +125,10 @@ from gb25_tpu_torch.ops.operators import (
 from gb25_tpu_torch.ops.pallas_catke import catke_diffusivities_kernel, keps_diffusivities_kernel
 from gb25_tpu_torch.ops.pallas_tendency import pallas_tendencies
 from gb25_tpu_torch.ops.pallas_tridiag import grid_coefficients, implicit_solve
-from gb25_tpu_torch.ops.pallas_zslab import column_buoyancy, zslab_tendencies
+from gb25_tpu_torch.ops.pallas_zslab import column_buoyancy, makes_b, zslab_tendencies
 from gb25_tpu_torch.ops.stencils import dx_c, dx_f, dy_c, dy_f, dz_c, dz_f, ix_c, ix_f, iy_c, iy_f, iz_c
 from gb25_tpu_torch.ops.weno import centered2, upwind1, weno5_upwind
+from gb25_tpu_torch.utils.cuda_build import uses_kernel
 from gb25_tpu_torch.utils.tracing import span
 
 
@@ -157,13 +162,14 @@ def plain_tracers(tracers):
     return tuple(k for k in tracers if k not in ("e", "eps"))
 
 
-def tendency_math(cfg, grid, f_ff, ue, ve, tr_e, be=None):
+def tendency_math(cfg, grid, f_ff, ue, ve, tr_e, be=None, pressure=hydrostatic_pressure):
     """Momentum and tracer tendencies on halo-extended tensors; ``be`` is
-    the extended buoyancy where the caller has it already."""
+    the extended buoyancy where the caller has it already; ``pressure``
+    makes the hydrostatic pressure of it."""
     we = diagnose_w(grid, ue, ve)
     if be is None:
         be = buoyancy_field(cfg, grid, tr_e)
-    pe = hydrostatic_pressure(grid, be)
+    pe = pressure(grid, be)
     Gu, Gv = momentum_tendency_math(cfg, grid, f_ff, ue, ve, we, pe)
     return Gu, Gv, tracer_tendency_math(cfg, grid, ue, ve, we, tr_e)
 
@@ -285,17 +291,17 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None, res
 
         grid_k, ue_k, ve_k = grid.cast(kdt), copy(ue), copy(ve)
         tr_k = {k: copy(c) for k, c in tr_e.items()}
-    be = b_total = None  # K1's buoyancy operands
-    if k1 and not bf16s:
+    reads_b = isinstance(cfg.closure, (CATKEVerticalDiffusivity, TKEDissipationVerticalDiffusivity))
+    k1_b = be_c = None  # K1's buoyancy operands and the closure's b
+    if k1 and not bf16s and (reads_b or not (uses_kernel(cfg, ue_k) and makes_b(cfg, tr_k))):
         with span("step/teos10"):
-            be, b_total = column_buoyancy(cfg, grid_k, tr_k)
-    be_c = None  # the closure's: of the state-precision fields, as in the JAX package
-    if isinstance(cfg.closure, (CATKEVerticalDiffusivity, TKEDissipationVerticalDiffusivity)):
-        if be is not None and grid_k is grid:
-            be_c = be  # once per step: K4 and K1 both read it
+            k1_b = column_buoyancy(cfg, grid_k, tr_k)
+    if reads_b:
+        if k1_b is not None and grid_k is grid:
+            be_c = k1_b[0]  # once per step: K4 and K1 both read it
         else:
-            with span("step/teos10"):
-                be_c = buoyancy_field(cfg, grid, tr_e)  # K4's alone
+            with span("step/teos10"):  # of the state-precision fields, as in the JAX package
+                be_c = buoyancy_field(cfg, grid, tr_e)
 
     diffusivities = None
     if isinstance(cfg.closure, CATKEVerticalDiffusivity):
@@ -317,12 +323,12 @@ def compute_tendencies(cfg, grid, state, ab, surface_fluxes=None, comm=None, res
         with span("step/K1_tendencies"):
             Gu, Gv, Gtr, u_new, v_new, tr_new, ints = zslab_tendencies(
                 cfg, grid, ue, ve, tr_e, (state.Gu, state.Gv, state.Gtracers), ab,
-                buoyancy=(be, b_total), face_bottoms=face_bottoms, wall_v=wall)
+                buoyancy=k1_b, face_bottoms=face_bottoms, wall_v=wall)
         updated = (u_new, v_new, tr_new)
     elif k1:
         with span("step/K1_tendencies"):
             Gu, Gv, Gtr = zslab_tendencies(
-                cfg, grid_k, ue_k, ve_k, tr_k, buoyancy=None if bf16s else (be, b_total),
+                cfg, grid_k, ue_k, ve_k, tr_k, buoyancy=k1_b,
                 wall_v=wall, storage=torch.bfloat16 if bf16s else None)
         if kdt is not None:
             Gu, Gv, Gtr = Gu.to(dtype), Gv.to(dtype), {k: g.to(dtype) for k, g in Gtr.items()}

@@ -10,12 +10,15 @@ missing ``nvcc`` or a failed build raises.
 Every exported launcher returns ``cudaGetLastError()`` as an int;
 ``CudaKernel.launch`` raises when it is not 0 and otherwise adds one to the
 kernel's launch count, which a run reads to prove that its main path went
-through the kernel. ``launch_counts`` reads every kernel's count at once
-(``models.device_loop`` takes what a captured graph recorded from it).
+through the kernel; a launch given a ``flag`` also counts under it in
+``CudaKernel.flagged`` (K1's launches whose b the kernel made).
+``launch_counts`` reads every kernel's count at once (``models.device_loop``
+takes what a captured graph recorded from it).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -83,7 +86,8 @@ def launch_counts() -> dict:
 
 class CudaKernel:
     """One ``.cu`` file: its library (built at first use), its launchers'
-    ctypes signatures and a plain integer launch count. ``extra_flags`` are
+    ctypes signatures, a plain integer launch count and the launches by
+    flag (``flagged``). ``extra_flags`` are
     added to ``NVCC_FLAGS`` for this file alone."""
 
     def __init__(self, source: str, functions: dict, extra_flags=()):
@@ -91,6 +95,7 @@ class CudaKernel:
         self.functions = functions  # name -> argtypes (restype is c_int)
         self.extra_flags = tuple(extra_flags)
         self.launches = 0
+        self.flagged = collections.Counter()  # flag -> launches given it
         self.build_log = ""
         self._lib = None
         _KERNELS.add(self)
@@ -116,10 +121,13 @@ class CudaKernel:
             msg = lib.gb25_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.source}:{name} failed: CUDA error {err} ({msg})")
 
-    def launch(self, name: str, *args):
-        """Call a launcher and count the launch."""
+    def launch(self, name: str, *args, flag=None):
+        """Call a launcher and count the launch (also under ``flag``, unless
+        None)."""
         self.call(name, *args)
         self.launches += 1
+        if flag is not None:
+            self.flagged[flag] += 1
 
 
 def check_tensor(t, name, shape, dtype, device):

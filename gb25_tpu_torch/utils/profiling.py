@@ -35,7 +35,9 @@ with every other option.
 Three windows. First ``--steps`` steps launched one by one from the host:
 the device time per kernel name, grouped into the hand-written kernels and
 the torch ops around them, and the device busy share of the window (summed
-kernel time over wall time; a single stream has no overlap). Then the loop
+kernel time over wall time; a single stream has no overlap), with K1's
+launches by where b came from (made in the kernel, or read from the
+caller's eager buoyancy: ``pallas_zslab.b_own_share``). Then the loop
 as a user runs it, replayed from its captured CUDA graph
 (``models.device_loop``; the forced 1x1 decomposed path too): wall,
 device busy, idle share, peak device memory and the graph's pool. Last,
@@ -249,6 +251,20 @@ def group(name: str) -> str:
     return "torch ops (halo fill, TEOS-10, masks, fluxes, planes, correction)"
 
 
+def b_source_line(since):
+    """The line for K1's launches since the reading ``since`` of
+    ``pallas_zslab.b_launches`` by where b came from; None where K1
+    launched none."""
+    from gb25_tpu_torch.ops import pallas_zslab
+
+    share = pallas_zslab.b_own_share(since)
+    if share is None:
+        return None
+    made, total = (now - then for now, then in zip(pallas_zslab.b_launches(), since))
+    return (f"  K1 b made in the kernel: {100 * share:.1f}% of {total} launches "
+            f"({made} made, {total - made} read from the eager buoyancy)")
+
+
 def replayed_line(run, state, steps):
     """Profile ``run(state, steps)`` (a loop replayed from its kept graph);
     returns (wall ms/step, device busy ms/step, peak allocated GB, reserved
@@ -325,6 +341,7 @@ def main():
     )
     from gb25_tpu_torch.models.hydrostatic import premask_state
     from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
+    from gb25_tpu_torch.ops import pallas_zslab
     from gb25_tpu_torch.parallel import make_mesh, sharded_coupled_step_fn, sharded_step_fn
 
     def blocked(cfg):
@@ -385,6 +402,7 @@ def main():
 
     state = premask_state(grid, run(state, args.warmup))
     torch.cuda.reset_peak_memory_stats()
+    k1_before = pallas_zslab.b_launches()
     rows, wall_ms, state = step_breakdown(eager, state, args.steps)
     busy = sum(r[1] for r in rows)
     route = f" decomposed 1x1 {args.decomposed}" if args.decomposed else ""
@@ -404,6 +422,9 @@ def main():
         g[1] += calls
     for g, (ms, calls) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:9.3f} ms/step {100 * ms / busy:5.1f}%  {calls:7.1f} launches/step  {g}")
+    k1_line = b_source_line(k1_before)
+    if k1_line:
+        print(k1_line)
     print("top kernels (device ms/step, launches/step):")
     for name, ms, calls in rows[:25]:
         print(f"  {ms:9.3f}  {calls:6.1f}  {name[:110]}")

@@ -66,7 +66,13 @@ and equals the CPU's "pallas" step within 1e-10. K6's float64 instances
 (one to four tracers, columns and planes, TEOS-10, the linear equation of
 state and the b tracer) bit for bit with the plain twin; "float64" on the
 K6 route and "bf16x2" (paired-bfloat16 limbs, array path) replayed bit for
-bit with the host loop.
+bit with the host loop. K1's instances that make b themselves (no closure:
+TEOS-10 in the compiled flagship instance, TEOS-10, the linear equation of
+state and the b tracer in the general ones; flat, islands and tripolar,
+fused and unfused) bit for bit with the instances that read the eager
+float32 b and a column total summed in the kernel's order, and at K1's
+tolerances against the plain version; the share of K1's launches whose b
+the kernel made over three steps, 1 without a closure and 0 with CATKE.
 """
 
 import dataclasses
@@ -1226,17 +1232,21 @@ def _general_operands(cuda, geometry, btracer=False):
     return cfg, grid, ue, ve, tr_e, be, b_total, noise
 
 
-def _check_k1_fused(cfg, grid, ue, ve, tr_e, be, b_total, noise, general=True):
+def _check_k1_fused(cfg, grid, ue, ve, tr_e, be, b_total, noise, general=True, own=False):
+    """One launch of a fused K1 instance against its plain version at K1's
+    tolerances; ``own``: the instance that makes b (handed none), against
+    the plain version that sums the column totals in its order."""
     prev = (noise(1e-7), noise(1e-7), {k: noise(1e-7) for k in tr_e})
     prev[1][:, 0, :] = 0.0
     ab = (96.0, -36.0)
     fb = face_bottom_planes(grid) if grid.immersed else None
     before = pallas_zslab.KERNEL.launches
     got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab,
-                                        buoyancy=(be, b_total), face_bottoms=fb)
+                                        buoyancy=None if own else (be, b_total), face_bottoms=fb)
     torch.cuda.synchronize()
     assert pallas_zslab.KERNEL.launches == before + 1
-    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be, fb)
+    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, prev, ab, be, fb,
+                                               sequential=own)
     _close(got[0], want[0], 2e-4, 1e-9)
     _close(got[1], want[1], 2e-4, 1e-9)
     for k in tr_e:
@@ -1253,7 +1263,8 @@ def _check_k1_fused(cfg, grid, ue, ve, tr_e, be, b_total, noise, general=True):
     for g, w in zip(got[6], want[6]):
         _close(g, w, 2e-4, 2e-4 * float(w.abs().max()) + 1e-6)
     assert float(got[4][:, 0, :].abs().max()) == 0.0
-    info = pallas_zslab.kernel_info(len(tr_e), grid.immersed, grid.north_fold, general=general)
+    info = pallas_zslab.kernel_info(len(tr_e), grid.immersed, grid.north_fold, general=general,
+                                    own=own)
     assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
 
 
@@ -1401,17 +1412,19 @@ def test_scheme_route_step_matches_plain_step(cuda, name):
 # three and four tracers and on the tripolar planes, K6's bfloat16 instances
 # --------------------------------------------------------------------------
 
-def _check_k1_unfused(cfg, grid, ue, ve, tr_e, storage, general=None):
+def _check_k1_unfused(cfg, grid, ue, ve, tr_e, storage, general=None, own=False):
     """One launch of K1's unfused form against its plain version at K1's
     tolerances, the wall row of Gv 0; ``general``: the instance's launch
-    shape is read too."""
+    shape is read too; ``own``: the float32 instance that makes b (against
+    the plain version that sums the column totals in its order)."""
     be, b_total = pallas_zslab.column_buoyancy(cfg, grid, tr_e)
     before = pallas_zslab.KERNEL.launches
-    got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, buoyancy=(be, b_total),
-                                        storage=storage)
+    got = pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e,
+                                        buoyancy=None if own else (be, b_total), storage=storage)
     torch.cuda.synchronize()
     assert pallas_zslab.KERNEL.launches == before + 1
-    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, be=be, storage=storage)
+    want = pallas_zslab.zslab_tendencies_plain(cfg, grid, ue, ve, tr_e, be=be, storage=storage,
+                                               sequential=own)
     _close(got[0], want[0], 2e-4, 1e-9)
     _close(got[1], want[1], 2e-4, 1e-9)
     assert list(got[2]) == list(tr_e)
@@ -1420,9 +1433,122 @@ def _check_k1_unfused(cfg, grid, ue, ve, tr_e, storage, general=None):
     assert float(got[1][:, 0, :].abs().max()) == 0.0
     if general is not None:
         form = "unfused" if storage is None else "unfused_bf16"
-        info = pallas_zslab.kernel_info(len(tr_e), False, grid.north_fold, form, general)
+        info = pallas_zslab.kernel_info(len(tr_e), False, grid.north_fold, form, general, own)
         assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
 
+
+# K1's instances that make b (the default route with no closure): the
+# grids (the lat-lon flagship at 64x16x16, the islands and tripolar grids
+# at 32x16x16) and where b comes from (TEOS-10 in the compiled flagship
+# instance, TEOS-10 with other schemes, the linear equation of state and
+# the b tracer in the general ones). The linear equation of state runs the
+# general schemes too: the compiled instance is TEOS-10's alone, and a
+# compiled and a general instance part by the multiply-adds the compiler
+# fuses in their stencils (K1 is built without -fmad=false), so a general
+# instance making b is held bit for bit to a general instance reading it.
+OWN_B_SOURCES = ("teos10", "general_teos10", "linear", "b_tracer")
+OWN_B_CASES = {f"{source}-{geometry}": (geometry, source)
+               for geometry in GEOMETRIES for source in OWN_B_SOURCES}
+
+
+def _sequential_total(grid, be):
+    """The column total of b dz summed up from the floor, each product and
+    sum rounded on its own: the order of the kernel's own totals."""
+    hz, Nz = grid.hz, grid.Nz
+    bdz = be[hz : hz + Nz] * grid.dz_c[hz : hz + Nz]
+    total = torch.zeros_like(bdz[0])
+    for k in range(Nz):
+        total = total + bdz[k]
+    return total.contiguous()
+
+
+def _own_b_operands(cuda, geometry, source):
+    """The case's config, grid, extended u, v and tracers (T and S, or b),
+    the eager float32 b (``column_buoyancy``), its total summed in the
+    kernel's order, and the noise maker."""
+    case = GEOMETRIES[geometry]
+    shape = (64, 16, 16) if case == "flagship" else (32, 16, 16)
+    cfg, grid, ue, ve, tr_e, _, _, noise = _tile_operands(cuda, case, shape)
+    assert grid.shape == (shape[2], shape[1], shape[0])
+    cfg = dataclasses.replace(cfg, closure=None, tracers=("T", "S"))
+    tr_e = {k: tr_e[k] for k in ("T", "S")}
+    if source == "general_teos10":
+        cfg = _schemes(cfg, "vector_invariant-standard-centered2")
+    elif source == "linear":
+        cfg = dataclasses.replace(_schemes(cfg, "vector_invariant-standard-centered2"),
+                                  eos=LinearEquationOfState())
+    elif source == "b_tracer":
+        cfg, tr_e, _, _ = _b_operands(cfg, grid, tr_e)
+    be = pallas_zslab.column_buoyancy(cfg, grid, tr_e)[0]
+    return cfg, grid, ue, ve, tr_e, be, _sequential_total(grid, be), noise
+
+
+def _flat(out):
+    """A K1 result's tensors in order (a dict's in its key order)."""
+    flat = []
+    for x in out:
+        items = x.values() if isinstance(x, dict) else x if isinstance(x, tuple) else (x,)
+        flat.extend(items)
+    return flat
+
+
+@pytest.mark.parametrize("case", list(OWN_B_CASES))
+def test_k1_own_b_matches_operand_path_bitwise(cuda, case):
+    """K1 making b itself (no b handed in) against the same instance's
+    shape reading the eager float32 b and a column total summed in the
+    kernel's order, bit for bit, fused and unfused: its b is torch's eager
+    b to the bit, and nothing else moves."""
+    geometry, source = OWN_B_CASES[case]
+    cfg, grid, ue, ve, tr_e, be, total, noise = _own_b_operands(cuda, geometry, source)
+    prev = (noise(1e-7), noise(1e-7), {k: noise(1e-7) for k in tr_e})
+    prev[1][:, 0, :] = 0.0
+    ab = (96.0, -36.0)
+    fb = face_bottom_planes(grid) if grid.immersed else None
+    before = pallas_zslab.KERNEL.launches
+    runs = [pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, prev, ab, buoyancy=b,
+                                          face_bottoms=fb) for b in (None, (be, total))]
+    runs += [pallas_zslab.zslab_tendencies(cfg, grid, ue, ve, tr_e, buoyancy=b)
+             for b in (None, (be, total))]
+    torch.cuda.synchronize()
+    assert pallas_zslab.KERNEL.launches == before + 4
+    for own, read in ((runs[0], runs[1]), (runs[2], runs[3])):
+        for g, w in zip(_flat(own), _flat(read), strict=True):
+            assert torch.isfinite(w).all()
+            assert torch.equal(g, w), float((g - w).abs().max())
+    general = source != "teos10"
+    for form in ("fused", "unfused"):
+        info = pallas_zslab.kernel_info(len(tr_e), grid.immersed and form == "fused",
+                                        grid.north_fold, form, general, own=True)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1
+        print(f"\nK1 {form} own-b {case}: {info}")
+
+
+@pytest.mark.parametrize("case", list(OWN_B_CASES))
+def test_k1_own_b_matches_plain(cuda, case):
+    """K1's instances that make b against the plain version at K1's
+    tolerances, one step's operands, fused and unfused."""
+    geometry, source = OWN_B_CASES[case]
+    cfg, grid, ue, ve, tr_e, be, total, noise = _own_b_operands(cuda, geometry, source)
+    general = source != "teos10"
+    _check_k1_fused(cfg, grid, ue, ve, tr_e, be, total, noise, general, own=True)
+    _check_k1_unfused(cfg, grid, ue, ve, tr_e, None, general, own=True)
+
+
+
+@pytest.mark.parametrize("closure", [None, CATKEVerticalDiffusivity], ids=["none", "catke"])
+def test_k1_b_own_share_of_steps(cuda, closure):
+    """Over three host-launched steps at 64x16x16, the share of K1's
+    launches whose b the kernel made (``pallas_zslab.b_own_share``): all of
+    the flagship's, none of the CATKE step's, whose closure reads b."""
+    cfg, grid, state = baroclinic_instability_model(
+        64, 16, 16, device=cuda, closure=None if closure is None else closure())
+    before = pallas_zslab.b_launches()
+    for _ in range(3):
+        state = time_step(cfg, grid, state, 10.0)
+    torch.cuda.synchronize()
+    assert pallas_zslab.KERNEL.launches == before[1] + 3
+    assert pallas_zslab.b_own_share(before) == (1.0 if closure is None else 0.0)
+    assert torch.isfinite(state.u).all()
 
 def _precision_operands(cuda, geometry, ntr):
     """Extended operands with ``ntr`` tracers: b alone (1), T and S (2),

@@ -27,8 +27,9 @@ the host clock and drives the same bookkeeping as on the card.
   off; ``analysis.trace.range_busy_ms`` on a made-up trace.
 On the card (marked ``cuda``, skipped here): ``copy_bytes`` of real
 replays, a capture anew once the tracer is enabled after a capture, the
-stamps counting one ``step/teos10`` a replayed step over 3 replays, and,
-on a 360x160x8 and a 1440x640x16 flagship, the replayed TEOS-10 time
+stamps counting one ``step/K1_tendencies`` a replayed step over 3 replays,
+and, on a 360x160x8 and a 1440x640x16 k-epsilon flagship (its closure reads
+b, so its step keeps the eager buoyancy), the replayed TEOS-10 time
 within 3% of CUDA events recorded in the same graph around the same span,
 and within 10% of its device busy time in steps launched from the host,
 and a call's stamps within 2% of CUDA events around it.
@@ -45,6 +46,7 @@ from gb25_tpu_torch.models import device_loop as dl
 from gb25_tpu_torch.models import loop
 from gb25_tpu_torch.models.coupled import coupled_ice_time_step
 from gb25_tpu_torch.models.hydrostatic import premask_state, time_step
+from gb25_tpu_torch.models.keps import TKEDissipationVerticalDiffusivity
 from gb25_tpu_torch.models.seaice import initial_ice_state
 from gb25_tpu_torch.simulation import Simulation
 from gb25_tpu_torch.utils import tracing
@@ -62,8 +64,8 @@ def _one_torch_thread_and_tracer_off():
     torch.set_num_threads(n)
 
 
-def _flagship(n=32, m=16, nz=4, device="cpu"):
-    cfg, grid, state = baroclinic_instability_model(n, m, nz, device=device)
+def _flagship(n=32, m=16, nz=4, device="cpu", **config_kw):
+    cfg, grid, state = baroclinic_instability_model(n, m, nz, device=device, **config_kw)
     step = functools.partial(time_step, cfg, grid, dt=DT, premasked=True)
     return cfg, grid, premask_state(grid, state), step
 
@@ -335,7 +337,7 @@ def test_card_stamps_count_replayed_steps(cuda):
     torch.cuda.synchronize()
     snap = tracing.snapshot()
     assert dl.STATS.replays == 3 and dl.STATS.eager_steps == 0
-    assert snap["step/teos10"]["count"] == 3 * dl.BLOCK_STEPS
+    assert snap["step/K1_tendencies"]["count"] == 3 * dl.BLOCK_STEPS
     assert snap["step"]["count"] == 3 * dl.BLOCK_STEPS
     assert snap["loop/replay"]["count"] == 1
     assert 0 < snap["step"]["total_ms"] <= snap["loop/replay"]["total_ms"]
@@ -389,7 +391,8 @@ def test_card_replayed_teos10_matches_host_launched(cuda, size, monkeypatch, tmp
         return _EventSpan(inner, marks)
 
     monkeypatch.setattr(hydrostatic, "span", span)
-    cfg, grid, state, step = _flagship(*size, "cuda")
+    cfg, grid, state, step = _flagship(*size, "cuda",
+                                       closure=TKEDissipationVerticalDiffusivity())
     state = loop(cfg, grid, state, DT, 1)
     tracing.enable()
     state = loop(cfg, grid, state, DT, dl.BLOCK_STEPS + 1)
